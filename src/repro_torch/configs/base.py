@@ -1,0 +1,97 @@
+"""ModelConfig and the config registry (port of ``repro/configs/base.py``).
+
+The JAX module's dry-run helpers (``input_specs``, the ``InputShape``
+registry) build abstract JAX shapes and are not part of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+REGISTRY: dict[str, "ModelConfig"] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid
+    num_layers: int
+    d_model: int
+    vocab_size: int
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    # attention variants
+    activation: str = "silu"
+    mlp_gated: bool = True
+    rope_theta: float = 1e4
+    qk_norm: bool = False
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    sliding_window: int | None = None
+    local_global_alternate: bool = False  # gemma2: odd layers global
+    post_norms: bool = False  # gemma2 sandwich norms
+    embed_scale: bool = False  # gemma: x *= sqrt(d)
+    mrope_sections: tuple | None = None  # qwen2-vl
+    # MLA (deepseek-v2)
+    use_mla: bool = False
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    # MoE
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    num_shared_experts: int = 0
+    first_dense_layers: int = 0
+    capacity_factor: float = 1.25
+    moe_a2a_quant: bool = True
+    # SSM
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    conv_width: int = 4
+    # hybrid (zamba2)
+    attn_every: int = 0
+    shared_attn_heads: int = 0
+    shared_attn_kv_heads: int = 0
+    shared_d_ff: int = 0
+    # modality frontend stub
+    frontend: str | None = None  # vision | audio
+    num_codebooks: int = 1
+    # execution
+    q_chunk: int = 1024
+    remat: bool = True
+    unroll: bool = False
+    taps: bool = False
+    kv_cache_quant: bool = False
+    # capability flags
+    sub_quadratic: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    def param_count(self) -> int:
+        """Parameter count of the dense family (the only one ported)."""
+        if self.family != "dense" or self.use_mla:
+            raise NotImplementedError(f"param_count: family {self.family!r} not ported")
+        d, l, v = self.d_model, self.num_layers, self.vocab_size
+        hd = self.resolved_head_dim
+        attn = d * hd * (self.num_heads * 2 + self.num_kv_heads * 2)
+        per_ffn = (3 if self.mlp_gated else 2) * d * self.d_ff
+        return 2 * v * d + l * (attn + per_ffn)
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    import repro_torch.configs  # noqa: F401  (populate registry)
+
+    return REGISTRY[name]

@@ -1,0 +1,16 @@
+"""DeepSeek-7B (dense llama-arch) [arXiv:2401.02954; hf]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="deepseek-7b",
+    family="dense",
+    num_layers=30,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=128,
+    d_ff=11008,
+    vocab_size=102400,
+    activation="silu",
+    rope_theta=1e4,
+))

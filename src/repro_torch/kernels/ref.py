@@ -1,0 +1,137 @@
+"""Plain PyTorch executors and numpy oracles (port of ``repro/kernels/ref.py``).
+
+``tensordash_matmul_ref`` and ``tensordash_matmul_fused_ref`` walk exactly
+the block schedule the kernels walk: per block row, the planned K blocks in
+plan order, each block's product taken in fp32 and added to an fp32
+accumulator, then the (fused) epilogue and the cast.  They are the
+``dense``/``reference`` backends' executors and the plain versions the CUDA
+kernels are held against on the card.  They run on whatever device their
+inputs lie on.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = [
+    "matmul_ref",
+    "plan_blocks_ref",
+    "plan_workqueue_ref",
+    "tensordash_matmul_ref",
+    "tensordash_matmul_fused_ref",
+]
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dense oracle: fp32 product, cast back to ``a``'s dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def plan_blocks_ref(a: np.ndarray, bm: int, bk: int):
+    """Reference (loopy numpy) block plan for property tests."""
+    m, k = a.shape
+    mb, kb = m // bm, k // bk
+    nnz = np.zeros(mb, np.int32)
+    idx = np.zeros((mb, kb), np.int32)
+    for mi in range(mb):
+        eff = [
+            ki
+            for ki in range(kb)
+            if np.any(a[mi * bm : (mi + 1) * bm, ki * bk : (ki + 1) * bk] != 0)
+        ]
+        nnz[mi] = len(eff)
+        row = eff + [eff[-1] if eff else 0] * (kb - len(eff))
+        idx[mi] = row
+    return nnz, idx
+
+
+def plan_workqueue_ref(nnz: np.ndarray, idx: np.ndarray):
+    """Reference (loopy numpy) CSR work queue: one item per effectual block
+    in row-major plan order, all-zero rows keeping one gated placeholder."""
+    mb, kb = idx.shape
+    row_starts = np.zeros(mb + 1, np.int32)
+    work_row = np.zeros(mb * kb, np.int32)
+    work_kblk = np.zeros(mb * kb, np.int32)
+    t = 0
+    for m in range(mb):
+        row_starts[m] = t
+        for j in range(max(int(nnz[m]), 1)):
+            work_row[t] = m
+            work_kblk[t] = idx[m, j]
+            t += 1
+    row_starts[mb] = t
+    return row_starts, work_row, work_kblk
+
+
+def _check_blocks(a, b, bm: int, bk: int, bn: int):
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    if m % bm or k % bk or n % bn:
+        raise ValueError(
+            f"shapes {tuple(a.shape)} @ {tuple(b.shape)} not divisible by "
+            f"blocks bm={bm} bk={bk} bn={bn}"
+        )
+    return m, k, n
+
+
+def _planned_acc(nnz, idx, a, b, bm: int, bk: int) -> torch.Tensor:
+    """The fp32 accumulator ``[M, N]`` of the planned schedule."""
+    m, k = a.shape
+    n = b.shape[1]
+    mb, kb = m // bm, k // bk
+    nnz = torch.as_tensor(nnz, device=a.device).long()
+    idx = torch.as_tensor(idx, device=a.device).long()
+    abl = a.reshape(mb, bm, kb, bk).permute(0, 2, 1, 3)  # [Mb, Kb, bm, bk]
+    bbl = b.reshape(kb, bk, n)  # [Kb, bk, N]
+    rows = torch.arange(mb, device=a.device)
+    acc = torch.zeros((mb, bm, n), dtype=torch.float32, device=a.device)
+    for j in range(kb):  # plan order, same accumulation sequence as the kernel
+        ki = idx[:, j]
+        part = torch.bmm(abl[rows, ki].float(), bbl[ki].float())
+        acc = acc + torch.where((j < nnz)[:, None, None], part, 0.0)
+    return acc.reshape(m, n)
+
+
+def tensordash_matmul_ref(nnz, idx, a, b, *, bm: int, bk: int, bn: int, out_dtype=None):
+    """Plan-driven block-sparse ``a @ b``: per block row, accumulate the
+    planned K blocks in plan order into an fp32 accumulator, then cast."""
+    _check_blocks(a, b, bm, bk, bn)
+    return _planned_acc(nnz, idx, a, b, bm, bk).to(out_dtype or a.dtype)
+
+
+def _epilogue_ref(acc, bias, residual, activation: str):
+    """The fp32 epilogue of the fused kernel's store step: bias ->
+    activation -> residual.  Eager ops, so the square and the residual add
+    round separately (no FMA contraction)."""
+    out = acc
+    if bias is not None:
+        out = out + bias.float()[None, :]
+    if activation == "relu":
+        out = torch.clamp_min(out, 0.0)
+    elif activation == "squared_relu":
+        out = torch.square(torch.clamp_min(out, 0.0))
+    elif activation != "none":
+        raise ValueError(activation)
+    if residual is not None:
+        out = out + residual.float()
+    return out
+
+
+def block_any_nonzero(x32: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
+    """int8 ``[M/bm, N/bn]``: 1 where a block of ``x32`` has any nonzero."""
+    m, n = x32.shape
+    nz = x32.reshape(m // bm, bm, n // bn, bn) != 0
+    return nz.any(dim=3).any(dim=1).to(torch.int8)
+
+
+def tensordash_matmul_fused_ref(nnz, idx, a, b, bias=None, residual=None, *,
+                                bm: int, bk: int, bn: int,
+                                activation: str = "none", out_dtype=None):
+    """Plan-driven fused ``act(a @ b + bias) + residual`` plus the emitted
+    ``int8 [Mb, Nb]`` output block-nonzero mask, computed on the fp32
+    epilogue value before the cast."""
+    _check_blocks(a, b, bm, bk, bn)
+    out32 = _epilogue_ref(_planned_acc(nnz, idx, a, b, bm, bk), bias, residual, activation)
+    return out32.to(out_dtype or a.dtype), block_any_nonzero(out32, bm, bn)

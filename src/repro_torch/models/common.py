@@ -1,0 +1,111 @@
+"""Parameter specs, seeded init and shared layer primitives (port of
+``repro/models/common.py``).
+
+Parameters are plain nested dicts of tensors.  The port keeps one dict per
+layer (``params["layers"]`` is a list) where the JAX package stacks layers
+along a leading axis for ``lax.scan``; :func:`repro_torch.convert.params_from_jax`
+unstacks.  :func:`init_params` draws its own weights from a
+``torch.Generator``: the same seed gives other numbers than the JAX
+initializer, so cross-package tests convert the JAX weights instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+DEFAULT_DTYPE = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """Declaration of one parameter tensor (shape + initializer)."""
+
+    shape: tuple
+    init: str = "normal"  # normal | ones | zeros | embed
+
+
+def init_params(specs, *, seed: int = 0, dtype=DEFAULT_DTYPE, device="cuda"):
+    """Materialize a spec tree on ``device`` from one seeded generator.
+
+    ``normal`` draws N(0, 1/fan_in) with fan_in the first dim (the input
+    features), ``embed`` N(0, 1); values are drawn in fp32 and cast, one
+    tensor at a time, so the fp32 scratch never exceeds one parameter."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def make(spec: Spec):
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=device)
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=device)
+        if spec.init == "embed":
+            std = 1.0
+        elif spec.init == "normal":
+            std = 1.0 / math.sqrt(spec.shape[0])
+        else:
+            raise ValueError(spec.init)
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
+        return x.mul_(std).to(dtype)
+
+    def walk(tree):
+        if isinstance(tree, Spec):
+            return make(tree)
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        raise TypeError(type(tree))
+
+    return walk(specs)
+
+
+# ---------------------------------------------------------------------------
+# layer primitives
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, weight, eps: float = 1e-6, *, zero_centered: bool = False):
+    """``x * rsqrt(mean(x^2) + eps) * w`` in fp32, cast back to ``x``'s
+    dtype (one fused op in place of the JAX version's seven)."""
+    w = weight.float()
+    if zero_centered:  # gemma-style (1 + w)
+        w = 1.0 + w
+    return torch.nn.functional.rms_norm(x.float(), (x.shape[-1],), w, eps).to(x.dtype)
+
+
+def softcap(x, cap: float | None):
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+ACTIVATIONS = {"silu": silu, "relu": lambda x: torch.clamp_min(x, 0)}
+
+
+def rotary_embedding(positions, dim: int, theta: float = 1e4):
+    """Standard RoPE tables.  positions [...]; returns cos/sin [..., dim/2]."""
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    freqs = 1.0 / (theta ** exponent)  # a Python scalar base: no host-to-device copy
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, cos, sin):
+    """x [..., S, H, D]; cos/sin broadcastable to [..., S, 1, D/2]."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def causal_mask(q_pos, k_pos, window: int | None = None):
+    """Boolean [.. Sq, Sk] allowed-attention mask."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m = m & (k_pos[..., None, :] > q_pos[..., :, None] - window)
+    return m

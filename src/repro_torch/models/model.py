@@ -1,0 +1,49 @@
+"""Family dispatch (port of ``repro/models/model.py``), dense family only.
+
+    param_specs(cfg)                             -> Spec tree
+    forward(params, cfg, batch)                  -> logits
+    prefill(params, cfg, batch)                  -> (last logits, caches)
+    decode_step(params, cfg, caches, batch, pos) -> (logits, caches)
+    init_cache(cfg, batch, max_len, device=...)  -> decode caches
+
+``decode_step``'s ``pos`` is a scalar or an int ``[B]`` tensor (each batch
+slot at its own position).  MoE, SSM and hybrid families wait for ROADMAP
+queue 1, item 12.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+
+__all__ = ["param_specs", "forward", "prefill", "decode_step", "init_cache"]
+
+
+def _dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense only)")
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    _dense(cfg)
+    return tfm.backbone_specs(cfg)
+
+
+def forward(params, cfg: ModelConfig, batch):
+    _dense(cfg)
+    return tfm.forward(params, cfg, batch)
+
+
+def prefill(params, cfg: ModelConfig, batch):
+    _dense(cfg)
+    return tfm.prefill(params, cfg, batch)
+
+
+def decode_step(params, cfg: ModelConfig, caches, batch, pos):
+    _dense(cfg)
+    return tfm.decode_step(params, cfg, caches, batch, pos)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
+    """Zero decode caches (bf16 KV rows), allocated on ``device``."""
+    _dense(cfg)
+    return tfm.init_layer_caches(cfg, batch, max_len, device=device)

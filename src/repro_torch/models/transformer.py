@@ -1,0 +1,189 @@
+"""Decoder-only transformer backbone, dense family (port of
+``repro/models/transformer.py``).
+
+Layers run in a Python loop over per-layer parameter dicts in place of the
+JAX ``lax.scan``.  Execution policy resolves through
+:mod:`repro_torch.runtime`: under a sparse runtime and ``activation ==
+"relu"`` the gated FFN takes TensorDash's fused path (the gate matmul applies
+ReLU in its store step and emits its output's block mask, which plans the
+``w_down`` product without a pass over the values), and the LM head replays
+a cached weight-side plan.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch import runtime as rtm
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import ACTIVATIONS, Spec, rms_norm, softcap
+
+__all__ = [
+    "attn_config",
+    "backbone_specs",
+    "mlp_fwd",
+    "head_matmul",
+    "forward",
+    "prefill",
+    "decode_step",
+    "init_layer_caches",
+]
+
+#: ModelConfig features of the JAX package's dense family that the port
+#: does not run yet; a config using one is refused, never run approximately
+_UNPORTED = ("use_mla", "post_norms", "sliding_window", "mrope_sections",
+             "kv_cache_quant", "local_global_alternate", "frontend")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense only)")
+    used = [f for f in _UNPORTED if getattr(cfg, f)]
+    if used:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(used)} not ported yet")
+
+
+def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
+    return attn.AttnConfig(
+        d_model=cfg.d_model,
+        num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim,
+        rope_theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm,
+        attn_softcap=cfg.attn_softcap,
+        q_chunk=cfg.q_chunk,
+    )
+
+
+def mlp_specs(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_gated:
+        return {"w_gate": Spec((d, f)), "w_up": Spec((d, f)), "w_down": Spec((f, d))}
+    return {"w_up": Spec((d, f)), "w_down": Spec((f, d))}
+
+
+def block_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "ln1": Spec((d,), init="ones"),
+        "ln2": Spec((d,), init="ones"),
+        "attn": attn.attention_specs(attn_config(cfg)),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def backbone_specs(cfg: ModelConfig) -> dict:
+    check_supported(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    return {
+        "embed": Spec((v, d), init="embed"),
+        "layers": [block_specs(cfg) for _ in range(cfg.num_layers)],
+        "final_norm": Spec((d,), init="ones"),
+        "lm_head": Spec((d, v)),
+    }
+
+
+def mlp_fwd(params, cfg: ModelConfig, x, rt=None):
+    act = ACTIVATIONS[cfg.activation]
+    rt = rtm.resolve(rt)
+    if cfg.mlp_gated:
+        if rt.wants_sparse and cfg.activation == "relu":
+            # fused + emitted-plan path: a block the ReLU gate zeroed stays
+            # zero in h (gating is pointwise), so the gate's emitted mask is
+            # a valid plan for w_down and h's values are never re-scanned
+            lead = x.shape[:-1]
+            x2 = x.reshape(-1, x.shape[-1])
+            g, gmask = rt.matmul_fused(x2, params["w_gate"], activation="relu", assume_dense=True)
+            h2 = g * (x2 @ params["w_up"])
+            plan_h = rt.plan_for_fused_output(gmask, h2, params["w_down"])
+            return rt.matmul(h2, params["w_down"], plan=plan_h).reshape(*lead, -1)
+        h = act(x @ params["w_gate"]) * (x @ params["w_up"])
+    else:
+        h = act(x @ params["w_up"])
+    return h @ params["w_down"]
+
+
+def head_matmul(cfg: ModelConfig, h, lm_head):
+    """``h @ lm_head`` through the active runtime.  Under a sparse runtime
+    the weight-side plan is keyed by ``id(lm_head)`` and built once; every
+    later call with the same tensor object replays it from the plan cache."""
+    del cfg
+    rt = rtm.resolve()
+    b, s, d = h.shape
+    if rt.wants_sparse:
+        out = rt.matmul(h.reshape(b * s, d), lm_head, plan_key=("lm_head", id(lm_head)), side="B")
+        return out.reshape(b, s, -1)
+    return h @ lm_head
+
+
+def _embed_in(params, cfg: ModelConfig, tokens):
+    """Token embedding by gather (equal to the JAX decode path's one-hot
+    matmul: one nonzero term per row)."""
+    h = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype)
+    return h
+
+
+def _block_fwd(p, cfg: ModelConfig, h, positions, rope, *, return_cache: bool = False):
+    a = rms_norm(h, p["ln1"])
+    out = attn.attention_fwd(p["attn"], attn_config(cfg), a, positions, rope,
+                             return_cache=return_cache)
+    a, cache = out if return_cache else (out, None)
+    h = h + a
+    m = mlp_fwd(p["mlp"], cfg, rms_norm(h, p["ln2"]))
+    return h + m, cache
+
+
+def _head(params, cfg: ModelConfig, h):
+    h = rms_norm(h, params["final_norm"])
+    return softcap(head_matmul(cfg, h, params["lm_head"]), cfg.final_softcap)
+
+
+def forward(params, cfg: ModelConfig, batch):
+    """Full-sequence forward -> logits ``[B, S, V]``."""
+    check_supported(cfg)
+    h = _embed_in(params, cfg, batch["tokens"])
+    positions = torch.arange(h.shape[1], device=h.device)
+    rope = attn.rope_tables(attn_config(cfg), positions)
+    for p in params["layers"]:
+        h, _ = _block_fwd(p, cfg, h, positions, rope)
+    return _head(params, cfg, h)
+
+
+def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
+    """Zero decode caches: ``{"layers": [KVCache, ...]}``, one per layer."""
+    acfg = attn_config(cfg)
+    return {"layers": [attn.init_cache(acfg, batch, max_len, device=device)
+                       for _ in range(cfg.num_layers)]}
+
+
+def decode_step(params, cfg: ModelConfig, caches, batch, pos):
+    """One-token decode against pre-filled caches; returns ``(logits,
+    caches)`` with the caches updated in place."""
+    check_supported(cfg)
+    h = _embed_in(params, cfg, batch["tokens"])
+    acfg = attn_config(cfg)
+    rope = attn.rope_tables(acfg, attn.decode_positions(pos, h.shape[0], h.device))
+    for p, cache in zip(params["layers"], caches["layers"]):
+        a, _ = attn.attention_decode(p["attn"], acfg, rms_norm(h, p["ln1"]), cache, pos, rope)
+        h = h + a
+        h = h + mlp_fwd(p["mlp"], cfg, rms_norm(h, p["ln2"]))
+    return _head(params, cfg, h), caches
+
+
+def prefill(params, cfg: ModelConfig, batch):
+    """Forward over the prompt: last-token logits and the filled KV caches
+    (in the activation dtype; ``Runtime.grow_caches`` casts them to bf16)."""
+    check_supported(cfg)
+    h = _embed_in(params, cfg, batch["tokens"])
+    positions = torch.arange(h.shape[1], device=h.device)
+    rope = attn.rope_tables(attn_config(cfg), positions)
+    caches: dict[str, Any] = {"layers": []}
+    for p in params["layers"]:
+        h, cache = _block_fwd(p, cfg, h, positions, rope, return_cache=True)
+        caches["layers"].append(cache)
+    return _head(params, cfg, h[:, -1:]), caches
