@@ -1,18 +1,30 @@
 // TensorDash planned block-sparse matmul for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of the serving main path:
-//   * src/repro/kernels/tensordash_spmm.py::_ragged_kernel
-//     (tensordash_matmul_planned, compact_grid="ragged"), and
-//   * src/repro/kernels/tensordash_spmm.py::_ragged_fused_kernel
-//     (tensordash_matmul_fused, compact_grid="ragged"): the same schedule
-//     plus the fp32 epilogue (bias -> none|relu|squared_relu -> residual)
-//     and the emitted int8 [Mb, Nb] output block-nonzero mask.
+// Replaces the four Pallas TPU kernels of src/repro/kernels/tensordash_spmm.py:
+//   * _ragged_kernel (tensordash_matmul_planned, compact_grid="ragged") and
+//     _ragged_fused_kernel (tensordash_matmul_fused, "ragged"): the plan's
+//     CSR work queue;
+//   * _kernel and _fused_kernel (the same wrappers, compact_grid "v2"/"v1"):
+//     the plan's idx[m, k] read directly over a K bound kdim, which is Kb
+//     for v1 and max(max(nnz), 1) for v2.
+// The fused kernels add the fp32 epilogue (bias -> none|relu|squared_relu
+// -> residual) and the emitted int8 [Mb, Nb] output block-nonzero mask.
 //
-// What they compute: C = A @ B over the plan's CSR work queue.  Block row m
-// of A owns queue items [row_starts[m], row_starts[m+1]); item t contracts K
-// block work_kblk[t].  A row with nnz[m] == 0 contracts nothing (its one
-// placeholder item is gated), so its output is the epilogue of a zero
+// What they compute: C = A @ B over the plan.  Block row m of A has the
+// effectual K blocks idx[m, 0..nnz[m]) in ascending order; the ragged kernel
+// finds them as queue items [row_starts[m], row_starts[m+1]) (item t
+// contracts K block work_kblk[t]), the v1/v2 kernel as grid steps j < kdim
+// that accumulate when j < nnz[m] (the TPU's gated K axis).  A row with
+// nnz[m] == 0 contracts nothing, so its output is the epilogue of a zero
 // accumulator.
+//
+// The three families are bit-identical: each CTA (n tile, block row m,
+// split s) takes steps [s * per, (s + 1) * per) of its row's effectual list,
+// per = ceil(max(nnz[m], 1) / S), with the same S for every family, adds
+// one fp32 partial per block in ascending order, and td_reduce_kernel sums
+// the S partials in split order.  v2's bound never reaches the host: each
+// CTA reduces max(nnz) over the plan's rows itself (a few ints at decode),
+// so no call syncs to size a grid.
 //
 // Bound at the main path's decode shapes (4 slots, bf16, H100 SXM at
 // 3.35 TB/s): each product reads its weight once and does 2 FLOP per weight
@@ -97,8 +109,10 @@ struct Args {
   void* out;                          // C [M, N], contiguous
   float* partial;                     // [S, M, N] fp32 workspace (S > 1) or null
   const int* nnz;                     // [Mb]
-  const int* row_starts;              // [Mb + 1]
-  const int* work_kblk;               // [Mb * Kb]
+  const int* row_starts;              // [Mb + 1]      (ragged)
+  const int* work_kblk;               // [Mb * Kb]     (ragged)
+  const int* idx;                     // [Mb, Kb]      (v1/v2)
+  int kdim;                           // v1/v2 K bound; 0: max(max(nnz), 1) (v2)
   int M, K, N, bm, bk, TN, KC, S;
   int vec_a, vec_b;                   // 16-byte loads along the unit-stride dim
   // fused epilogue (ignored by the planned kernel)
@@ -199,7 +213,21 @@ __device__ __forceinline__ void stage_b(const Args& p, float* Bs, int TNp, int n
   }
 }
 
-template <typename T, bool kFused>
+// The v1/v2 K bound: v1 passes Kb; v2 passes 0 and every CTA reduces
+// max(max(nnz), 1) over the plan's Mb rows from global memory.
+__device__ __forceinline__ int grid_kdim(const Args& p) {
+  __shared__ int s_kdim;
+  if (p.kdim > 0) return p.kdim;
+  if (threadIdx.x == 0) s_kdim = 1;
+  __syncthreads();
+  const int mb = p.M / p.bm;
+  for (int i = threadIdx.x; i < mb; i += kThreads) atomicMax(&s_kdim, p.nnz[i]);
+  __syncthreads();
+  return s_kdim;
+}
+
+// kIdx: false walks the ragged work queue, true the v1/v2 grid over idx.
+template <typename T, bool kFused, bool kIdx>
 __global__ void __launch_bounds__(kThreads)
 td_spmm_kernel(Args p) {
   extern __shared__ float smem[];
@@ -218,13 +246,19 @@ td_spmm_kernel(Args p) {
 #pragma unroll
   for (int i = 0; i < kMaxPerThread; ++i) acc[i] = 0.f;
 
+  const int kdim = kIdx ? grid_kdim(p) : 0;
   if (p.nnz[m] > 0) {
-    // this split's contiguous share of the row's queue segment
-    const int t0 = p.row_starts[m], cnt = p.row_starts[m + 1] - t0;
+    // this split's contiguous share of the row's effectual list: queue items
+    // t0 + j (ragged) or grid steps j < kdim with j < nnz[m] (v1/v2)
+    const int t0 = kIdx ? 0 : p.row_starts[m];
+    const int cnt = kIdx ? p.nnz[m] : p.row_starts[m + 1] - t0;
     const int per = (cnt + p.S - 1) / p.S;
-    const int t_beg = t0 + min(cnt, split * per), t_end = t0 + min(cnt, (split + 1) * per);
-    for (int t = t_beg; t < t_end; ++t) {
-      const int k_blk0 = p.work_kblk[t] * p.bk;
+    const int j_beg = min(cnt, split * per);
+    int j_end = min(cnt, (split + 1) * per);
+    if (kIdx) j_end = min(j_end, kdim);
+    const int* kblk = kIdx ? p.idx + (long long)m * (p.K / p.bk) : p.work_kblk + t0;
+    for (int j = j_beg; j < j_end; ++j) {
+      const int k_blk0 = kblk[j] * p.bk;
       float part[kMaxPerThread];
 #pragma unroll
       for (int i = 0; i < kMaxPerThread; ++i) part[i] = 0.f;
@@ -296,10 +330,10 @@ td_reduce_kernel(Args p) {
   }
 }
 
-template <typename T, bool kFused>
+template <typename T, bool kFused, bool kIdx>
 int launch_t(const Args& p, cudaStream_t s) {
   const size_t shmem = sizeof(float) * ((size_t)p.bm * (p.KC + 1) + (size_t)p.KC * (p.TN + 1));
-  auto k = td_spmm_kernel<T, kFused>;
+  auto k = td_spmm_kernel<T, kFused, kIdx>;
   if (shmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (e != cudaSuccess) return (int)e;
@@ -311,11 +345,11 @@ int launch_t(const Args& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <bool kFused>
+template <bool kFused, bool kIdx>
 int launch(int dtype, const Args& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_t<float, kFused>(p, s);
-  if (dtype == 1) return launch_t<__nv_bfloat16, kFused>(p, s);
+  if (dtype == 0) return launch_t<float, kFused, kIdx>(p, s);
+  if (dtype == 1) return launch_t<__nv_bfloat16, kFused, kIdx>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -333,9 +367,9 @@ int td_spmm_planned(int dtype,
                     int bm, int bk, int TN, int KC, int S, int vec_a, int vec_b,
                     void* stream) {
   Args p{a, sam, sak, b, sbk, sbn, out, static_cast<float*>(partial), nnz, row_starts,
-         work_kblk, M, K, N, bm, bk, TN, KC, S, vec_a, vec_b,
+         work_kblk, nullptr, 0, M, K, N, bm, bk, TN, KC, S, vec_a, vec_b,
          nullptr, nullptr, 0, nullptr, 1};
-  return launch<false>(dtype, p, stream);
+  return launch<false, false>(dtype, p, stream);
 }
 
 int td_spmm_fused(int dtype,
@@ -347,9 +381,38 @@ int td_spmm_fused(int dtype,
                   const float* bias, const void* residual, int activation,
                   signed char* mask, int bn, void* stream) {
   Args p{a, sam, sak, b, sbk, sbn, out, static_cast<float*>(partial), nnz, row_starts,
-         work_kblk, M, K, N, bm, bk, TN, KC, S, vec_a, vec_b,
+         work_kblk, nullptr, 0, M, K, N, bm, bk, TN, KC, S, vec_a, vec_b,
          bias, residual, activation, mask, bn};
-  return launch<true>(dtype, p, stream);
+  return launch<true, false>(dtype, p, stream);
+}
+
+// The v1/v2 grid: `idx` is the plan's [Mb, Kb] table and `kdim` the K
+// bound (Kb for v1, 0 for v2's max(max(nnz), 1), reduced on the card).
+int td_spmm_grid_planned(int dtype,
+                         const void* a, long long sam, long long sak,
+                         const void* b, long long sbk, long long sbn,
+                         void* out, void* partial, const int* nnz, const int* idx,
+                         int kdim, int M, int K, int N,
+                         int bm, int bk, int TN, int KC, int S, int vec_a, int vec_b,
+                         void* stream) {
+  Args p{a, sam, sak, b, sbk, sbn, out, static_cast<float*>(partial), nnz, nullptr,
+         nullptr, idx, kdim, M, K, N, bm, bk, TN, KC, S, vec_a, vec_b,
+         nullptr, nullptr, 0, nullptr, 1};
+  return launch<false, true>(dtype, p, stream);
+}
+
+int td_spmm_grid_fused(int dtype,
+                       const void* a, long long sam, long long sak,
+                       const void* b, long long sbk, long long sbn,
+                       void* out, void* partial, const int* nnz, const int* idx,
+                       int kdim, int M, int K, int N,
+                       int bm, int bk, int TN, int KC, int S, int vec_a, int vec_b,
+                       const float* bias, const void* residual, int activation,
+                       signed char* mask, int bn, void* stream) {
+  Args p{a, sam, sak, b, sbk, sbn, out, static_cast<float*>(partial), nnz, nullptr,
+         nullptr, idx, kdim, M, K, N, bm, bk, TN, KC, S, vec_a, vec_b,
+         bias, residual, activation, mask, bn};
+  return launch<true, true>(dtype, p, stream);
 }
 
 }  // extern "C"

@@ -9,26 +9,33 @@ int32 and equal to the JAX package's arrays.
 
 The two wrappers run the CUDA kernels of ``csrc/tensordash_spmm.cu``:
 
-* :func:`tensordash_matmul_planned` — ``C = A @ B`` over the work queue
-  (replaces the Pallas ``_ragged_kernel``);
+* :func:`tensordash_matmul_planned` — ``C = A @ B`` over the plan
+  (replaces the Pallas ``_ragged_kernel`` and, for ``compact_grid``
+  ``"v2"``/``"v1"``, ``_kernel``);
 * :func:`tensordash_matmul_fused` — the same plus the fp32 epilogue
   ``act(acc + bias) + residual`` and the emitted int8 ``[Mb, Nb]`` output
-  block-nonzero mask (replaces ``_ragged_fused_kernel``).
+  block-nonzero mask (replaces ``_ragged_fused_kernel`` and
+  ``_fused_kernel``).
 
-On a CPU tensor a wrapper runs the plain executor of :mod:`.ref`; on a CUDA
-tensor it launches its kernel or raises.  Each wrapper counts its kernel
-launches in its ``launches`` attribute.  Only the ``"ragged"`` grid family
-has a CUDA kernel so far; ``"v2"``/``"v1"`` (the TPU A/B baselines) wait
-for ROADMAP queue 2, items 4-5.
+``"ragged"`` walks the plan's CSR work queue; ``"v2"``/``"v1"`` read
+``idx[m, k]`` directly over a K bound of ``max(max(nnz), 1)`` (reduced on
+the card, never read on the host) or ``Kb``.  The three families give
+bit-identical results.  On a CPU tensor a wrapper runs the plain executor
+of :mod:`.ref`; on a CUDA tensor it launches its kernel or raises.
+:func:`launch_counts` counts the launches per wrapper and grid family.
+:func:`plan_blocks` finds the effectual blocks with
+:func:`~repro_torch.kernels.block_mask.block_zero_mask`.
 """
 from __future__ import annotations
 
 import functools
 from typing import Literal
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.block_mask import block_zero_mask
 
 __all__ = [
     "COMPACT_GRID_MODES",
@@ -41,6 +48,7 @@ __all__ = [
     "plan_workqueue",
     "dense_plan",
     "dense_plan_csr",
+    "planned_grid_steps",
     "tensordash_matmul_planned",
     "tensordash_matmul_fused",
     "launch_counts",
@@ -99,11 +107,7 @@ def _mask_to_plan(nonzero: torch.Tensor):
 def plan_blocks(a: torch.Tensor, bm: int, bk: int):
     """Compacted effectual K-block lists of ``a``'s ``bm x bk`` blocks:
     ``(nnz [Mb], idx [Mb, Kb])`` int32."""
-    m, k = a.shape
-    if m % bm or k % bk:
-        raise ValueError(f"operand {tuple(a.shape)} not divisible by block ({bm}, {bk})")
-    nz = a.reshape(m // bm, bm, k // bk, bk) != 0
-    return _mask_to_plan(nz.any(dim=3).any(dim=1))
+    return _mask_to_plan(block_zero_mask(a, bm=bm, bk=bk))
 
 
 def plan_workqueue(nnz: torch.Tensor, idx: torch.Tensor):
@@ -160,6 +164,19 @@ def plan_from_mask_csr(mask: torch.Tensor, *, coarsen: int = 1):
     """:func:`plan_from_mask` plus the work queue."""
     nnz, idx = plan_from_mask(mask, coarsen=coarsen)
     return (nnz, idx) + plan_workqueue(nnz, idx)
+
+
+def planned_grid_steps(nnz, kb: int, mb: int, nb: int, *, compact_grid="ragged") -> int:
+    """Grid steps the planned kernel issues, the TPU kernel's "time": v1
+    ``Mb * Nb * Kb``, v2 ``Mb * Nb * max(nnz, 1)``, ragged ``Nb *
+    sum(max(nnz, 1))``.  A report helper: it reads ``nnz`` on the host (one
+    copy); use ``SparsityPlan.grid_steps`` for a plan's cached count."""
+    compact_grid = _check_compact_grid(compact_grid)
+    nnz_h = np.asarray(torch.as_tensor(nnz).cpu())
+    if compact_grid == "ragged":
+        return nb * int(np.maximum(nnz_h, 1).sum())
+    kdim = kb if compact_grid == "v1" else max(int(nnz_h.max(initial=0)), 1)
+    return mb * nb * kdim
 
 
 @functools.lru_cache(maxsize=256)
@@ -232,6 +249,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def launch_splits(m: int, k: int, n: int, bm: int, bk: int, bn: int, device) -> int:
+    """The split count ``S`` a launch of ``[m, k] @ [k, n]`` at ``(bm, bk,
+    bn)`` uses on ``device``'s card (the same for every grid family)."""
+    tn, _ = kernel_tile(bm, bk, bn)
+    return kernel_splits((n // tn) * (m // bm), k // bk, _sm_count(torch.device(device).index or 0))
+
+
 def _vec_ok(t: torch.Tensor, lead_stride: int, *extents: int) -> int:
     """1 when 16-byte loads along ``t``'s unit-stride dimension stay aligned:
     the base pointer, the other stride and every tile extent along it are
@@ -244,32 +268,13 @@ def _meta(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=_I32, device=device).contiguous()
 
 
-def _cuda_operands(nnz, idx, a, b, bm, bk, bn, out_dtype, workqueue):
-    """Validate a CUDA launch; return its metadata tensors, tiling, split
-    count, vector-load flags and the fp32 split workspace (or ``None``)."""
-    if b.device != a.device:
-        raise ValueError(f"operands on {a.device} and {b.device}")
-    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
-        raise TypeError(f"CUDA kernel takes float32 or bfloat16 operands of one dtype, got {a.dtype}, {b.dtype}")
-    if out_dtype not in (None, a.dtype):
-        raise TypeError(f"CUDA kernel writes {a.dtype}, not out_dtype={out_dtype}")
-    m, k, n = ref._check_blocks(a, b, bm, bk, bn)
+def check_launch(m: int, bm: int, bk: int, bn: int) -> None:
+    """Raise ``ValueError`` for a geometry the CUDA kernels cannot take:
+    more than 65535 block rows (the grid's y extent), or a tile that does
+    not fit the CTA (:func:`kernel_tile`)."""
     if m // bm > 65535:
         raise ValueError(f"{m // bm} block rows exceed the CUDA grid's y extent")
-    if workqueue is None:
-        workqueue = plan_workqueue(_meta(nnz, a.device), _meta(idx, a.device))
-    row_starts, _, work_kblk = workqueue
-    tn, kc = kernel_tile(bm, bk, bn)
-    splits = kernel_splits((n // tn) * (m // bm), k // bk, _sm_count(a.device.index or 0))
-    sam, sak = a.stride()
-    sbk, sbn = b.stride()
-    vec_a = (_vec_ok(a, sam, bk, kc) if sak == 1
-             else _vec_ok(a, sak, bm) if sam == 1 else 0)
-    vec_b = _vec_ok(b, sbk, tn) if sbn == 1 else 0
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-               if splits > 1 else None)
-    return (m, k, n, _meta(nnz, a.device), _meta(row_starts, a.device),
-            _meta(work_kblk, a.device), tn, kc, splits, vec_a, vec_b, partial)
+    kernel_tile(bm, bk, bn)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -277,12 +282,59 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
-def _require_ragged(compact_grid) -> None:
-    if _check_compact_grid(compact_grid) != "ragged":
-        raise NotImplementedError(
-            f"compact_grid={compact_grid!r}: only the ragged work-queue kernel "
-            "is ported to CUDA (v2/v1 are ROADMAP queue 2, items 4-5)"
-        )
+#: kernel launches since the last :func:`reset_launch_counts`, per wrapper
+#: and grid family ("tensordash_matmul_planned" is the ragged family)
+_LAUNCHES: dict[str, int] = {}
+_COUNTERS = tuple(f"{w}{'' if g == 'ragged' else f'[{g}]'}"
+                  for w in ("tensordash_matmul_planned", "tensordash_matmul_fused")
+                  for g in COMPACT_GRID_MODES)
+
+
+def _launched(wrapper: str, grid: str) -> None:
+    _LAUNCHES[wrapper if grid == "ragged" else f"{wrapper}[{grid}]"] += 1
+
+
+def _launch_args(nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue):
+    """Validate one CUDA launch and allocate its output.  Returns ``(lead,
+    tiling, out, keep)``: the C arguments up to the plan's (for ragged
+    ``row_starts, work_kblk``; for v1/v2 ``idx, kdim`` with ``kdim = 0``
+    meaning v2's bound reduced on the card), the tiling arguments, the
+    output, and the tensors behind the pointers, which the caller holds
+    until the call returns."""
+    if b.device != a.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+        raise TypeError(f"CUDA kernel takes float32 or bfloat16 operands of one dtype, got {a.dtype}, {b.dtype}")
+    if out_dtype not in (None, a.dtype):
+        raise TypeError(f"CUDA kernel writes {a.dtype}, not out_dtype={out_dtype}")
+    m, k, n = ref._check_blocks(a, b, bm, bk, bn)
+    check_launch(m, bm, bk, bn)
+    if grid == "ragged":
+        if workqueue is None:
+            workqueue = plan_workqueue(_meta(nnz, a.device), _meta(idx, a.device))
+        row_starts, _, work_kblk = workqueue
+        plan_t = (_meta(row_starts, a.device), _meta(work_kblk, a.device))
+        plan_args = tuple(t.data_ptr() for t in plan_t)
+    else:
+        plan_t = (_meta(idx, a.device),)
+        if tuple(plan_t[0].shape) != (m // bm, k // bk):
+            raise ValueError(f"idx {tuple(plan_t[0].shape)} is not the plan of [{m}, {k}] at ({bm}, {bk})")
+        plan_args = (plan_t[0].data_ptr(), k // bk if grid == "v1" else 0)
+    nnz_t = _meta(nnz, a.device)
+    tn, kc = kernel_tile(bm, bk, bn)
+    splits = launch_splits(m, k, n, bm, bk, bn, a.device)
+    sam, sak = a.stride()
+    sbk, sbn = b.stride()
+    vec_a = (_vec_ok(a, sam, bk, kc) if sak == 1
+             else _vec_ok(a, sak, bm) if sam == 1 else 0)
+    vec_b = _vec_ok(b, sbk, tn) if sbn == 1 else 0
+    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+               if splits > 1 else None)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    lead = (_DTYPE_CODE[a.dtype], a.data_ptr(), sam, sak, b.data_ptr(), sbk, sbn, out.data_ptr(),
+            None if partial is None else partial.data_ptr(), nnz_t.data_ptr(), *plan_args)
+    tiling = (m, k, n, bm, bk, tn, kc, splits, vec_a, vec_b)
+    return lead, tiling, out, (nnz_t, plan_t, partial)
 
 
 def tensordash_matmul_planned(nnz, idx, a: torch.Tensor, b: torch.Tensor, *,
@@ -291,30 +343,21 @@ def tensordash_matmul_planned(nnz, idx, a: torch.Tensor, b: torch.Tensor, *,
     """Block-sparse ``a @ b`` given a precomputed block plan.  ``a`` and ``b``
     may be strided views (the side-B LM head passes ``lm_head.T``); the
     output is contiguous.  ``workqueue`` optionally supplies the plan's
-    ``(row_starts, work_row, work_kblk)``."""
-    if a.device.type == "cpu":
-        _check_compact_grid(compact_grid)  # every family runs the same schedule
+    ``(row_starts, work_row, work_kblk)`` (ragged only; v1/v2 read ``idx``)."""
+    grid = _check_compact_grid(compact_grid)
+    if a.device.type == "cpu":  # every family runs the same schedule
         return ref.tensordash_matmul_ref(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
-    _require_ragged(compact_grid)
-    m, k, n, nnz_t, rs, wk, tn, kc, splits, vec_a, vec_b, partial = _cuda_operands(
-        nnz, idx, a, b, bm, bk, bn, out_dtype, workqueue)
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    lead, tiling, out, keep = _launch_args(nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue)
     from repro_torch.kernels import _build
 
     lib = _build.library()
+    entry = lib.td_spmm_planned if grid == "ragged" else lib.td_spmm_grid_planned
     with torch.cuda.device(a.device):
-        rc = lib.td_spmm_planned(
-            _DTYPE_CODE[a.dtype], a.data_ptr(), a.stride(0), a.stride(1),
-            b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            nnz_t.data_ptr(), rs.data_ptr(), wk.data_ptr(),
-            m, k, n, bm, bk, tn, kc, splits, vec_a, vec_b,
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
+        rc = entry(*lead, *tiling, torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, "tensordash_matmul_planned")
-    tensordash_matmul_planned.launches += 1
+    _launched("tensordash_matmul_planned", grid)
     return out
 
 
@@ -329,17 +372,16 @@ def tensordash_matmul_fused(nnz, idx, a: torch.Tensor, b: torch.Tensor,
     [M, N], mask int8 [M/bm, N/bn])``."""
     if activation not in FUSED_ACTIVATIONS:
         raise ValueError(f"activation {activation!r} not in {FUSED_ACTIVATIONS}")
+    grid = _check_compact_grid(compact_grid)
     if a.device.type == "cpu":
-        _check_compact_grid(compact_grid)
         return ref.tensordash_matmul_fused_ref(
             nnz, idx, a, b, bias, residual, bm=bm, bk=bk, bn=bn,
             activation=activation, out_dtype=out_dtype,
         )
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
-    _require_ragged(compact_grid)
-    m, k, n, nnz_t, rs, wk, tn, kc, splits, vec_a, vec_b, partial = _cuda_operands(
-        nnz, idx, a, b, bm, bk, bn, out_dtype, workqueue)
+    lead, tiling, out, keep = _launch_args(nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue)
+    m, _, n = tiling[:3]
     bias32 = None
     if bias is not None:
         if bias.shape != (n,):
@@ -349,40 +391,34 @@ def tensordash_matmul_fused(nnz, idx, a: torch.Tensor, b: torch.Tensor,
         if residual.shape != (m, n) or residual.dtype != a.dtype or residual.device != a.device:
             raise ValueError(f"residual must be [{m}, {n}] {a.dtype} on {a.device}")
         residual = residual.contiguous()
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     mask = torch.zeros((m // bm, n // bn), dtype=torch.int8, device=a.device)
     from repro_torch.kernels import _build
 
     lib = _build.library()
+    entry = lib.td_spmm_fused if grid == "ragged" else lib.td_spmm_grid_fused
     with torch.cuda.device(a.device):
-        rc = lib.td_spmm_fused(
-            _DTYPE_CODE[a.dtype], a.data_ptr(), a.stride(0), a.stride(1),
-            b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            nnz_t.data_ptr(), rs.data_ptr(), wk.data_ptr(),
-            m, k, n, bm, bk, tn, kc, splits, vec_a, vec_b,
+        rc = entry(
+            *lead, *tiling,
             None if bias32 is None else bias32.data_ptr(),
             None if residual is None else residual.data_ptr(),
             _ACT_CODE[activation], mask.data_ptr(), bn,
             torch.cuda.current_stream(a.device).cuda_stream,
         )
     _raise_on(rc, "tensordash_matmul_fused")
-    tensordash_matmul_fused.launches += 1
+    _launched("tensordash_matmul_fused", grid)
     return out, mask
 
 
-tensordash_matmul_planned.launches = 0
-tensordash_matmul_fused.launches = 0
-
-
 def launch_counts() -> dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {
-        "tensordash_matmul_planned": tensordash_matmul_planned.launches,
-        "tensordash_matmul_fused": tensordash_matmul_fused.launches,
-    }
+    """Kernel launches since the last :func:`reset_launch_counts`: per
+    wrapper and grid family (the ragged family under the bare wrapper
+    name, v2/v1 as ``"<wrapper>[v2]"``) and ``"block_zero_mask"``."""
+    return {**{c: _LAUNCHES[c] for c in _COUNTERS}, "block_zero_mask": block_zero_mask.launches}
 
 
 def reset_launch_counts() -> None:
-    tensordash_matmul_planned.launches = 0
-    tensordash_matmul_fused.launches = 0
+    _LAUNCHES.update(dict.fromkeys(_COUNTERS, 0))
+    block_zero_mask.launches = 0
+
+
+reset_launch_counts()

@@ -7,6 +7,10 @@ throughput (port of ``repro/launch/serve.py``).
 
 runs full width on the card (``--device cuda --backend cuda``, the
 defaults; deepseek-7b's ReLU-gated variant takes ``--activation relu``).
+``--geometry auto`` resolves each call site's tile geometry and grid family
+from the port's TuningDB (``TUNING_db_torch.json``, written by ``python -m
+repro_torch.tune``; ``$REPRO_TORCH_TUNING_DB`` names another file), keyed
+to the card.
 ``--smoke --device cpu --backend reference`` runs the reduced config on the
 CPU.  Weights are drawn from ``--seed``.  ``--rate`` requests/second shapes
 the arrival stream (0 = all at t=0); prompt lengths and decode budgets are
@@ -59,6 +63,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--block", type=int, nargs=3, metavar=("BM", "BK", "BN"),
                     default=None, help="block geometry override")
+    ap.add_argument("--geometry", default="explicit", choices=rtm.GEOMETRIES,
+                    help="'auto' resolves tile geometry / grid family per call site "
+                         "from the TuningDB (python -m repro_torch.tune)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -67,7 +74,7 @@ def main(argv=None) -> None:
     if args.activation:
         cfg = dataclasses.replace(cfg, activation=args.activation)
     geom = dict(zip(("bm", "bk", "bn"), args.block)) if args.block else {}
-    rt = rtm.Runtime(backend=args.backend, device=args.device, **geom)
+    rt = rtm.Runtime(backend=args.backend, device=args.device, geometry=args.geometry, **geom)
     rt.kernel.check_platform()  # fail fast (e.g. cuda without a card)
 
     params = init_params(M.param_specs(cfg), seed=args.seed, dtype=torch.bfloat16, device=rt.device)
@@ -126,6 +133,10 @@ def main(argv=None) -> None:
               f"shape={tuple(ps['shape'])} block={ps['block']} "
               f"total_work={ps['total_work']}/{ps['blocks']} blocks "
               f"skipped={ps['skipped_fraction']:.0%}")
+    if rt._db is not None:
+        ts = rt.tuning_db.stats()
+        print(f"tuning db: {rt.tuning_db.path or '(none found)'} platform={ts['platform']!r} "
+              f"entries={ts['entries']} hits={ts['hits']} misses={ts['misses']}")
     if not ok:
         print("ERROR: no request finished cleanly", file=sys.stderr)
         sys.exit(2)

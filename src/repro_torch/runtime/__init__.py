@@ -23,6 +23,7 @@ from repro_torch.runtime.plan import (
     plan_operand,
 )
 from repro_torch.runtime.runtime import (
+    GEOMETRIES,
     Runtime,
     cache_batch_axes,
     current,
@@ -33,6 +34,7 @@ from repro_torch.runtime.runtime import (
 )
 
 __all__ = [
+    "GEOMETRIES",
     "Runtime",
     "use",
     "current",

@@ -6,12 +6,14 @@ Built-ins:
                     schedule executor of ``kernels/ref.py``.
 * ``"reference"`` — always plans, then runs the plain schedule executor.
 * ``"cuda"``      — the hand-written Hopper kernels of
-                    ``kernels/csrc/tensordash_spmm.cu`` (ragged grid only).
+                    ``kernels/csrc/tensordash_spmm.cu``, every grid family.
 
 ``dense`` and ``reference`` run on whatever device their tensors lie on.
 ``cuda`` never hands a CUDA tensor to a plain executor: a failed build or
-launch raises.  The differentiable (VJP) wrappers wait for the training
-slice; ``matmul_planned``/``matmul_fused`` call the raw executors.
+launch raises, and a geometry its kernels cannot take raises
+:class:`BackendCapabilityError` before anything launches.  The
+differentiable (VJP) wrappers wait for the training slice;
+``matmul_planned``/``matmul_fused`` call the raw executors.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.tensordash_spmm import (
     _check_compact_grid,
+    check_launch,
     tensordash_matmul_fused,
     tensordash_matmul_planned,
 )
@@ -71,6 +74,10 @@ class KernelBackend:
     name: str = "?"
     #: whether ``matmul`` without a plan exploits block sparsity at all
     sparse: bool = True
+    #: whether planned outputs equal the ``dense`` backend's bit for bit at
+    #: every geometry (the plain executors); the tuner's numerics gate
+    #: holds a backend without that property to its own ragged family
+    bitwise_dense: bool = True
 
     def check_platform(self) -> None:
         """Raise :class:`BackendCapabilityError` if unavailable here."""
@@ -164,6 +171,7 @@ class CudaBackend(KernelBackend):
     """The TensorDash kernels for Hopper (compute capability 9.x)."""
 
     name = "cuda"
+    bitwise_dense = False
 
     def check_platform(self):
         if not torch.cuda.is_available():
@@ -178,17 +186,22 @@ class CudaBackend(KernelBackend):
             )
 
     def check_grid(self, compact_grid):
-        if _check_compact_grid(compact_grid) != "ragged":
-            raise BackendCapabilityError(
-                f"cuda: compact_grid={compact_grid!r} has no CUDA kernel yet; only "
-                "'ragged' is ported (v2/v1 are ROADMAP queue 2, items 4-5)"
-            )
+        _check_compact_grid(compact_grid)  # every family has a kernel
+
+    def check_geometry(self, m: int, bm: int, bk: int, bn: int) -> None:
+        """Raise :class:`BackendCapabilityError` for a block geometry the
+        kernels cannot take (too many block rows, or a tile past the CTA)."""
+        try:
+            check_launch(m, bm, bk, bn)
+        except ValueError as e:
+            raise BackendCapabilityError(f"cuda: {e}") from None
 
     def _check(self, req: KernelRequest):
         self.check_platform()
         self.check_grid(req.compact_grid)
         if req.a.device.type != "cuda":
             raise BackendCapabilityError(f"cuda: operands lie on {req.a.device}, not on the card")
+        self.check_geometry(req.a.shape[0], req.bm, req.bk, req.bn)
 
     def execute_planned(self, req):
         self._check(req)

@@ -16,6 +16,7 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.tensordash_spmm import (
+    _check_compact_grid,
     dense_plan_csr,
     plan_blocks_csr,
     plan_from_mask_csr,
@@ -96,6 +97,21 @@ class SparsityPlan:
     def total_work(self) -> int:
         """Ragged-grid work items: ``sum(max(nnz, 1))``."""
         return int(torch.clamp_min(self.host_nnz(), 1).sum())
+
+    def max_nnz(self) -> int:
+        """The v2 grid's per-row K bound, ``max(nnz, 1)``."""
+        nnz = self.host_nnz()
+        return max(int(nnz.max()) if nnz.numel() else 0, 1)
+
+    def grid_steps(self, nb: int, *, compact_grid="ragged") -> int:
+        """Grid steps the planned kernel issues against ``nb`` output-column
+        blocks (the TPU grid's count; see ``planned_grid_steps``), from the
+        cached host-side stats: one copy of ``nnz`` at the first query."""
+        compact_grid = _check_compact_grid(compact_grid)
+        if compact_grid == "ragged":
+            return nb * self.total_work()
+        kdim = self.max_nnz() if compact_grid == "v2" else self.k_blocks
+        return self.block_rows * nb * kdim
 
     def density(self) -> float:
         return self.effectual_blocks() / max(self.total_blocks, 1)

@@ -8,10 +8,12 @@ card: ``Runtime(device="cuda", backend="cuda")``.
 
 Block geometry is a target: :meth:`Runtime.fit` clamps each block dim to the
 largest divisor of the operand dim, so small or odd operands plan at a
-finer granularity instead of falling back to a dense product.
+finer granularity instead of falling back to a dense product.  Under
+``geometry="auto"`` every call resolves its measured policy from a
+:class:`repro_torch.tune.TuningDB` first (:meth:`Runtime._resolved`).
 
-Geometry is explicit: the TuningDB (the JAX ``geometry="auto"``), sharding,
-plan validation and ``sparse_ffn`` wait for later slices (ROADMAP queue 1).
+Sharding, plan validation and ``sparse_ffn`` wait for later slices
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.runtime.plan import (
 )
 
 __all__ = [
+    "GEOMETRIES",
     "Runtime",
     "use",
     "current",
@@ -45,6 +48,9 @@ __all__ = [
     "tree_map",
 ]
 
+GEOMETRIES = ("explicit", "auto")
+
+
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """Execution policy: backend + block geometry + plan cache + device.
@@ -52,6 +58,19 @@ class Runtime:
     ``plan_cache`` is carried by handle so a serving engine's plans survive
     across steps; it is excluded from equality.  ``accum_dtype`` must be
     float32: every backend accumulates in fp32.
+
+    ``compact_grid`` picks the kernel grid family, bit-identical outputs:
+    ``"ragged"`` walks the plan's CSR work queue, ``"v2"`` bounds the K
+    steps by ``max(nnz)``, ``"v1"`` issues the full gated grid.
+
+    ``geometry="auto"`` consults :attr:`tuning_db` (a
+    :class:`repro_torch.tune.TuningDB`; the discovered default DB for this
+    runtime's device when not passed) at every execution method: the
+    measured-best ``bm/bk/bn``/grid family for the call's ``(op,
+    shape-bucket, dtype, density-bucket, platform)`` key overlays the fields
+    above, and unmeasured cells fall back to them.  With a caller-provided
+    plan only the lane width and grid family are tuned, since ``bm/bk`` are
+    the plan's own blocking.
     """
 
     backend: str = "cuda"
@@ -65,11 +84,35 @@ class Runtime:
     compute_dtype: Any = None  # None: keep operand dtype
     accum_dtype: Any = torch.float32
     device: Any = "cuda"
+    # "explicit" uses bm/bk/bn/compact_grid as given; "auto" overlays the
+    # measured-best policy from ``tuning_db`` per call (see repro_torch.tune)
+    geometry: str = "explicit"
+    tuning_db: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         object.__setattr__(self, "compact_grid", _check_compact_grid(self.compact_grid))
         object.__setattr__(self, "device", torch.device(self.device))
         get_backend(self.backend)  # unknown names fail at construction
+        if self.geometry not in GEOMETRIES:
+            raise ValueError(f"geometry={self.geometry!r} not one of {GEOMETRIES}")
+        if self.geometry == "auto" and self.tuning_db is None:
+            from repro_torch.tune import default_db, platform_of  # local: tune imports runtime
+
+            object.__setattr__(self, "tuning_db", default_db(platform_of(self.device)))
+
+    @classmethod
+    def tuned(cls, db=None, *, path=None, **kw) -> "Runtime":
+        """A ``geometry="auto"`` runtime resolving from ``db``, from the file
+        at ``path`` (keyed to this runtime's device), or from the discovered
+        default DB.  Unmeasured cells fall back to the hand-tuned defaults,
+        so an empty or missing DB degrades to exactly ``Runtime(**kw)``."""
+        if db is not None and path is not None:
+            raise ValueError("Runtime.tuned: pass db= or path=, not both")
+        if path is not None:
+            from repro_torch.tune import TuningDB, platform_of  # local: tune imports runtime
+
+            db = TuningDB.load(path, platform=platform_of(kw.get("device", "cuda")))
+        return cls(geometry="auto", tuning_db=db, **kw)
 
     def replace(self, **kw) -> "Runtime":
         return dataclasses.replace(self, **kw)
@@ -112,10 +155,42 @@ class Runtime:
         <= the target block (:attr:`bn` unless overridden)."""
         return _fit_block(self.bn if block is None else block, dim)
 
-    def _resolved(self, a_shape, b_shape, plan: SparsityPlan | None) -> "Runtime":
-        """Geometry for one call: the explicit policy clamped to the operand
-        shapes; with a caller-provided plan its own blocking governs."""
-        return self if plan is not None else self.fit(a_shape, b_shape)
+    @property
+    def _db(self):
+        """The TuningDB this runtime resolves from: only under
+        ``geometry="auto"`` (an explicit runtime never lets a DB
+        second-guess its hand-set policy)."""
+        return self.tuning_db if self.geometry == "auto" else None
+
+    def _policy(self, op: str, a_shape, b_shape, dtype, *, density=None):
+        """The tuned policy for one call site, or ``None`` (explicit
+        geometry, no DB, or a cold cell).  A warm lookup is one memoized
+        dict probe in the DB."""
+        db = self._db
+        if db is None:
+            return None
+        return db.resolve(op=op, m=a_shape[0], k=a_shape[1], n=b_shape[1], dtype=dtype,
+                          density=density)
+
+    def _resolved(self, op: str, a_shape, b_shape, dtype, *,
+                  plan: SparsityPlan | None = None, density=None) -> "Runtime":
+        """The geometry of one call: the tuned policy for ``op``
+        (``geometry="auto"`` only) overlaid on this runtime's defaults, then
+        clamped to the operand shapes.  With a caller-provided ``plan`` its
+        own blocking governs ``bm/bk`` (changing them would reassociate the
+        block accumulation); only the lane width and grid family are
+        tuned."""
+        pol = self._policy(op, a_shape, b_shape, dtype, density=density)
+        rt = self
+        if pol is not None:
+            if plan is None:
+                new = (pol.bm, pol.bk, pol.bn, pol.compact_grid)
+                if new != (rt.bm, rt.bk, rt.bn, rt.compact_grid):
+                    rt = rt.replace(bm=pol.bm, bk=pol.bk, bn=pol.bn,
+                                    compact_grid=pol.compact_grid)
+            elif (pol.bn, pol.compact_grid) != (rt.bn, rt.compact_grid):
+                rt = rt.replace(bn=pol.bn, compact_grid=pol.compact_grid)
+        return rt if plan is not None else rt.fit(a_shape, b_shape)
 
     def _dtype_prologue(self, a, b):
         """Enforce the fp32 accumulator and apply the compute-dtype cast."""
@@ -131,18 +206,20 @@ class Runtime:
 
     # -- execution ---------------------------------------------------------
     def matmul(self, a, b, *, plan: SparsityPlan | None = None, plan_key=None,
-               side: str = "A"):
+               side: str = "A", op: str = "matmul", density=None):
         """``a @ b`` on this runtime's backend.
 
         ``side="A"`` exploits dynamic sparsity of ``a``; ``side="B"`` the
         (static, weight) sparsity of ``b``, run through the same kernel as
         ``(b.T @ a.T).T`` with ``b.T`` passed as a strided view.
-        ``plan_key`` routes planning through the keyed cache."""
+        ``plan_key`` routes planning through the keyed cache.  ``op`` names
+        this call site's tuning key (``geometry="auto"``); ``density``
+        refines it to the operand's density bucket (``None``: ``"any"``)."""
         a, b = self._dtype_prologue(a, b)
         kernel = self.kernel
         if not kernel.sparse and plan is None and plan_key is None:
             return kernel.matmul(a, b, bm=self.bm, bk=self.bk, bn=self.bn)
-        rt = self._resolved(a.shape, b.shape, plan)
+        rt = self._resolved(op, a.shape, b.shape, a.dtype, plan=plan, density=density)
         if side == "B":
             if plan is None:
                 plan = rt.plan(b, key=plan_key, side="B")
@@ -164,14 +241,16 @@ class Runtime:
 
     def matmul_fused(self, a, b, *, bias=None, residual=None,
                      activation: str = "none", plan: SparsityPlan | None = None,
-                     plan_key=None, assume_dense: bool = False):
+                     plan_key=None, assume_dense: bool = False,
+                     op: str = "matmul_fused", density=None):
         """Fused ``act(a @ b + bias) + residual``, returning ``(out, mask)``
         with ``mask`` the emitted int8 output block-nonzero map.
         ``assume_dense=True`` uses the all-effectual plan of ``a`` (metadata
-        only) instead of planning its values."""
+        only) instead of planning its values.  ``op``/``density`` as in
+        :meth:`matmul`."""
         a, b = self._dtype_prologue(a, b)
         kernel = self.kernel
-        rt = self._resolved(a.shape, b.shape, plan)
+        rt = self._resolved(op, a.shape, b.shape, a.dtype, plan=plan, density=density)
         if not kernel.sparse and plan is None and plan_key is None:
             # dense shortcut: one fp32 product + the shared epilogue; the
             # mask is a blockwise any at the geometry the planned path emits

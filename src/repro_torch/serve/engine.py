@@ -146,6 +146,14 @@ class ServeEngine:
         self.cfg = cfg
         self.rt = rtm.resolve(rt)
         self.device = self.rt.device
+        if self.rt._db is not None:
+            # warm the TuningDB memo for the decode call sites (FFN gate and
+            # w_down, LM head at slot-batch width) so the first decode step
+            # resolves against warm probes
+            d, d_ff, dtype = cfg.d_model, cfg.d_ff or cfg.d_model * 4, params["embed"].dtype
+            for op, kdim, ndim in (("matmul_fused", d, d_ff), ("matmul", d_ff, d),
+                                   ("matmul", d, cfg.vocab_size)):
+                self.rt._policy(op, (slots, kdim), (kdim, ndim), dtype)
         self.max_len = int(max_len)
         self.temperature = float(temperature)
         self.eos_id = eos_id

@@ -16,6 +16,8 @@
   bit, and the JAX output within one ulp of the square plus one ulp of the
   sum (the rounding the FMA skips).
 * Wrappers given CPU tensors run the plain versions and launch nothing.
+* ``block_zero_mask`` equals the JAX Pallas kernel run in interpret mode
+  exactly (int8), for contiguous and transposed operands in fp32 and bf16.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,8 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels import tensordash_spmm as jspmm
+from repro.kernels.block_mask import block_zero_mask as jblock_zero_mask
+from repro_torch.kernels import block_zero_mask
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tensordash_spmm as tspmm
 from test_spmm_v3 import DISTRIBUTIONS, _operand_with_row_nnz
@@ -172,7 +176,18 @@ def test_cpu_wrappers_run_plain_versions_and_launch_nothing():
                                               bn=BN, activation="relu")
     torch.testing.assert_close(fo, ro, rtol=0, atol=0)
     assert torch.equal(fm, rm)
-    assert tspmm.launch_counts() == {"tensordash_matmul_planned": 0, "tensordash_matmul_fused": 0}
+    for grid in ("v2", "v1"):
+        go = tspmm.tensordash_matmul_planned(nnz, idx, ta, tb, bm=BM, bk=BK, bn=BN, compact_grid=grid)
+        torch.testing.assert_close(go, out, rtol=0, atol=0)
+        gfo, gfm = tspmm.tensordash_matmul_fused(nnz, idx, ta, tb, tbias, tres, activation="relu",
+                                                 bm=BM, bk=BK, bn=BN, compact_grid=grid)
+        torch.testing.assert_close(gfo, ro, rtol=0, atol=0)
+        assert torch.equal(gfm, rm)
+    counts = tspmm.launch_counts()
+    assert set(counts) == {"tensordash_matmul_planned", "tensordash_matmul_fused", "block_zero_mask",
+                           *(f"tensordash_matmul_{w}[{g}]" for w in ("planned", "fused")
+                             for g in ("v2", "v1"))}
+    assert all(v == 0 for v in counts.values()), counts
 
 
 def test_kernel_tile_fits_main_path_geometries():
@@ -199,3 +214,21 @@ def test_vector_loads_only_when_aligned():
     assert tspmm._vec_ok(x[:, 1:], x.stride(0), 32) == 0  # base pointer off 16 bytes
     y = torch.zeros(8, 6, dtype=torch.float32)
     assert tspmm._vec_ok(y, y.stride(0), 4) == 0  # row stride of 6 floats
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dist", ["all_zero", "mixed", "skewed"])
+def test_block_zero_mask_equals_jax_interpret(dist, dtype):
+    a = _operand(dist, seed=4)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    ta = torch.from_numpy(a).to(dtype)
+    for x, jx, bm, bk in ((ta, jnp.asarray(a, jdt), BM, BK), (ta.T, jnp.asarray(a.T, jdt), BK, BM)):
+        got = block_zero_mask(x, bm=bm, bk=bk)
+        want = np.asarray(jblock_zero_mask(jx, bm=bm, bk=bk, interpret=True))
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(), want)
+    # the planner finds its effectual blocks through it
+    nnz, idx = tspmm.plan_blocks(ta, BM, BK)
+    _eq(jspmm.plan_blocks(jnp.asarray(a), BM, BK), (nnz, idx))
+    with pytest.raises(ValueError):
+        block_zero_mask(ta, bm=3, bk=BK)

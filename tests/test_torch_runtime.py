@@ -130,9 +130,19 @@ def test_cuda_backend_refuses_without_a_card():
 
 @pytest.mark.parametrize("grid", ["v2", "v1", True, False])
 def test_cuda_backend_refuses_unported_grid_families(grid):
-    with pytest.raises(BackendCapabilityError, match="ROADMAP"):
-        get_backend("cuda").check_grid(grid)
-    get_backend("cuda").check_grid("ragged")
+    """Every grid family has a CUDA kernel now: the cuda backend takes each,
+    refuses an unknown family, and refuses as BackendCapabilityError (not
+    a crash) the geometries its kernels cannot take."""
+    cuda = get_backend("cuda")
+    cuda.check_grid(grid)
+    cuda.check_grid("ragged")
+    with pytest.raises(ValueError):
+        cuda.check_grid("v3")
+    cuda.check_geometry(4, 4, 512, 128)  # the decode gate
+    with pytest.raises(BackendCapabilityError, match="rows"):
+        cuda.check_geometry(4096, 4096, 512, 128)  # bm past the CTA's 2048 rows
+    with pytest.raises(BackendCapabilityError, match="y extent"):
+        cuda.check_geometry(65536 * 8, 8, 16, 16)
 
 
 def test_runtime_policy_checks():

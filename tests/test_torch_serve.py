@@ -117,3 +117,41 @@ def test_submit_validates_lengths(model):
         eng.submit(torch.zeros(6, dtype=torch.int64), max_new=3)
     with pytest.raises(ValueError):
         eng.submit(torch.zeros((2, 2), dtype=torch.int64), max_new=1)
+
+
+def _pinned_v1_dbs(cfg):
+    """The same DB in both packages: the FFN cells (gate and ``w_down``, every
+    row bucket a prefill or decode reaches) pin ``GEOM`` on the v1 grid."""
+    from repro import tune as jtune
+    from repro_torch import tune as ttune
+
+    tdb, jdb = ttune.TuningDB(platform="cpu"), jtune.TuningDB(platform="cpu")
+    d, d_ff = cfg.d_model, cfg.d_ff
+    for rows in (1 << i for i in range(6)):
+        for op, k, n in (("matmul_fused", d, d_ff), ("matmul", d_ff, d)):
+            tdb.store(tdb.key(op=op, m=rows, k=k, n=n, dtype=torch.float32),
+                      ttune.TunedPolicy(compact_grid="v1", **GEOM))
+            jdb.store(jdb.key(op=op, m=rows, k=k, n=n, dtype=jnp.float32),
+                      jtune.TunedPolicy(compact_grid="v1", **GEOM))
+    return tdb, jdb
+
+
+def test_geometry_auto_engine_pinned_to_v1_matches_jax(model):
+    jcfg, tcfg, jp, tp = model
+    prompts = _prompts(jcfg.vocab_size)
+    tdb, jdb = _pinned_v1_dbs(tcfg)
+    jeng = JServeEngine(jp, jcfg, slots=2, max_len=16, chunk=3,
+                        rt=jrt.Runtime(backend="reference", geometry="auto", tuning_db=jdb, **GEOM))
+    trt_auto = trt.Runtime(backend="reference", device="cpu", geometry="auto", tuning_db=tdb, **GEOM)
+    teng = ServeEngine(tp, tcfg, slots=2, max_len=16, chunk=3, rt=trt_auto)
+    for p, n in zip(prompts, BUDGETS):
+        jeng.submit(p, max_new=n)
+        teng.submit(torch.from_numpy(p), max_new=n)
+    assert teng.run() == jeng.run()
+    # the decode call sites resolved to the pinned v1 policy (memo warmed at
+    # construction), the LM head to the explicit ragged default
+    d, d_ff, v = tcfg.d_model, tcfg.d_ff, tcfg.vocab_size
+    gate = trt_auto._resolved("matmul_fused", (2, d), (d, d_ff), torch.float32)
+    head = trt_auto._resolved("matmul", (2, d), (d, v), torch.float32)
+    assert gate.compact_grid == "v1" and head.compact_grid == "ragged"
+    assert tdb.stats()["hits"] > 0
