@@ -5,12 +5,17 @@
 
 from the root of a checkout, on a machine with one H100.  It
 
-1. prints the card (``nvidia-smi`` name and power limit) and builds the
-   CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
+1. prints the card (``nvidia-smi`` name and power limit), builds the CUDA
+   kernels from ``src/repro_torch/kernels/csrc`` (timed) and prints
+   ptxas's registers, spills and static shared memory per kernel;
 2. holds each kernel against its plain PyTorch version on the card, at the
    serving main path's decode shapes (4 slots, bf16, full deepseek-7b
-   widths) and at small block-sparse shapes in fp32 and bf16, and times the
-   kernel, the plain version and one ``torch.matmul`` of the same product;
+   widths), at its prefill shapes (the gate and ``w_down`` at M = 128 rows
+   and at a prime M = 29, ``bm = M``) and at small block-sparse shapes in
+   fp32 and bf16, and times the kernel, the plain version and one
+   ``torch.matmul`` of the same product (each row prints its ratio to that
+   call and its share of the bound); then counts, with the profiler, the
+   CUDA launches of a few calls of each wrapper: exactly one per call;
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
    weights) through ``ServeEngine`` on the ``cuda`` backend and checks that
    every FFN gate, ``w_down`` and LM-head product went through the kernels,
@@ -66,6 +71,11 @@ REPLACES = {
 }
 #: one compare per element at the card's non-tensor fp32 rate (data sheet)
 COMPARE_RATE = 67e12
+#: prefill rows of the kernel phase: a full 4 x 32 prefill group and a prime
+#: row count (Runtime.fit gives bm = M for both)
+PREFILL_ROWS = (128, 29)
+#: wrapper calls per case of the launch check
+LAUNCH_REPS = 3
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -89,6 +99,41 @@ def mem_bandwidth(name: str) -> float:
     if "H100" in name and "PCIe" in name:
         return 2.0e12
     return 3.35e12  # H100 SXM
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """One line per kernel of ``nvcc -Xptxas -v``'s report: registers,
+    spill stores and loads, static shared memory (the ring is dynamic
+    shared memory, sized per launch: each kernel row prints it)."""
+    import re
+
+    names = {"13__nv_bfloat16": "bf16", "f": "f32"}
+    out, name, spill = [], None, ""
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name, spill = entry.group(1), ""
+            t = re.search(r"\d+(td_[a-z_]+_kernel)I(13__nv_bfloat16|f)(.*)EEv", name)
+            if t:
+                args = ",".join(re.findall(r"L[bi](\d+)E", t.group(3)))
+                name = f"{t.group(1)}<{names[t.group(2)]}{',' + args if args else ''}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if name and m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {m.group(1)} registers, {spill or 'no spill report'}, "
+                       f"{smem.group(1) if smem else 0} B static smem")
+            name = None
+    return out
+
+
+def versus(row) -> str:
+    """A row's ratio to its one-call library time and its share of the bound."""
+    return (f"{row['ms'] / row['library_ms']:.2f}x torch.matmul, "
+            f"{row['bound_ms'] / row['ms']:.0%} of bound")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -173,10 +218,10 @@ def kernel_phase(bw: float):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)  # small operands, drawn on the host
     gdev = torch.Generator(device=dev).manual_seed(1)  # full-width weights, drawn on the card
-    rows = []
+    rows, calls = [], {}
 
     def run_case(label, kernel, dtype, a, b, bm, bk, bn, plan, *, bias=None, residual=None,
-                 activation="relu", main=False):
+                 activation="relu", main=False, stage="small"):
         nnz, idx, rs, wr, wk = plan
         esz = a.element_size()
         m, n = a.shape[0], b.shape[1]
@@ -194,6 +239,11 @@ def kernel_phase(bw: float):
                                                        workqueue=(rs, wr, wk))
             plain = lambda: ref.tensordash_matmul_ref(nnz, idx, a, b, bm=bm, bk=bk, bn=bn)
             out, pout, mask, pmask, extra = call(), plain(), None, None, 0
+        calls[f"{label} {row_dtype(dtype)}"] = call
+        if stage == "decode":
+            for grid in ("v2", "v1"):  # the grid families go through the same wrappers
+                calls[f"{label} {grid}"] = family_call(kernel, grid, nnz, idx, a, b, bm, bk, bn,
+                                                       bias, residual, activation)
         torch.cuda.synchronize()
         err = check_close(label, out, pout, mask, pmask)
         nbytes, flops = plan_bytes_flops(nnz, idx, a, b, bm, bk, out_elems=m * n, extra_bytes=extra)
@@ -204,31 +254,45 @@ def kernel_phase(bw: float):
             "max_abs_err": err, "ms": cuda_ms(call), "plain_ms": cuda_ms(plain, iters=5),
             "library_ms": cuda_ms(lambda: torch.matmul(a, b)),
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "main_path": main,
+            "main_path": main, "stage": stage,
+            "tile": T.kernel_tile(bm, bk, bn, esz)._asdict(),
+            "splits": T.launch_splits(m, a.shape[1], n, bm, bk, bn, dev, dtype),
         }
+        row["ratio"], row["bound_share"] = row["ms"] / row["library_ms"], row["bound_ms"] / row["ms"]
         rows.append(row)
         log(f"  {label:<34} {row['dtype']:<8} {row['shape']:<28} kernel {row['ms']:.4f} ms  "
             f"plain {row['plain_ms']:.4f} ms  torch.matmul {row['library_ms']:.4f} ms  "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})  max_abs_err {err:.3e}")
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})  {versus(row)}  "
+            f"max_abs_err {err:.3e}  S {row['splits']}, ring {row['tile']['smem']} B")
 
     bf16 = torch.bfloat16
     # -- the main path's decode shapes: 4 slots, full deepseek-7b widths ------
     x = torch.randn(SLOTS, 4096, generator=gen).to(dev, bf16)
     w_gate = (torch.randn(4096, 11008, generator=gdev, device=dev) / 64).to(bf16)
     run_case("decode gate (fused relu)", "tensordash_matmul_fused", bf16, x, w_gate, SLOTS, 512, 128,
-             T.dense_plan_csr(1, 8, dev), main=True)
+             T.dense_plan_csr(1, 8, dev), main=True, stage="decode")
+    # prefill runs the same kernels at M = g * s rows, bm = M (Runtime.fit)
+    for rows_m in PREFILL_ROWS:
+        xp = torch.randn(rows_m, 4096, generator=gen).to(dev, bf16)
+        run_case(f"prefill gate M={rows_m} (fused relu)", "tensordash_matmul_fused", bf16, xp, w_gate,
+                 rows_m, 512, 128, T.dense_plan_csr(1, 8, dev), stage="prefill")
     del w_gate
     h = block_sparse(SLOTS, 11008, SLOTS, 128, 0.4, gen).to(dev, bf16)
     w_down = (torch.randn(11008, 4096, generator=gdev, device=dev) / 105).to(bf16)
     hmask = (h.reshape(1, SLOTS, 86, 128) != 0).any(dim=3).any(dim=1).to(torch.int8)
     run_case("decode w_down (emitted-mask plan)", "tensordash_matmul_planned", bf16, h, w_down,
-             SLOTS, 128, 128, T.plan_from_mask_csr(hmask), main=True)
+             SLOTS, 128, 128, T.plan_from_mask_csr(hmask), main=True, stage="decode")
+    for rows_m in PREFILL_ROWS:
+        hp = block_sparse(rows_m, 11008, rows_m, 128, 0.4, gen).to(dev, bf16)
+        pmask = (hp.reshape(1, rows_m, 86, 128) != 0).any(dim=3).any(dim=1).to(torch.int8)
+        run_case(f"prefill w_down M={rows_m} (mask plan)", "tensordash_matmul_planned", bf16, hp,
+                 w_down, rows_m, 128, 128, T.plan_from_mask_csr(pmask), stage="prefill")
     del w_down
     lm_head = (torch.randn(4096, 102400, generator=gdev, device=dev) / 64).to(bf16)
     hn = torch.randn(SLOTS, 4096, generator=gen).to(dev, bf16)
     a_t, b_t = lm_head.T, hn.T  # strided views, as Runtime.matmul(side="B") passes them
     run_case("decode LM head (side B, strided)", "tensordash_matmul_planned", bf16, a_t, b_t,
-             128, 512, SLOTS, T.plan_blocks_csr(a_t, 128, 512), main=True)
+             128, 512, SLOTS, T.plan_blocks_csr(a_t, 128, 512), main=True, stage="decode")
     del lm_head, a_t
 
     # -- small shapes with real block sparsity -------------------------------
@@ -246,7 +310,57 @@ def kernel_phase(bw: float):
         for act in ("none", "relu", "squared_relu"):
             run_case(f"sparse 0.4 fused {act}+bias+res", "tensordash_matmul_fused", dtype, a, b,
                      bm, bk, bn, plan, bias=bias, residual=res, activation=act)
-    return rows
+
+    # -- block rows taller than a CTA's 256 rows, cut into slices ------------
+    for m, bm, dtype in ((1024, 512, torch.float32), (1024, 512, bf16), (600, 300, bf16)):
+        a = block_sparse(m, 512, bm, 64, 0.5, gen).to(dev, dtype)
+        b = torch.randn(512, 128, generator=gen).to(dev, dtype)
+        plan = T.plan_blocks_csr(a, bm, 64)
+        bias = torch.randn(128, generator=gen).to(dev)
+        run_case(f"tall rows bm={bm} planned", "tensordash_matmul_planned", dtype, a, b, bm, 64, 64, plan)
+        run_case(f"tall rows bm={bm} fused relu+bias", "tensordash_matmul_fused", dtype, a, b, bm, 64, 64,
+                 plan, bias=bias)
+    return rows, count_launches(calls)
+
+
+def row_dtype(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def family_call(kernel, grid, nnz, idx, a, b, bm, bk, bn, bias, residual, activation):
+    """One wrapper call on the ``grid`` family (v2/v1 read ``idx``)."""
+    from repro_torch.kernels import tensordash_spmm as T
+
+    if kernel == "tensordash_matmul_fused":
+        return lambda: T.tensordash_matmul_fused(nnz, idx, a, b, bias, residual, activation=activation,
+                                                 bm=bm, bk=bk, bn=bn, compact_grid=grid)
+    return lambda: T.tensordash_matmul_planned(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, compact_grid=grid)
+
+
+def count_launches(calls: dict) -> dict:
+    """Exactly one CUDA launch per wrapper call: ``torch.profiler`` counts
+    the device work of ``LAUNCH_REPS`` calls of each case (warm: every case
+    ran before); all of it must be ``td_spmm_kernel`` launches, one per
+    call, with no split-K reduction kernel and no mask fill."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for call in calls.values():
+            for _ in range(LAUNCH_REPS):
+                call()
+        torch.cuda.synchronize()
+    device = [(e.key, e.count) for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and e.count]
+    n_calls = len(calls) * LAUNCH_REPS
+    n_device = sum(c for _, c in device)
+    others = [k for k, _ in device if "td_spmm_kernel" not in k]
+    log(f"launches: {n_calls} wrapper calls ({len(calls)} cases x {LAUNCH_REPS}) made {n_device} "
+        f"device launches, {sum(c for k, c in device if 'td_spmm_kernel' in k)} of them td_spmm_kernel")
+    if n_device != n_calls or others:
+        raise AssertionError(f"wrapper calls {n_calls} != device launches {n_device}: {device}")
+    return {"wrapper_calls": n_calls, "device_launches": n_device, "kernels": dict(device)}
 
 
 # ---------------------------------------------------------------------------
@@ -459,11 +573,12 @@ def grid_kernel_phase(bw: float):
                 "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations", "main_path": main,
             }
+            row["ratio"], row["bound_share"] = row["ms"] / library_ms, row["bound_ms"] / row["ms"]
             rows.append(row)
             log(f"  {label + ' ' + grid:<37} {row['dtype']:<8} {row['shape']:<28} kernel "
                 f"{row['ms']:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul {library_ms:.4f} ms  "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})  max_abs_err {err:.3e}  "
-                f"== ragged")
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})  {versus(row)}  "
+                f"max_abs_err {err:.3e}  == ragged")
 
     bf16 = torch.bfloat16
     x = torch.randn(SLOTS, 4096, generator=gen).to(dev, bf16)
@@ -680,9 +795,11 @@ def main() -> int:
 
     _build.library()
     log(f"build: nvcc sm_90a kernels ready in {_build.build_seconds:.1f} s")
+    for line in ptxas_lines(_build.ptxas_report):
+        log(f"ptxas: {line}")
 
     log("kernels: each against its plain PyTorch version on the card")
-    rows = kernel_phase(bw)
+    rows, launch_check = kernel_phase(bw)
     params, cfg, prompts, serve = serve_phase()
     ref_l2, top1 = reference_phase(params, cfg, prompts)
     log("grid kernels: v2/v1 against the ragged kernel and the plain version; block_zero_mask")
@@ -716,7 +833,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "cases": rows + grid_rows, "serve": serve, "reference_rel_l2": ref_l2,
+        {"card": card, "cases": rows + grid_rows, "launch_check": launch_check, "serve": serve,
+         "ptxas": ptxas_lines(_build.ptxas_report), "reference_rel_l2": ref_l2,
          "reference_top1": top1, "tune": tune, "serve_auto": auto,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,13 +4,18 @@
 The kernels are correct only if their grid and the plan compose into a
 valid schedule: every block access in bounds, every effectual block
 accumulated exactly once, every output tile stored.  This module re-enacts
-the CUDA grid ``(N/TN, Mb, S)`` in host numpy: CTA ``(n, m, s)`` takes
-steps ``[s * per, (s + 1) * per)`` of block row ``m``'s effectual list,
-``per = ceil(cnt / S)``, where ``cnt`` is the row's queue segment
+the CUDA launch's grid ``(N/TN x slices, Mb, S)`` in host numpy: CTA ``(n, m, s)``
+takes steps ``[s * per, (s + 1) * per)`` of block row ``m``'s effectual
+list, ``per = ceil(cnt / S)``, where ``cnt`` is the row's queue segment
 ``row_starts[m+1] - row_starts[m]`` (ragged) or ``nnz[m]`` (v1/v2), and a
-row with ``nnz[m] == 0`` contracts nothing.  The column tiles multiply every
-output tile alike and cannot change validity, so ``nb`` only has to be
-positive.  The finding codes are the JAX package's:
+row with ``nnz[m] == 0`` contracts nothing.  ``S`` is the launch's split
+count (``launch_splits``: a function of the shapes only, at most ``Kb``);
+the S partials of a tile are summed in the same launch by whichever of its
+CTAs arrives last, once, so each output tile is stored once whatever ``S``
+is.  The column tiles, and the row slices of a block row taller than 256
+(which share its plan), multiply every output tile alike and cannot change
+validity, so ``nb`` only has to be positive.  The finding codes are the JAX
+package's:
 
 * **ragged**: ``row_starts`` is a monotone ``[Mb+1]`` table inside the
   queue arrays (``grid.queue-shape``); the queue's ``work_row`` names the
@@ -158,8 +163,9 @@ def check_grid(nnz, idx, *, nb: int = 1, compact_grid="ragged", workqueue=None,
 
     ``workqueue``/``kdim`` default to what the wrapper would derive from
     ``(nnz, idx)``; pass them to audit a hand-built (or corrupted)
-    schedule.  ``splits`` is the launch's ``S`` (``kernel_splits``); every
-    ``S >= 1`` must give a valid schedule.
+    schedule.  ``splits`` is the launch's ``S`` (``launch_splits``); every
+    ``S >= 1`` must give a valid schedule, shares past a row's list being
+    empty.
     """
     from repro_torch.kernels.tensordash_spmm import _check_compact_grid, plan_workqueue
 

@@ -23,21 +23,34 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: argtypes of the C entry points (pointers and the stream as c_void_p, so
-#: ctypes never truncates them to 32 bits)
-_SHARED = [_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P,  # dtype .. work_kblk
-           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I]  # M K N bm bk TN KC S vec_a vec_b
-_GRID = _SHARED[:11] + [_I] + _SHARED[12:]  # (row_starts, work_kblk) -> (idx, kdim)
-_EPILOGUE = [_P, _P, _I, _P, _I]  # bias residual act mask bn
+
+
+class SpmmArgs(ctypes.Structure):
+    """The launch arguments of ``td_spmm`` (``Args`` in
+    ``csrc/tensordash_spmm.cu``; keep the two in step).  Pointers are
+    ``c_void_p``, so ctypes never truncates them to 32 bits."""
+
+    _fields_ = [
+        ("a", _P), ("sam", _LL), ("sak", _LL),
+        ("b", _P), ("sbk", _LL), ("sbn", _LL),
+        ("out", _P), ("partial", _P), ("counters", _P),
+        ("nnz", _P), ("row_starts", _P), ("work_kblk", _P), ("idx", _P),
+        ("bias", _P), ("residual", _P), ("mask", _P),
+        *((name, _I) for name in (
+            "kdim", "M", "K", "N", "bm", "bk", "bn", "rows", "TN", "KC", "S", "stages",
+            "swap", "wp", "wq", "mt", "nt", "a_kmaj", "a_vec", "b_kmaj", "b_vec",
+            "activation")),
+    ]
+
+
+#: argtypes of the C entry points
 SIGNATURES = {
-    "td_spmm_planned": _SHARED + [_P],  # stream
-    "td_spmm_fused": _SHARED + _EPILOGUE + [_P],
-    "td_spmm_grid_planned": _GRID + [_P],
-    "td_spmm_grid_fused": _GRID + _EPILOGUE + [_P],
+    # dtype fused grid args stream
+    "td_spmm": [_I, _I, _I, ctypes.POINTER(SpmmArgs), _P],
     # dtype x s0 s1 M K bm bk out stream
     "td_block_zero_mask": [_I, _P, _LL, _LL, _I, _I, _I, _I, _P, _P],
 }
@@ -45,6 +58,9 @@ SIGNATURES = {
 _LIB: ctypes.CDLL | None = None
 #: seconds the last build (or load) took; read by ``chip_smoke.py``
 build_seconds: float | None = None
+#: ptxas's report of the last build (registers, shared memory, spills per
+#: kernel), kept beside the library; read by ``chip_smoke.py``
+ptxas_report: str = ""
 
 
 def _nvcc() -> str:
@@ -66,24 +82,27 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _run(cmds: list[list[str]], logdir: str) -> None:
+def _run(cmds: list[list[str]], logdir: str) -> str:
     """Run the commands side by side (their output to files in ``logdir``,
     so no pipe fills while another is read); raise with every failure's
-    output."""
+    output, else return their output."""
     logs = [open(os.path.join(logdir, f"cmd{i}.log"), "w+") for i in range(len(cmds))]
     try:
         procs = [subprocess.Popen(c, stdout=log, stderr=subprocess.STDOUT)
                  for c, log in zip(cmds, logs)]
-        failed = []
+        failed, text = [], []
         for cmd, proc, log in zip(cmds, procs, logs):
-            if proc.wait() != 0:
-                log.seek(0)
-                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log.read()}")
+            proc.wait()
+            log.seek(0)
+            text.append(log.read())
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text[-1]}")
     finally:
         for log in logs:
             log.close()
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "".join(text)
 
 
 def build() -> Path:
@@ -98,23 +117,27 @@ def build() -> Path:
         for src in _sources():
             objs.append(os.path.join(tmpdir, src.stem + ".o"))
             compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)])
-        _run(compiles, tmpdir)
+        report = _run(compiles, tmpdir)
         lib = os.path.join(tmpdir, out.name)
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]], tmpdir)
+        out.with_suffix(".ptxas.txt").write_text(report)
         os.replace(lib, out)
     return out
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _LIB, build_seconds
+    global _LIB, build_seconds, ptxas_report
     if _LIB is None:
         t0 = time.perf_counter()
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         build_seconds = time.perf_counter() - t0
+        report = path.with_suffix(".ptxas.txt")
+        ptxas_report = report.read_text() if report.exists() else ""
         _LIB = lib
     return _LIB

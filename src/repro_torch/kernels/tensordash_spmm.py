@@ -21,15 +21,18 @@ The two wrappers run the CUDA kernels of ``csrc/tensordash_spmm.cu``:
 ``idx[m, k]`` directly over a K bound of ``max(max(nnz), 1)`` (reduced on
 the card, never read on the host) or ``Kb``.  The three families give
 bit-identical results.  On a CPU tensor a wrapper runs the plain executor
-of :mod:`.ref`; on a CUDA tensor it launches its kernel or raises.
+of :mod:`.ref`; on a CUDA tensor it makes exactly one kernel launch (split-K
+reduced in the same launch; :func:`kernel_tile` and :func:`kernel_splits`
+give its tile and split count from the shapes) or raises.
 :func:`launch_counts` counts the launches per wrapper and grid family.
 :func:`plan_blocks` finds the effectual blocks with
 :func:`~repro_torch.kernels.block_mask.block_zero_mask`.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Literal
+from typing import Literal, NamedTuple
 
 import numpy as np
 import torch
@@ -210,8 +213,47 @@ def dense_plan_csr(mb: int, kb: int, device="cpu"):
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"none": 0, "relu": 1, "squared_relu": 2}
-_THREADS, _MAX_PER_THREAD = 256, 8  # must match csrc/tensordash_spmm.cu
-_SMEM_FLOATS = 48 * 1024 // 4
+# must match csrc/tensordash_spmm.cu
+_THREADS, _WARPS = 256, 8
+_SLICE_ROWS = 256  # the most rows a CTA's tile covers; taller block rows are cut into slices
+_MAX_ROWS = 2048  # the largest bm the kernels take
+_SMEM_MAX = 232448  # the 227 KB a block may use on Hopper
+_MIN_STAGES, _MAX_STAGES = 3, 8
+# the tile and split rule (tensordash_spmm.cu's note says why)
+_TN_CAP = 128  # widest column tile
+_KC = {2: 64, 4: 32}  # K elements per pipeline stage, by element size
+_SMEM_BUDGET = 72 * 1024  # ring bytes per CTA: three CTAs share an SM
+_CTAS_PER_SM = 3  # resident CTAs per SM the bf16 decode tile is built for (2 for the others)
+_SM_SMEM = 233472  # shared memory of one SM (228 KB), 1 KB of it reserved per CTA
+_PARTIAL_SHARE = 8  # split partials stay below 1/8 of the bytes a tile streams
+_CTA_STEPS = 4  # a CTA's fixed cost in ring steps: filling the ring, the split-K epilogue
+
+
+class Tile(NamedTuple):
+    """One launch's CTA tile: ``rows x tn`` outputs (``tn`` divides ``bn``;
+    ``rows`` is ``bm``, or for ``bm`` past 256 its largest divisor up to 256,
+    and ``slices = bm / rows`` CTAs cover a block row) on 8 warps, the wide
+    side on the MMA's rows (``swap``: the output's
+    columns, so the CTA computes ``C^T`` tiles), ``wp x wq`` warps of
+    ``mt`` m16 by ``nt`` n8 MMA tiles each, a ring of ``stages`` K chunks of
+    ``kc`` elements, ``smem`` bytes of dynamic shared memory."""
+
+    rows: int
+    slices: int
+    tn: int
+    kc: int
+    stages: int
+    swap: bool
+    wp: int
+    wq: int
+    mt: int
+    nt: int
+    smem: int
+
+    @property
+    def extents(self) -> tuple[int, int]:
+        """Padded MMA row and column extents of the tile."""
+        return self.wp * 16 * self.mt, self.wq * 8 * self.nt
 
 
 def _divisor_at_most(dim: int, cap: int) -> int:
@@ -221,27 +263,99 @@ def _divisor_at_most(dim: int, cap: int) -> int:
     return b
 
 
-def kernel_tile(bm: int, bk: int, bn: int) -> tuple[int, int]:
-    """The CUDA kernel's column tile ``TN`` (a divisor of ``bn``, at most 32,
-    with ``bm * TN`` accumulators spread over the CTA's threads) and its
-    shared-memory K chunk ``KC`` (at most ``bk``, within 48 KB)."""
-    if bm > _THREADS * _MAX_PER_THREAD:
-        raise ValueError(f"bm={bm} exceeds the CUDA kernel's {_THREADS * _MAX_PER_THREAD} rows")
-    tn = _divisor_at_most(bn, min(32, _THREADS * _MAX_PER_THREAD // bm))
-    kc = min(bk, (_SMEM_FLOATS - bm) // (bm + tn + 1))
-    if kc >= 32:
-        kc -= kc % 32
-    if kc < 1:
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+#: the warp tiles the kernel is built for, smallest first: ``(mt, nt)`` m16
+#: by n8 MMA tiles a warp (the decode tile, 16 x 32, 32 x 32)
+_WARP_TILES = ((1, 1), (1, 4), (2, 4))
+
+
+def _warp_grid(ep: int, eq: int):
+    """``(wp, wq, mt, nt)``: the smallest warp tile and a power-of-two grid
+    of at most 8 warps covering ``ep`` MMA rows and ``eq`` columns, or
+    ``None``."""
+    for mt, nt in _WARP_TILES:
+        for wq in (1, 2, 4, 8):
+            wp = _pow2_at_least(-(-ep // (16 * mt)))
+            if wq * 8 * nt >= eq and wp * wq <= _WARPS:
+                return wp, wq, mt, nt
+    return None
+
+
+def _stage_bytes(p_pad: int, q_pad: int, kc: int, esz: int) -> int:
+    """Shared-memory bytes of one ring stage (both operand tiles, either
+    orientation, rows padded by 16 bytes, each tile 128-byte aligned)."""
+    v = 16 // esz
+    tile = lambda x: (x * kc + v * max(x, kc)) * esz
+    return sum(-(-tile(x) // 128) * 128 for x in (p_pad, q_pad))
+
+
+@functools.lru_cache(maxsize=1024)
+def kernel_tile(bm: int, bk: int, bn: int, esz: int = 2) -> Tile:
+    """The CUDA kernel's tile for a ``(bm, bk, bn)`` launch of ``esz``-byte
+    elements: ``rows``, the largest divisor of ``bm`` up to 256 (so the
+    kernel needs no bound for a short slice); the widest column tile ``tn <= 128``
+    dividing ``bn`` whose ``rows x tn`` tile 8 warps cover with one of the
+    kernel's warp tiles, the wide side on the MMA rows; K chunks of 64
+    (bf16) or 32 (fp32) elements; as many ring stages (3 to 8) as fit
+    72 KB."""
+    if bm > _MAX_ROWS:
+        raise ValueError(f"bm={bm} exceeds the CUDA kernel's {_MAX_ROWS} rows")
+    rows = _divisor_at_most(bm, _SLICE_ROWS)
+    slices = bm // rows
+    tn = _divisor_at_most(bn, _TN_CAP)
+    while True:
+        for swap in (tn > rows, tn <= rows):
+            grid = _warp_grid(*((tn, rows) if swap else (rows, tn)))
+            if grid is not None:
+                break
+        if grid is not None:
+            break
+        tn = _divisor_at_most(bn, tn - 1)
+    wp, wq, mt, nt = grid
+    p_pad, q_pad = wp * 16 * mt, wq * 8 * nt
+    kc = min(_KC[esz], max(16, _pow2_at_least(bk)))
+    while kc > 16 and _MIN_STAGES * _stage_bytes(p_pad, q_pad, kc, esz) > _SMEM_MAX:
+        kc //= 2
+    stage = _stage_bytes(p_pad, q_pad, kc, esz)
+    stages = max(_MIN_STAGES, min(_MAX_STAGES, _SMEM_BUDGET // stage))
+    if stages * stage > _SMEM_MAX:
         raise ValueError(f"block geometry bm={bm} bn={bn} does not fit shared memory")
-    return tn, kc
+    return Tile(rows, slices, tn, kc, stages, swap, wp, wq, mt, nt, stages * stage)
 
 
-def kernel_splits(tiles: int, kb: int, sms: int) -> int:
-    """How many contiguous shares ``S`` each block row's work queue is cut
-    into: enough CTAs for about four per SM when the output has fewer tiles
-    than that (the skinny decode products), at most ``Kb`` (the longest a
-    queue segment can be, known without reading ``nnz`` on the host)."""
-    return max(1, min(kb, -(-4 * sms // tiles)))
+@functools.lru_cache(maxsize=1024)
+def kernel_splits(tiles: int, kb: int, sms: int, cap: int | None = None,
+                  resident: int | None = None, chunks: int = 1) -> int:
+    """How many contiguous shares ``S`` each block row's effectual list is
+    cut into, from the shapes alone: the ``S`` (at most ``Kb``, the longest
+    a row's list can be, known without reading ``nnz`` on the host, and at
+    most ``cap``) whose CTAs take the fewest waves of ``resident`` per SM
+    times ring steps per CTA (``chunks`` K chunks a block, plus a CTA's
+    fixed cost), the smallest on ties; then the fewest shares of that
+    length, so no share of a dense row is empty."""
+    slots = (resident or _CTAS_PER_SM) * sms
+    cost = lambda s: -(-tiles * s // slots) * (-(-kb // s) * chunks + _CTA_STEPS)
+    s = min(range(1, max(1, min(kb, cap or kb)) + 1), key=lambda s: (cost(s), s))
+    return -(-kb // -(-kb // s))
+
+
+def resident_ctas(tile: Tile, esz: int) -> int:
+    """CTAs of this tile an SM holds at once: the kernel's launch bounds
+    guarantee 3 for the bf16 decode warp tile (1 x 1) and 2 for the others
+    by registers; the ring's shared memory may allow fewer."""
+    regs = _CTAS_PER_SM if (tile.mt, tile.nt) == (1, 1) and esz == 2 else 2
+    return max(1, min(regs, _SM_SMEM // (tile.smem + 1024)))
+
+
+def _split_cap(k: int, tile: Tile, esz: int) -> int:
+    """The most splits whose fp32 partials (one per split, in fragment
+    order) stay below 1/8 of the operand bytes a tile streams."""
+    ep, eq = (tile.tn, tile.rows) if tile.swap else (tile.rows, tile.tn)
+    partial = tile.mt * tile.nt * _THREADS * 16
+    return max(1, k * (ep + eq) * esz // (_PARTIAL_SHARE * partial))
 
 
 @functools.lru_cache(maxsize=16)
@@ -249,11 +363,18 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def launch_splits(m: int, k: int, n: int, bm: int, bk: int, bn: int, device) -> int:
+def launch_splits(m: int, k: int, n: int, bm: int, bk: int, bn: int, device,
+                  dtype=torch.bfloat16) -> int:
     """The split count ``S`` a launch of ``[m, k] @ [k, n]`` at ``(bm, bk,
-    bn)`` uses on ``device``'s card (the same for every grid family)."""
-    tn, _ = kernel_tile(bm, bk, bn)
-    return kernel_splits((n // tn) * (m // bm), k // bk, _sm_count(torch.device(device).index or 0))
+    bn)`` in ``dtype`` uses on ``device``'s card (the same for every grid
+    family; a function of the shapes only)."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    tile = kernel_tile(bm, bk, bn, esz)
+    tiles = (n // tile.tn) * tile.slices * (m // bm)
+    index = torch.device(device).index
+    sms = _sm_count(torch.cuda.current_device() if index is None else index)
+    return kernel_splits(tiles, k // bk, sms, _split_cap(k, tile, esz), resident_ctas(tile, esz),
+                         -(-bk // tile.kc))
 
 
 def _vec_ok(t: torch.Tensor, lead_stride: int, *extents: int) -> int:
@@ -270,8 +391,9 @@ def _meta(x, device) -> torch.Tensor:
 
 def check_launch(m: int, bm: int, bk: int, bn: int) -> None:
     """Raise ``ValueError`` for a geometry the CUDA kernels cannot take:
-    more than 65535 block rows (the grid's y extent), or a tile that does
-    not fit the CTA (:func:`kernel_tile`)."""
+    more than 65535 block rows (the grid's y extent), or ``bm`` past
+    ``_MAX_ROWS`` (2048; :func:`kernel_tile` cuts a block row past 256 rows
+    into equal slices, one CTA each)."""
     if m // bm > 65535:
         raise ValueError(f"{m // bm} block rows exceed the CUDA grid's y extent")
     kernel_tile(bm, bk, bn)
@@ -288,53 +410,107 @@ _LAUNCHES: dict[str, int] = {}
 _COUNTERS = tuple(f"{w}{'' if g == 'ragged' else f'[{g}]'}"
                   for w in ("tensordash_matmul_planned", "tensordash_matmul_fused")
                   for g in COMPACT_GRID_MODES)
+#: per device and stream: the kernels' arrival counters, all zero between
+#: launches (each launch's last CTAs reset the ones they used); launches on
+#: one stream run one after another, so they never share a counter at once
+_ARRIVALS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _launched(wrapper: str, grid: str) -> None:
     _LAUNCHES[wrapper if grid == "ragged" else f"{wrapper}[{grid}]"] += 1
 
 
-def _launch_args(nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue):
-    """Validate one CUDA launch and allocate its output.  Returns ``(lead,
-    tiling, out, keep)``: the C arguments up to the plan's (for ragged
-    ``row_starts, work_kblk``; for v1/v2 ``idx, kdim`` with ``kdim = 0``
-    meaning v2's bound reduced on the card), the tiling arguments, the
-    output, and the tensors behind the pointers, which the caller holds
-    until the call returns."""
+def _arrivals(device: torch.device, stream: int, count: int) -> torch.Tensor:
+    """The counter workspace of ``device``'s ``stream`` (a raw
+    ``cudaStream_t``), at least ``count`` int32 (zeroed once, when it is first
+    made or outgrown, on that stream)."""
+    key = (device.index, stream)
+    ws = _ARRIVALS.get(key)
+    if ws is None or ws.numel() < count:
+        ws = torch.zeros(max(count, 1 << 16), dtype=_I32, device=device)
+        _ARRIVALS[key] = ws
+    return ws
+
+
+def _launch(wrapper, nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue, *,
+            bias=None, residual=None, activation="none"):
+    """Validate and run one CUDA launch of ``wrapper`` (``"planned"`` or
+    ``"fused"``); returns ``(out, mask)`` (``mask`` None when planned)."""
+    from repro_torch.kernels import _build
+
+    m, k, n = ref._check_blocks(a, b, bm, bk, bn)
+    check_launch(m, bm, bk, bn)
     if b.device != a.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise TypeError(f"CUDA kernel takes float32 or bfloat16 operands of one dtype, got {a.dtype}, {b.dtype}")
     if out_dtype not in (None, a.dtype):
         raise TypeError(f"CUDA kernel writes {a.dtype}, not out_dtype={out_dtype}")
-    m, k, n = ref._check_blocks(a, b, bm, bk, bn)
-    check_launch(m, bm, bk, bn)
+    dev = a.device
+    args = _build.SpmmArgs(kdim=0, M=m, K=k, N=n, bm=bm, bk=bk, bn=bn,
+                           activation=_ACT_CODE[activation])
+    keep = []  # the tensors behind the pointers, held until the launch is queued
     if grid == "ragged":
         if workqueue is None:
-            workqueue = plan_workqueue(_meta(nnz, a.device), _meta(idx, a.device))
-        row_starts, _, work_kblk = workqueue
-        plan_t = (_meta(row_starts, a.device), _meta(work_kblk, a.device))
-        plan_args = tuple(t.data_ptr() for t in plan_t)
+            workqueue = plan_workqueue(_meta(nnz, dev), _meta(idx, dev))
+        row_starts, _, work_kblk = (_meta(t, dev) for t in workqueue)
+        args.row_starts, args.work_kblk = row_starts.data_ptr(), work_kblk.data_ptr()
+        keep += [row_starts, work_kblk]
     else:
-        plan_t = (_meta(idx, a.device),)
-        if tuple(plan_t[0].shape) != (m // bm, k // bk):
-            raise ValueError(f"idx {tuple(plan_t[0].shape)} is not the plan of [{m}, {k}] at ({bm}, {bk})")
-        plan_args = (plan_t[0].data_ptr(), k // bk if grid == "v1" else 0)
-    nnz_t = _meta(nnz, a.device)
-    tn, kc = kernel_tile(bm, bk, bn)
-    splits = launch_splits(m, k, n, bm, bk, bn, a.device)
+        idx_t = _meta(idx, dev)
+        if tuple(idx_t.shape) != (m // bm, k // bk):
+            raise ValueError(f"idx {tuple(idx_t.shape)} is not the plan of [{m}, {k}] at ({bm}, {bk})")
+        args.idx, args.kdim = idx_t.data_ptr(), k // bk if grid == "v1" else 0
+        keep.append(idx_t)
+    nnz_t = _meta(nnz, dev)
+    args.nnz = nnz_t.data_ptr()
+    tile = kernel_tile(bm, bk, bn, a.element_size())
+    tiles = (n // tile.tn) * tile.slices * (m // bm)
+    splits = launch_splits(m, k, n, bm, bk, bn, dev, a.dtype)
     sam, sak = a.stride()
     sbk, sbn = b.stride()
-    vec_a = (_vec_ok(a, sam, bk, kc) if sak == 1
-             else _vec_ok(a, sak, bm) if sam == 1 else 0)
-    vec_b = _vec_ok(b, sbk, tn) if sbn == 1 else 0
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-               if splits > 1 else None)
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    lead = (_DTYPE_CODE[a.dtype], a.data_ptr(), sam, sak, b.data_ptr(), sbk, sbn, out.data_ptr(),
-            None if partial is None else partial.data_ptr(), nnz_t.data_ptr(), *plan_args)
-    tiling = (m, k, n, bm, bk, tn, kc, splits, vec_a, vec_b)
-    return lead, tiling, out, (nnz_t, plan_t, partial)
+    args.a, args.sam, args.sak = a.data_ptr(), sam, sak
+    args.b, args.sbk, args.sbn = b.data_ptr(), sbk, sbn
+    # each operand is staged K-contiguous when its K stride is 1, else along
+    # its own dimension; 16-byte copies where that dimension is aligned
+    args.a_kmaj = int(sak == 1 or sam != 1)
+    args.a_vec = (_vec_ok(a, sam, bk) if sak == 1 else _vec_ok(a, sak, bm, tile.rows) if sam == 1 else 0)
+    args.b_kmaj = int(sbk == 1 or sbn != 1)
+    args.b_vec = (_vec_ok(b, sbn, bk) if sbk == 1 else _vec_ok(b, sbk, tile.tn) if sbn == 1 else 0)
+    args.rows, args.TN, args.KC, args.S, args.stages = tile.rows, tile.tn, tile.kc, splits, tile.stages
+    args.swap, args.wp, args.wq, args.mt, args.nt = int(tile.swap), tile.wp, tile.wq, tile.mt, tile.nt
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
+    args.out = out.data_ptr()
+    mask = None
+    if wrapper == "fused":
+        if bias is not None:
+            if bias.shape != (n,):
+                raise ValueError(f"bias {tuple(bias.shape)} != ({n},)")
+            bias = bias.to(device=dev, dtype=torch.float32).contiguous()
+            args.bias = bias.data_ptr()
+            keep.append(bias)
+        if residual is not None:
+            if residual.shape != (m, n) or residual.dtype != a.dtype or residual.device != dev:
+                raise ValueError(f"residual must be [{m}, {n}] {a.dtype} on {dev}")
+            residual = residual.contiguous()
+            args.residual = residual.data_ptr()
+            keep.append(residual)
+        mask = torch.empty((m // bm, n // bn), dtype=torch.int8, device=dev)  # every byte written
+        args.mask = mask.data_ptr()
+    stream = torch.cuda.current_stream(dev)
+    args.counters = _arrivals(dev, stream.cuda_stream, tiles + (m // bm) * (n // bn)).data_ptr()
+    if splits > 1:
+        partial = torch.empty(tiles * splits * tile.mt * tile.nt * _THREADS * 4,
+                              dtype=torch.float32, device=dev)
+        args.partial = partial.data_ptr()
+        keep.append(partial)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = lib.td_spmm(_DTYPE_CODE[a.dtype], int(wrapper == "fused"), int(grid != "ragged"),
+                         ctypes.byref(args), stream.cuda_stream)
+    _raise_on(rc, f"tensordash_matmul_{wrapper}")
+    _launched(f"tensordash_matmul_{wrapper}", grid)
+    return out, mask
 
 
 def tensordash_matmul_planned(nnz, idx, a: torch.Tensor, b: torch.Tensor, *,
@@ -349,16 +525,7 @@ def tensordash_matmul_planned(nnz, idx, a: torch.Tensor, b: torch.Tensor, *,
         return ref.tensordash_matmul_ref(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
-    lead, tiling, out, keep = _launch_args(nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue)
-    from repro_torch.kernels import _build
-
-    lib = _build.library()
-    entry = lib.td_spmm_planned if grid == "ragged" else lib.td_spmm_grid_planned
-    with torch.cuda.device(a.device):
-        rc = entry(*lead, *tiling, torch.cuda.current_stream(a.device).cuda_stream)
-    _raise_on(rc, "tensordash_matmul_planned")
-    _launched("tensordash_matmul_planned", grid)
-    return out
+    return _launch("planned", nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue)[0]
 
 
 def tensordash_matmul_fused(nnz, idx, a: torch.Tensor, b: torch.Tensor,
@@ -380,33 +547,8 @@ def tensordash_matmul_fused(nnz, idx, a: torch.Tensor, b: torch.Tensor,
         )
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
-    lead, tiling, out, keep = _launch_args(nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue)
-    m, _, n = tiling[:3]
-    bias32 = None
-    if bias is not None:
-        if bias.shape != (n,):
-            raise ValueError(f"bias {tuple(bias.shape)} != ({n},)")
-        bias32 = bias.to(device=a.device, dtype=torch.float32).contiguous()
-    if residual is not None:
-        if residual.shape != (m, n) or residual.dtype != a.dtype or residual.device != a.device:
-            raise ValueError(f"residual must be [{m}, {n}] {a.dtype} on {a.device}")
-        residual = residual.contiguous()
-    mask = torch.zeros((m // bm, n // bn), dtype=torch.int8, device=a.device)
-    from repro_torch.kernels import _build
-
-    lib = _build.library()
-    entry = lib.td_spmm_fused if grid == "ragged" else lib.td_spmm_grid_fused
-    with torch.cuda.device(a.device):
-        rc = entry(
-            *lead, *tiling,
-            None if bias32 is None else bias32.data_ptr(),
-            None if residual is None else residual.data_ptr(),
-            _ACT_CODE[activation], mask.data_ptr(), bn,
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
-    _raise_on(rc, "tensordash_matmul_fused")
-    _launched("tensordash_matmul_fused", grid)
-    return out, mask
+    return _launch("fused", nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue,
+                   bias=bias, residual=residual, activation=activation)
 
 
 def launch_counts() -> dict[str, int]:

@@ -259,7 +259,7 @@ def _verify(plan, req: KernelRequest, out, be) -> None:
     from repro_torch.kernels.tensordash_spmm import launch_splits
 
     m, n = req.a.shape[0], req.b.shape[1]
-    splits = (launch_splits(m, req.a.shape[1], n, req.bm, req.bk, req.bn, req.a.device)
+    splits = (launch_splits(m, req.a.shape[1], n, req.bm, req.bk, req.bn, req.a.device, req.a.dtype)
               if req.a.device.type == "cuda" else 1)
     findings = list(verify_plan(plan, level="full"))
     findings += check_plan_grid(plan, nb=n // req.bn, compact_grid=req.compact_grid,

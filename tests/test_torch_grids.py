@@ -15,7 +15,8 @@ against the JAX package, on the CPU.
   counts per family.
 * ``check_grid`` (which models the CUDA kernels' ``(N/TN, Mb, S)`` grid) and
   ``verify_plan`` give the JAX package's finding codes on clean plans and on
-  the same corrupted ones, for any split count ``S``.
+  the same corrupted ones, for any split count ``S`` and for every ``S``
+  the launch's split rule (``kernel_splits``) produces.
 """
 import dataclasses
 
@@ -211,7 +212,17 @@ def _mutants():
 MUTANTS = _mutants()
 
 
-@pytest.mark.parametrize("splits", [1, 3])
+def _rule_splits(kb, sms=132):
+    """Every split count the launch's rule gives a row of ``kb`` K blocks,
+    over output tile counts from 1 to past the card's resident capacity."""
+    return sorted({tspmm.kernel_splits(tiles, kb, sms, chunks=c) for tiles in range(1, 4 * sms)
+                   for c in (1, 2, 8)})
+
+
+SPLITS = _rule_splits(16)  # the plans' Kb
+
+
+@pytest.mark.parametrize("splits", SPLITS)
 @pytest.mark.parametrize("case", range(len(MUTANTS)), ids=[m[0] for m in MUTANTS])
 def test_check_grid_finds_the_jax_codes(case, splits):
     name, jp, tp, grid, kdim = MUTANTS[case]
@@ -231,12 +242,14 @@ def test_verify_plan_finds_the_jax_codes(case):
 
 
 def test_check_plan_grid_models_the_launch_split():
-    """A clean full-width decode plan verifies at every split count the
-    kernels use, and the CUDA model ignores a corrupt tail past ``nnz`` (the
-    kernel never reads it; ``verify_plan`` reports it)."""
+    """A clean plan verifies at every split count the launch's rule gives it
+    (each at most Kb), and the CUDA model ignores a corrupt tail past
+    ``nnz`` (the kernel never reads it; ``verify_plan`` reports it)."""
     _, tp = _plan_pair(seed=4, density=0.6)
+    splits = _rule_splits(tp.k_blocks)
+    assert splits[0] == 1 and splits[-1] <= tp.k_blocks and len(splits) > 2
     for grid in ("ragged", *GRIDS):
-        for s in (1, 2, 5, 16):
+        for s in splits:
             assert check_plan_grid(tp, nb=3, compact_grid=grid, splits=s) == []
     idx = tp.idx.clone()
     r = int(torch.nonzero(tp.nnz < tp.k_blocks)[0])
@@ -244,3 +257,4 @@ def test_check_plan_grid_models_the_launch_split():
     bad = dataclasses.replace(tp, idx=idx)
     assert check_plan_grid(bad, compact_grid="v1") == []
     assert "plan.idx-bounds" in _codes(verify_plan(bad))
+

@@ -190,21 +190,139 @@ def test_cpu_wrappers_run_plain_versions_and_launch_nothing():
     assert all(v == 0 for v in counts.values()), counts
 
 
+#: the serving path's launch geometries ``(bm, bk, bn)``: decode gate and
+#: w_down (4 slots), the side-B LM head, prefill at 128 rows and at a prime
+#: row count (``Runtime.fit`` gives bm = M = 29), the LM head at prefill
+MAIN_PATH_GEOMETRIES = [(4, 512, 128), (4, 128, 128), (128, 512, 4), (128, 512, 128),
+                        (128, 128, 128), (29, 512, 128), (29, 128, 128), (128, 512, 29),
+                        (48, 512, 128), (128, 512, 48)]
+SMEM_LIMIT = 232448  # the 227 KB a block may use on Hopper
+
+
 def test_kernel_tile_fits_main_path_geometries():
-    """The CUDA tiling chosen for the main path's decode and prefill
-    geometries: TN divides bn, bm * TN fits the CTA, KC fits 48 KB."""
-    for bm, bk, bn in [(4, 512, 128), (4, 128, 128), (128, 512, 4), (48, 512, 128), (128, 512, 48)]:
-        tn, kc = tspmm.kernel_tile(bm, bk, bn)
-        assert bn % tn == 0 and bm * tn <= 2048 and 1 <= kc <= bk
-        assert 4 * (bm * (kc + 1) + kc * (tn + 1)) <= 48 * 1024
+    """The CUDA tile at the main path's geometries: TN divides bn, the
+    padded MMA extents cover the bm x TN tile with its wide side on the MMA
+    rows, power-of-two warp grid and K chunk, a ring of at least 3 stages."""
+    for bm, bk, bn in MAIN_PATH_GEOMETRIES:
+        for esz in (2, 4):
+            t = tspmm.kernel_tile(bm, bk, bn, esz)
+            rows, cols = t.extents
+            ep, eq = (t.tn, bm) if t.swap else (bm, t.tn)
+            assert bn % t.tn == 0 and rows >= ep and cols >= eq
+            assert t.swap == (t.tn > bm)
+            assert t.wp * t.wq <= 8 and t.mt <= 2 and t.nt <= 8
+            for x in (t.wp, t.wq, t.mt, t.nt, t.kc):
+                assert x & (x - 1) == 0
+            assert 16 <= t.kc <= 128 and 3 <= t.stages <= 8
+    # decode: the gate and w_down compute C^T tiles (weight columns on the
+    # MMA rows, the 4 slots padded to one n8 tile); the LM head does not
+    gate = tspmm.kernel_tile(4, 512, 128)
+    assert (gate.tn, gate.swap, gate.extents, gate.kc) == (128, True, (128, 8), 64)
+    head = tspmm.kernel_tile(128, 512, 4)
+    assert (head.tn, head.swap, head.extents) == (4, False, (128, 8))
+    prime = tspmm.kernel_tile(29, 512, 128)
+    assert (prime.swap, prime.extents) == (True, (128, 32))
 
 
 def test_kernel_splits_fill_the_card_without_reading_nnz():
-    # decode w_down: 128 column tiles x 1 block row on 132 SMs -> 5 shares
-    assert tspmm.kernel_splits(128, 86, 132) == 5
-    assert tspmm.kernel_splits(344, 8, 132) == 2  # decode gate
-    assert tspmm.kernel_splits(800, 8, 132) == 1  # LM head: enough tiles already
+    """S minimises waves of resident CTAs times ring steps per CTA (K chunks
+    plus a fixed 4), smallest on ties, evened out so no share is empty."""
+    # decode gate: 86 column tiles, 8 K blocks of 8 chunks, 3 CTAs per SM:
+    # 4 shares of 2 blocks fill one wave of 396 (cost 20; 8 shares: 2 x 12)
+    assert tspmm.kernel_splits(86, 8, 132, chunks=8) == 4
+    # decode w_down: 32 tiles, 86 blocks of 2 chunks: 11 shares of 8 in one
+    # wave (cost 20) beat 86 one-block shares in 7 waves (cost 42)
+    assert tspmm.kernel_splits(32, 86, 132, chunks=2) == 11
+    assert tspmm.kernel_splits(800, 8, 132, chunks=8) == 2  # LM head: 5 waves of 4 blocks
+    assert tspmm.kernel_splits(172, 8, 132, resident=2, chunks=8) == 3  # prefill gate, M = 128
+    assert tspmm.kernel_splits(86, 8, 132, resident=2, chunks=8) == 3  # prefill gate, M = 29
     assert tspmm.kernel_splits(1, 3, 132) == 3  # never more shares than K blocks
+    assert tspmm.kernel_splits(32, 86, 132, cap=4, chunks=2) == 4  # the partial-traffic cap
+
+
+@pytest.mark.parametrize("esz", [2, 4])
+@pytest.mark.parametrize("bm,bk,bn", MAIN_PATH_GEOMETRIES + [(256, 512, 128), (256, 64, 64), (16, 24, 32),
+                                                             (4, 4096, 11008), (8, 16, 16), (512, 512, 128),
+                                                             (300, 64, 64), (2048, 512, 128)])
+def test_kernel_shared_memory_fits_the_block_limit(bm, bk, bn, esz):
+    """The ring (stages x both operand tiles, either orientation, rows
+    padded by 16 bytes) stays within the 227 KB a block may use, at every
+    main-path geometry, prime bm included, and at the tuner's extremes."""
+    t = tspmm.kernel_tile(bm, bk, bn, esz)
+    rows, cols = t.extents
+    assert t.smem == t.stages * tspmm._stage_bytes(rows, cols, t.kc, esz) <= SMEM_LIMIT
+
+
+def test_split_count_is_at_most_kb_and_a_function_of_shapes():
+    """S never exceeds Kb, every share of a dense row is non-empty, and S is
+    computed from shapes alone: ``launch_splits`` takes no plan, so plans
+    with other nnz at one geometry get the same S (the grid families stay
+    bit-identical)."""
+    for tiles in (1, 7, 32, 86, 800, 5000):
+        for kb in (1, 2, 3, 8, 86, 300):
+            s = tspmm.kernel_splits(tiles, kb, 132, chunks=2)
+            assert 1 <= s <= kb
+            per = -(-kb // s)
+            assert (s - 1) * per < kb  # the last share of a dense row is non-empty
+    import inspect
+
+    assert "nnz" not in inspect.signature(tspmm.launch_splits).parameters
+
+
+def test_launch_refuses_geometries_the_kernel_cannot_take():
+    """The CUDA wrapper raises before anything launches for bm past 2048
+    rows or a grid past 65535 block rows (the CPU tensors here never reach a
+    device: the check comes first)."""
+    a, b = torch.zeros(4096, 64), torch.zeros(64, 64)
+    nnz, idx = tspmm.dense_plan(1, 1)
+    with pytest.raises(ValueError, match="rows"):
+        tspmm._launch("planned", nnz, idx, a, b, 4096, 64, 64, None, "ragged", None)
+    with pytest.raises(ValueError, match="y extent"):
+        tspmm.check_launch(65536 * 2, 2, 16, 16)
+    tspmm.check_launch(4, 4, 512, 128)
+    tspmm.check_launch(29, 29, 512, 128)
+    tspmm.check_launch(1024, 512, 512, 128)  # block rows past 256 go in slices
+
+
+@pytest.mark.parametrize("bm,rows", [(4, 4), (29, 29), (256, 256), (257, 1), (300, 150), (512, 256),
+                                     (1000, 250), (2048, 256)])
+def test_tall_block_rows_are_cut_into_equal_slices(bm, rows):
+    """A block row up to 256 rows is one CTA's tile; a taller one is cut
+    into equal slices, the largest divisor of bm up to 256 rows each."""
+    t = tspmm.kernel_tile(bm, 512, 128)
+    assert (t.rows, t.slices) == (rows, bm // rows)
+    assert t.extents[int(t.swap)] >= t.rows  # the padded MMA extent along the rows covers them
+
+
+def test_arrival_counters_are_per_stream():
+    """Each stream of a device gets its own counter workspace, so launches
+    on two streams never count into one another's counters."""
+    cpu = torch.device("cpu")
+    try:
+        one, two = tspmm._arrivals(cpu, 1, 10), tspmm._arrivals(cpu, 2, 10)
+        assert one is not two and tspmm._arrivals(cpu, 1, 10) is one
+        assert int(one.count_nonzero()) == 0 and one.numel() >= 10
+        assert tspmm._arrivals(cpu, 1, 1 << 17).numel() >= 1 << 17  # outgrown: made anew
+    finally:
+        for key in [k for k in tspmm._ARRIVALS if k[0] is None]:
+            del tspmm._ARRIVALS[key]
+
+
+def test_launch_arguments_match_the_cuda_struct():
+    """``SpmmArgs`` lists the C struct's fields in its order."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    src = (Path(_build.CSRC) / "tensordash_spmm.cu").read_text()
+    body = src[src.index("struct TdSpmmArgs {"):].split("};")[0].split("{", 1)[1]
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        first, *rest = decl.split(",")
+        names += [first.split()[-1].lstrip("*")] + [r.strip() for r in rest]
+    assert names == [f for f, _ in _build.SpmmArgs._fields_]
 
 
 def test_vector_loads_only_when_aligned():
