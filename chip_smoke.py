@@ -33,8 +33,27 @@ from the root of a checkout, on a machine with one H100.  It
    the tuned DB, and with a DB that pins the FFN to the explicit geometry
    on the v2 grid, which must launch the v2 kernels and give the ragged
    serve's greedy tokens exactly; it counts host syncs per decode step;
-8. prints a ``kernels`` JSON line, the card line, and last the result line
-   ``{"ok": true, "device": {...}}``; the full per-case table goes to
+8. holds the planned kernel at the training step's backward shapes (one
+   microbatch of 1024 tokens at full widths, fp32 operands and transposed
+   views, bf16 output: the gate's, ``w_down``'s and the LM head's ``da``
+   and ``db``) against its plain version (fp32, rtol = atol = 2e-4), its
+   bf16 store equal to one rounding of its fp32 result, v2/v1 bit-equal on
+   two rows, each timed against one fp32 ``torch.matmul`` and its bound;
+   ``block_zero_mask`` on the two fp32 cotangents; one device launch per
+   wrapper call;
+9. trains deepseek-7b-ReLU at full width cut to 4 layers (bf16 params,
+   fp32 AdamW moments; 30 layers of that state would not fit the card's 80
+   GB) through ``make_train_step`` on the ``cuda`` backend: step 1's loss
+   and gradients against the ``dense`` backend on the card (loss within
+   2^-7 relative, each gradient within relative L2 2^-5), 3 timed steps
+   (ms, tokens/s, peak memory, loss, grad_norm, taps) whose kernel launches
+   and plan-cache hits and misses must equal what the path implies (remat's
+   recompute included) with no plain executor run, two profiled steps
+   (device time by kernel), and a ``guard_nonfinite`` step with poison 2
+   that must leave params and optimizer state unchanged;
+10. prints a ``kernels`` JSON line (each kernel with its launches on the
+   serving path and per training step), the card line, and last the result
+   line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
 
 Any failed phase raises, and the script exits non-zero without the result
@@ -76,6 +95,17 @@ COMPARE_RATE = 67e12
 PREFILL_ROWS = (128, 29)
 #: wrapper calls per case of the launch check
 LAUNCH_REPS = 3
+#: the training phase: deepseek-7b-ReLU at full width cut to TRAIN_LAYERS
+#: layers (30 layers of bf16 params, fp32 gradient accumulators and fp32
+#: AdamW moments need ~110 GB, more than the card's 80 GB; 4 layers make
+#: 1.65 B params, ~26 GB of state), a global batch of TRAIN_BATCH x
+#: TRAIN_SEQ tokens in TRAIN_MICRO microbatches of TRAIN_TOKENS tokens
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 8, 256, 2, 3
+TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ // TRAIN_MICRO
+#: cuda vs dense on step 1 (both bf16 forwards that sum blocks in other
+#: orders, as REF_REL_L2 says for serving): loss relative, each leaf's
+#: gradient relative L2
+LOSS_REL, GRAD_REL_L2 = 2**-7, 2**-5
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -178,11 +208,13 @@ def block_sparse(m, k, bm, bk, density, gen, *, skew=1.0, zero_every=None):
     return (a.reshape(mb, bm, kb, bk) * keep[:, None, :, None]).reshape(m, k)
 
 
-def plan_bytes_flops(nnz, idx, a, b, bm, bk, *, out_elems, extra_bytes=0):
+def plan_bytes_flops(nnz, idx, a, b, bm, bk, *, out_elems, extra_bytes=0, out_esz=None):
     """Least bytes and operations of a planned product on this data: each
     effectual A block and each needed B row block read once, the output
-    and the metadata written/read once."""
+    (``out_esz`` bytes an element, the operands' by default) and the
+    metadata written/read once."""
     esz = a.element_size()
+    out_esz = out_esz or esz
     nnz_h, idx_h = nnz.cpu(), idx.cpu()
     eff = int(nnz_h.sum())
     used_k = set()
@@ -190,7 +222,7 @@ def plan_bytes_flops(nnz, idx, a, b, bm, bk, *, out_elems, extra_bytes=0):
         used_k.update(idx_h[r, : int(nnz_h[r])].tolist())
     n = b.shape[1]
     meta = 4 * (2 * nnz_h.numel() + 1 + max(eff, nnz_h.numel()))
-    bytes_ = eff * bm * bk * esz + len(used_k) * bk * n * esz + out_elems * esz + meta + extra_bytes
+    bytes_ = eff * bm * bk * esz + len(used_k) * bk * n * esz + out_elems * out_esz + meta + extra_bytes
     return bytes_, 2.0 * eff * bm * bk * n
 
 
@@ -341,18 +373,24 @@ def count_launches(calls: dict) -> dict:
     """Exactly one CUDA launch per wrapper call: ``torch.profiler`` counts
     the device work of ``LAUNCH_REPS`` calls of each case (warm: every case
     ran before); all of it must be ``td_spmm_kernel`` launches, one per
-    call, with no split-K reduction kernel and no mask fill."""
+    call, with no split-K reduction kernel and no mask fill.  A session
+    opens with a few spin kernels, left out of the count: a profiler session
+    after the first in a process was seen to miss its first launches."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for call in calls.values():
             for _ in range(LAUNCH_REPS):
                 call()
         torch.cuda.synchronize()
     device = [(e.key, e.count) for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and e.count]
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and e.count
+              and "spin_kernel" not in e.key]
     n_calls = len(calls) * LAUNCH_REPS
     n_device = sum(c for _, c in device)
     others = [k for k, _ in device if "td_spmm_kernel" not in k]
@@ -521,13 +559,47 @@ def reference_phase(params, cfg, prompts):
 # ---------------------------------------------------------------------------
 
 
+def mask_row(label, x, bm, bk, bw, main=False, stage=None):
+    """``block_zero_mask`` of ``x`` exactly equal to its plain version,
+    timed beside ``torch.count_nonzero`` of the same blocks and its bound."""
+    import torch
+    from repro_torch.kernels import block_zero_mask, ref
+
+    mask, want = block_zero_mask(x, bm=bm, bk=bk), ref.block_any_nonzero(x, bm, bk)
+    torch.cuda.synchronize()
+    if not torch.equal(mask, want):
+        raise AssertionError(f"block_zero_mask {label}: differs from the plain version")
+    mb, kb = x.shape[0] // bm, x.shape[1] // bk
+    # what this data needs: every element of an all-zero block, one
+    # element of a block that has a nonzero, and the mask written
+    zero = int((want == 0).sum())
+    reads = zero * bm * bk + (mb * kb - zero)
+    nbytes = reads * x.element_size() + mb * kb
+    t_bytes, t_ops = nbytes / bw * 1e3, reads / COMPARE_RATE * 1e3
+    row = {
+        "case": label, "kernel": "block_zero_mask", "dtype": str(x.dtype).replace("torch.", ""),
+        "shape": f"[{x.shape[0]},{x.shape[1]}] strides {tuple(x.stride())}", "block": (bm, bk),
+        "zero_blocks": zero, "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: block_zero_mask(x, bm=bm, bk=bk)),
+        "plain_ms": cuda_ms(lambda: ref.block_any_nonzero(x, bm, bk), iters=5),
+        "library_ms": cuda_ms(lambda: torch.count_nonzero(x.reshape(mb, bm, kb, bk), dim=(1, 3))),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "main_path": main, "stage": stage,
+    }
+    log(f"  block_zero_mask {label:<21} {row['dtype']:<8} {row['shape']:<34} kernel "
+        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  torch.count_nonzero "
+        f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
+        f"{row['zero_blocks']}/{mb * kb} zero blocks, exact")
+    return row
+
+
 def grid_kernel_phase(bw: float):
     """v2/v1 planned and fused at the decode and small shapes: bit-equal to
     the ragged kernel at the same geometry, within tolerance of the plain
     version, masks equal; then ``block_zero_mask`` exactly equal to its
     plain version.  Each case is timed beside its bound and one torch call."""
     import torch
-    from repro_torch.kernels import block_zero_mask, ref, tensordash_spmm as T
+    from repro_torch.kernels import ref, tensordash_spmm as T
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
@@ -607,41 +679,13 @@ def grid_kernel_phase(bw: float):
             grid_case(f"sparse 0.4 fused {act}+bias+res", True, dtype, a, b, bm, bk, bn, plan,
                       bias=bias, residual=res, activation=act)
 
-    def mask_case(label, x, bm, bk, main=False):
-        mask, want = block_zero_mask(x, bm=bm, bk=bk), ref.block_any_nonzero(x, bm, bk)
-        torch.cuda.synchronize()
-        if not torch.equal(mask, want):
-            raise AssertionError(f"block_zero_mask {label}: differs from the plain version")
-        mb, kb = x.shape[0] // bm, x.shape[1] // bk
-        # what this data needs: every element of an all-zero block, one
-        # element of a block that has a nonzero, and the mask written
-        zero = int((want == 0).sum())
-        reads = zero * bm * bk + (mb * kb - zero)
-        nbytes = reads * x.element_size() + mb * kb
-        t_bytes, t_ops = nbytes / bw * 1e3, reads / COMPARE_RATE * 1e3
-        row = {
-            "case": label, "kernel": "block_zero_mask", "dtype": str(x.dtype).replace("torch.", ""),
-            "shape": f"[{x.shape[0]},{x.shape[1]}] strides {tuple(x.stride())}", "block": (bm, bk),
-            "zero_blocks": zero, "max_abs_err": 0.0,
-            "ms": cuda_ms(lambda: block_zero_mask(x, bm=bm, bk=bk)),
-            "plain_ms": cuda_ms(lambda: ref.block_any_nonzero(x, bm, bk), iters=5),
-            "library_ms": cuda_ms(lambda: torch.count_nonzero(x.reshape(mb, bm, kb, bk), dim=(1, 3))),
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "main_path": main,
-        }
-        rows.append(row)
-        log(f"  block_zero_mask {label:<21} {row['dtype']:<8} {row['shape']:<34} kernel "
-            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  torch.count_nonzero "
-            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
-            f"{row['zero_blocks']}/{mb * kb} zero blocks, exact")
-
     xw = torch.randn(4096, 11008, generator=gdev, device=dev).to(bf16)
     planted = torch.rand(32, 86, generator=gdev, device=dev) < 0.3  # 128 x 128 zero blocks
     xw = (xw.reshape(32, 128, 86, 128) * ~planted[:, None, :, None]).reshape(4096, 11008)
-    mask_case("planted zero blocks", xw, 128, 128)
+    rows.append(mask_row("planted zero blocks", xw, 128, 128, bw))
     del xw
     lm_head = (torch.randn(4096, 102400, generator=gdev, device=dev) / 64).to(bf16)
-    mask_case("LM head lm_head.T", lm_head.T, 128, 512, main=True)
+    rows.append(mask_row("LM head lm_head.T", lm_head.T, 128, 512, bw, main=True))
     return rows
 
 
@@ -772,6 +816,320 @@ def serve_auto_phase(params, cfg, prompts, tuned_db, ragged_tokens):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# training: the backward products at training shapes, then train steps
+# ---------------------------------------------------------------------------
+
+
+def train_kernel_phase(bw: float):
+    """The planned kernel at the training step's backward shapes: one
+    microbatch of TRAIN_TOKENS tokens at full deepseek-7b widths, fp32
+    operands (transposed views where the backward takes them) and a bf16
+    output, as ``runtime.autodiff`` runs them for a bf16 model.  Each row's
+    arithmetic is held against the plain version in fp32 (the kernel's own
+    fp32 output, rtol = atol = 2e-4), its bf16 output equal bit for bit to
+    that fp32 output rounded once to bf16 (the store), and v2/v1 bit-equal
+    to ragged on two rows; timed beside one ``torch.matmul`` of the same
+    fp32 product and its bound.  Then ``block_zero_mask`` on the two fp32
+    cotangents planned by value, and a launch count: one device launch per
+    wrapper call of the fp32-in, bf16-out instantiation."""
+    import torch
+    from repro_torch.kernels import ref, tensordash_spmm as T
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    t, d, f, v = TRAIN_TOKENS, 4096, 11008, 102400
+    rows, calls = [], {}
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def planted(m, n, bm, bn, density):
+        keep = torch.rand(m // bm, n // bn, generator=gen, device=dev) < density
+        return keep.to(torch.int8)
+
+    def masked(x, mask):  # zero the 128 x 128 blocks of x that mask drops
+        m, n = x.shape
+        return (x.reshape(m // 128, 128, n // 128, 128) * mask[:, None, :, None]).reshape(m, n)
+
+    def bwd_case(label, a, b, bm, bk, bn, plan, *, grids=False):
+        nnz, idx, rs, wr, wk = plan
+        m, k, n = a.shape[0], a.shape[1], b.shape[1]
+        call = lambda: T.tensordash_matmul_planned(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, out_dtype=bf16,
+                                                   workqueue=(rs, wr, wk))
+        out, out32 = call(), T.tensordash_matmul_planned(nnz, idx, a, b, bm=bm, bk=bk, bn=bn,
+                                                         workqueue=(rs, wr, wk))
+        plain = lambda: ref.tensordash_matmul_ref(nnz, idx, a, b, bm=bm, bk=bk, bn=bn)
+        err = check_close(label, out32, plain())
+        if out.dtype != bf16 or not torch.equal(out, out32.to(bf16)):
+            raise AssertionError(f"{label}: the bf16 store is not one rounding of the fp32 accumulator")
+        if grids:
+            for grid in ("v2", "v1"):
+                got = T.tensordash_matmul_planned(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, out_dtype=bf16,
+                                                  compact_grid=grid)
+                if not torch.equal(got, out):
+                    raise AssertionError(f"{label} {grid}: not bit-equal to the ragged kernel")
+        del out32
+        calls[label] = call
+        nbytes, flops = plan_bytes_flops(nnz, idx, a, b, bm, bk, out_elems=m * n, out_esz=2)
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / PEAK_FLOPS["torch.float32"] * 1e3
+        row = {
+            "case": label, "kernel": "tensordash_matmul_planned", "dtype": "float32->bfloat16",
+            "shape": f"[{m},{k}]@[{k},{n}]", "strides": (tuple(a.stride()), tuple(b.stride())),
+            "block": (bm, bk, bn), "density": float(nnz.sum()) / idx.numel(), "max_abs_err": err,
+            "ms": cuda_ms(call, iters=5, warmup=1), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.matmul(a, b), iters=5, warmup=1),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "main_path": True, "stage": "train", "v2_v1_equal": grids,
+            "tile": T.kernel_tile(bm, bk, bn, 4)._asdict(),
+            "splits": T.launch_splits(m, k, n, bm, bk, bn, dev, f32),
+        }
+        row["ratio"], row["bound_share"] = row["ms"] / row["library_ms"], row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log(f"  {label:<30} f32->bf16 {row['shape']:<26} density {row['density']:.2f}  kernel "
+            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  torch.matmul {row['library_ms']:.4f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})  {versus(row)}  max_abs_err {err:.3e}  "
+            f"S {row['splits']}{'  v2/v1 == ragged' if grids else ''}")
+
+    # the FFN gate (fused ReLU): g_pre [T, d_ff] behind a 40% emitted mask
+    gmask = planted(t, f, 128, 128, 0.4)
+    g_pre = masked(rand(t, f), gmask)
+    w_gate = rand(d, f, scale=1 / 64).to(bf16)
+    bwd_case("gate da = g @ w_gate.T", g_pre, w_gate.float().T, 128, 128, 512,
+             T.plan_from_mask_csr(gmask))
+    del w_gate
+    x2 = rand(t, d).to(bf16)
+    dnnz, didx = T.dense_plan(t // 128, d // 512, dev)
+    bwd_case("gate db = x.T @ g", x2.float().T, g_pre, 512, 128, 128,
+             T.transpose_plan_csr(dnnz, didx), grids=True)
+    del x2
+    # w_down: the cotangent planned by value (planted zero blocks), h2 by its mask
+    g = masked(rand(t, d), planted(t, d, 128, 128, 0.4))
+    w_down = rand(f, d, scale=1 / 105).to(bf16)
+    bwd_case("w_down da = g @ w_down.T", g, w_down.float().T, 128, 128, 128,
+             T.plan_blocks_csr(g, 128, 128), grids=True)
+    del w_down
+    h2 = g_pre.to(bf16)  # the gate's blocks: h = relu(gate) * up keeps them
+    hnnz, hidx = T.plan_from_mask(gmask)
+    bwd_case("w_down db = h.T @ g", h2.float().T, g, 128, 128, 128, T.transpose_plan_csr(hnnz, hidx))
+    mask_rows = [mask_row("w_down cotangent", g, 128, 128, bw, main=True, stage="train")]
+    del h2, g_pre, g
+    # the LM head, side B: g' = dlogits.T [V, T], a strided view
+    dlogits = rand(t, v, scale=1e-4)
+    gt = dlogits.T
+    h = rand(t, d).to(bf16)
+    bwd_case("LM head da = g'.T-view @ h", gt, h.float(), 128, 128, 512, T.plan_blocks_csr(gt, 128, 128))
+    lm_head = rand(d, v, scale=1 / 64).to(bf16)
+    wnnz, widx = T.plan_blocks(lm_head.T, 128, 512)
+    bwd_case("LM head db = lm_head @ g'", lm_head.T.float().T, gt, 512, 128, 128,
+             T.transpose_plan_csr(wnnz, widx))
+    mask_rows.append(mask_row("LM head cotangent", gt, 128, 128, bw, main=True, stage="train"))
+    del lm_head, h, dlogits, gt
+    launch = count_launches(calls)
+    torch.cuda.empty_cache()
+    return rows + mask_rows, launch
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+
+    den = float(torch.linalg.vector_norm(want.float()))
+    return float(torch.linalg.vector_norm(got.float() - want.float())) / max(den, 1e-30)
+
+
+def train_phase():
+    """Train full-width deepseek-7b-ReLU, cut to TRAIN_LAYERS layers, on the
+    ``cuda`` backend through ``make_train_step``: step 1's loss and
+    gradients against the ``dense`` backend on the card, TRAIN_STEPS timed
+    steps with their launch and plan-cache counts held to what the path
+    implies, two profiled steps, a poisoned step that must be skipped, and
+    the same steps on the ``dense`` backend as a yardstick."""
+    import dataclasses
+
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ref, tensordash_spmm as T
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import OptConfig, global_norm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as S
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), activation="relu", num_layers=TRAIN_LAYERS)
+    L, mb = cfg.num_layers, TRAIN_MICRO
+    t0 = time.perf_counter()
+    params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda")
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    opt_cfg = OptConfig(lr=1e-4, warmup_steps=1)
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+    with rt.use():
+        opt = S.init_train_state(cfg, params)
+        step = S.make_train_step(cfg, opt_cfg, microbatches=mb, sparsity_taps=True)
+    torch.cuda.synchronize()
+    log(f"train: deepseek-7b relu cut to {L} layers (d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, remat {cfg.remat}), {cfg.param_count() / 1e9:.3f} B bf16 params and fp32 "
+        f"AdamW moments on the card in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {mb} microbatches")
+
+    # step 1's loss and gradients: cuda against dense, on the card
+    loss_fn, batch0 = S.make_loss_fn(cfg), data.batch_at(0)
+    got = {}
+    for backend in ("cuda", "dense"):
+        with rtm.Runtime(backend=backend, device="cuda").use():
+            loss, grads, _ = S.accumulate_grads(loss_fn, cfg, params, batch0, microbatches=mb)
+        got[backend] = (float(loss), grads)
+    (lc, gc), (ld, gd) = got["cuda"], got["dense"]
+    loss_rel = abs(lc - ld) / abs(ld)
+    names = [f"leaf{i}:{tuple(p.shape)}" for i, p in enumerate(tree_leaves(params))]
+    rels = {n: _rel_l2(a, b) for n, a, b in zip(names, gc, gd)}
+    worst = max(rels, key=rels.get)
+    del got, gc, gd
+    torch.cuda.empty_cache()
+    log(f"train: step 1 on cuda vs dense: loss {lc:.6f} vs {ld:.6f} (relative {loss_rel:.3e}, bound "
+        f"{LOSS_REL:.3e}); gradients worst relative L2 {rels[worst]:.3e} at {worst} (bound "
+        f"{GRAD_REL_L2:.3e}), over {len(rels)} leaves")
+    if not (loss_rel <= LOSS_REL and rels[worst] <= GRAD_REL_L2):
+        raise AssertionError(f"train: cuda disagrees with dense (loss {loss_rel}, grads {rels[worst]})")
+
+    # TRAIN_STEPS timed steps: every planned product through the kernels
+    r = 2 if cfg.remat else 1  # remat runs each layer's forward again in the backward
+    want = {c: 0 for c in T.launch_counts()}
+    want.update({"tensordash_matmul_fused": r * L * mb,  # gates
+                 # w_down forward (r), LM head forward, backward: 2 per gate, w_down and LM head
+                 "tensordash_matmul_planned": (r * L + 1 + 4 * L + 2) * mb,
+                 # cotangents planned by value (w_down, LM head), the LM-head weight plan once
+                 "block_zero_mask": (L + 1) * mb + 1})
+    plain_calls = []
+    orig_plain = (ref.tensordash_matmul_ref, ref.tensordash_matmul_fused_ref)
+
+    def guard(fn):
+        def wrapped(*args, **kw):
+            plain_calls.append(fn.__name__)
+            return fn(*args, **kw)
+        return wrapped
+
+    steps, prev = [], rt.plan_cache.stats()
+    torch.cuda.reset_peak_memory_stats()
+    ref.tensordash_matmul_ref, ref.tensordash_matmul_fused_ref = map(guard, orig_plain)
+    try:
+        with rt.use():
+            for i in range(TRAIN_STEPS):
+                T.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, data.batch_at(i))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches, pc = T.launch_counts(), rt.plan_cache.stats()
+                hits, misses = pc["hits"] - prev["hits"], pc["misses"] - prev["misses"]
+                prev = pc
+                steps.append({
+                    "step": i + 1, "ms": wall * 1e3, "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+                    "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "lr": m["lr"],
+                    "A_density": m["A_density"].tolist(), "G_density": m["G_density"].tolist(),
+                    "modeled_speedup": float(m["modeled_speedup"]), "launches": launches,
+                    "plan_cache_hits": hits, "plan_cache_misses": misses,
+                })
+                st = steps[-1]
+                log(f"train: step {i + 1}: {st['ms']:.1f} ms, {st['tok_per_s']:.1f} tok/s, loss "
+                    f"{st['loss']:.6f}, grad_norm {st['grad_norm']:.6f}, plan cache +{hits} hits / "
+                    f"+{misses} misses, launches {launches}")
+                first = int(i == 0)  # the dense gate plan's transpose, built once per run
+                # LM-head plan 1 hit (2nd microbatch); gate lhs-T every gate but the
+                # run's first; LM-head lhs-T 1 (2nd microbatch)
+                want_hits = 1 + (L * mb - first) + 1
+                # LM-head plan 1 (replanned after the update), gate lhs-T (first step),
+                # w_down lhs-T (fresh emitted masks), LM-head lhs-T 1, cotangents
+                want_misses = 1 + first + L * mb + 1 + L * mb + mb
+                if launches != want:
+                    raise AssertionError(f"train step {i + 1}: launches {launches} != path's {want}")
+                if (hits, misses) != (want_hits, want_misses):
+                    raise AssertionError(f"train step {i + 1}: plan cache +{hits}/+{misses}, path "
+                                         f"implies +{want_hits}/+{want_misses}")
+                if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+                    raise AssertionError(f"train step {i + 1}: non-finite loss or gradient norm")
+    finally:
+        ref.tensordash_matmul_ref, ref.tensordash_matmul_fused_ref = orig_plain
+    if plain_calls:
+        raise AssertionError(f"train ran plain executors: {sorted(set(plain_calls))}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    sim = S.modeled_speedup(m, cfg, max_t=32, sample_groups=1)
+    # the last update changed the LM head in place: its cached plan is stale
+    # now and must not be found (the next step replans it)
+    lm_head = params["lm_head"]
+    if rt.plan_cache.lookup(("lm_head", id(lm_head)), lm_head, 128, 512, side="B") is not None:
+        raise AssertionError("train: the LM-head plan of the updated weight was hit stale")
+    log(f"train: {TRAIN_STEPS} steps; launches per step {want} == path's (gates {r} x {L} x {mb}, "
+        f"planned ({r} x {L} + 1 + 4 x {L} + 2) x {mb}, block_zero_mask ({L} + 1) x {mb} + 1); "
+        f"no plain executor ran; the updated LM head's stale plan is not found; peak memory "
+        f"{peak:.2f} GB; step 1 loss {steps[0]['loss']:.6f} (its checked gradient pass: {lc:.6f})")
+    log(f"train: last step A_density {steps[-1]['A_density']}, G_density {steps[-1]['G_density']}, "
+        f"modeled_speedup {steps[-1]['modeled_speedup']:.4f} (ideal), perf model {sim}")
+
+    # two profiled steps: where the device time goes, by kernel
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with rt.use(), torch.profiler.profile(activities=acts) as prof:
+        for i in range(2):
+            params, opt, _ = step(params, opt, data.batch_at(TRAIN_STEPS + i))
+        torch.cuda.synchronize()
+    from repro_torch.launch.profile_decode import _device_us
+
+    dev_events = [(e.key, e.count, _device_us(e) / 1e3) for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and e.count]
+    busy = sum(ms for _, _, ms in dev_events) / 2
+    top = sorted(dev_events, key=lambda e: -e[2])[:12]
+    log(f"train profile: device busy {busy:.3f} ms per step, "
+        f"{sum(c for _, c, _ in dev_events) / 2:.0f} device launches per step")
+    for key, count, ms in top:
+        log(f"train profile:   {ms / 2:9.3f} ms/step  {count / 2:6.0f} calls/step  {key[:110]}")
+
+    # a poisoned step under guard_nonfinite leaves params and optimizer state unchanged
+    with rt.use():
+        gstep = S.make_train_step(cfg, opt_cfg, microbatches=mb, guard_nonfinite=True)
+        before = [p.detach().clone() for p in tree_leaves(params)]
+        norms = (float(global_norm(opt.m)), float(global_norm(opt.v)))
+        params, opt2, gm = gstep(params, opt, data.batch_at(0), poison=2)
+    same = all(torch.equal(a, b) for a, b in zip(before, tree_leaves(params)))
+    if not (gm["nonfinite"] == 1 and same and opt2.step == opt.step
+            and norms == (float(global_norm(opt2.m)), float(global_norm(opt2.v)))):
+        raise AssertionError("train: a poisoned guard_nonfinite step changed params or optimizer state")
+    log("train: guard_nonfinite step with poison=2 skipped: params and optimizer state unchanged")
+    del before, params, opt, opt2, m, gm, rt, step, gstep, prof
+    torch.cuda.empty_cache()
+
+    # the same steps from the same seed on the dense backend (cuBLAS bf16
+    # products, plain autograd): the step's library yardstick and the loss
+    # trajectory beside the cuda run's; reported, not gated
+    params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda")
+    with rtm.Runtime(backend="dense", device="cuda").use():
+        opt = S.init_train_state(cfg, params)
+        step = S.make_train_step(cfg, opt_cfg, microbatches=mb, sparsity_taps=True)
+        dense = []
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, dm = step(params, opt, data.batch_at(i))
+            torch.cuda.synchronize()
+            dense.append({"step": i + 1, "ms": (time.perf_counter() - t0) * 1e3, "loss": float(dm["loss"]),
+                          "grad_norm": float(dm["grad_norm"])})
+    log("train dense: " + "; ".join(f"step {d['step']}: {d['ms']:.1f} ms, loss {d['loss']:.6f}, grad_norm "
+                                    f"{d['grad_norm']:.6f}" for d in dense))
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return {
+        "layers": L, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": mb, "remat": cfg.remat,
+        "params_b": cfg.param_count() / 1e9, "steps": steps, "peak_mem_gb": peak,
+        "launches_per_step": want, "loss_rel_vs_dense": loss_rel, "grad_rel_l2_vs_dense": rels,
+        "perf_model": sim, "profile": {"busy_ms_per_step": busy,
+                                       "top": [(k, c / 2, ms / 2) for k, c, ms in top]},
+        "dense_steps": dense,
+    }
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository (src/repro_torch missing)",
@@ -806,6 +1164,11 @@ def main() -> int:
     grid_rows = grid_kernel_phase(bw)
     tuned_db, tune = tune_phase()
     auto = serve_auto_phase(params, cfg, prompts, tuned_db, serve["greedy_tokens"])
+    del params
+    torch.cuda.empty_cache()
+    log(f"train kernels: the backward products at {TRAIN_TOKENS} tokens, fp32 operands, bf16 output")
+    train_rows, train_launch = train_kernel_phase(bw)
+    train = train_phase()
 
     pinned = auto["pinned_v2"]["launches"]
     path_launches = {
@@ -817,9 +1180,14 @@ def main() -> int:
         + pinned["tensordash_matmul_planned[v1]"],
         "block_zero_mask": pinned["block_zero_mask"],
     }
+    per_train_step = dict(train["launches_per_step"])
+    per_train_step["tensordash_matmul_planned[v2/v1]"] = (per_train_step["tensordash_matmul_planned[v2]"]
+                                                          + per_train_step["tensordash_matmul_planned[v1]"])
+    per_train_step["tensordash_matmul_fused[v2/v1]"] = (per_train_step["tensordash_matmul_fused[v2]"]
+                                                        + per_train_step["tensordash_matmul_fused[v1]"])
     kernels = []
     for kname in REPLACES:
-        mine = [r for r in rows + grid_rows if r["kernel"] == kname]
+        mine = [r for r in rows + grid_rows + train_rows if r["kernel"] == kname]
         head = next(r for r in mine if r["main_path"])  # the first main-path decode shape
         kernels.append({
             "name": kname, "route": "cuda",
@@ -828,14 +1196,15 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": head["shape"],
+            "shape": head["shape"], "launches_per_train_step": per_train_step[kname],
         })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "cases": rows + grid_rows, "launch_check": launch_check, "serve": serve,
          "ptxas": ptxas_lines(_build.ptxas_report), "reference_rel_l2": ref_l2,
-         "reference_top1": top1, "tune": tune, "serve_auto": auto,
+         "reference_top1": top1, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
+         "train_launch_check": train_launch, "train": train,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

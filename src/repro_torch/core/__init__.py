@@ -1,5 +1,6 @@
 """TensorDash core: the paper's scheduler, PE and accelerator performance
-model (port of ``repro.core``, the part ``tune`` needs), in host numpy."""
+model (port of ``repro.core``, the parts ``tune`` and the train step's
+taps need), in host numpy; :mod:`.sparsity` measures tensors in torch."""
 from repro_torch.core.pe import dense_cycles, simulate_stream, simulate_tile
 from repro_torch.core.perf_model import (
     BWD_INPUT,
@@ -8,9 +9,11 @@ from repro_torch.core.perf_model import (
     ConvLayer,
     ConvResult,
     TileConfig,
+    ffn_layers_from_config,
     make_clustered_masks,
     model_speedup,
     simulate_conv,
+    speedup_from_densities,
 )
 from repro_torch.core.scheduler import connectivity, drain_count, levels, make_schedule_step
 
@@ -28,6 +31,8 @@ __all__ = [
     "make_clustered_masks",
     "simulate_conv",
     "model_speedup",
+    "ffn_layers_from_config",
+    "speedup_from_densities",
     "FWD",
     "BWD_INPUT",
     "BWD_WEIGHT",

@@ -1,6 +1,8 @@
 """TensorDash accelerator performance model (port of
 ``repro/core/perf_model.py``: the layer and tile types, the clustered-mask
-generator, :func:`simulate_conv` and :func:`model_speedup`, in numpy).
+generator, :func:`simulate_conv`, :func:`model_speedup` and the training
+taps' :func:`ffn_layers_from_config` / :func:`speedup_from_densities`, in
+numpy).
 
 Maps DNN layer workloads onto the tile/PE simulators of :mod:`repro_torch.core.pe`
 to estimate cycles for the dense baseline accelerator and for TensorDash,
@@ -33,6 +35,8 @@ __all__ = [
     "simulate_conv",
     "ConvResult",
     "model_speedup",
+    "ffn_layers_from_config",
+    "speedup_from_densities",
     "FWD",
     "BWD_INPUT",
     "BWD_WEIGHT",
@@ -186,3 +190,40 @@ def model_speedup(
     dense_all = sum(d for _, d in totals.values())
     out["overall"] = dense_all / max(td_all, 1.0)
     return out
+
+
+def ffn_layers_from_config(cfg, n_layers: int | None = None) -> list[ConvLayer]:
+    """Each layer's FFN contraction ``h @ w_down`` as an FC layer (``kx = ky
+    = ox = oy = 1``, reduction over ``d_ff``, one output per ``d_model``
+    unit): the layer set the training taps feed into :func:`model_speedup`."""
+    n = n_layers if n_layers is not None else cfg.num_layers
+    d_ff = cfg.d_ff or cfg.d_model * 4
+    return [
+        ConvLayer(name=f"ffn{i}", c_in=d_ff, kx=1, ky=1, c_out=cfg.d_model, ox=1, oy=1)
+        for i in range(n)
+    ]
+
+
+def speedup_from_densities(
+    a_density: Sequence[float],
+    g_density: Sequence[float],
+    layers: Sequence[ConvLayer],
+    **kw,
+) -> dict[str, float]:
+    """Measured per-layer A and G densities -> modeled TensorDash speedup
+    (the live Fig. 14 estimator): FWD is sparse in A, BWD_INPUT in G_O,
+    BWD_WEIGHT in the sparser of the two (paper Eq. 1-3).  ``kw`` goes to
+    :func:`model_speedup`."""
+    if len(a_density) != len(layers) or len(g_density) != len(layers):
+        raise ValueError(
+            f"{len(layers)} layers but {len(a_density)} A / {len(g_density)} G densities"
+        )
+    spars = [
+        {
+            FWD: 1.0 - float(ad),
+            BWD_INPUT: 1.0 - float(gd),
+            BWD_WEIGHT: max(1.0 - float(ad), 1.0 - float(gd)),
+        }
+        for ad, gd in zip(a_density, g_density)
+    ]
+    return model_speedup(list(layers), spars, **kw)

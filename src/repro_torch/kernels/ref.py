@@ -19,6 +19,7 @@ __all__ = [
     "plan_workqueue_ref",
     "tensordash_matmul_ref",
     "tensordash_matmul_fused_ref",
+    "matmul_grads_ref",
 ]
 
 
@@ -135,3 +136,13 @@ def tensordash_matmul_fused_ref(nnz, idx, a, b, bias=None, residual=None, *,
     _check_blocks(a, b, bm, bk, bn)
     out32 = _epilogue_ref(_planned_acc(nnz, idx, a, b, bm, bk), bias, residual, activation)
     return out32.to(out_dtype or a.dtype), block_any_nonzero(out32, bm, bn)
+
+
+def matmul_grads_ref(a, b, g):
+    """Dense-math cotangents of ``a @ b`` (fp32 products, operand dtypes
+    restored): the oracle of the planned backward, whose products only skip
+    all-zero blocks of ``g`` and ``a.T``."""
+    g32 = g.float()
+    da = (g32 @ b.float().T).to(a.dtype)
+    db = (a.float().T @ g32).to(b.dtype)
+    return da, db

@@ -20,7 +20,8 @@ The two wrappers run the CUDA kernels of ``csrc/tensordash_spmm.cu``:
 ``"ragged"`` walks the plan's CSR work queue; ``"v2"``/``"v1"`` read
 ``idx[m, k]`` directly over a K bound of ``max(max(nnz), 1)`` (reduced on
 the card, never read on the host) or ``Kb``.  The three families give
-bit-identical results.  On a CPU tensor a wrapper runs the plain executor
+bit-identical results.  The output is written in the operands' dtype, or in
+bfloat16 from float32 operands.  On a CPU tensor a wrapper runs the plain executor
 of :mod:`.ref`; on a CUDA tensor it makes exactly one kernel launch (split-K
 reduced in the same launch; :func:`kernel_tile` and :func:`kernel_splits`
 give its tile and split count from the shapes) or raises.
@@ -49,6 +50,8 @@ __all__ = [
     "plan_from_mask",
     "plan_from_mask_csr",
     "plan_workqueue",
+    "transpose_plan",
+    "transpose_plan_csr",
     "dense_plan",
     "dense_plan_csr",
     "planned_grid_steps",
@@ -167,6 +170,20 @@ def plan_from_mask_csr(mask: torch.Tensor, *, coarsen: int = 1):
     """:func:`plan_from_mask` plus the work queue."""
     nnz, idx = plan_from_mask(mask, coarsen=coarsen)
     return (nnz, idx) + plan_workqueue(nnz, idx)
+
+
+def transpose_plan(nnz: torch.Tensor, idx: torch.Tensor):
+    """Plan of ``a.T`` (blocks ``bk x bm``) from the plan of ``a``: the
+    transposed block mask, compacted.  Metadata only, so the backward's
+    weight-gradient product ``a.T @ g`` (paper Eq. 3) is planned without a
+    second pass over ``a``."""
+    return _mask_to_plan(plan_to_mask(nnz, idx).T)
+
+
+def transpose_plan_csr(nnz: torch.Tensor, idx: torch.Tensor):
+    """:func:`transpose_plan` plus the transposed plan's work queue."""
+    nnz_t, idx_t = transpose_plan(nnz, idx)
+    return (nnz_t, idx_t) + plan_workqueue(nnz_t, idx_t)
 
 
 def planned_grid_steps(nnz, kb: int, mb: int, nb: int, *, compact_grid="ragged") -> int:
@@ -440,15 +457,22 @@ def _launch(wrapper, nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue, *,
 
     m, k, n = ref._check_blocks(a, b, bm, bk, bn)
     check_launch(m, bm, bk, bn)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (a, b, bias, residual)):
+        # the output is filled through a raw pointer and has no grad_fn
+        raise RuntimeError(
+            f"tensordash_matmul_{wrapper}: an operand requires grad; differentiate through "
+            "repro_torch.runtime.autodiff (Runtime.matmul / matmul_fused), or call under torch.no_grad()")
     if b.device != a.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise TypeError(f"CUDA kernel takes float32 or bfloat16 operands of one dtype, got {a.dtype}, {b.dtype}")
-    if out_dtype not in (None, a.dtype):
-        raise TypeError(f"CUDA kernel writes {a.dtype}, not out_dtype={out_dtype}")
+    out_dtype = out_dtype or a.dtype
+    if out_dtype != a.dtype and (a.dtype, out_dtype) != (torch.float32, torch.bfloat16):
+        raise TypeError(f"CUDA kernel writes {a.dtype} operands as {a.dtype} (or float32 as bfloat16), "
+                        f"not as {out_dtype}")
     dev = a.device
     args = _build.SpmmArgs(kdim=0, M=m, K=k, N=n, bm=bm, bk=bk, bn=bn,
-                           activation=_ACT_CODE[activation])
+                           activation=_ACT_CODE[activation], out_bf16=int(out_dtype != a.dtype))
     keep = []  # the tensors behind the pointers, held until the launch is queued
     if grid == "ragged":
         if workqueue is None:
@@ -479,7 +503,7 @@ def _launch(wrapper, nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue, *,
     args.b_vec = (_vec_ok(b, sbn, bk) if sbk == 1 else _vec_ok(b, sbk, tile.tn) if sbn == 1 else 0)
     args.rows, args.TN, args.KC, args.S, args.stages = tile.rows, tile.tn, tile.kc, splits, tile.stages
     args.swap, args.wp, args.wq, args.mt, args.nt = int(tile.swap), tile.wp, tile.wq, tile.mt, tile.nt
-    out = torch.empty((m, n), dtype=a.dtype, device=dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     args.out = out.data_ptr()
     mask = None
     if wrapper == "fused":
@@ -518,8 +542,13 @@ def tensordash_matmul_planned(nnz, idx, a: torch.Tensor, b: torch.Tensor, *,
                               out_dtype=None, compact_grid="ragged", workqueue=None):
     """Block-sparse ``a @ b`` given a precomputed block plan.  ``a`` and ``b``
     may be strided views (the side-B LM head passes ``lm_head.T``); the
-    output is contiguous.  ``workqueue`` optionally supplies the plan's
-    ``(row_starts, work_row, work_kblk)`` (ragged only; v1/v2 read ``idx``)."""
+    output is contiguous, in ``out_dtype``: the operands' dtype, or
+    bfloat16 for float32 operands (the training backward's products), one
+    rounding of the fp32 accumulator in the same launch.  ``workqueue``
+    optionally supplies the plan's ``(row_starts, work_row, work_kblk)``
+    (ragged only; v1/v2 read ``idx``).  The output has no ``grad_fn``: on
+    the card an operand that requires grad raises while grad mode is on
+    (:mod:`repro_torch.runtime.autodiff` differentiates it)."""
     grid = _check_compact_grid(compact_grid)
     if a.device.type == "cpu":  # every family runs the same schedule
         return ref.tensordash_matmul_ref(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)

@@ -1,7 +1,8 @@
 """Family dispatch (port of ``repro/models/model.py``), dense family only.
 
     param_specs(cfg)                             -> Spec tree
-    forward(params, cfg, batch)                  -> logits
+    forward(params, cfg, batch, probes, taps)    -> logits
+    loss_fn(params, cfg, batch, probes, taps)    -> mean next-token NLL
     prefill(params, cfg, batch)                  -> (last logits, caches)
     decode_step(params, cfg, caches, batch, pos) -> (logits, caches)
     init_cache(cfg, batch, max_len, device=...)  -> decode caches
@@ -12,10 +13,12 @@ queue 1, item 12.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 
-__all__ = ["param_specs", "forward", "prefill", "decode_step", "init_cache"]
+__all__ = ["param_specs", "forward", "loss_fn", "prefill", "decode_step", "init_cache"]
 
 
 def _dense(cfg: ModelConfig) -> None:
@@ -28,9 +31,19 @@ def param_specs(cfg: ModelConfig) -> dict:
     return tfm.backbone_specs(cfg)
 
 
-def forward(params, cfg: ModelConfig, batch):
+def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
     _dense(cfg)
-    return tfm.forward(params, cfg, batch)
+    return tfm.forward(params, cfg, batch, probes=probes, taps=taps)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, probes=None, taps=None):
+    """Mean next-token cross-entropy over ``batch["labels"]`` (fp32
+    log-softmax).  ``probes``/``taps`` are the training instrumentation of
+    :func:`repro_torch.models.transformer.forward`."""
+    logits = forward(params, cfg, batch, probes=probes, taps=taps).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    return nll.mean()
 
 
 def prefill(params, cfg: ModelConfig, batch):

@@ -8,15 +8,25 @@ JAX ``lax.scan``.  Execution policy resolves through
 ReLU in its store step and emits its output's block mask, which plans the
 ``w_down`` product without a pass over the values), and the LM head replays
 a cached weight-side plan.
+
+Training goes through :func:`forward` with autograd on: every planned
+product is then differentiated by :mod:`repro_torch.runtime.autodiff`.
+``probes`` adds a zero tensor at each layer's MLP output (its gradient is
+that layer's output-gradient stream G, paper Eq. 2/3), ``taps`` collects the
+FFN activation's measured sparsity (the A stream), and ``cfg.remat``
+recomputes each layer in the backward (``torch.utils.checkpoint``), its
+planned kernels included.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import runtime as rtm
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import sparsity as sps
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ACTIVATIONS, Spec, rms_norm, softcap
 
@@ -86,7 +96,9 @@ def backbone_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def mlp_fwd(params, cfg: ModelConfig, x, rt=None):
+def mlp_fwd(params, cfg: ModelConfig, x, rt=None, taps: dict | None = None):
+    """The FFN; ``taps`` (a dict) receives the hidden activation's
+    :class:`~repro_torch.core.sparsity.SparsityStats` as ``"ffn_act"``."""
     act = ACTIVATIONS[cfg.activation]
     rt = rtm.resolve(rt)
     if cfg.mlp_gated:
@@ -98,11 +110,15 @@ def mlp_fwd(params, cfg: ModelConfig, x, rt=None):
             x2 = x.reshape(-1, x.shape[-1])
             g, gmask = rt.matmul_fused(x2, params["w_gate"], activation="relu", assume_dense=True)
             h2 = g * (x2 @ params["w_up"])
+            if taps is not None:
+                taps["ffn_act"] = sps.measure(h2.reshape(*lead, -1))
             plan_h = rt.plan_for_fused_output(gmask, h2, params["w_down"])
             return rt.matmul(h2, params["w_down"], plan=plan_h).reshape(*lead, -1)
         h = act(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = act(x @ params["w_up"])
+    if taps is not None:
+        taps["ffn_act"] = sps.measure(h)
     return h @ params["w_down"]
 
 
@@ -128,13 +144,18 @@ def _embed_in(params, cfg: ModelConfig, tokens):
     return h
 
 
-def _block_fwd(p, cfg: ModelConfig, h, positions, rope, *, return_cache: bool = False):
+def _block_fwd(p, cfg: ModelConfig, h, positions, rope, *, return_cache: bool = False,
+               probe=None, taps: dict | None = None, rt=None):
+    """One block.  ``probe`` (a zero tensor) is added at the MLP output, so
+    its gradient is this layer's G stream; ``taps`` as in :func:`mlp_fwd`."""
     a = rms_norm(h, p["ln1"])
     out = attn.attention_fwd(p["attn"], attn_config(cfg), a, positions, rope,
                              return_cache=return_cache)
     a, cache = out if return_cache else (out, None)
     h = h + a
-    m = mlp_fwd(p["mlp"], cfg, rms_norm(h, p["ln2"]))
+    m = mlp_fwd(p["mlp"], cfg, rms_norm(h, p["ln2"]), rt=rt, taps=taps)
+    if probe is not None:  # cast, so the add never promotes a bf16 activation
+        m = m + probe.to(m.dtype)
     return h + m, cache
 
 
@@ -143,14 +164,35 @@ def _head(params, cfg: ModelConfig, h):
     return softcap(head_matmul(cfg, h, params["lm_head"]), cfg.final_softcap)
 
 
-def forward(params, cfg: ModelConfig, batch):
-    """Full-sequence forward -> logits ``[B, S, V]``."""
+def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
+    """Full-sequence forward -> logits ``[B, S, V]`` (training and eval).
+
+    ``probes["layers"]`` is a zero ``[n_layers, B, S, D]`` tensor added at
+    each layer's MLP output: its gradient is the per-layer G_O stream.  A
+    dict passed as ``taps`` receives ``taps["layers"] = {"ffn_act":
+    SparsityStats}`` with a leading ``[n_layers]`` axis on each count.
+    With ``cfg.remat`` and grad mode on, each layer is recomputed in the
+    backward; the runtime is resolved here and passed in, since the
+    recompute runs on autograd's thread, outside this call's ambient
+    runtime."""
     check_supported(cfg)
+    rt = rtm.resolve()
     h = _embed_in(params, cfg, batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
     rope = attn.rope_tables(attn_config(cfg), positions)
-    for p in params["layers"]:
-        h, _ = _block_fwd(p, cfg, h, positions, rope)
+    layer_probes = (probes or {}).get("layers")
+    stats = []
+    for i, p in enumerate(params["layers"]):
+        t = {} if taps is not None else None
+        pr = None if layer_probes is None else layer_probes[i]
+        body = lambda h, pr, p=p, t=t: _block_fwd(p, cfg, h, positions, rope, probe=pr, taps=t, rt=rt)[0]
+        if cfg.remat and torch.is_grad_enabled():
+            h = torch.utils.checkpoint.checkpoint(body, h, pr, use_reentrant=False)
+        else:
+            h = body(h, pr)
+        stats.append(t)
+    if taps is not None:
+        taps["layers"] = {"ffn_act": sps.SparsityStats(*map(torch.stack, zip(*(t["ffn_act"] for t in stats))))}
     return _head(params, cfg, h)
 
 

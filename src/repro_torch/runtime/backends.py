@@ -12,8 +12,12 @@ Built-ins:
 ``cuda`` never hands a CUDA tensor to a plain executor: a failed build or
 launch raises, and a geometry its kernels cannot take raises
 :class:`BackendCapabilityError` before anything launches.  The
-differentiable (VJP) wrappers wait for the training slice;
-``matmul_planned``/``matmul_fused`` call the raw executors.
+executors (``execute_planned``/``execute_fused``) are primal only; when
+autograd needs a gradient (grad mode on and an operand that requires it),
+``matmul_planned``/``matmul_fused`` run them through the
+``torch.autograd.Function`` classes of :mod:`repro_torch.runtime.autodiff`,
+whose backward plans and executes both gradient products on the same
+backend.  Otherwise they call the executors directly.
 """
 from __future__ import annotations
 
@@ -28,6 +32,12 @@ from repro_torch.kernels.tensordash_spmm import (
     check_launch,
     tensordash_matmul_fused,
     tensordash_matmul_planned,
+)
+from repro_torch.runtime.autodiff import (
+    FusedVJP,
+    PlannedVJP,
+    fused_planned_matmul,
+    planned_matmul,
 )
 from repro_torch.runtime.plan import SparsityPlan
 
@@ -100,24 +110,56 @@ class KernelBackend:
         raise NotImplementedError
 
     def matmul_planned(self, plan: SparsityPlan, a, b, *, bn: int, out_dtype=None,
-                       compact_grid="ragged"):
-        """Planned ``a @ b`` (primal only in this slice)."""
-        return self.execute_planned(KernelRequest(
-            nnz=plan.nnz, idx=plan.idx, a=a, b=b, bm=plan.bm, bk=plan.bk, bn=bn,
-            out_dtype=out_dtype, compact_grid=compact_grid,
-            workqueue=plan.workqueue() if compact_grid == "ragged" else None,
-        ))
+                       plan_cache=None, plan_key=None,
+                       compact_grid="ragged", db=None):
+        """Planned ``a @ b`` with the sparsity-aware backward.  When autograd
+        needs it, the product runs through :func:`planned_matmul`, whose
+        backward runs both gradient products (paper Eq. 2-3) through this
+        registry; ``plan_cache``/``plan_key`` let it reuse the transposed
+        plan across microbatches, ``db`` (a ``repro_torch.tune.TuningDB``)
+        tunes each backward product.  Otherwise one executor call."""
+        compact_grid = _check_compact_grid(compact_grid)
+        wq = plan.workqueue() if compact_grid == "ragged" else None
+        if not needs_grad(a, b):
+            return self.execute_planned(KernelRequest(
+                nnz=plan.nnz, idx=plan.idx, a=a, b=b, bm=plan.bm, bk=plan.bk, bn=bn,
+                out_dtype=out_dtype, compact_grid=compact_grid, workqueue=wq,
+            ))
+        ctx = PlannedVJP(
+            backend=self.name, bm=plan.bm, bk=plan.bk, bn=bn, out_dtype=out_dtype,
+            cache=plan_cache, key=plan_key,
+            compact_grid=compact_grid, db=db,
+        )
+        return planned_matmul(ctx, plan.nnz, plan.idx, a, b, wq)
 
     def matmul_fused(self, plan: SparsityPlan, a, b, *, bias=None, residual=None,
                      activation: str = "none", bn: int, out_dtype=None,
-                     compact_grid="ragged"):
-        """Planned fused ``act(a @ b + bias) + residual``; ``(out, mask)``."""
-        return self.execute_fused(KernelRequest(
-            nnz=plan.nnz, idx=plan.idx, a=a, b=b, bias=bias, residual=residual,
-            activation=activation, bm=plan.bm, bk=plan.bk, bn=bn,
-            out_dtype=out_dtype, compact_grid=compact_grid,
-            workqueue=plan.workqueue() if compact_grid == "ragged" else None,
-        ))
+                     plan_cache=None, plan_key=None,
+                     compact_grid="ragged", db=None):
+        """Planned fused ``act(a @ b + bias) + residual``; ``(out, mask)``.
+        Differentiable as :meth:`matmul_planned` (through
+        :func:`fused_planned_matmul`): a ReLU-family epilogue plans the
+        backward's cotangent from the emitted mask."""
+        compact_grid = _check_compact_grid(compact_grid)
+        wq = plan.workqueue() if compact_grid == "ragged" else None
+        if not needs_grad(a, b, bias, residual):
+            return self.execute_fused(KernelRequest(
+                nnz=plan.nnz, idx=plan.idx, a=a, b=b, bias=bias, residual=residual,
+                activation=activation, bm=plan.bm, bk=plan.bk, bn=bn,
+                out_dtype=out_dtype, compact_grid=compact_grid, workqueue=wq,
+            ))
+        ctx = FusedVJP(
+            backend=self.name, bm=plan.bm, bk=plan.bk, bn=bn, out_dtype=out_dtype,
+            cache=plan_cache, key=plan_key,
+            activation=activation, compact_grid=compact_grid, db=db,
+        )
+        return fused_planned_matmul(ctx, plan.nnz, plan.idx, a, b, bias, residual, wq)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a product of ``tensors``: grad mode is
+    on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def _ref_planned(req: KernelRequest):

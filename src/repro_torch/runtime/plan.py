@@ -5,7 +5,8 @@ A :class:`SparsityPlan` carries the compacted schedule ``(nnz, idx)`` of one
 2-D operand, its CSR work queue, its block geometry and the operand's
 shape/dtype.  :class:`PlanCache` replays a plan computed once (the LM head's
 weight plan at the first prefill) on every later call; a hit requires the
-queried operand to *be* the cached source tensor, so a replay is exact.
+queried operand to *be* the cached source tensor, unmodified since (its
+``_version``), so a replay is exact.
 Sharding the plan waits for the distributed slice (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
@@ -175,17 +176,28 @@ def dense_operand_plan(shape, dtype, *, bm: int, bk: int, side: str = "A",
     )
 
 
+def _version(a) -> int | None:
+    """``a``'s in-place version counter (``None`` for an inference tensor,
+    which keeps none: such a source is validated by identity alone)."""
+    return None if a.is_inference() else a._version
+
+
 class PlanCache:
-    """Keyed SparsityPlan cache with identity-validated hits, LRU eviction.
+    """Keyed SparsityPlan cache with identity- and version-validated hits,
+    LRU eviction.
 
     Entries are keyed by ``(key, side, shape, dtype, bm, bk)`` and keep the
-    source operand beside the plan.  A lookup hits only when the stored
-    source *is* the queried tensor, so pass the same ``Parameter`` object on
-    every call (a fresh ``.data``, ``.T`` or ``.to()`` view misses).
+    source operand and its version counter beside the plan.  A lookup hits
+    only when the stored source *is* the queried tensor and has not been
+    modified in place since (an optimizer step on a weight bumps its
+    ``_version``): pass the same tensor object on every call (a fresh
+    ``.data``, ``.T`` or ``.to()`` view misses).  A miss under a live key
+    replaces its entry, so a weight updated in place is replanned under the
+    same key and the stale plan is dropped.
     """
 
     def __init__(self, capacity: int | None = None):
-        self._entries: dict[tuple, tuple[Any, SparsityPlan]] = {}
+        self._entries: dict[tuple, tuple[Any, int | None, SparsityPlan]] = {}
         self.capacity = capacity
         self.hits = 0
         self.misses = 0
@@ -196,10 +208,10 @@ class PlanCache:
     def lookup(self, key, a, bm: int, bk: int, side: str = "A") -> SparsityPlan | None:
         k = self._key(key, a, bm, bk, side)
         entry = self._entries.get(k)
-        if entry is not None and entry[0] is a:
+        if entry is not None and entry[0] is a and entry[1] == _version(a):
             self.hits += 1
             self._entries[k] = self._entries.pop(k)  # LRU: move to the back
-            return entry[1]
+            return entry[2]
         return None
 
     def store(self, key, a, plan: SparsityPlan) -> SparsityPlan:
@@ -209,7 +221,7 @@ class PlanCache:
             self._entries.pop(k)
         elif self.capacity is not None and len(self._entries) >= self.capacity:
             self._entries.pop(next(iter(self._entries)))  # evict the coldest
-        self._entries[k] = (a, plan)
+        self._entries[k] = (a, _version(a), plan)
         return plan
 
     def get_or_build(self, key, a, bm: int, bk: int, *, side: str = "A") -> SparsityPlan:
@@ -234,5 +246,5 @@ class PlanCache:
                 "total_work": plan.total_work(),
                 "skipped_fraction": plan.skipped_fraction(),
             }
-            for (key, side, *_rest), (_, plan) in self._entries.items()
+            for (key, side, *_rest), (_, _, plan) in self._entries.items()
         ]

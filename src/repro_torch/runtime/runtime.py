@@ -12,6 +12,9 @@ finer granularity instead of falling back to a dense product.  Under
 ``geometry="auto"`` every call resolves its measured policy from a
 :class:`repro_torch.tune.TuningDB` first (:meth:`Runtime._resolved`).
 
+Every planned product is differentiable: when autograd needs it, the
+backend runs it through :mod:`repro_torch.runtime.autodiff`, and the plan
+cache and tuning DB ride along into the backward, as in the JAX package.
 Sharding, plan validation and ``sparse_ffn`` wait for later slices
 (ROADMAP queue 1).
 """
@@ -225,7 +228,8 @@ class Runtime:
                 plan = rt.plan(b, key=plan_key, side="B")
             out_t = kernel.matmul_planned(
                 plan, b.T, a.T, bn=rt.lane(a.shape[0], rt.bm), out_dtype=a.dtype,
-                compact_grid=rt.compact_grid,
+                plan_cache=self.plan_cache, plan_key=("B", plan_key),
+                compact_grid=rt.compact_grid, db=self._db,
             )
             return out_t.T
         if plan is None:
@@ -236,7 +240,8 @@ class Runtime:
                 plan = rt.plan(a, key=plan_key)
         return kernel.matmul_planned(
             plan, a, b, bn=rt.lane(b.shape[1]), out_dtype=a.dtype,
-            compact_grid=rt.compact_grid,
+            plan_cache=self.plan_cache, plan_key=("A", plan_key),
+            compact_grid=rt.compact_grid, db=self._db,
         )
 
     def matmul_fused(self, a, b, *, bias=None, residual=None,
@@ -265,7 +270,9 @@ class Runtime:
                 plan = rt.plan(a, key=plan_key)
         return kernel.matmul_fused(
             plan, a, b, bias=bias, residual=residual, activation=activation,
-            bn=rt.lane(b.shape[1]), out_dtype=a.dtype, compact_grid=rt.compact_grid,
+            bn=rt.lane(b.shape[1]), out_dtype=a.dtype,
+            plan_cache=self.plan_cache, plan_key=("A", plan_key),
+            compact_grid=rt.compact_grid, db=self._db,
         )
 
     def plan_for_fused_output(self, mask, h, w) -> SparsityPlan:
@@ -278,6 +285,22 @@ class Runtime:
             mask_bn=h.shape[1] // mask.shape[1],
             bk=self.fit(h.shape, w.shape).bk,
         )
+
+    def matmul_grads(self, a, b, g, *, plan: SparsityPlan | None = None, plan_key=None):
+        """Sparsity-aware cotangents ``(da, db)`` of ``a @ b``: the two
+        registry-executed backward products the autograd rule runs (``da =
+        g @ b.T`` planned over ``g``, ``db = a.T @ g`` over the transposed
+        forward plan), with plan reuse visible in :attr:`plan_cache`."""
+        from repro_torch.runtime.autodiff import PlannedVJP, planned_matmul_grads
+
+        if plan is None:
+            plan = self._resolved("matmul", a.shape, b.shape, a.dtype).plan(a, key=plan_key)
+        ctx = PlannedVJP(
+            backend=self.backend, bm=plan.bm, bk=plan.bk, bn=self.lane(g.shape[1]),
+            cache=self.plan_cache, key=("A", plan_key), compact_grid=self.compact_grid,
+            db=self._db,
+        )
+        return planned_matmul_grads(ctx, plan.nnz, plan.idx, a, b, g)
 
     # -- serving cache layout ---------------------------------------------
     def slot_caches(self, cfg, slots: int, max_len: int):

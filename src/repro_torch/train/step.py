@@ -1,0 +1,191 @@
+"""Train-step factory (port of ``repro/train/step.py``): microbatch
+gradient accumulation, AdamW, metrics, the TensorDash sparsity taps and a
+guard that skips a non-finite step.
+
+The step runs eagerly under the ambient :class:`repro_torch.runtime.Runtime`
+(``with rt.use():``).  Each microbatch's loss is differentiated with
+``torch.autograd.grad``, so every planned product of the model (the fused
+FFN gate, ``w_down``, the LM head) runs its backward through
+:mod:`repro_torch.runtime.autodiff`: both gradient products (paper Eq. 2-3)
+planned and executed by the runtime's backend.  Microbatches run in a Python
+loop (``lax.scan`` in the JAX package) and their gradients are summed in
+fp32 accumulators.  The optimizer updates parameters in place
+(:mod:`repro_torch.optim.adamw`), so the parameter tensors a step is given
+are the ones it updates and returns.
+
+``sparsity_taps=True`` adds per-layer ``A_density`` (the FFN activation's
+nonzero fraction) and ``G_density`` (the nonzero fraction of the gradient
+at each layer's MLP output, through zero probes) and a ``modeled_speedup``
+bound; :func:`modeled_speedup` refines the densities through
+:mod:`repro_torch.core.perf_model` on the host (paper Fig. 14).
+"""
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+from repro_torch import runtime as rtm
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.optim.adamw import (
+    OptConfig,
+    apply_updates,
+    global_norm,
+    init_opt_state,
+    lr_at,
+    tree_leaves,
+)
+
+__all__ = ["make_train_step", "make_loss_fn", "init_train_state", "modeled_speedup", "accumulate_grads"]
+
+
+def make_loss_fn(cfg: ModelConfig):
+    """``loss_fn(params, batch, probes=None, taps=None)`` over ``cfg``."""
+    def loss_fn(params, batch, probes=None, taps=None):
+        return M.loss_fn(params, cfg, batch, probes=probes, taps=taps)
+
+    return loss_fn
+
+
+def init_train_state(cfg: ModelConfig, params):
+    del cfg
+    return init_opt_state(params)
+
+
+def _tap_metrics(taps: dict, gprobe: torch.Tensor) -> dict:
+    """Per-layer A/G densities and the ideal work-skipping bound: each of
+    the three training products does the same MACs and TensorDash at best
+    prices FWD at ``dA``, BWD_INPUT at ``dG`` and BWD_WEIGHT at ``min(dA,
+    dG)`` (paper Eq. 1-3)."""
+    act = taps["layers"]["ffn_act"]
+    a_density = 1.0 - act.zeros / torch.clamp_min(act.total, 1.0)
+    g_density = torch.mean((gprobe != 0).float(), dim=tuple(range(1, gprobe.ndim)))
+    ideal = 3.0 / (a_density + g_density + torch.minimum(a_density, g_density))
+    return {"A_density": a_density, "G_density": g_density, "modeled_speedup": torch.mean(ideal)}
+
+
+def _grads_of(loss_fn, cfg: ModelConfig, params, leaves, batch, sparsity_taps: bool):
+    """``(loss, grads in the leaves' order, tap metrics)`` of one batch."""
+    if not sparsity_taps:
+        loss = loss_fn(params, batch)
+        return loss.detach(), list(torch.autograd.grad(loss, leaves)), {}
+    b, s = batch["tokens"].shape
+    probe = torch.zeros((cfg.num_layers, b, s, cfg.d_model), dtype=torch.float32,
+                        device=batch["tokens"].device, requires_grad=True)
+    taps: dict = {}
+    loss = loss_fn(params, batch, probes={"layers": probe}, taps=taps)
+    *grads, gprobe = torch.autograd.grad(loss, leaves + [probe])
+    return loss.detach(), grads, _tap_metrics(taps, gprobe)
+
+
+def accumulate_grads(loss_fn, cfg: ModelConfig, params, batch, *, microbatches: int = 1,
+                     sparsity_taps: bool = False):
+    """Loss and gradients of the global ``batch``, split on its leading
+    axis into ``microbatches`` whose gradients are summed in fp32 and
+    averaged.  Returns ``(loss, grads, tap metrics)``, ``grads`` in the
+    order of ``tree_leaves(params)`` (in the parameters' dtype for one
+    microbatch, fp32 for several).  Marks every parameter as requiring grad,
+    in place: the tensors stay the same objects."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    if microbatches == 1:
+        return _grads_of(loss_fn, cfg, params, leaves, batch, sparsity_taps)
+    rows = batch["tokens"].shape[0]
+    if rows % microbatches:
+        raise ValueError(f"global batch {rows} is not divisible by {microbatches} microbatches")
+    per = rows // microbatches
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+    loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    taps: dict = {}
+    for i in range(microbatches):
+        mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+        l, g, t = _grads_of(loss_fn, cfg, params, leaves, mb, sparsity_taps)
+        for a, x in zip(acc, g):
+            a.add_(x.float())
+        del g
+        loss = loss + l
+        for k, x in t.items():
+            taps[k] = taps.get(k, torch.zeros_like(x)) + x / microbatches
+    for a in acc:
+        a.div_(microbatches)
+    return loss / microbatches, acc, taps
+
+
+def modeled_speedup(metrics, cfg: ModelConfig, **kw) -> dict[str, float]:
+    """One step's tapped densities through ``core.perf_model`` on the host:
+    the per-layer A/G densities mapped onto the FFN contraction layers and
+    run through the tile simulator.  ``kw`` goes to
+    ``perf_model.speedup_from_densities``."""
+    from repro_torch.core import perf_model as pm
+
+    a = metrics["A_density"].detach().cpu().numpy()
+    g = metrics["G_density"].detach().cpu().numpy()
+    layers = pm.ffn_layers_from_config(cfg, n_layers=len(a))
+    return pm.speedup_from_densities(a, g, layers, **kw)
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: OptConfig,
+    *,
+    microbatches: int = 1,
+    sparsity_taps: bool = False,
+    dynamic_sparsity=None,
+    guard_nonfinite: bool = False,
+):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; with ``guard_nonfinite`` it takes ``poison=`` too.
+
+    ``batch`` is the global batch; with ``microbatches > 1`` it is split on
+    its leading axis and the gradients are accumulated in fp32.  The
+    parameters are updated in place and returned; the metrics are device
+    scalars (``loss``, ``grad_norm``, ``param_norm``; ``lr`` is a float),
+    plus ``A_density``/``G_density`` vectors and ``modeled_speedup`` with
+    ``sparsity_taps`` (averaged over microbatches).
+
+    ``guard_nonfinite=True`` checks ``isfinite(loss) & isfinite(grad_norm)``
+    (one host sync) and skips a non-finite step: parameters and optimizer
+    state stay as they were and ``metrics["nonfinite"]`` is 1.  ``poison``
+    is the fault-injection hook (0 clean, 1 NaN loss, 2 NaN gradients).
+    """
+    if dynamic_sparsity is not None:
+        raise NotImplementedError(
+            "dynamic_sparsity: sparse_train/ is not ported yet (ROADMAP queue 1, item 13)")
+    if sparsity_taps and (cfg.family not in ("dense", "moe") or cfg.frontend is not None):
+        raise ValueError(
+            f"sparsity_taps: unsupported family {cfg.family!r} / frontend {cfg.frontend!r} "
+            "(taps probe the transformer MLP stacks)")
+    rt = rtm.resolve()
+    if rt.geometry == "auto" and (rt.tuning_db is None or len(rt.tuning_db) == 0):
+        warnings.warn(
+            "make_train_step under Runtime(geometry='auto') with an empty TuningDB: every cell "
+            "resolves cold to the hand-tuned defaults", stacklevel=2)
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(params, opt_state, batch, poison=None):
+        loss, grads, tapm = accumulate_grads(loss_fn, cfg, params, batch, microbatches=microbatches,
+                                             sparsity_taps=sparsity_taps)
+        metrics: dict = {}
+        if guard_nonfinite:
+            pc = int(poison or 0)
+            if pc == 1:
+                loss = loss + float("nan")
+            elif pc == 2:
+                grads = [g + float("nan") for g in grads]
+            gnorm = global_norm(grads)
+            if not bool(torch.isfinite(loss) & torch.isfinite(gnorm)):
+                # skip: a non-finite loss or gradient leaves params and
+                # optimizer state as they were
+                metrics.update(grad_norm=gnorm, lr=lr_at(opt_cfg, opt_state.step + 1), nonfinite=1)
+                metrics.update(loss=loss, param_norm=global_norm(params), **tapm)
+                return params, opt_state, metrics
+            metrics["nonfinite"] = 0
+        # grads is a list in tree_leaves(params) order, which is how
+        # apply_updates walks the params and moments
+        params, opt_state, upd = apply_updates(params, grads, opt_state, opt_cfg)
+        metrics.update(upd, loss=loss, param_norm=global_norm(params), **tapm)
+        return params, opt_state, metrics
+
+    return train_step
