@@ -18,14 +18,17 @@ from the root of a checkout, on a machine with one H100.  It
    CUDA launches of a few calls of each wrapper: exactly one per call;
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
    weights) through ``ServeEngine`` on the ``cuda`` backend and checks that
-   every FFN gate, ``w_down`` and LM-head product went through the kernels,
-   as many times as the path implies, and that no plain executor ran;
+   every FFN gate, ``w_down`` and LM-head product and every plan went
+   through the kernels, as many times as the path implies (one planner
+   launch per ``w_down`` plan, one for the LM head's), and that no plain
+   executor and no planner chain ran;
 4. compares the same prompts' prefill logits with the ``reference``
    backend on the card;
 5. holds the v2/v1 grid kernels, planned and fused, bit-equal to the
    ragged kernels at the same geometry and within tolerance of the plain
    versions at the decode shapes and small block-sparse shapes, and
-   ``block_zero_mask`` exactly equal to its plain version (timed as in 2);
+   ``block_zero_mask`` (the planner kernel's mask mode) exactly equal to its
+   plain version, timed beside ``torch.count_nonzero``;
 6. tunes the full-width decode FFN products on the card with
    ``repro_torch.tune.tune_cells`` (a DB in a temporary directory) and
    checks that v2 and v1 candidates ran and passed the numerics gate;
@@ -41,18 +44,34 @@ from the root of a checkout, on a machine with one H100.  It
    two rows, each timed against one fp32 ``torch.matmul`` and its bound;
    ``block_zero_mask`` on the two fp32 cotangents; one device launch per
    wrapper call;
-9. trains deepseek-7b-ReLU at full width cut to 4 layers (bf16 params,
+9. runs the one-launch planner in every mode: 477 edge cases (one block
+   row, one K block, 86 and 800 K blocks, several shared-memory stages,
+   views off the 16-byte grid, NaN, bool and int8 masks, coarsen 2 / 4 /
+   Nb), then the path's shapes (the decode and training gate masks, the
+   LM-head weight ``lm_head.T`` in bf16, the fp32 ``w_down`` and LM-head
+   cotangents, the three transposed forward plans of the weight
+   gradients), each plan's five int32 arrays bit-equal to the plain chain
+   on the card; each path shape timed (device ms and host wall per call)
+   beside the chain, the unfused path on the card (the mask kernel, then the
+   chain's compaction; its device launches per call) and
+   ``torch.count_nonzero``, with its bound; one device launch per
+   planner call;
+10. trains deepseek-7b-ReLU at full width cut to 4 layers (bf16 params,
    fp32 AdamW moments; 30 layers of that state would not fit the card's 80
    GB) through ``make_train_step`` on the ``cuda`` backend: step 1's loss
    and gradients against the ``dense`` backend on the card (loss within
    2^-7 relative, each gradient within relative L2 2^-5), 3 timed steps
    (ms, tokens/s, peak memory, loss, grad_norm, taps) whose kernel launches
    and plan-cache hits and misses must equal what the path implies (remat's
-   recompute included) with no plain executor run, two profiled steps
+   recompute included; each plan one planner launch) with no plain executor
+   or planner chain run, two profiled steps
    (device time by kernel), and a ``guard_nonfinite`` step with poison 2
    that must leave params and optimizer state unchanged;
-10. prints a ``kernels`` JSON line (each kernel with its launches on the
-   serving path and per training step), the card line, and last the result
+11. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
+   for the planner kernel in every mode and ``planner[values]``,
+   ``planner[emitted]``, ``planner[transpose]`` for each mode; each with its
+   launches over the serve run and the timed training steps, on the serving
+   path alone and per training step), the card line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
 
@@ -61,6 +80,7 @@ line.  It needs the checkout's ``src/`` and a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -81,13 +101,18 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # H100 SXM data
 #: layers; 2**-5 is eight bf16 steps of relative error
 REF_REL_L2 = 2**-5
 SOURCE = "src/repro_torch/kernels/csrc/tensordash_spmm.cu"
-REPLACES = {
+PLANNER_SOURCE = "src/repro_torch/kernels/csrc/block_mask.cu"
+SPMM = {
     "tensordash_matmul_fused": "src/repro/kernels/tensordash_spmm.py:506",
     "tensordash_matmul_planned": "src/repro/kernels/tensordash_spmm.py:481",
     "tensordash_matmul_planned[v2/v1]": "src/repro/kernels/tensordash_spmm.py:405",
     "tensordash_matmul_fused[v2/v1]": "src/repro/kernels/tensordash_spmm.py:450",
-    "block_zero_mask": "src/repro/kernels/block_mask.py:24",
 }
+#: the planner kernel's launch counters, one per mode (``block_zero_mask`` is mode mask)
+PLANNER = ("block_zero_mask", "planner[values]", "planner[emitted]", "planner[transpose]")
+#: the kernels line: ``block_zero_mask`` stands for the planner kernel in every mode (its
+#: launches) with its mask mode's times; each ``planner[mode]`` for one mode
+REPLACES = {**SPMM, **dict.fromkeys(PLANNER, "src/repro/kernels/block_mask.py:24")}
 #: one compare per element at the card's non-tensor fp32 rate (data sheet)
 COMPARE_RATE = 67e12
 #: prefill rows of the kernel phase: a full 4 x 32 prefill group and a prime
@@ -137,13 +162,13 @@ def ptxas_lines(report: str) -> list[str]:
     shared memory, sized per launch: each kernel row prints it)."""
     import re
 
-    names = {"13__nv_bfloat16": "bf16", "f": "f32"}
+    names = {"13__nv_bfloat16": "bf16", "f": "f32", "t": "u16", "j": "u32"}
     out, name, spill = [], None, ""
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             name, spill = entry.group(1), ""
-            t = re.search(r"\d+(td_[a-z_]+_kernel)I(13__nv_bfloat16|f)(.*)EEv", name)
+            t = re.search(r"\d+(td_[a-z_]+_kernel)I(13__nv_bfloat16|f|t|j)(.*)EEv", name)
             if t:
                 args = ",".join(re.findall(r"L[bi](\d+)E", t.group(3)))
                 name = f"{t.group(1)}<{names[t.group(2)]}{',' + args if args else ''}>"
@@ -183,6 +208,36 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+#: the plain versions no main-path run may call on the card: the SpMM
+#: executors and the planner's torch chains
+PLAIN = ("tensordash_matmul_ref", "tensordash_matmul_fused_ref", "plan_blocks_csr_ref",
+         "plan_from_mask_csr_ref", "transpose_plan_csr_ref", "workqueue_ref", "block_any_nonzero")
+
+
+@contextlib.contextmanager
+def no_plain_versions(what: str):
+    """Fail ``what`` if it calls any of :data:`PLAIN`."""
+    from repro_torch.kernels import ref
+
+    calls, orig = [], {name: getattr(ref, name) for name in PLAIN}
+
+    def guard(name, fn):
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    for name, fn in orig.items():
+        setattr(ref, name, guard(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(ref, name, fn)
+    if calls:
+        raise AssertionError(f"{what} ran plain versions: {sorted(set(calls))}")
 
 
 # ---------------------------------------------------------------------------
@@ -369,13 +424,11 @@ def family_call(kernel, grid, nnz, idx, a, b, bm, bk, bn, bias, residual, activa
     return lambda: T.tensordash_matmul_planned(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, compact_grid=grid)
 
 
-def count_launches(calls: dict) -> dict:
-    """Exactly one CUDA launch per wrapper call: ``torch.profiler`` counts
-    the device work of ``LAUNCH_REPS`` calls of each case (warm: every case
-    ran before); all of it must be ``td_spmm_kernel`` launches, one per
-    call, with no split-K reduction kernel and no mask fill.  A session
-    opens with a few spin kernels, left out of the count: a profiler session
-    after the first in a process was seen to miss its first launches."""
+def device_launches(fn, reps: int = LAUNCH_REPS) -> list[tuple[str, int]]:
+    """``(kernel, count)`` of the device launches ``torch.profiler`` sees
+    over ``reps`` calls of ``fn``.  A session opens with a few spin
+    kernels, left out of the count: a profiler session after the first in a
+    process was seen to miss its first launches."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -384,18 +437,26 @@ def count_launches(calls: dict) -> dict:
         for _ in range(8):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        for call in calls.values():
-            for _ in range(LAUNCH_REPS):
-                call()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    device = [(e.key, e.count) for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and e.count
-              and "spin_kernel" not in e.key]
+    return [(e.key, e.count) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and e.count
+            and "spin_kernel" not in e.key]
+
+
+def count_launches(calls: dict, kernel: str = "td_spmm_kernel") -> dict:
+    """Exactly one CUDA launch per wrapper call: the profiler counts the
+    device work of ``LAUNCH_REPS`` calls of each case (warm: every case ran
+    before); all of it must be ``kernel`` launches, one per call (for the
+    SpMM wrappers no split-K reduction kernel and no mask fill; for the
+    planner no memset, no scatter, no second kernel)."""
+    device = device_launches(lambda: [call() for call in calls.values()])
     n_calls = len(calls) * LAUNCH_REPS
     n_device = sum(c for _, c in device)
-    others = [k for k, _ in device if "td_spmm_kernel" not in k]
+    others = [k for k, _ in device if kernel not in k]
     log(f"launches: {n_calls} wrapper calls ({len(calls)} cases x {LAUNCH_REPS}) made {n_device} "
-        f"device launches, {sum(c for k, c in device if 'td_spmm_kernel' in k)} of them td_spmm_kernel")
+        f"device launches, {sum(c for k, c in device if kernel in k)} of them {kernel}")
     if n_device != n_calls or others:
         raise AssertionError(f"wrapper calls {n_calls} != device launches {n_device}: {device}")
     return {"wrapper_calls": n_calls, "device_launches": n_device, "kernels": dict(device)}
@@ -413,7 +474,7 @@ def drive_serve(params, cfg, prompts, rt):
     (``torch.cuda`` sync debug warnings) inside decode chunks and in the
     whole run.  Fails if a plain executor ran."""
     import torch
-    from repro_torch.kernels import ref, tensordash_spmm as T
+    from repro_torch.kernels import tensordash_spmm as T
     from repro_torch.serve.engine import ServeEngine
 
     eng = ServeEngine(params, cfg, slots=SLOTS, chunk=CHUNK, max_len=MAX_LEN, rt=rt)
@@ -440,18 +501,8 @@ def drive_serve(params, cfg, prompts, rt):
         return out
 
     eng._admit_group, eng._decode_chunk = counted_admit, timed_decode
-    plain_calls = []
-    orig_plain = (ref.tensordash_matmul_ref, ref.tensordash_matmul_fused_ref)
-
-    def guard(fn):
-        def wrapped(*args, **kw):
-            plain_calls.append(fn.__name__)
-            return fn(*args, **kw)
-        return wrapped
-
-    ref.tensordash_matmul_ref, ref.tensordash_matmul_fused_ref = map(guard, orig_plain)
     torch.cuda.reset_peak_memory_stats()
-    try:
+    with no_plain_versions("serve"):
         for p in prompts:
             eng.submit(p, max_new=NEW_TOKENS)
         T.reset_launch_counts()
@@ -467,10 +518,6 @@ def drive_serve(params, cfg, prompts, rt):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = T.launch_counts()
-    finally:
-        ref.tensordash_matmul_ref, ref.tensordash_matmul_fused_ref = orig_plain
-    if plain_calls:
-        raise AssertionError(f"serve ran plain executors: {sorted(set(plain_calls))}")
     syncs = decode_syncs[0] + sum("synchroniz" in str(w.message) for w in seen)
     return out, launches, eng.stats(), wall, decode_s[0], groups, decode_syncs[0], syncs
 
@@ -501,7 +548,8 @@ def serve_phase():
     want = {k: 0 for k in launches}
     want.update({"tensordash_matmul_fused": cfg.num_layers * calls,
                  "tensordash_matmul_planned": (cfg.num_layers + 1) * calls,
-                 "block_zero_mask": 1})  # the LM head's weight plan, built once
+                 "planner[emitted]": cfg.num_layers * calls,  # each w_down plan, from the gate's mask
+                 "planner[values]": 1})  # the LM head's weight plan, built once
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != path's {want}")
     if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
@@ -522,9 +570,9 @@ def serve_phase():
         f"{summary['tokens']} tokens in {wall:.3f} s = {summary['tok_per_s']:.2f} tok/s; "
         f"{summary['ms_per_decode_step']:.3f} ms per decode step over {st['steps_run']} steps; "
         f"{len(groups)} prefill groups; peak memory {summary['peak_mem_gb']:.2f} GB")
-    log(f"serve: kernel launches {launches} == path's (30 fused + 31 planned per model call, "
-        f"{calls} calls; 1 block_zero_mask for the LM-head plan); plan cache {pc['hits']} hits / "
-        f"{pc['misses']} miss; no plain executor ran")
+    log(f"serve: kernel launches {launches} == path's (30 fused + 31 planned + 30 emitted-mask "
+        f"plans per model call, {calls} calls; 1 values plan for the LM head); plan cache "
+        f"{pc['hits']} hits / {pc['misses']} miss; no plain executor or planner chain ran")
     return params, cfg, prompts, summary
 
 
@@ -931,6 +979,211 @@ def train_kernel_phase(bw: float):
     return rows + mask_rows, launch
 
 
+# ---------------------------------------------------------------------------
+# the one-launch planner at the path's shapes
+# ---------------------------------------------------------------------------
+
+
+def host_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Host wall ms per call of ``fn``, ``iters`` calls back to back and a
+    synchronize at the end: what a caller on the path waits per plan."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def planner_edge_cases() -> int:
+    """Every planner mode on shapes the path does not give it, each plan
+    bit-equal to the plain chain on the card: one block row, one K block,
+    86 and 800 K blocks, rows and K blocks past one shared-memory stage,
+    all-zero rows and masks, dense masks, fp32 and bf16, transposed views and
+    views off the 16-byte grid, NaN and -0 in zero blocks, bool and int8
+    masks, coarsen 2, 4 and Nb.  Returns the number of plans checked."""
+    import torch
+    from repro_torch.kernels import block_mask, ref, tensordash_spmm as T
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    n = [0]
+
+    def same(label, got, want):
+        torch.cuda.synchronize()
+        if len(got) != len(want) or any(g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w)
+                                        for g, w in zip(got, want)):
+            raise AssertionError(f"planner edge case {label}: differs from the plain chain")
+        n[0] += 1
+
+    def mask_of(mb, kb, kind):
+        if kind in ("zero", "dense"):
+            return torch.full((mb, kb), int(kind == "dense"), dtype=torch.int8)
+        m = (torch.rand(mb, kb, generator=gen) < 0.35).to(torch.int8)
+        if kind == "zero_rows":
+            m[::2] = 0
+        return m
+
+    for mb, kb, bm, bk in ((1, 5, 4, 8), (6, 1, 4, 8), (1, 1, 4, 8), (3, 86, 2, 2), (2, 800, 2, 1),
+                           (5000, 8, 2, 16), (9, 7, 4, 8)):
+        for kind in ("mixed", "zero_rows", "zero", "dense"):
+            mask = mask_of(mb, kb, kind)
+            keep = torch.rand(mb * bm, kb * bk, generator=gen) < 0.3
+            keep.view(mb, bm, kb, bk)[:, 0, :, 0] = True
+            blocks = mask.bool().repeat_interleave(bm, 0).repeat_interleave(bk, 1)
+            a = torch.randn(mb * bm, kb * bk, generator=gen) * (keep & blocks)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = a.to(dev, dtype)
+                label = f"values [{mb},{kb}] {bm}x{bk} {kind} {row_dtype(dtype)}"
+                same(label, T.plan_blocks_csr(x, bm, bk), ref.plan_blocks_csr_ref(x, bm, bk))
+                same(label + " .T", T.plan_blocks_csr(x.T, bk, bm), ref.plan_blocks_csr_ref(x.T, bk, bm))
+                same(label + " mask", (block_mask.block_zero_mask(x.T, bm=bk, bk=bm),),
+                     (ref.block_any_nonzero(x.T, bk, bm),))
+            for dt in (torch.int8, torch.bool):
+                m = mask.to(dev, dt)
+                for c in sorted({1, 2, 4, kb}):
+                    if kb % c == 0:
+                        label = f"emitted [{mb},{kb}] {kind} {dt} coarsen {c}"
+                        same(label, T.plan_from_mask_csr(m, coarsen=c), ref.plan_from_mask_csr_ref(m, coarsen=c))
+                        mt = m.T.contiguous().T  # a strided view
+                        same(label + " view", T.plan_from_mask_csr(mt, coarsen=c),
+                             ref.plan_from_mask_csr_ref(mt, coarsen=c))
+            nnz, idx = ref.mask_to_plan_ref(mask.to(dev))
+            same(f"transpose [{mb},{kb}] {kind}", T.transpose_plan_csr(nnz, idx),
+                 ref.transpose_plan_csr_ref(nnz, idx))
+    # views off the 16-byte grid (element loads), NaN and -0 in zero blocks
+    base = torch.zeros(64, 257)
+    base[5, 17] = float("nan")
+    base[40, 3] = -0.0
+    base[33, 200] = 1.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = base.to(dev, dtype)[:, 1:]  # base pointer and row stride off the grid
+        for bm, bk in ((8, 32), (64, 256), (1, 1)):
+            same(f"unaligned {row_dtype(dtype)} {bm}x{bk}", T.plan_blocks_csr(x, bm, bk),
+                 ref.plan_blocks_csr_ref(x, bm, bk))
+        same(f"unaligned {row_dtype(dtype)} .T", T.plan_blocks_csr(x.T, 32, 8), ref.plan_blocks_csr_ref(x.T, 32, 8))
+    m = (torch.rand(2, 24576, generator=gen) < 0.5).to(dev, torch.int8)  # the widest row the kernel stages
+    same("emitted [2,24576]", T.plan_from_mask_csr(m), ref.plan_from_mask_csr_ref(m))
+    return n[0]
+
+
+def planner_phase(bw: float):
+    """Every planner mode at the shapes the serve and train paths give it:
+    the five int32 arrays bit-equal to the plain chain on the card (the
+    mask mode is checked by ``mask_row``); timed (device ms and host wall
+    per call) beside the plain chain, the unfused path on the card (for
+    ``values``: the mask kernel, then the chain's compaction), and
+    ``torch.count_nonzero`` of the same blocks; its bound (bytes this data
+    needs: each zero block read whole, one element of each effectual block
+    or each mask byte or effectual forward entry, the plan written once);
+    the profiler's device launches of one chain call; then one device
+    launch per planner call."""
+    import torch
+    from repro_torch.kernels import block_mask, ref, tensordash_spmm as T
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t, d, f, v = TRAIN_TOKENS, 4096, 11008, 102400
+    rows, calls = [], {}
+
+    def plan_bytes(r, c):
+        return 4 * (3 * r * c + 2 * r + 1)
+
+    def chained(mask):  # the unfused path's compaction: the torch chain after a mask
+        nnz, idx = ref.mask_to_plan_ref(mask)
+        return (nnz, idx) + ref.workqueue_ref(nnz, idx)
+
+    def case(label, mode, call, plain, *, before=None, library=None, nbytes, compares, shape,
+             stage, main=True):
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        if len(got) != 5 or any(g.dtype != torch.int32 or g.shape != w.shape or not torch.equal(g, w)
+                                for g, w in zip(got, want)):
+            raise AssertionError(f"planner {label}: differs from the plain chain")
+        calls[label] = call
+        before = before or plain
+        t_bytes, t_ops = nbytes / bw * 1e3, compares / COMPARE_RATE * 1e3
+        row = {
+            "case": label, "kernel": block_mask.COUNTERS[mode], "mode": mode, "shape": shape,
+            "plan": tuple(got[1].shape), "effectual": int(got[0].sum()), "max_abs_err": 0.0,
+            "ms": cuda_ms(call), "host_ms": host_ms(call),
+            "plain_ms": cuda_ms(plain, iters=5), "plain_host_ms": host_ms(plain, iters=5),
+            "before_ms": cuda_ms(before, iters=5), "before_host_ms": host_ms(before, iters=5),
+            "before_launches": sum(c for _, c in device_launches(before, reps=1)),
+            "library_ms": cuda_ms(library) if library else None,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "main_path": main, "stage": stage,
+        }
+        rows.append(row)
+        lib = f"{row['library_ms']:.4f} ms" if library else "none"
+        log(f"  planner {mode:<9} {label:<34} {shape:<40} plan {row['plan']} kernel {row['ms']:.4f} ms "
+            f"(host {row['host_ms']:.4f})  chain {row['plain_ms']:.4f} ms (host {row['plain_host_ms']:.4f})  "
+            f"unfused path {row['before_ms']:.4f} ms (host {row['before_host_ms']:.4f}, "
+            f"{row['before_launches']} launches)  torch.count_nonzero {lib}  bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}), exact")
+
+    def values_case(label, x, bm, bk, stage):
+        r, c = x.shape[0] // bm, x.shape[1] // bk
+        zero = int((ref.block_any_nonzero(x, bm, bk) == 0).sum())
+        reads = zero * bm * bk + (r * c - zero)
+        case(label, "values", lambda: T.plan_blocks_csr(x, bm, bk), lambda: ref.plan_blocks_csr_ref(x, bm, bk),
+             before=lambda: chained(block_mask.block_zero_mask(x, bm=bm, bk=bk)),
+             library=lambda: torch.count_nonzero(x.reshape(r, bm, c, bk), dim=(1, 3)),
+             nbytes=reads * x.element_size() + plan_bytes(r, c), compares=reads,
+             shape=f"[{x.shape[0]},{x.shape[1]}] {row_dtype(x.dtype)} {bm}x{bk}, {zero}/{r * c} zero",
+             stage=stage)
+
+    def emitted_case(label, mask, coarsen, stage, main=True):
+        r, n = mask.shape
+        case(label, "emitted", lambda: T.plan_from_mask_csr(mask, coarsen=coarsen),
+             lambda: ref.plan_from_mask_csr_ref(mask, coarsen=coarsen),
+             library=lambda: torch.count_nonzero(mask.reshape(r, n // coarsen, coarsen), dim=2),
+             nbytes=r * n + plan_bytes(r, n // coarsen), compares=r * n,
+             shape=f"[{r},{n}] {row_dtype(mask.dtype)} coarsen {coarsen}", stage=stage, main=main)
+
+    def transpose_case(label, nnz, idx, stage):
+        r, c = idx.shape[1], idx.shape[0]
+        eff = int(nnz.sum())
+        case(label, "transpose", lambda: T.transpose_plan_csr(nnz, idx),
+             lambda: ref.transpose_plan_csr_ref(nnz, idx),
+             nbytes=4 * (c + eff) + plan_bytes(r, c), compares=eff,
+             shape=f"forward plan [{c},{r}], {eff} effectual", stage=stage)
+
+    n_edge = planner_edge_cases()
+    log(f"planner: {n_edge} edge cases bit-equal to the plain chain on the card")
+    # emitted masks: the decode gate's (4 slots, bm 4, 86 blocks of 128) and the
+    # training gate's at one microbatch (8 block rows); coarsened bool off the path
+    dmask = (torch.rand(1, f // 128, generator=gen, device=dev) < 0.4).to(torch.int8)
+    emitted_case("decode gate mask", dmask, 1, "decode")
+    gmask = (torch.rand(t // 128, f // 128, generator=gen, device=dev) < 0.4).to(torch.int8)
+    emitted_case("train gate mask", gmask, 1, "train")
+    emitted_case("train gate mask, bool view, coarsen 2", (gmask != 0).T.contiguous().T, 2, "off path",
+                 main=False)
+    # by value: the LM-head weight (serve and train), the two fp32 cotangents
+    lm_head = (torch.randn(d, v, generator=gen, device=dev) / 64).to(torch.bfloat16)
+    values_case("LM head weight lm_head.T", lm_head.T, 128, 512, "decode")
+    keep = (torch.rand(t // 128, d // 128, generator=gen, device=dev) < 0.4)[:, None, :, None]
+    g = (torch.randn(t, d, generator=gen, device=dev).reshape(t // 128, 128, d // 128, 128)
+         * keep).reshape(t, d)
+    values_case("w_down cotangent", g, 128, 128, "train")
+    dlogits = torch.randn(t, v, generator=gen, device=dev) * 1e-4
+    values_case("LM head cotangent dlogits.T", dlogits.T, 128, 128, "train")
+    # the weight-gradient products' transposed forward plans
+    transpose_case("gate db (dense gate plan)", *T.dense_plan(t // 128, d // 512, dev), "train")
+    transpose_case("w_down db (gate mask plan)", *T.plan_from_mask(gmask), "train")
+    transpose_case("LM head db (weight plan)", *T.plan_blocks(lm_head.T, 128, 512), "train")
+    calls["block_zero_mask lm_head.T"] = lambda: block_mask.block_zero_mask(lm_head.T, bm=128, bk=512)
+    del g, dlogits
+    launch = count_launches(calls, kernel="td_plan_kernel")
+    del lm_head
+    torch.cuda.empty_cache()
+    return rows, launch
+
+
 def _rel_l2(got, want) -> float:
     import torch
 
@@ -951,7 +1204,7 @@ def train_phase():
     from repro_torch import runtime as rtm
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import ref, tensordash_spmm as T
+    from repro_torch.kernels import tensordash_spmm as T
     from repro_torch.models import model as M
     from repro_torch.models.common import init_params
     from repro_torch.optim import OptConfig, global_norm
@@ -1000,21 +1253,16 @@ def train_phase():
     want.update({"tensordash_matmul_fused": r * L * mb,  # gates
                  # w_down forward (r), LM head forward, backward: 2 per gate, w_down and LM head
                  "tensordash_matmul_planned": (r * L + 1 + 4 * L + 2) * mb,
-                 # cotangents planned by value (w_down, LM head), the LM-head weight plan once
-                 "block_zero_mask": (L + 1) * mb + 1})
-    plain_calls = []
-    orig_plain = (ref.tensordash_matmul_ref, ref.tensordash_matmul_fused_ref)
-
-    def guard(fn):
-        def wrapped(*args, **kw):
-            plain_calls.append(fn.__name__)
-            return fn(*args, **kw)
-        return wrapped
-
+                 # plans, one planner launch each: cotangents by value (w_down, LM head) and
+                 # the LM-head weight after its update; each w_down plan from its gate's mask
+                 # (r) and each gate cotangent's; the transposed forward plans of w_down (fresh
+                 # masks) and the LM head, the gate's (dense, cached) on the first step only
+                 "planner[values]": (L + 1) * mb + 1,
+                 "planner[emitted]": (r + 1) * L * mb,
+                 "planner[transpose]": L * mb + 1})
     steps, prev = [], rt.plan_cache.stats()
     torch.cuda.reset_peak_memory_stats()
-    ref.tensordash_matmul_ref, ref.tensordash_matmul_fused_ref = map(guard, orig_plain)
-    try:
+    with no_plain_versions("train"):
         with rt.use():
             for i in range(TRAIN_STEPS):
                 T.reset_launch_counts()
@@ -1044,17 +1292,14 @@ def train_phase():
                 # LM-head plan 1 (replanned after the update), gate lhs-T (first step),
                 # w_down lhs-T (fresh emitted masks), LM-head lhs-T 1, cotangents
                 want_misses = 1 + first + L * mb + 1 + L * mb + mb
-                if launches != want:
-                    raise AssertionError(f"train step {i + 1}: launches {launches} != path's {want}")
+                want_i = dict(want, **{"planner[transpose]": want["planner[transpose]"] + first})
+                if launches != want_i:
+                    raise AssertionError(f"train step {i + 1}: launches {launches} != path's {want_i}")
                 if (hits, misses) != (want_hits, want_misses):
                     raise AssertionError(f"train step {i + 1}: plan cache +{hits}/+{misses}, path "
                                          f"implies +{want_hits}/+{want_misses}")
                 if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
                     raise AssertionError(f"train step {i + 1}: non-finite loss or gradient norm")
-    finally:
-        ref.tensordash_matmul_ref, ref.tensordash_matmul_fused_ref = orig_plain
-    if plain_calls:
-        raise AssertionError(f"train ran plain executors: {sorted(set(plain_calls))}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     sim = S.modeled_speedup(m, cfg, max_t=32, sample_groups=1)
     # the last update changed the LM head in place: its cached plan is stale
@@ -1063,7 +1308,8 @@ def train_phase():
     if rt.plan_cache.lookup(("lm_head", id(lm_head)), lm_head, 128, 512, side="B") is not None:
         raise AssertionError("train: the LM-head plan of the updated weight was hit stale")
     log(f"train: {TRAIN_STEPS} steps; launches per step {want} == path's (gates {r} x {L} x {mb}, "
-        f"planned ({r} x {L} + 1 + 4 x {L} + 2) x {mb}, block_zero_mask ({L} + 1) x {mb} + 1); "
+        f"planned ({r} x {L} + 1 + 4 x {L} + 2) x {mb}, planner values ({L} + 1) x {mb} + 1, "
+        f"emitted ({r} + 1) x {L} x {mb}, transpose {L} x {mb} + 1, +1 on step 1); "
         f"no plain executor ran; the updated LM head's stale plan is not found; peak memory "
         f"{peak:.2f} GB; step 1 loss {steps[0]['loss']:.6f} (its checked gradient pass: {lc:.6f})")
     log(f"train: last step A_density {steps[-1]['A_density']}, G_density {steps[-1]['G_density']}, "
@@ -1168,35 +1414,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"train kernels: the backward products at {TRAIN_TOKENS} tokens, fp32 operands, bf16 output")
     train_rows, train_launch = train_kernel_phase(bw)
+    log("planner: every mode at the path's shapes against the plain chain on the card")
+    planner_rows, planner_launch = planner_phase(bw)
     train = train_phase()
 
-    pinned = auto["pinned_v2"]["launches"]
-    path_launches = {
-        "tensordash_matmul_fused": serve["launches"]["tensordash_matmul_fused"],
-        "tensordash_matmul_planned": serve["launches"]["tensordash_matmul_planned"],
-        "tensordash_matmul_fused[v2/v1]": pinned["tensordash_matmul_fused[v2]"]
-        + pinned["tensordash_matmul_fused[v1]"],
-        "tensordash_matmul_planned[v2/v1]": pinned["tensordash_matmul_planned[v2]"]
-        + pinned["tensordash_matmul_planned[v1]"],
-        "block_zero_mask": pinned["block_zero_mask"],
-    }
-    per_train_step = dict(train["launches_per_step"])
-    per_train_step["tensordash_matmul_planned[v2/v1]"] = (per_train_step["tensordash_matmul_planned[v2]"]
-                                                          + per_train_step["tensordash_matmul_planned[v1]"])
-    per_train_step["tensordash_matmul_fused[v2/v1]"] = (per_train_step["tensordash_matmul_fused[v2]"]
-                                                        + per_train_step["tensordash_matmul_fused[v1]"])
+    def grouped(counts):
+        """Launches per entry of the kernels line: v2 and v1 together, and
+        ``block_zero_mask`` (row 5's kernel, ``td_plan_kernel``) over every
+        planner mode."""
+        out = dict(counts)
+        for w in ("planned", "fused"):
+            out[f"tensordash_matmul_{w}[v2/v1]"] = (counts[f"tensordash_matmul_{w}[v2]"]
+                                                   + counts[f"tensordash_matmul_{w}[v1]"])
+        out["block_zero_mask"] = sum(counts[c] for c in PLANNER)
+        return out
+
+    serve_runs = grouped(serve["launches"])
+    pinned = grouped(auto["pinned_v2"]["launches"])
+    for fam in ("tensordash_matmul_planned[v2/v1]", "tensordash_matmul_fused[v2/v1]"):
+        serve_runs[fam] = pinned[fam]  # the v2/v1 kernels serve under the v2-pinned DB
+    train_runs = grouped({k: sum(st["launches"][k] for st in train["steps"]) for k in train["launches_per_step"]})
+    per_train_step = grouped(train["launches_per_step"])
     kernels = []
     for kname in REPLACES:
-        mine = [r for r in rows + grid_rows + train_rows if r["kernel"] == kname]
-        head = next(r for r in mine if r["main_path"])  # the first main-path decode shape
+        mine = [r for r in rows + grid_rows + train_rows + planner_rows if r["kernel"] == kname]
+        head = next(r for r in mine if r["main_path"])  # the first main-path shape
         kernels.append({
-            "name": kname, "route": "cuda",
-            "source": SOURCE if kname != "block_zero_mask" else "src/repro_torch/kernels/csrc/block_mask.cu",
-            "replaces": REPLACES[kname], "launches": path_launches[kname],
+            "name": kname, "route": "cuda", "source": SOURCE if kname in SPMM else PLANNER_SOURCE,
+            "replaces": REPLACES[kname], "launches": serve_runs[kname] + train_runs[kname],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": head["shape"], "launches_per_train_step": per_train_step[kname],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
+            "launches_serve": serve_runs[kname], "launches_per_train_step": per_train_step[kname],
         })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1204,7 +1453,8 @@ def main() -> int:
         {"card": card, "cases": rows + grid_rows, "launch_check": launch_check, "serve": serve,
          "ptxas": ptxas_lines(_build.ptxas_report), "reference_rel_l2": ref_l2,
          "reference_top1": top1, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
-         "train_launch_check": train_launch, "train": train,
+         "train_launch_check": train_launch, "planner_cases": planner_rows,
+         "planner_launch_check": planner_launch, "train": train,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

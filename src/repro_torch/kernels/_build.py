@@ -47,12 +47,24 @@ class SpmmArgs(ctypes.Structure):
     ]
 
 
+class PlanArgs(ctypes.Structure):
+    """The launch arguments of ``td_plan`` (``TdPlanArgs`` in
+    ``csrc/block_mask.cu``; keep the two in step)."""
+
+    _fields_ = [
+        ("x", _P), ("s0", _LL), ("s1", _LL), ("fnnz", _P), ("fidx", _P), ("mask", _P),
+        ("nnz", _P), ("idx", _P), ("row_starts", _P), ("work_row", _P), ("work_kblk", _P),
+        ("counter", _P),
+        *((name, _I) for name in ("mode", "dtype", "R", "C", "bm", "bk", "vec")),
+    ]
+
+
 #: argtypes of the C entry points
 SIGNATURES = {
     # dtype fused grid args stream
     "td_spmm": [_I, _I, _I, ctypes.POINTER(SpmmArgs), _P],
-    # dtype x s0 s1 M K bm bk out stream
-    "td_block_zero_mask": [_I, _P, _LL, _LL, _I, _I, _I, _I, _P, _P],
+    # args stream
+    "td_plan": [ctypes.POINTER(PlanArgs), _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -5,8 +5,12 @@ the block schedule the kernels walk: per block row, the planned K blocks in
 plan order, each block's product taken in fp32 and added to an fp32
 accumulator, then the (fused) epilogue and the cast.  They are the
 ``dense``/``reference`` backends' executors and the plain versions the CUDA
-kernels are held against on the card.  They run on whatever device their
-inputs lie on.
+kernels are held against on the card.  The planner's plain versions
+(:func:`plan_blocks_csr_ref`, :func:`plan_from_mask_csr_ref`,
+:func:`transpose_plan_csr_ref`) are the chains of small torch ops the
+one-launch planner kernel replaces: a block-nonzero mask compacted by a
+cumsum and a scatter into ``(nnz, idx)``, flattened into the CSR work queue.
+They run on whatever device their inputs lie on.
 """
 from __future__ import annotations
 
@@ -17,6 +21,13 @@ __all__ = [
     "matmul_ref",
     "plan_blocks_ref",
     "plan_workqueue_ref",
+    "block_any_nonzero",
+    "mask_to_plan_ref",
+    "workqueue_ref",
+    "plan_to_mask_ref",
+    "plan_blocks_csr_ref",
+    "plan_from_mask_csr_ref",
+    "transpose_plan_csr_ref",
     "tensordash_matmul_ref",
     "tensordash_matmul_fused_ref",
     "matmul_grads_ref",
@@ -125,6 +136,85 @@ def block_any_nonzero(x32: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
     m, n = x32.shape
     nz = x32.reshape(m // bm, bm, n // bn, bn) != 0
     return nz.any(dim=3).any(dim=1).to(torch.int8)
+
+
+_I32 = torch.int32
+
+
+def mask_to_plan_ref(nonzero: torch.Tensor):
+    """Compact a block-nonzero mask ``[Mb, Kb]`` into ``(nnz, idx)``: a
+    cumsum gives each effectual block its slot, a scatter writes it
+    (ineffectual blocks land in a dropped extra column), and the tail repeats
+    the last effectual index."""
+    nonzero = nonzero != 0
+    mb, kb = nonzero.shape
+    dev = nonzero.device
+    nnz = nonzero.sum(dim=1, dtype=_I32)
+    slot = torch.cumsum(nonzero, dim=1, dtype=_I32) - 1
+    target = torch.where(nonzero, slot, kb).long()
+    ks = torch.arange(kb, dtype=_I32, device=dev).expand(mb, kb)
+    idx = torch.zeros((mb, kb + 1), dtype=_I32, device=dev).scatter_(1, target, ks)[:, :kb]
+    pos = torch.arange(kb, device=dev)[None, :]
+    last = idx.gather(1, torch.clamp_min(nnz - 1, 0).long()[:, None])
+    idx = torch.where(pos < torch.clamp_min(nnz, 1)[:, None], idx, last)
+    return nnz, idx.contiguous()
+
+
+def workqueue_ref(nnz: torch.Tensor, idx: torch.Tensor):
+    """Flatten ``(nnz, idx)`` into the v3 CSR work queue ``(row_starts
+    [Mb+1], work_row [Mb*Kb], work_kblk [Mb*Kb])`` with torch ops (the
+    loopy numpy oracle is :func:`plan_workqueue_ref`).  Every row owns
+    ``max(nnz, 1)`` items, so an all-zero row keeps one gated item; the tail
+    past ``row_starts[-1]`` is zero and never visited."""
+    mb, kb = idx.shape
+    dev = idx.device
+    flat = mb * kb
+    work = torch.clamp_min(nnz, 1).to(_I32)
+    row_starts = torch.cat([torch.zeros(1, dtype=_I32, device=dev),
+                            torch.cumsum(work, dim=0, dtype=_I32)])
+    j = torch.arange(kb, dtype=_I32, device=dev)[None, :]
+    pos = torch.where(j < work[:, None], row_starts[:-1, None] + j, flat).long().reshape(-1)
+    rows = torch.arange(mb, dtype=_I32, device=dev)[:, None].expand(mb, kb).reshape(-1)
+
+    def scatter(values):
+        buf = torch.zeros(flat + 1, dtype=_I32, device=dev)
+        return buf.scatter_(0, pos, values)[:flat]
+
+    return row_starts, scatter(rows), scatter(idx.to(_I32).reshape(-1))
+
+
+def plan_to_mask_ref(nnz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The block-nonzero mask ``[Mb, Kb]`` (bool) a plan was compacted from."""
+    mb, kb = idx.shape
+    valid = (torch.arange(kb, device=idx.device)[None, :] < nnz[:, None]).to(torch.int8)
+    mask = torch.zeros((mb, kb), dtype=torch.int8, device=idx.device)
+    return mask.scatter_reduce_(1, idx.long(), valid, reduce="amax") != 0
+
+
+def _csr(nnz, idx):
+    return (nnz, idx) + workqueue_ref(nnz, idx)
+
+
+def plan_blocks_csr_ref(a: torch.Tensor, bm: int, bk: int):
+    """The CSR plan ``(nnz, idx, row_starts, work_row, work_kblk)`` of
+    ``a``'s effectual ``bm x bk`` blocks."""
+    return _csr(*mask_to_plan_ref(block_any_nonzero(a, bm, bk)))
+
+
+def plan_from_mask_csr_ref(mask: torch.Tensor, *, coarsen: int = 1):
+    """The CSR plan of an emitted ``[Mb, Nb]`` mask, ``coarsen`` adjacent
+    columns to a K block (effectual iff any member is)."""
+    mb, nb = mask.shape
+    nonzero = mask != 0
+    if coarsen > 1:
+        nonzero = nonzero.reshape(mb, nb // coarsen, coarsen).any(dim=2)
+    return _csr(*mask_to_plan_ref(nonzero))
+
+
+def transpose_plan_csr_ref(nnz: torch.Tensor, idx: torch.Tensor):
+    """The CSR plan of ``a.T`` from the plan ``(nnz, idx)`` of ``a``: the
+    transposed block mask, compacted."""
+    return _csr(*mask_to_plan_ref(plan_to_mask_ref(nnz, idx).T))
 
 
 def tensordash_matmul_fused_ref(nnz, idx, a, b, bias=None, residual=None, *,

@@ -1,11 +1,14 @@
 """TensorDash planned block-sparse matmul on Hopper (port of
 ``repro/kernels/tensordash_spmm.py``).
 
-Planning metadata is plain torch ops on the plan's device: a block-nonzero
-mask is compacted into ``(nnz [Mb], idx [Mb, Kb])`` (cumsum plus scatter;
-the tail repeats the last effectual index) and flattened into the CSR work
-queue ``(row_starts [Mb+1], work_row [Mb*Kb], work_kblk [Mb*Kb])``, all
-int32 and equal to the JAX package's arrays.
+A plan is ``(nnz [Mb], idx [Mb, Kb])``, each block row's effectual K blocks
+ascending (the tail repeats the last one), and its CSR work queue
+``(row_starts [Mb+1], work_row [Mb*Kb], work_kblk [Mb*Kb])``, all int32 and
+equal to the JAX package's arrays.  :func:`plan_blocks_csr` (from an
+operand's values), :func:`plan_from_mask_csr` (from an emitted mask) and
+:func:`transpose_plan_csr` (from a forward plan) build it in one launch of
+the planner kernel (:func:`~repro_torch.kernels.block_mask.launch_planner`)
+on a CUDA tensor, and with the torch chains of :mod:`.ref` on a CPU tensor.
 
 The two wrappers run the CUDA kernels of ``csrc/tensordash_spmm.cu``:
 
@@ -25,9 +28,8 @@ bfloat16 from float32 operands.  On a CPU tensor a wrapper runs the plain execut
 of :mod:`.ref`; on a CUDA tensor it makes exactly one kernel launch (split-K
 reduced in the same launch; :func:`kernel_tile` and :func:`kernel_splits`
 give its tile and split count from the shapes) or raises.
-:func:`launch_counts` counts the launches per wrapper and grid family.
-:func:`plan_blocks` finds the effectual blocks with
-:func:`~repro_torch.kernels.block_mask.block_zero_mask`.
+:func:`launch_counts` counts the launches per wrapper and grid family and
+per planner mode.
 """
 from __future__ import annotations
 
@@ -38,8 +40,7 @@ from typing import Literal, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import ref
-from repro_torch.kernels.block_mask import block_zero_mask
+from repro_torch.kernels import block_mask, ref
 
 __all__ = [
     "COMPACT_GRID_MODES",
@@ -87,103 +88,70 @@ def _check_compact_grid(value) -> CompactGrid:
 
 
 # ---------------------------------------------------------------------------
-# planning metadata
+# planning metadata: on a CUDA tensor one launch of the planner kernel
+# (csrc/block_mask.cu), on a CPU tensor the torch chains of .ref
 # ---------------------------------------------------------------------------
 
 
-def _mask_to_plan(nonzero: torch.Tensor):
-    """Compact a block-nonzero mask ``[Mb, Kb]`` into ``(nnz, idx)``: a
-    cumsum gives each effectual block its slot, a scatter writes it
-    (ineffectual blocks land in a dropped extra column), and the tail repeats
-    the last effectual index."""
-    nonzero = nonzero != 0
-    mb, kb = nonzero.shape
-    dev = nonzero.device
-    nnz = nonzero.sum(dim=1, dtype=_I32)
-    slot = torch.cumsum(nonzero, dim=1, dtype=_I32) - 1
-    target = torch.where(nonzero, slot, kb).long()
-    ks = torch.arange(kb, dtype=_I32, device=dev).expand(mb, kb)
-    idx = torch.zeros((mb, kb + 1), dtype=_I32, device=dev).scatter_(1, target, ks)[:, :kb]
-    pos = torch.arange(kb, device=dev)[None, :]
-    last = idx.gather(1, torch.clamp_min(nnz - 1, 0).long()[:, None])
-    idx = torch.where(pos < torch.clamp_min(nnz, 1)[:, None], idx, last)
-    return nnz, idx.contiguous()
+def plan_blocks_csr(a: torch.Tensor, bm: int, bk: int):
+    """The CSR plan ``(nnz [Mb], idx [Mb, Kb], row_starts [Mb+1], work_row,
+    work_kblk [Mb*Kb])`` of ``a``'s effectual ``bm x bk`` blocks, int32."""
+    block_mask.check_operand(a, bm, bk)
+    if not block_mask.on_card(a):
+        return ref.plan_blocks_csr_ref(a, bm, bk)
+    return block_mask.launch_planner("values", a, a.shape[0] // bm, a.shape[1] // bk, bm=bm, bk=bk)
 
 
 def plan_blocks(a: torch.Tensor, bm: int, bk: int):
     """Compacted effectual K-block lists of ``a``'s ``bm x bk`` blocks:
     ``(nnz [Mb], idx [Mb, Kb])`` int32."""
-    return _mask_to_plan(block_zero_mask(a, bm=bm, bk=bk))
+    return plan_blocks_csr(a, bm, bk)[:2]
 
 
 def plan_workqueue(nnz: torch.Tensor, idx: torch.Tensor):
     """Flatten ``(nnz, idx)`` into the v3 CSR work queue ``(row_starts
-    [Mb+1], work_row [Mb*Kb], work_kblk [Mb*Kb])``.  Every row owns
-    ``max(nnz, 1)`` items, so an all-zero row keeps one gated item; the tail
-    past ``row_starts[-1]`` is zero and never visited."""
-    mb, kb = idx.shape
-    dev = idx.device
-    flat = mb * kb
-    work = torch.clamp_min(nnz, 1).to(_I32)
-    row_starts = torch.cat([torch.zeros(1, dtype=_I32, device=dev),
-                            torch.cumsum(work, dim=0, dtype=_I32)])
-    j = torch.arange(kb, dtype=_I32, device=dev)[None, :]
-    pos = torch.where(j < work[:, None], row_starts[:-1, None] + j, flat).long().reshape(-1)
-    rows = torch.arange(mb, dtype=_I32, device=dev)[:, None].expand(mb, kb).reshape(-1)
-
-    def scatter(values):
-        buf = torch.zeros(flat + 1, dtype=_I32, device=dev)
-        return buf.scatter_(0, pos, values)[:flat]
-
-    return row_starts, scatter(rows), scatter(idx.to(_I32).reshape(-1))
-
-
-def plan_blocks_csr(a: torch.Tensor, bm: int, bk: int):
-    """:func:`plan_blocks` plus the work queue:
-    ``(nnz, idx, row_starts, work_row, work_kblk)``."""
-    nnz, idx = plan_blocks(a, bm, bk)
-    return (nnz, idx) + plan_workqueue(nnz, idx)
+    [Mb+1], work_row [Mb*Kb], work_kblk [Mb*Kb])`` with torch ops, on any
+    device.  No plan the runtime builds needs it (each carries its queue
+    from the planner); it serves plans handed in without one."""
+    return ref.workqueue_ref(nnz, idx)
 
 
 def plan_to_mask(nnz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The block-nonzero mask ``[Mb, Kb]`` (bool) a plan was compacted from."""
-    mb, kb = idx.shape
-    valid = (torch.arange(kb, device=idx.device)[None, :] < nnz[:, None]).to(torch.int8)
-    mask = torch.zeros((mb, kb), dtype=torch.int8, device=idx.device)
-    return mask.scatter_reduce_(1, idx.long(), valid, reduce="amax") != 0
-
-
-def plan_from_mask(mask: torch.Tensor, *, coarsen: int = 1):
-    """Plan ``(nnz, idx)`` from an emitted ``[Mb, Nb]`` mask, metadata only.
-    ``coarsen`` groups that many adjacent mask columns into one consumer K
-    block (effectual iff any member is)."""
-    mb, nb = mask.shape
-    if nb % coarsen:
-        raise ValueError(f"mask with {nb} columns cannot coarsen by {coarsen}")
-    nonzero = mask != 0
-    if coarsen > 1:
-        nonzero = nonzero.reshape(mb, nb // coarsen, coarsen).any(dim=2)
-    return _mask_to_plan(nonzero)
+    return ref.plan_to_mask_ref(nnz, idx)
 
 
 def plan_from_mask_csr(mask: torch.Tensor, *, coarsen: int = 1):
-    """:func:`plan_from_mask` plus the work queue."""
-    nnz, idx = plan_from_mask(mask, coarsen=coarsen)
-    return (nnz, idx) + plan_workqueue(nnz, idx)
+    """The CSR plan from an emitted ``[Mb, Nb]`` int8/bool mask, metadata
+    only.  ``coarsen`` groups that many adjacent mask columns into one
+    consumer K block (effectual iff any member is)."""
+    mb, nb = mask.shape
+    if nb % coarsen:
+        raise ValueError(f"mask with {nb} columns cannot coarsen by {coarsen}")
+    if not block_mask.on_card(mask):
+        return ref.plan_from_mask_csr_ref(mask, coarsen=coarsen)
+    return block_mask.launch_planner("emitted", mask, mb, nb // coarsen, bk=coarsen)
 
 
-def transpose_plan(nnz: torch.Tensor, idx: torch.Tensor):
-    """Plan of ``a.T`` (blocks ``bk x bm``) from the plan of ``a``: the
-    transposed block mask, compacted.  Metadata only, so the backward's
-    weight-gradient product ``a.T @ g`` (paper Eq. 3) is planned without a
-    second pass over ``a``."""
-    return _mask_to_plan(plan_to_mask(nnz, idx).T)
+def plan_from_mask(mask: torch.Tensor, *, coarsen: int = 1):
+    """:func:`plan_from_mask_csr`'s ``(nnz, idx)``."""
+    return plan_from_mask_csr(mask, coarsen=coarsen)[:2]
 
 
 def transpose_plan_csr(nnz: torch.Tensor, idx: torch.Tensor):
-    """:func:`transpose_plan` plus the transposed plan's work queue."""
-    nnz_t, idx_t = transpose_plan(nnz, idx)
-    return (nnz_t, idx_t) + plan_workqueue(nnz_t, idx_t)
+    """The CSR plan of ``a.T`` (blocks ``bk x bm``) from the plan of ``a``:
+    the transposed block mask, compacted.  Metadata only, so the backward's
+    weight-gradient product ``a.T @ g`` (paper Eq. 3) is planned without a
+    second pass over ``a``."""
+    if not block_mask.on_card(idx):
+        return ref.transpose_plan_csr_ref(nnz, idx)
+    mb, kb = idx.shape
+    return block_mask.launch_planner("transpose", idx, kb, mb, fnnz=nnz)
+
+
+def transpose_plan(nnz: torch.Tensor, idx: torch.Tensor):
+    """:func:`transpose_plan_csr`'s ``(nnz, idx)``."""
+    return transpose_plan_csr(nnz, idx)[:2]
 
 
 def planned_grid_steps(nnz, kb: int, mb: int, nb: int, *, compact_grid="ragged") -> int:
@@ -583,13 +551,15 @@ def tensordash_matmul_fused(nnz, idx, a: torch.Tensor, b: torch.Tensor,
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`: per
     wrapper and grid family (the ragged family under the bare wrapper
-    name, v2/v1 as ``"<wrapper>[v2]"``) and ``"block_zero_mask"``."""
-    return {**{c: _LAUNCHES[c] for c in _COUNTERS}, "block_zero_mask": block_zero_mask.launches}
+    name, v2/v1 as ``"<wrapper>[v2]"``) and per planner mode
+    (``"block_zero_mask"``, ``"planner[values]"``, ``"planner[emitted]"``,
+    ``"planner[transpose]"``)."""
+    return {**{c: _LAUNCHES[c] for c in _COUNTERS}, **block_mask.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     _LAUNCHES.update(dict.fromkeys(_COUNTERS, 0))
-    block_zero_mask.launches = 0
+    block_mask.LAUNCHES.update(dict.fromkeys(block_mask.LAUNCHES, 0))
 
 
 reset_launch_counts()

@@ -3,12 +3,12 @@
     python -m repro_torch.launch.profile_decode --arch deepseek-7b --activation relu
 
 Fills ``--slots`` slots of a :class:`~repro_torch.serve.engine.ServeEngine`
-(bf16, seeded random weights, ``cuda`` backend), runs one warm-up step, then
-traces ``--steps`` engine steps (``--chunk`` decode steps each) with
-``torch.profiler`` and prints the wall time per decode step, the device's
-busy time per decode step (the sum of kernel times), its idle share, the
-kernels that take the most device time and the host-side ops that take the
-most host time.
+(bf16, seeded random weights, ``cuda`` backend), runs one warm-up step, times
+``--steps`` engine steps (``--chunk`` decode steps each) untraced, then
+traces as many with ``torch.profiler`` and prints the wall time per decode
+step (untraced and traced), the device's busy time per decode step (the sum
+of kernel times), its idle share, the kernels that take the most device time
+and the host-side ops that take the most host time.
 Needs a CUDA card; it does not fall back to the CPU.
 """
 from __future__ import annotations
@@ -53,7 +53,7 @@ def main(argv=None) -> None:
     if args.activation:
         cfg = dataclasses.replace(cfg, activation=args.activation)
     params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device=rt.device)
-    new = args.chunk * (args.steps + 1) + 1
+    new = args.chunk * (2 * args.steps + 1) + 1
     eng = ServeEngine(params, cfg, slots=args.slots, chunk=args.chunk,
                       max_len=PROMPT_LEN + new, rt=rt)
     gen = torch.Generator().manual_seed(0)
@@ -61,6 +61,11 @@ def main(argv=None) -> None:
         eng.submit(torch.randint(0, cfg.vocab_size, (PROMPT_LEN,), generator=gen), max_new=new)
     eng.step()  # admission (prefill) + one warm-up chunk
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        eng.step()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -78,7 +83,8 @@ def main(argv=None) -> None:
     name = torch.cuda.get_device_name(rt.device)
     print(f"device={name} arch={cfg.name} activation={cfg.activation} slots={args.slots} "
           f"decode steps traced={steps}")
-    print(f"wall (traced) {wall / steps * 1e3:.3f} ms per decode step; device busy "
+    print(f"wall (untraced) {untraced / steps * 1e3:.3f} ms per decode step; wall (traced) "
+          f"{wall / steps * 1e3:.3f} ms per decode step; device busy "
           f"{busy_us / steps / 1e3:.3f} ms per decode step; idle share "
           f"{1 - busy_us / 1e6 / wall:.3f}")
     print(f"{'kernel':<72} {'ms/step':>9} {'calls/step':>10} {'share':>6}")

@@ -186,7 +186,8 @@ def test_cpu_wrappers_run_plain_versions_and_launch_nothing():
     counts = tspmm.launch_counts()
     assert set(counts) == {"tensordash_matmul_planned", "tensordash_matmul_fused", "block_zero_mask",
                            *(f"tensordash_matmul_{w}[{g}]" for w in ("planned", "fused")
-                             for g in ("v2", "v1"))}
+                             for g in ("v2", "v1")),
+                           *(f"planner[{m}]" for m in ("values", "emitted", "transpose"))}
     assert all(v == 0 for v in counts.values()), counts
 
 
