@@ -67,11 +67,25 @@ from the root of a checkout, on a machine with one H100.  It
    or planner chain run, two profiled steps
    (device time by kernel), and a ``guard_nonfinite`` step with poison 2
    that must leave params and optimizer state unchanged;
-11. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
+11. drives the train launcher, ``repro_torch.launch.train.main``, in process
+   on full-width qwen3-4b (grouped-query attention with qk-norm, vocab
+   151936) cut to 8 layers, 8 x 256 tokens in 2 microbatches, taps on:
+   (a) 6 steps with a checkpoint at step 4 (bytes, save seconds, free disk);
+   (b) a restart that must print ``resumed at step 4``, restore a tree whose
+   per-tensor checksums equal the saved ones and print run (a)'s step-5
+   line; (c) the ReLU variant under ``--dynamic-sparsity`` (RigL to 50%)
+   with a NaN loss injected at step 1: the skipped step, three mask
+   refreshes and their plan-edit ms, the LM-head plan the planner kernel
+   built from the masked weight bit-equal to the controller's edited
+   forward plan at every refresh, with blocks skipped, and every edited plan
+   bit-equal to the planner's fresh plan of its mask; each step's launches
+   held to the path's, no plain version run;
+12. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode; each with its
-   launches over the serve run and the timed training steps, on the serving
-   path alone and per training step), the card line, and last the result
+   launches over the serve run, the timed training steps and launcher runs
+   (a) and (c), on the serving path alone, per training step and per
+   launcher step), the card line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
 
@@ -424,25 +438,54 @@ def family_call(kernel, grid, nnz, idx, a, b, bm, bk, bn, bias, residual, activa
     return lambda: T.tensordash_matmul_planned(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, compact_grid=grid)
 
 
+#: spin-kernel launches that open and close each profiler session, and the
+#: sessions opened before a count gives up
+MARKERS, TRIES = 16, 3
+
+
 def device_launches(fn, reps: int = LAUNCH_REPS) -> list[tuple[str, int]]:
     """``(kernel, count)`` of the device launches ``torch.profiler`` sees
-    over ``reps`` calls of ``fn``.  A session opens with a few spin
-    kernels, left out of the count: a profiler session after the first in a
-    process was seen to miss its first launches."""
+    over ``reps`` calls of ``fn``, between :data:`MARKERS` spin-kernel
+    launches that open the session and as many that close it, all left out
+    of the count.  A session after the first in a process was seen to drop
+    the first launches it should record (on torch 2.11: two opening markers
+    in every such session, and once, with eight opening markers, two of the
+    counted launches, so the count came up two short).  So the
+    launches are ordered by start time and counted only when at least one
+    opening and one closing marker came through: a dropped run of first (or
+    last) launches then ended (or began) among the markers, and none
+    between them was dropped.  A session that fails this is opened again,
+    at most :data:`TRIES` times."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(8):
-            torch.cuda._sleep(1000)
+    for _ in range(TRIES):
         torch.cuda.synchronize()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.key, e.count) for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and e.count
-            and "spin_kernel" not in e.key]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        marker = ["spin_kernel" in n for n in names]
+        lead = marker.index(False) if False in marker else len(names)
+        trail = marker[::-1].index(False) if False in marker else 0
+        if (lead, trail) != (MARKERS, MARKERS):
+            log(f"launches: the profiler saw {lead} of {MARKERS} opening and {trail} of {MARKERS} "
+                "closing marker launches")
+        if lead >= 1 and trail >= 1:
+            counts: dict[str, int] = {}
+            for n in names[lead:len(names) - trail]:
+                counts[n] = counts.get(n, 0) + 1
+            return list(counts.items())
+    raise AssertionError(f"the profiler dropped every opening or closing marker launch in {TRIES} sessions")
 
 
 def count_launches(calls: dict, kernel: str = "td_spmm_kernel") -> dict:
@@ -1369,11 +1412,340 @@ def train_phase():
     return {
         "layers": L, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": mb, "remat": cfg.remat,
         "params_b": cfg.param_count() / 1e9, "steps": steps, "peak_mem_gb": peak,
-        "launches_per_step": want, "loss_rel_vs_dense": loss_rel, "grad_rel_l2_vs_dense": rels,
+        "launches_per_step": steps[-1]["launches"], "loss_rel_vs_dense": loss_rel, "grad_rel_l2_vs_dense": rels,
         "perf_model": sim, "profile": {"busy_ms_per_step": busy,
                                        "top": [(k, c / 2, ms / 2) for k, c, ms in top]},
         "dense_steps": dense,
     }
+
+
+# ---------------------------------------------------------------------------
+# the train launcher: checkpoint, resume, dynamic sparse training
+# ---------------------------------------------------------------------------
+
+#: the launcher phase: qwen3-4b at full width cut from 36 to LAUNCH_LAYERS
+#: layers (4.41 B parameters of bf16 weights and fp32 AdamW moments would need
+#: ~120 GB; 8 layers make 1.585 B), the train cell's batch, LAUNCH_STEPS steps
+LAUNCH_LAYERS, LAUNCH_STEPS, LAUNCH_SAVE_AT = 8, 6, 4
+LAUNCH_ARGS = ["--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--microbatches", str(TRAIN_MICRO),
+               "--steps", str(LAUNCH_STEPS), "--sparsity-taps", "--backend", "cuda", "--device", "cuda"]
+#: run (c): RigL to 50% by the last step, a refresh every 2 steps, a NaN loss at step 1
+LAUNCH_DST = ["--dynamic-sparsity", f"target=0.5,update_every=2,end={LAUNCH_STEPS}",
+              "--inject-faults", "nan_loss@1", "--fault-backoff", "0.01"]
+
+
+def tree_checksums(tree) -> dict:
+    """Per leaf of a checkpoint tree: the sum of its bit patterns and their
+    position-weighted sum (int64, on the leaf's device), to hold a restored
+    tree bit for bit against the saved one without a host copy."""
+    import torch
+    from repro_torch.checkpoint.manager import _flatten
+
+    views = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for name, leaf in _flatten(tree).items():
+        if not isinstance(leaf, torch.Tensor):
+            out[name] = leaf
+            continue
+        x = leaf.detach().contiguous().view(-1).view(views[leaf.element_size()])
+        total = weighted = 0
+        for at in range(0, x.numel(), 1 << 26):
+            chunk = x[at:at + (1 << 26)].to(torch.int64)
+            pos = torch.arange(at, at + chunk.numel(), device=x.device, dtype=torch.int64) % 65521 + 1
+            total += int(chunk.sum())
+            weighted += int((chunk * pos).sum())
+        out[name] = (total, weighted)
+    return out
+
+
+#: the LM head's planned products, by the dimension the vocabulary takes:
+#: the forward (side B, ``lm_head.T @ h.T``), the weight gradient ``dW``
+#: (``g' @ h``, over the cotangent plan) and the activation gradient ``dx``
+#: (``lm_head @ g'``, over the transposed weight plan, the vocabulary on K)
+LM_HEAD_PRODUCTS = ("fwd", "dW", "dx")
+
+
+def _spmm_split(calls: list, cfg) -> dict:
+    """Device ms of one step's ``td_spmm_kernel`` launches, from the CUDA
+    events around each: the LM head's three products (summed over
+    microbatches, with the skipped share of the plan each ran) and the
+    rest together."""
+    import torch
+
+    out = {"other_ms": 0.0}
+    for start, end, m, k, n, nnz, bk in calls:
+        ms = start.elapsed_time(end)
+        if cfg.vocab_size not in (m, k, n):
+            out["other_ms"] += ms
+            continue
+        kind = "dx" if k == cfg.vocab_size else "dW" if cfg.d_model in (m, n) else "fwd"
+        nnz = torch.as_tensor(nnz)
+        row = out.setdefault(kind, {"ms": 0.0, "calls": 0, "skipped": []})
+        row["ms"] += ms
+        row["calls"] += 1
+        row["skipped"].append(1.0 - int(nnz.sum()) / (nnz.numel() * (k // bk)))
+    return out
+
+
+def _launcher_run(tag: str, argv: list, hooks: dict) -> dict:
+    """One in-process ``repro_torch.launch.train.main(argv)`` under the
+    plain-version guard: its stdout, seconds, per-step launches, ms, losses
+    and SpMM device ms (:func:`_spmm_split`), and peak memory.
+    ``SystemExit`` (a checkpoint-abort) fails."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.launch import train as LT
+
+    cfg = configs.get_config(argv[argv.index("--arch") + 1])
+    steps, calls, orig = [], [], {"make_train_step": LT.make_train_step}
+    orig_launch = T._launch
+
+    def timed_launch(wrapper, nnz, idx, a, b, bm, bk, *rest, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig_launch(wrapper, nnz, idx, a, b, bm, bk, *rest, **kw)
+        end.record()
+        calls.append((start, end, a.shape[0], a.shape[1], b.shape[1], nnz, bk))
+        return out
+
+    def timed_step_factory(*args, **kw):
+        fn = orig["make_train_step"](*args, **kw)
+
+        def step(*a, **k):
+            before = T.launch_counts()
+            calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = T.launch_counts()
+            m = out[2]
+            steps.append({"ms": wall * 1e3, "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+                          "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                          "nonfinite": int(m.get("nonfinite", 0)),
+                          "launches": {c: after[c] - before[c] for c in after},
+                          "spmm": _spmm_split(calls, cfg)})
+            calls.clear()
+            return out
+        return step
+
+    T._launch = timed_launch
+    patched = {"make_train_step": timed_step_factory, **hooks}
+    for name, fn in patched.items():
+        orig.setdefault(name, getattr(LT, name))
+        setattr(LT, name, fn)
+    buf = io.StringIO()
+    T.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with no_plain_versions(f"launch train ({tag})"), contextlib.redirect_stdout(buf):
+            LT.main(argv)
+    except SystemExit as e:
+        raise AssertionError(f"launch train ({tag}) exited with {e.code}:\n{buf.getvalue()}") from e
+    finally:
+        T._launch = orig_launch
+        for name in patched:
+            setattr(LT, name, orig[name])
+    seconds = time.perf_counter() - t0
+    launches = T.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if not line.startswith("plan key=('dst'"):
+            log(f"launch ({tag}): {line}")
+    return {"stdout": out, "seconds": seconds, "steps": steps, "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _step_line(out: str, step: int) -> str:
+    """The launcher's ``step N loss ...`` line without its seconds field."""
+    import re
+
+    line = next(x for x in out.splitlines() if x.startswith(f"step {step:5d} loss"))
+    return re.sub(r" \d+\.\d+s ", " ", line + " ").strip()
+
+
+def launch_train_phase():
+    """Drive ``repro_torch.launch.train.main`` in process on full-width
+    qwen3-4b cut to LAUNCH_LAYERS layers: (a) train LAUNCH_STEPS steps with a
+    checkpoint at LAUNCH_SAVE_AT; (b) resume from it, the restored tree bit
+    for bit the saved one and step LAUNCH_SAVE_AT + 1's line run (a)'s; (c)
+    the ReLU variant under dynamic sparse training with a NaN step, its
+    plans with skipped blocks through the kernels, each edited plan bit-equal
+    to the planner's fresh plan of the controller's mask, and the LM-head
+    plan the kernel built from the masked weight bit-equal to the
+    controller's forward plan."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.launch import train as LT
+    from repro_torch.sparse_train import controller as SC
+
+    base = configs.get_config("qwen3-4b")
+    silu = configs.register(dataclasses.replace(base, name=f"qwen3-4b-L{LAUNCH_LAYERS}", num_layers=LAUNCH_LAYERS))
+    relu = configs.register(dataclasses.replace(base, name=f"qwen3-4b-relu-L{LAUNCH_LAYERS}",
+                                                num_layers=LAUNCH_LAYERS, activation="relu"))
+    ckpt = ROOT / "chiprun_out" / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    log(f"launch: qwen3-4b (d_model {base.d_model}, {base.num_heads} heads of {base.head_dim} over "
+        f"{base.num_kv_heads} KV heads, qk-norm, d_ff {base.d_ff}, vocab {base.vocab_size}) cut from "
+        f"{base.num_layers} to {LAUNCH_LAYERS} layers: {silu.param_count() / 1e9:.3f} B params")
+    saved, restored = {}, {}
+
+    def save_hook(directory, step, tree, **kw):
+        free = shutil.disk_usage(directory).free
+        sums = tree_checksums(tree)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = LT_save(directory, step, tree, **kw)
+        secs = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        saved.update(step=step, seconds=secs, bytes=size, free_before=free, sums=sums)
+        log(f"saved step {step}: {size} bytes in {secs:.2f} s "
+            f"({size / secs / 1e9:.2f} GB/s); free disk before the save {free / 1e9:.1f} GB")
+        return path
+
+    def restore_hook(directory, like, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, tree = LT_restore(directory, like, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        restored.update(step=step, seconds=secs, sums=tree_checksums(tree) if tree is not None else None)
+        if step is not None:
+            log(f"restored step {step} in {secs:.2f} s")
+        return step, tree
+
+    LT_save, LT_restore = LT.save, LT.restore_latest
+    common = LAUNCH_ARGS + ["--ckpt-dir", str(ckpt)]
+    try:
+        a = _launcher_run("a", ["--arch", silu.name, "--ckpt-every", str(LAUNCH_SAVE_AT)] + common,
+                          {"save": save_hook})
+        if saved.get("step") != LAUNCH_SAVE_AT:
+            raise AssertionError(f"launch (a): no checkpoint at step {LAUNCH_SAVE_AT} ({saved})")
+        b = _launcher_run("b", ["--arch", silu.name, "--ckpt-every", "100"] + common,
+                          {"restore_latest": restore_hook})
+    finally:
+        shutil.rmtree(ckpt)
+    if f"resumed at step {LAUNCH_SAVE_AT}" not in b["stdout"] or restored.get("step") != LAUNCH_SAVE_AT:
+        raise AssertionError(f"launch (b) did not resume at step {LAUNCH_SAVE_AT}")
+    diff = [k for k in saved["sums"] if saved["sums"][k] != restored["sums"].get(k)]
+    if diff or set(saved["sums"]) != set(restored["sums"]):
+        raise AssertionError(f"launch (b): restored tree differs from the saved one at {diff[:5]}")
+    line_a, line_b = _step_line(a["stdout"], LAUNCH_SAVE_AT + 1), _step_line(b["stdout"], LAUNCH_SAVE_AT + 1)
+    loss_a, loss_b = a["steps"][LAUNCH_SAVE_AT]["loss"], b["steps"][0]["loss"]
+    if line_a != line_b or loss_a != loss_b:
+        raise AssertionError(f"launch (b): step {LAUNCH_SAVE_AT + 1} differs from run (a):\n{line_a}\n{line_b}")
+    log(f"launch (b): restored tree bit-equal to the saved one ({len(saved['sums'])} leaves checksummed); "
+        f"step {LAUNCH_SAVE_AT + 1} loss {loss_b!r} and line equal to run (a)'s")
+
+    # (c): dynamic sparse training with a NaN step
+    checks, ctrls = [], []
+    orig_update = SC.DynamicSparsityController.update
+
+    def update(self, step, w_scores, g_scores=None):
+        # the LM-head plan td_plan_kernel built this step from the masked
+        # weight, against the controller's forward plan of that mask
+        if not ctrls:
+            ctrls.append(self)
+        fwd = self.plans("['lm_head']")[0]
+        heads = [p for k, (_, _, p) in self.rt.plan_cache._entries.items()
+                 if isinstance(k[0], tuple) and k[0][:1] == ("lm_head",)]
+        for head in heads:
+            if (head.bm, head.bk, head.shape) != (fwd.bm, fwd.bk, fwd.shape):
+                continue
+            same = all(torch.equal(x, y) for x, y in zip((head.nnz, head.idx, *head.workqueue()),
+                                                         (fwd.nnz, fwd.idx, *fwd.workqueue())))
+            checks.append({"step": step, "equal": same, "skipped": head.skipped_fraction()})
+            if not same:
+                raise AssertionError(f"launch (c) step {step}: the LM-head plan of the masked weight "
+                                     "differs from the controller's forward plan")
+        return orig_update(self, step, w_scores, g_scores)
+
+    SC.DynamicSparsityController.update = update
+    try:
+        c = _launcher_run("c", ["--arch", relu.name] + LAUNCH_ARGS + LAUNCH_DST, {})
+    finally:
+        SC.DynamicSparsityController.update = orig_update
+    out = c["stdout"]
+    refreshes = [x for x in out.splitlines() if x.startswith("dst refresh step")]
+    wdens = [float(x.split("Wdens=")[1].split()[0]) for x in out.splitlines() if "Wdens=" in x]
+    if not ("update skipped (1/3 consecutive)" in out and "nonfinite -> skip-step x1" in out
+            and len(refreshes) == 3 and all("plan-edit" in x for x in refreshes) and min(wdens) < 1.0):
+        raise AssertionError(f"launch (c): missing skip, refresh, Wdens or summary lines:\n{out}")
+    if not checks or not any(ch["skipped"] > 0 for ch in checks):
+        raise AssertionError(f"launch (c): no LM-head plan with skipped blocks was checked ({checks})")
+    (ctrl,) = ctrls
+    stats = ctrl.rt.plan_cache.plan_stats()
+    value_plans = [ps for ps in stats if ps["key"][0] != "dst"]
+    if not any(ps["skipped_fraction"] > 0 for ps in value_plans):
+        raise AssertionError("launch (c): no plan the kernels ran with skips a block")
+    widest = max(p.k_blocks for _, _, p in ctrl.rt.plan_cache._entries.values())
+    # every edited plan against the planner's fresh plan of the mask (one
+    # td_plan_kernel launch each, outside the counted run)
+    T.reset_launch_counts()
+    n_plans = n_sparse = 0
+    for path, u in ctrl.units.items():
+        for l in range(u.layers):
+            m = torch.from_numpy(u.mask[l]).cuda()
+            for plan, mask in ((u.bwd[l], m), (u.fwd[l], m.T.contiguous())):
+                fresh = T.plan_from_mask_csr(mask)
+                if not all(torch.equal(x, y) for x, y in zip((plan.nnz, plan.idx, *plan.workqueue()), fresh)):
+                    raise AssertionError(f"launch (c): edited plan {path}[{l}] differs from the planner's")
+                n_plans += 1
+                n_sparse += int(plan.skipped_fraction() > 0)
+    replans = T.launch_counts()["planner[emitted]"]
+    if replans != n_plans:
+        raise AssertionError(f"launch (c): {replans} planner launches for {n_plans} fresh plans")
+    del ctrl, ctrls
+    torch.cuda.empty_cache()
+    log(f"launch (c): {len(refreshes)} refreshes; the LM-head value plan equals the controller's at steps "
+        f"{[ch['step'] for ch in checks]} (skipped {[round(ch['skipped'], 4) for ch in checks]}); "
+        f"{n_plans} edited plans ({n_sparse} with skipped blocks) bit-equal to the planner's fresh plans; "
+        f"widest planned row {widest} K blocks (the planner takes 24576)")
+
+    # launches per step: (a) the LM head's products and plans alone (the
+    # SiLU FFN runs on cuBLAS); (c) the ReLU path of the train phase
+    L, mb, r = LAUNCH_LAYERS, TRAIN_MICRO, 2
+    zero = dict.fromkeys(T.launch_counts(), 0)
+    want_a = dict(zero, **{"tensordash_matmul_planned": 3 * mb, "planner[values]": 1 + mb,
+                           "planner[transpose]": 1})
+    want_c = dict(zero, **{"tensordash_matmul_fused": r * L * mb,
+                           "tensordash_matmul_planned": (r * L + 1 + 4 * L + 2) * mb,
+                           "planner[values]": (L + 1) * mb + 1, "planner[emitted]": (r + 1) * L * mb,
+                           "planner[transpose]": L * mb + 1})
+    for tag, run, want in (("a", a, want_a), ("b", b, want_a), ("c", c, want_c)):
+        for i, st in enumerate(run["steps"]):
+            w = dict(want, **{"planner[transpose]": want["planner[transpose]"] + int(i == 0 and tag == "c")})
+            if st["launches"] != w:
+                raise AssertionError(f"launch ({tag}) step {i + 1}: launches {st['launches']} != path's {w}")
+        log(f"launch ({tag}): {run['seconds']:.1f} s; ms per step {[round(st['ms'], 1) for st in run['steps']]}; "
+            f"tokens/s {[round(st['tok_per_s'], 1) for st in run['steps']]}; peak {run['peak_mem_gb']:.2f} GB; "
+            f"launches on the last step {run['steps'][-1]['launches']} (== the path's)")
+        for i, st in enumerate(run["steps"]):
+            sp = st["spmm"]
+            head = "; ".join(f"{p} {sp[p]['ms']:.3f} ms ({sp[p]['calls']} calls, skipped "
+                             f"{[round(x, 4) for x in sp[p]['skipped']]})" for p in LM_HEAD_PRODUCTS if p in sp)
+            log(f"launch ({tag}) step {i + 1} td_spmm device ms: LM head {head}; other {sp['other_ms']:.3f} ms")
+    return {"layers": LAUNCH_LAYERS, "params_b": silu.param_count() / 1e9,
+            "a": a, "b": b, "c": c,
+            "checkpoint": {k: v for k, v in saved.items() if k != "sums"}, "restore_seconds": restored["seconds"],
+            "lm_head_checks": checks, "edited_plans": n_plans, "edited_plans_sparse": n_sparse,
+            "plan_stats": [dict(ps, key=repr(ps["key"])) for ps in stats], "widest_row_k_blocks": widest,
+            "launches_per_step": {"a": a["steps"][-1]["launches"], "c": c["steps"][-1]["launches"],
+                                  "c step 1": c["steps"][0]["launches"]}}
 
 
 def main() -> int:
@@ -1417,6 +1789,9 @@ def main() -> int:
     log("planner: every mode at the path's shapes against the plain chain on the card")
     planner_rows, planner_launch = planner_phase(bw)
     train = train_phase()
+    log(f"launch: repro_torch.launch.train.main on qwen3-4b cut to {LAUNCH_LAYERS} layers: checkpoint, "
+        "resume, dynamic sparse training")
+    launch = launch_train_phase()
 
     def grouped(counts):
         """Launches per entry of the kernels line: v2 and v1 together, and
@@ -1435,17 +1810,23 @@ def main() -> int:
         serve_runs[fam] = pinned[fam]  # the v2/v1 kernels serve under the v2-pinned DB
     train_runs = grouped({k: sum(st["launches"][k] for st in train["steps"]) for k in train["launches_per_step"]})
     per_train_step = grouped(train["launches_per_step"])
+    launch_runs = grouped({k: launch["a"]["launches"][k] + launch["c"]["launches"][k]
+                           for k in launch["a"]["launches"]})
+    per_launch_step = {tag: grouped(w) for tag, w in launch["launches_per_step"].items()}
     kernels = []
     for kname in REPLACES:
         mine = [r for r in rows + grid_rows + train_rows + planner_rows if r["kernel"] == kname]
         head = next(r for r in mine if r["main_path"])  # the first main-path shape
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE if kname in SPMM else PLANNER_SOURCE,
-            "replaces": REPLACES[kname], "launches": serve_runs[kname] + train_runs[kname],
+            "replaces": REPLACES[kname],
+            "launches": serve_runs[kname] + train_runs[kname] + launch_runs[kname],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
             "launches_serve": serve_runs[kname], "launches_per_train_step": per_train_step[kname],
+            "launches_launch_train": launch_runs[kname],
+            "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
         })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1454,7 +1835,7 @@ def main() -> int:
          "ptxas": ptxas_lines(_build.ptxas_report), "reference_rel_l2": ref_l2,
          "reference_top1": top1, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
          "train_launch_check": train_launch, "planner_cases": planner_rows,
-         "planner_launch_check": planner_launch, "train": train,
+         "planner_launch_check": planner_launch, "train": train, "launch_train": launch,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

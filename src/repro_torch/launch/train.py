@@ -1,0 +1,275 @@
+"""Training launcher (port of ``repro/launch/train.py``).
+
+    python -m repro_torch.launch.train --arch qwen3-4b --steps 20 \
+        --ckpt-dir /path/to/ckpt
+
+runs the full config on the card (``--device cuda --backend cuda``, the
+defaults); ``--smoke --device cpu --backend reference`` runs the reduced
+config on the CPU through the same loop: checkpointing, preemption guard,
+straggler deadline, TensorDash sparsity taps, dynamic sparse training.
+Weights are drawn from seed 0, data from ``SyntheticLM``.
+
+Resilience: the step is non-finite-guarded (``make_train_step(
+guard_nonfinite=True)``) — a NaN/Inf loss or gradient skips the update,
+backs off exponentially, and after ``--max-faults`` *consecutive* faulted
+steps checkpoints-before-abort (exit code 3).  ``--inject-faults`` replays
+a seeded :class:`repro_torch.resilience.FaultPlan` (``nan_loss@3;
+step_stall@5:secs=1`` ...) through the production loop, and every
+degradation — skip-step, straggler abort, preemption save, corrupt-
+checkpoint skip — is surfaced in the :class:`repro_torch.resilience.
+ResilienceLog` summary.
+
+The port runs on one device: there is no mesh, ``--multi-pod`` raises and
+the per-plan ``imbalance`` column waits for sharded plans (ROADMAP queue 1,
+item 14).  ``--device`` is the one flag the JAX launcher lacks.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import signal
+import sys
+import time
+
+import torch
+
+from repro_torch import runtime as rtm
+from repro_torch.checkpoint.manager import PreemptionGuard, restore_latest, save
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models import model as M
+from repro_torch.models.common import init_params
+from repro_torch.optim.adamw import OptConfig, init_opt_state
+from repro_torch.resilience import FaultPlan, ResilienceLog, capture_warnings
+from repro_torch.resilience import faults as rfaults
+from repro_torch.resilience import log as rlog
+from repro_torch.train.step import make_train_step
+
+_DST_INT_KEYS = {"update_every", "begin", "end", "t_end", "min_size"}
+_DST_FLOAT_KEYS = {"target", "alpha"}
+
+
+def parse_dynamic_sparsity(spec: str) -> dict:
+    """``target=0.9,update_every=100`` -> DynamicSparsityConfig kwargs."""
+    kw: dict = {}
+    for item in filter(None, (s.strip() for s in spec.split(","))):
+        key, sep, val = item.partition("=")
+        key = key.strip().replace("-", "_")
+        if not sep:
+            raise argparse.ArgumentTypeError(
+                f"--dynamic-sparsity item {item!r} is not key=value"
+            )
+        if key in _DST_INT_KEYS:
+            kw[key] = int(val)
+        elif key in _DST_FLOAT_KEYS:
+            kw[key] = float(val)
+        elif key == "exclude":
+            kw[key] = tuple(filter(None, val.split("+")))
+        else:
+            raise argparse.ArgumentTypeError(
+                f"--dynamic-sparsity key {key!r} unknown (ints: "
+                f"{sorted(_DST_INT_KEYS)}, floats: {sorted(_DST_FLOAT_KEYS)}, "
+                "exclude=tok+tok)"
+            )
+    return kw
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--step-deadline", type=float, default=300.0,
+                    help="straggler mitigation: abort+checkpoint if a step "
+                         "exceeds this (the first executed step is exempt: "
+                         "it pays the kernels' build and first launches)")
+    ap.add_argument("--backend", default="cuda", choices=rtm.available_backends(),
+                    help="kernel backend for the TensorDash sparse paths")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--sparsity-taps", action="store_true",
+                    help="record per-layer A/G densities + modeled TensorDash "
+                         "speedup every step (paper Fig. 14 live view)")
+    ap.add_argument("--dynamic-sparsity", type=parse_dynamic_sparsity,
+                    default=None, metavar="KVS",
+                    help="RigL dynamic sparse training, e.g. "
+                         "'target=0.9,update_every=100' (keys = "
+                         "repro_torch.sparse_train.DynamicSparsityConfig fields; "
+                         "ramp end defaults to --steps)")
+    ap.add_argument("--bm", type=int, default=None, help="block rows (sparse kernels)")
+    ap.add_argument("--bk", type=int, default=None, help="contraction block size")
+    ap.add_argument("--bn", type=int, default=None, help="output block size")
+    ap.add_argument("--geometry", default="explicit", choices=rtm.GEOMETRIES,
+                    help="'auto' resolves tile geometry / grid family per "
+                         "call site from the TuningDB (python -m repro_torch.tune)")
+    ap.add_argument("--inject-faults", default="", metavar="SPEC",
+                    help="seeded fault replay, e.g. 'nan_loss@3;step_stall@5:"
+                         "secs=1' (repro_torch.resilience.FaultPlan grammar)")
+    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--max-faults", type=int, default=3,
+                    help="consecutive non-finite steps before checkpoint+abort")
+    ap.add_argument("--fault-backoff", type=float, default=0.5,
+                    help="base seconds for exponential backoff after a "
+                         "skipped (non-finite) step")
+    ap.add_argument("--no-nonfinite-guard", action="store_true",
+                    help="disable the skip-step guard on non-finite loss/grads")
+    args = ap.parse_args(argv)
+
+    if args.multi_pod:
+        raise NotImplementedError(
+            "--multi-pod: the port has no mesh until distributed execution "
+            "(ROADMAP queue 1, item 14)")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_config(cfg)
+    cfg = dataclasses.replace(cfg, remat=not args.smoke)
+    geom = {k: v for k, v in (("bm", args.bm), ("bk", args.bk), ("bn", args.bn)) if v}
+    if args.smoke and not geom and (
+        args.backend != "dense" or args.dynamic_sparsity is not None
+    ):
+        # card-sized blocks don't divide smoke shapes (and would clamp a
+        # dynamic-sparsity mask to one block per weight — no granularity)
+        geom = {"bm": 8, "bk": 16, "bn": 16}
+    rt = rtm.Runtime(backend=args.backend, device=args.device,
+                     geometry=args.geometry, **geom)
+    rt.kernel.check_platform()  # fail fast (cuda without a card) vs a silent fallback
+
+    log = ResilienceLog()
+    fp = FaultPlan.parse(args.inject_faults, seed=args.fault_seed)
+    guard_nonfinite = not args.no_nonfinite_guard
+    on_card = rt.device.type == "cuda"
+
+    with rt.use(), rlog.use_log(log), rfaults.inject(fp), capture_warnings(log):
+        params = init_params(M.param_specs(cfg), seed=0, device=rt.device)
+        opt = init_opt_state(params)
+        data = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
+        ocfg = OptConfig(total_steps=max(args.steps, 100))
+        ctrl = masks = None
+        if args.dynamic_sparsity is not None:
+            from repro_torch.sparse_train import (
+                DynamicSparsityConfig, DynamicSparsityController,
+            )
+
+            dkw = dict(args.dynamic_sparsity)
+            dkw.setdefault("end", args.steps)
+            ctrl = DynamicSparsityController(DynamicSparsityConfig(**dkw), params)
+            masks = ctrl.masks()
+            print(
+                f"dynamic sparsity: {len(ctrl.units)} weight(s), "
+                f"target {ctrl.cfg.target:.0%} by step {ctrl.cfg.end}, "
+                f"refresh every {ctrl.cfg.update_every}"
+            )
+        step_fn = make_train_step(
+            cfg, ocfg, microbatches=args.microbatches,
+            sparsity_taps=args.sparsity_taps, dynamic_sparsity=ctrl,
+            guard_nonfinite=guard_nonfinite,
+        )
+        guard = PreemptionGuard()
+        try:
+            start = 0
+            if args.ckpt_dir:
+                s, state = restore_latest(
+                    args.ckpt_dir, {"params": params, "opt": opt}
+                )
+                if s is not None:
+                    params, opt, start = state["params"], state["opt"], s
+                    print(f"resumed at step {s}")
+
+            consecutive_faults = 0
+            for i in range(start, args.steps):
+                for _ in fp.fires("preempt", i):
+                    signal.raise_signal(signal.SIGTERM)
+                t0 = time.time()
+                rfaults.stall(fp, "step_stall", i)
+                kw = {}
+                if guard_nonfinite:
+                    kw["poison"] = rfaults.train_poison(fp, i)
+                params, opt, m = step_fn(params, opt, data.batch_at(i, device=rt.device),
+                                         masks, **kw)
+                if on_card:
+                    torch.cuda.synchronize(rt.device)
+                dt = time.time() - t0
+                if guard_nonfinite and int(m.get("nonfinite", 0)):
+                    consecutive_faults += 1
+                    log.record("nonfinite", "train.step", "skip-step",
+                               step=i, consecutive=consecutive_faults)
+                    print(f"step {i}: non-finite loss/grads — update skipped "
+                          f"({consecutive_faults}/{args.max_faults} consecutive)")
+                    if consecutive_faults >= args.max_faults:
+                        if args.ckpt_dir:
+                            save(args.ckpt_dir, i + 1,
+                                 {"params": params, "opt": opt})
+                        log.record("nonfinite", "train.loop", "checkpoint-abort",
+                                   step=i, consecutive=consecutive_faults)
+                        print(f"{consecutive_faults} consecutive non-finite "
+                              "steps: checkpointed, aborting")
+                        print(log.summary())
+                        sys.exit(3)
+                    time.sleep(min(
+                        args.fault_backoff * 2 ** (consecutive_faults - 1), 30.0
+                    ))
+                else:
+                    consecutive_faults = 0
+                if ctrl is not None and ctrl.should_update(i):
+                    rep = ctrl.update(i, m["dst_w_scores"], m["dst_g_scores"])
+                    masks = ctrl.masks()
+                    print(
+                        f"dst refresh step {rep['step']:5d} "
+                        f"sparsity {rep['sparsity']:.3f} "
+                        f"(target {rep['target_sparsity']:.3f}) "
+                        f"pruned {rep['pruned']} regrown {rep['regrown']} "
+                        f"plan-edit {rep['edit_ms']:.2f}ms"
+                    )
+                # the first executed step pays the kernels' build and first
+                # launches; a deadline sized for steady-state steps must not
+                # count that against it
+                if dt > args.step_deadline and i != start:
+                    print(f"step {i} exceeded deadline ({dt:.0f}s): checkpoint + abort")
+                    log.record("deadline", "train.step", "checkpoint-abort",
+                               step=i, seconds=round(dt, 3))
+                    if args.ckpt_dir:
+                        save(args.ckpt_dir, i + 1, {"params": params, "opt": opt})
+                    print(log.summary())
+                    return
+                if (i + 1) % 5 == 0 or i == start:
+                    line = (f"step {i+1:5d} loss {float(m['loss']):.4f} "
+                            f"gnorm {float(m['grad_norm']):.2f} {dt:.2f}s")
+                    if ctrl is not None:
+                        line += f" Wdens={float(m['dst_density']):.2f}"
+                    if args.sparsity_taps:
+                        from repro_torch.train.step import modeled_speedup
+
+                        sim = modeled_speedup(m, cfg, max_t=64, sample_groups=1)
+                        line += (
+                            f" A={float(m['A_density'].float().mean()):.2f}"
+                            f" G={float(m['G_density'].float().mean()):.2f}"
+                            f" ideal={float(m['modeled_speedup']):.2f}x"
+                            f" modeled={sim['overall']:.2f}x"
+                        )
+                    print(line)
+                if args.ckpt_dir and ((i + 1) % args.ckpt_every == 0 or guard.should_save):
+                    save(args.ckpt_dir, i + 1, {"params": params, "opt": opt})
+                    if guard.should_save:
+                        log.record("preempt", "train.loop", "checkpoint-exit",
+                                   step=i)
+                        print("preemption: saved, exiting")
+                        print(log.summary())
+                        return
+        finally:
+            guard.close()
+    for ps in rt.plan_cache.plan_stats():
+        print(f"plan key={ps['key']!r} side={ps['side']} "
+              f"total_work={ps['total_work']}/{ps['blocks']} blocks "
+              f"skipped={ps['skipped_fraction']:.0%}")
+    if len(log):
+        print(log.summary())
+    print("done")
+
+
+if __name__ == "__main__":
+    main()

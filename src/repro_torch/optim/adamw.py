@@ -23,7 +23,7 @@ import torch
 from repro_torch.runtime.runtime import tree_map
 
 __all__ = ["OptConfig", "OptState", "init_opt_state", "apply_updates", "global_norm", "lr_at",
-           "tree_leaves"]
+           "tree_leaves", "tree_unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +53,24 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [] if tree is None else [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s nested dicts and lists with its tensors replaced, in
+    :func:`tree_leaves` order, by ``leaves`` (for example gradients)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return None if t is None else next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
 
 
 def init_opt_state(params) -> OptState:

@@ -24,7 +24,8 @@ decoding only.
 
 The JAX engine's resilience hooks (fault injection, the ``isfinite``
 watchdog, TTL deadlines, work-budget shedding and slot halving on a failed
-allocation) wait for the resilience slice (ROADMAP queue 1, item 16).
+allocation) wait for the serving slice (ROADMAP queue 1, item 10); their
+injectors are ported (:mod:`repro_torch.resilience`).
 """
 from __future__ import annotations
 

@@ -18,6 +18,12 @@ nonzero fraction) and ``G_density`` (the nonzero fraction of the gradient
 at each layer's MLP output, through zero probes) and a ``modeled_speedup``
 bound; :func:`modeled_speedup` refines the densities through
 :mod:`repro_torch.core.perf_model` on the host (paper Fig. 14).
+
+``dynamic_sparsity=`` (a :class:`repro_torch.sparse_train.
+DynamicSparsityController` or its ``spec()``) runs RigL dynamic sparse
+training: the step masks the parameters in place, emits the block scores
+the controller prunes and regrows on, and masks the gradients and the
+updated parameters, so a masked-off block stays exactly zero.
 """
 from __future__ import annotations
 
@@ -35,6 +41,10 @@ from repro_torch.optim.adamw import (
     init_opt_state,
     lr_at,
     tree_leaves,
+    tree_unflatten,
+)
+from repro_torch.sparse_train.masks import (
+    apply_block_masks, block_scores, mask_density, stacked_leaves,
 )
 
 __all__ = ["make_train_step", "make_loss_fn", "init_train_state", "modeled_speedup", "accumulate_grads"]
@@ -126,6 +136,52 @@ def modeled_speedup(metrics, cfg: ModelConfig, **kw) -> dict[str, float]:
     return pm.speedup_from_densities(a, g, layers, **kw)
 
 
+@torch.no_grad()
+def _held_blocks(params, masks: dict, spec: dict) -> list:
+    """What :func:`apply_block_masks` is about to zero that is not zero yet,
+    as ``(blocks view, block mask, values)`` per tensor: the blocks a
+    refresh has just pruned (between refreshes every masked-off block is
+    already zero, and the list is empty).  One host sync."""
+    leaves = stacked_leaves(params)
+    views = []
+    for path, mask in masks.items():
+        bk, bn = spec[path]
+        leaf = leaves[path]
+        if not leaf.stacked:
+            pairs = [(leaf.leaves[0], mask)]
+        elif leaf.leaves[0].dim() >= 2:
+            pairs = zip(leaf.leaves, mask)
+        else:  # per-layer vectors: layer l is row l of the [L, d] matrix
+            pairs = [(x.view(1, -1), mask[l // bk]) for l, x in enumerate(leaf.leaves)]
+            bk = 1
+        for x, m in pairs:
+            *lead, k, n = x.shape
+            blocks = x.view(*lead, k // bk, bk, n // bn, bn).movedim(-3, -2)
+            off = ~m.to(x.device).reshape(blocks.shape[:-2])
+            views.append((blocks, off & (blocks != 0).flatten(-2).any(-1)))
+    if not views:
+        return []
+    hit = torch.stack([off.any() for _, off in views]).tolist()
+    return [(blocks, off, blocks[off]) for (blocks, off), h in zip(views, hit) if h]
+
+
+@torch.no_grad()
+def _restore_blocks(held: list) -> None:
+    for blocks, off, values in held:
+        blocks[off] = values
+
+
+def _stamp(params, masks: dict) -> list:
+    """Each mask and controlled tensor with its ``_version``: equal stamps
+    mean nothing wrote to them in between."""
+    leaves = stacked_leaves(params)
+    return [(t, t._version) for path, m in masks.items() for t in (m, *leaves[path].leaves)]
+
+
+def _unchanged(stamp: list, now: list) -> bool:
+    return len(stamp) == len(now) and all(a is b and v == w for (a, v), (b, w) in zip(stamp, now))
+
+
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: OptConfig,
@@ -135,8 +191,8 @@ def make_train_step(
     dynamic_sparsity=None,
     guard_nonfinite: bool = False,
 ):
-    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; with ``guard_nonfinite`` it takes ``poison=`` too.
+    """Returns ``train_step(params, opt_state, batch, masks=None, poison=None)
+    -> (params, opt_state, metrics)``.
 
     ``batch`` is the global batch; with ``microbatches > 1`` it is split on
     its leading axis and the gradients are accumulated in fp32.  The
@@ -149,10 +205,22 @@ def make_train_step(
     (one host sync) and skips a non-finite step: parameters and optimizer
     state stay as they were and ``metrics["nonfinite"]`` is 1.  ``poison``
     is the fault-injection hook (0 clean, 1 NaN loss, 2 NaN gradients).
+
+    ``dynamic_sparsity`` (a controller, or a ``{path: (bk, bn)}`` spec)
+    makes ``masks`` (the controller's ``masks()``) required and follows the
+    JAX package's order: mask the parameters (in place); compute the
+    gradients; apply the poison; score the masked parameters and the
+    unmasked gradients (``dst_w_scores``/``dst_g_scores``, block L1 masses
+    keyed by path) and the live ``dst_density``; mask the gradients; run
+    AdamW; mask the parameters again.  A skipped step returns the
+    parameters it was given, as JAX's does: the blocks its mask had just
+    zeroed get their values back (a later refresh may regrow them); it
+    still reports the scores.
     """
+    dst_spec = None
     if dynamic_sparsity is not None:
-        raise NotImplementedError(
-            "dynamic_sparsity: sparse_train/ is not ported yet (ROADMAP queue 1, item 13)")
+        dst_spec = (dynamic_sparsity.spec() if hasattr(dynamic_sparsity, "spec")
+                    else dict(dynamic_sparsity))
     if sparsity_taps and (cfg.family not in ("dense", "moe") or cfg.frontend is not None):
         raise ValueError(
             f"sparsity_taps: unsupported family {cfg.family!r} / frontend {cfg.frontend!r} "
@@ -163,8 +231,19 @@ def make_train_step(
             "make_train_step under Runtime(geometry='auto') with an empty TuningDB: every cell "
             "resolves cold to the hand-tuned defaults", stacklevel=2)
     loss_fn = make_loss_fn(cfg)
+    # the last clean dynamic step's _stamp, taken after its final mask: while
+    # it holds, every masked-off block is zero and there is nothing to hold
+    settled: list = []
 
-    def train_step(params, opt_state, batch, poison=None):
+    def train_step(params, opt_state, batch, masks=None, poison=None):
+        if dst_spec is not None:
+            if masks is None:
+                raise TypeError("dynamic_sparsity train step takes masks: "
+                                "train_step(params, opt_state, batch, controller.masks())")
+            held = []
+            if guard_nonfinite and not _unchanged(settled, _stamp(params, masks)):
+                held = _held_blocks(params, masks, dst_spec)
+            apply_block_masks(params, masks, dst_spec)
         loss, grads, tapm = accumulate_grads(loss_fn, cfg, params, batch, microbatches=microbatches,
                                              sparsity_taps=sparsity_taps)
         metrics: dict = {}
@@ -174,18 +253,39 @@ def make_train_step(
                 loss = loss + float("nan")
             elif pc == 2:
                 grads = [g + float("nan") for g in grads]
+        dstm = {}
+        if dst_spec is not None:
+            # scores before the grad mask: RigL regrows on the *dense*
+            # gradient's block mass, prunes on the (masked) weights'.
+            # Masking the grads pins pruned weights and their updates at 0
+            gtree = tree_unflatten(params, grads)
+            dstm = {"dst_w_scores": block_scores(params, dst_spec),
+                    "dst_g_scores": block_scores(gtree, dst_spec),
+                    "dst_density": mask_density(masks, dst_spec)}
+            apply_block_masks(gtree, masks, dst_spec)
+        if guard_nonfinite:
             gnorm = global_norm(grads)
             if not bool(torch.isfinite(loss) & torch.isfinite(gnorm)):
                 # skip: a non-finite loss or gradient leaves params and
                 # optimizer state as they were
+                if dst_spec is not None:
+                    _restore_blocks(held)
                 metrics.update(grad_norm=gnorm, lr=lr_at(opt_cfg, opt_state.step + 1), nonfinite=1)
-                metrics.update(loss=loss, param_norm=global_norm(params), **tapm)
+                with torch.no_grad():
+                    metrics.update(loss=loss, param_norm=global_norm(params), **tapm, **dstm)
                 return params, opt_state, metrics
             metrics["nonfinite"] = 0
         # grads is a list in tree_leaves(params) order, which is how
         # apply_updates walks the params and moments
         params, opt_state, upd = apply_updates(params, grads, opt_state, opt_cfg)
-        metrics.update(upd, loss=loss, param_norm=global_norm(params), **tapm)
+        if dst_spec is not None:
+            # stale Adam momentum would drift just-pruned entries off zero;
+            # re-mask so stored weights carry exactly-zero blocks (what
+            # makes value planning recover the mask by construction)
+            apply_block_masks(params, masks, dst_spec)
+            if guard_nonfinite:
+                settled[:] = _stamp(params, masks)
+        metrics.update(upd, loss=loss, param_norm=global_norm(params), **tapm, **dstm)
         return params, opt_state, metrics
 
     return train_step

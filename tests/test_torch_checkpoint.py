@@ -1,0 +1,143 @@
+"""repro_torch.checkpoint against repro.checkpoint on the CPU.
+
+* Format parity both ways: a flat tree of fp32, bf16 and int32 arrays
+  saved by one package and read back by the other, bit for bit (bf16 as
+  its ``uint16`` bit pattern with the ``dtypes`` sidecar; the port writes
+  and reads it through ``Tensor.view``, never ``ml_dtypes``).
+* The port's own trees: its per-layer parameter list and ``OptState`` (a
+  named tuple with a Python-int step) round-trip exactly, keep-k prunes to
+  the newest steps, ``latest_step``/``all_steps`` follow, restore places
+  tensors on the ``like`` tree's device and dtype, and ``shardings=``
+  raises.
+"""
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import manager as jman
+from repro_torch.checkpoint import manager as tman
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.models import model as TM
+from repro_torch.models.common import init_params
+from repro_torch.optim.adamw import OptState, init_opt_state, tree_leaves
+
+
+def _flat_arrays(seed=0):
+    rng = np.random.default_rng(seed)
+    f32 = rng.standard_normal((5, 7)).astype(np.float32)
+    bf16 = torch.from_numpy(rng.standard_normal((3, 4, 6)).astype(np.float32)).to(torch.bfloat16)
+    i32 = rng.integers(-2**31, 2**31 - 1, size=(9,), dtype=np.int64).astype(np.int32)
+    return f32, bf16, i32
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def test_port_save_reads_in_jax(tmp_path):
+    f32, bf16, i32 = _flat_arrays(1)
+    tree = {"w": torch.from_numpy(f32), "h": bf16, "n": torch.from_numpy(i32)}
+    base = str(tmp_path)
+    d = tman.save(base, 3, tree)
+    with open(os.path.join(d, "meta.json")) as f:
+        meta = json.load(f)
+    assert meta == {"step": 3, "keys": ["h", "n", "w"], "dtypes": {"h": "bfloat16"}}
+    with np.load(os.path.join(d, "arrays.npz")) as z:
+        assert z["h"].dtype == np.uint16  # the JAX package's stored type
+    like = {"w": jnp.zeros((5, 7), jnp.float32), "h": jnp.zeros((3, 4, 6), jnp.bfloat16),
+            "n": jnp.zeros((9,), jnp.int32)}
+    got = jman.restore(base, 3, like)
+    np.testing.assert_array_equal(np.asarray(got["w"]), f32)
+    np.testing.assert_array_equal(np.asarray(got["n"]), i32)
+    assert got["h"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(got["h"]).view(np.uint16), _bits(bf16))
+
+
+def test_jax_save_reads_in_port(tmp_path):
+    f32, bf16, i32 = _flat_arrays(2)
+    jbf16 = jnp.asarray(bf16.float().numpy()).astype(jnp.bfloat16)
+    base = str(tmp_path)
+    jman.save(base, 5, {"w": jnp.asarray(f32), "h": jbf16, "n": jnp.asarray(i32)})
+    like = {"w": torch.zeros(5, 7), "h": torch.zeros(3, 4, 6, dtype=torch.bfloat16),
+            "n": torch.zeros(9, dtype=torch.int32)}
+    assert tman.latest_step(base) == 5
+    got = tman.restore(base, 5, like)
+    assert got["h"].dtype == torch.bfloat16 and got["n"].dtype == torch.int32
+    np.testing.assert_array_equal(got["w"].numpy(), f32)
+    np.testing.assert_array_equal(got["n"].numpy(), i32)
+    np.testing.assert_array_equal(_bits(got["h"]), _bits(bf16))
+
+
+def test_float8_round_trips_as_uint8(tmp_path):
+    x = torch.linspace(-3, 3, 24).reshape(4, 6).to(torch.float8_e4m3fn)
+    tman.save(tmp_path, 1, {"q": x})
+    with open(tmp_path / "step_000000000001" / "meta.json") as f:
+        assert json.load(f)["dtypes"] == {"q": "float8_e4m3fn"}
+    got = tman.restore(tmp_path, 1, {"q": torch.zeros(4, 6, dtype=torch.float8_e4m3fn)})
+    assert torch.equal(got["q"].view(torch.uint8), x.view(torch.uint8))
+
+
+def test_params_and_opt_state_round_trip_keep_k(tmp_path):
+    cfg = reduce_config(get_config("qwen3-4b"))
+    params = init_params(TM.param_specs(cfg), seed=3, device="cpu")
+    opt = init_opt_state(params)
+    gen = torch.Generator().manual_seed(4)
+    for m in tree_leaves(opt.m) + tree_leaves(opt.v):
+        m.copy_(torch.randn(m.shape, generator=gen))
+    opt = OptState(step=7, m=opt.m, v=opt.v)
+    tree = {"params": params, "opt": opt}
+    for step in (1, 2, 3, 4):
+        tman.save(tmp_path, step, tree, keep=2)
+    assert tman.all_steps(tmp_path) == [3, 4] and tman.latest_step(tmp_path) == 4
+    assert sorted(os.listdir(tmp_path)) == ["step_000000000003", "step_000000000004"]
+    like = {"params": init_params(TM.param_specs(cfg), seed=9, device="cpu"),
+            "opt": OptState(step=0, m=init_opt_state(params).m, v=init_opt_state(params).v)}
+    step, got = tman.restore_latest(tmp_path, like)
+    assert step == 4
+    assert isinstance(got["opt"], OptState) and got["opt"].step == 7
+    assert isinstance(got["params"]["layers"], list) and len(got["params"]["layers"]) == cfg.num_layers
+    want, have = tree_leaves(tree)[1:], tree_leaves(got)[1:]  # [0] is opt.step
+    assert len(want) == len(have) == len(tree_leaves(like)) - 1
+    for a, b in zip(want, have):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+    with np.load(tmp_path / "step_000000000004" / "arrays.npz") as z:
+        assert "params/layers/1/attn/wq" in z.files and "opt/step" in z.files
+        assert "opt/m/layers/0/mlp/w_down" in z.files
+
+
+def test_restore_casts_to_like_and_refuses_shardings(tmp_path):
+    tman.save(tmp_path, 2, {"w": torch.arange(6, dtype=torch.float32)})
+    got = tman.restore(tmp_path, 2, {"w": torch.zeros(6, dtype=torch.float64)})
+    assert got["w"].dtype == torch.float64 and got["w"].tolist() == list(range(6))
+    with pytest.raises(ValueError, match="shape"):
+        tman.restore(tmp_path, 2, {"w": torch.zeros(7)})
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tman.restore(tmp_path, 2, {"w": torch.zeros(6)}, shardings={"w": None})
+
+
+def test_save_is_atomic_over_a_stale_tmp(tmp_path):
+    os.makedirs(tmp_path / "tmp.3")
+    (tmp_path / "tmp.3" / "junk").write_text("torn write")
+    tman.save(tmp_path, 3, {"w": torch.ones(2)})
+    assert sorted(os.listdir(tmp_path)) == ["step_000000000003"]
+    assert tman.all_steps(tmp_path / "missing") == [] and tman.latest_step(tmp_path / "missing") is None
+
+
+def test_preemption_guard_sets_flag_and_restores_handler():
+    import signal
+
+    before = signal.getsignal(signal.SIGTERM)
+    guard = tman.PreemptionGuard()
+    assert not guard.should_save
+    signal.raise_signal(signal.SIGTERM)
+    assert guard.should_save
+    guard.close()
+    assert signal.getsignal(signal.SIGTERM) == before

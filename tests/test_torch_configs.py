@@ -1,0 +1,69 @@
+"""The port's config registry against the JAX package's, and the qwen3-4b
+model (grouped-query attention with qk-norm, the train launcher's default
+``--arch``) against JAX's on the CPU.
+
+Every config the port registers equals JAX's field for field, reduced or
+not.  Reduced qwen3-4b (2 layers, d_model 64, 4 query heads over 2 KV
+heads, qk-norm) gives the same ``forward`` and ``prefill`` logits as JAX's
+within ``tests/test_torch_model.py``'s tolerances (fp32 rtol = atol = 1e-4;
+bf16 atol 0.1), parameters carried across by ``params_from_jax``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro import runtime as jrt
+from repro.models import model as JM
+from repro.models.common import init_params as jinit_params
+from repro_torch import configs as tconfigs
+from repro_torch import runtime as trt
+from repro_torch.convert import params_from_jax
+from repro_torch.models import model as TM
+from test_torch_model import TOL
+
+GEOM = dict(bm=8, bk=16, bn=16)
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_the_port_registers_deepseek_and_qwen3():
+    assert tconfigs.ALL_ARCHS == ["deepseek-7b", "qwen3-4b"]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-4b"])
+def test_registered_config_equals_jax_field_for_field(arch):
+    t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(tconfigs.reduce_config(t)) == dataclasses.asdict(jconfigs.reduce_config(j))
+    assert t.param_count() == j.param_count()
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_qwen3_reduced_logits_match_jax(backend, dtype_name):
+    jcfg = jconfigs.reduce_config(jconfigs.get_config("qwen3-4b"))
+    tcfg = tconfigs.reduce_config(tconfigs.get_config("qwen3-4b"))
+    assert tcfg.qk_norm and tcfg.num_kv_heads < tcfg.num_heads
+    jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(2), dtype=getattr(jnp, dtype_name))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    toks = np.random.default_rng(3).integers(0, jcfg.vocab_size, size=(2, 12)).astype(np.int32)
+    with jrt.use(jrt.Runtime(backend=backend, **GEOM)):
+        jl = JM.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+        jpl, _ = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    with trt.Runtime(backend=backend, device="cpu", **GEOM).use():
+        tl = TM.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+        tpl, _ = TM.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    for t, j in ((tl, jl), (tpl, jpl)):
+        assert tuple(t.shape) == tuple(j.shape)
+        np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), **TOL[dtype_name])

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and no line of
-``chip_smoke.py`` imports JAX (``jax``, ``jaxlib``) or the JAX package
-``repro`` (as distinct from ``repro_torch``).  Checked on the source with
+``chip_smoke.py`` imports JAX (``jax``, ``jaxlib``), the JAX package
+``repro`` (as distinct from ``repro_torch``) or ``ml_dtypes`` (JAX's dtype
+package, which the card's installation lacks).  Checked on the source with
 ``ast``, so a lazy import inside a function counts too."""
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -38,5 +39,6 @@ def test_no_jax_or_reference_package_import(path):
 
 def test_the_checker_catches_a_forbidden_import(tmp_path):
     probe = tmp_path / "probe.py"
-    probe.write_text("def f():\n    from repro.kernels import ref\n    import jax.numpy\n")
-    assert set(_imported_roots(probe)) == {"repro", "jax"}
+    probe.write_text("def f():\n    from repro.kernels import ref\n    import jax.numpy\n"
+                     "    import ml_dtypes\n")
+    assert set(_imported_roots(probe)) == {"repro", "jax", "ml_dtypes"} <= FORBIDDEN

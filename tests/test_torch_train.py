@@ -361,7 +361,8 @@ def test_guarded_clean_step_equals_unguarded_and_options_refuse():
             tp, tstep.init_train_state(tcfg, tp), batch)
         b, _, mb = tstep.make_train_step(tcfg, tadamw.OptConfig(**OPT))(
             tq, tstep.init_train_state(tcfg, tq), batch)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tstep.make_train_step(tcfg, tadamw.OptConfig(), dynamic_sparsity={"density": 0.5})
+        dyn = tstep.make_train_step(tcfg, tadamw.OptConfig(), dynamic_sparsity={"['lm_head']": (16, 16)})
+        with pytest.raises(TypeError, match="masks"):  # a dynamic step refuses to run without masks
+            dyn(tq, tstep.init_train_state(tcfg, tq), batch)
     assert float(ma["loss"]) == float(mb["loss"])
     assert all(torch.equal(x, y) for x, y in zip(tadamw.tree_leaves(a), tadamw.tree_leaves(b)))
