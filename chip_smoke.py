@@ -17,11 +17,22 @@ from the root of a checkout, on a machine with one H100.  It
    call and its share of the bound); then counts, with the profiler, the
    CUDA launches of a few calls of each wrapper: exactly one per call;
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
-   weights) through ``ServeEngine`` on the ``cuda`` backend and checks that
-   every FFN gate, ``w_down`` and LM-head product and every plan went
-   through the kernels, as many times as the path implies (one planner
-   launch per ``w_down`` plan, one for the LM head's), and that no plain
-   executor and no planner chain ran;
+   weights) through ``ServeEngine`` on the ``cuda`` backend, the decode
+   chunk eager, and checks that every FFN gate, ``w_down`` and LM-head
+   product and every plan went through the kernels, as many times as the
+   path implies (one planner launch per ``w_down`` plan, one for the LM
+   head's), that no plain executor and no planner chain ran and no decode
+   chunk synced the host; then serves the same requests with the chunk as
+   one CUDA graph: the eager run's greedy tokens exactly, one capture over
+   a run with backfill, whose launches are one chunk's (the wrappers count
+   a capture once; the card runs it at every replay: the profiler counts
+   one replay's device launches, each kernel's equal to the capture's), a
+   replay for every chunk after the eager warm-up, no host sync in a
+   replayed chunk; then,
+   through the graph, ``nan_logits@1:slot=0`` and ``inf_logits@1:slot=2``:
+   the watchdog retires the poisoned request (``"error"``), every other
+   request's tokens equal the clean graph run's, one ``retire-slot`` event,
+   no recapture; prints ms per decode step and tokens/s of both runs;
 4. compares the same prompts' prefill logits with the ``reference``
    backend on the card;
 5. holds the v2/v1 grid kernels, planned and fused, bit-equal to the
@@ -36,6 +47,11 @@ from the root of a checkout, on a machine with one H100.  It
    the tuned DB, and with a DB that pins the FFN to the explicit geometry
    on the v2 grid, which must launch the v2 kernels and give the ragged
    serve's greedy tokens exactly; it counts host syncs per decode step;
+   then drives the serve launcher, ``repro_torch.launch.serve.main``, in
+   process at full width (8 requests, 4 slots, ``--inject-faults
+   nan_logits@1:slot=0``): exit 0, mixed finish reasons, a
+   ``retire-slot`` line, one capture; and once more with
+   ``--no-cuda-graph`` (no capture), for its tokens/s beside the graph's;
 8. holds the planned kernel at the training step's backward shapes (one
    microbatch of 1024 tokens at full widths, fp32 operands and transposed
    views, bf16 output: the gate's, ``w_down``'s and the LM head's ``da``
@@ -83,9 +99,10 @@ from the root of a checkout, on a machine with one H100.  It
 12. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode; each with its
-   launches over the serve run, the timed training steps and launcher runs
-   (a) and (c), on the serving path alone, per training step and per
-   launcher step), the card line, and last the result
+   launches over the serve runs (eager, graph, fault replays and the serve
+   launcher; a captured launch counted once per replay), the timed
+   training steps and launcher runs (a) and (c), on the serving path
+   alone, per training step and per launcher step), the card line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
 
@@ -447,7 +464,8 @@ def device_launches(fn, reps: int = LAUNCH_REPS) -> list[tuple[str, int]]:
     """``(kernel, count)`` of the device launches ``torch.profiler`` sees
     over ``reps`` calls of ``fn``, between :data:`MARKERS` spin-kernel
     launches that open the session and as many that close it, all left out
-    of the count.  A session after the first in a process was seen to drop
+    of the count, as are launches reported before the first marker or after
+    the last.  A session after the first in a process was seen to drop
     the first launches it should record (on torch 2.11: two opening markers
     in every such session, and once, with eight opening markers, two of the
     counted launches, so the count came up two short).  So the
@@ -475,14 +493,27 @@ def device_launches(fn, reps: int = LAUNCH_REPS) -> list[tuple[str, int]]:
             (e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
             key=lambda e: e.time_range.start)]
         marker = ["spin_kernel" in n for n in names]
-        lead = marker.index(False) if False in marker else len(names)
-        trail = marker[::-1].index(False) if False in marker else 0
-        if (lead, trail) != (MARKERS, MARKERS):
+        if True not in marker:
+            log(f"launches: the profiler saw no marker launch among {len(names)}")
+            continue
+        # the opening run of markers starts at the first marker, the closing
+        # run ends at the last; what the session reports outside them (a
+        # launch of an earlier session delivered late) is not this fn's
+        first, last = marker.index(True), len(names) - 1 - marker[::-1].index(True)
+        start, end = first, last
+        while start < last and marker[start + 1]:
+            start += 1
+        while end > start + 1 and marker[end - 1]:
+            end -= 1
+        lead, trail = start - first + 1, last - end + 1
+        outside = names[:first] + names[last + 1:]
+        if (lead, trail) != (MARKERS, MARKERS) or outside:
             log(f"launches: the profiler saw {lead} of {MARKERS} opening and {trail} of {MARKERS} "
-                "closing marker launches")
-        if lead >= 1 and trail >= 1:
+                f"closing marker launches, and {len(outside)} launches outside them "
+                f"({sorted(set(n[:60] for n in outside))[:4]})")
+        if start < end:
             counts: dict[str, int] = {}
-            for n in names[lead:len(names) - trail]:
+            for n in names[start + 1:end]:
                 counts[n] = counts.get(n, 0) + 1
             return list(counts.items())
     raise AssertionError(f"the profiler dropped every opening or closing marker launch in {TRIES} sessions")
@@ -510,25 +541,97 @@ def count_launches(calls: dict, kernel: str = "td_spmm_kernel") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def drive_serve(params, cfg, prompts, rt):
-    """Serve ``prompts`` through a fresh ``ServeEngine`` on ``rt``: the
-    launch counts of the run (set to 0 just before it), its greedy tokens,
-    stats, wall and decode seconds, prefill group sizes, and the host syncs
-    (``torch.cuda`` sync debug warnings) inside decode chunks and in the
-    whole run.  Fails if a plain executor ran."""
+@contextlib.contextmanager
+def graph_launch_log():
+    """Record, for every decode-graph capture in this extent, the graph and
+    the wrapper launches its capture made.  The wrappers count a captured
+    launch once, at capture; the card runs it at every replay."""
+    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.serve import engine as E
+
+    orig, seen = E._DecodeGraph.capture, []
+
+    def capture(self, chunk, head):
+        before = T.launch_counts()
+        orig(self, chunk, head)
+        after = T.launch_counts()
+        seen.append((self, {k: after[k] - before[k] for k in after}))
+
+    E._DecodeGraph.capture = capture
+    try:
+        yield seen
+    finally:
+        E._DecodeGraph.capture = orig
+
+
+def wrapper_of(kernel: str) -> str | None:
+    """The wrapper a profiled kernel name belongs to (``planner`` for every
+    planner mode; the v2 and v1 grids together), or None for a kernel of
+    PyTorch or cuBLAS."""
+    if "td_plan_kernel" in kernel:
+        return "planner"
+    if "td_spmm_kernel<" not in kernel:
+        return None
+    _, fused, grid = (a.strip() for a in kernel.split("<", 1)[1].split(",")[:3])
+    return f"tensordash_matmul_{'fused' if fused == 'true' else 'planned'}{'[v2/v1]' if grid == 'true' else ''}"
+
+
+def by_wrapper(counts: dict) -> dict:
+    """Wrapper counts keyed as :func:`wrapper_of` keys kernel names, zeros left out."""
+    out: dict[str, int] = {}
+    for k, v in counts.items():
+        w = "planner" if k in PLANNER else k.replace("[v2]", "[v2/v1]").replace("[v1]", "[v2/v1]")
+        if v:
+            out[w] = out.get(w, 0) + v
+    return out
+
+
+def device_launches_of(counted: dict, seen: list) -> dict:
+    """A run's device launches from the wrapper counts: each capture's
+    launches run once per replay of its graph, not once."""
+    out = dict(counted)
+    for graph, delta in seen:
+        for k, v in delta.items():
+            out[k] += v * (graph.replays - 1)
+    return out
+
+
+def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, profile_replay=False):
+    """Serve ``prompts`` through a fresh ``ServeEngine`` on ``rt`` (with a
+    fresh plan cache), the decode chunk eagerly or (``cuda_graph=True``) as one CUDA graph, under
+    ``fault_plan``.  Returns the greedy tokens, the wrapper launch counts of
+    the run (set to 0 just before it; a capture counted once), the device
+    launches (a capture's times its replays), the launches of the capture,
+    stats, wall seconds, prefill group sizes, decode chunks, seconds and
+    host syncs (``torch.cuda`` sync debug warnings) by chunk kind (eager,
+    warm-up, capture, replay), host syncs in the whole run, the requests
+    and the resilience log.  With ``profile_replay`` the profiler then
+    counts the device launches of one more replay of the engine's graph
+    (``replay_kernels``; the engine is still alive, so are the buffers the
+    graph reads).  Fails if a plain executor ran."""
     import torch
     from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.resilience import ResilienceLog
+    from repro_torch.runtime import PlanCache
     from repro_torch.serve.engine import ServeEngine
 
-    eng = ServeEngine(params, cfg, slots=SLOTS, chunk=CHUNK, max_len=MAX_LEN, rt=rt)
-    groups, decode_s, decode_syncs = [], [0.0], [0]
-    admit, decode = eng._admit_group, eng._decode_chunk
+    rlog = ResilienceLog()
+    rt = rt.replace(plan_cache=PlanCache())  # each run builds its LM-head plan once
+    eng = ServeEngine(params, cfg, slots=SLOTS, chunk=CHUNK, max_len=MAX_LEN, rt=rt,
+                      cuda_graph=cuda_graph, fault_plan=fault_plan, log=rlog)
+    kinds = ("eager", "warm-up", "capture", "replay")
+    groups, chunks, decode_s, decode_syncs = [], dict.fromkeys(kinds, 0), dict.fromkeys(kinds, 0.0), \
+        dict.fromkeys(kinds, 0)
+    admit, decode = eng._admit_group, eng._decode
 
     def counted_admit(placements):
         groups.append(len(placements))
         return admit(placements)
 
     def timed_decode():
+        g = eng._graph
+        kind = ("eager" if g is None else "replay" if g.graph is not None
+                else "capture" if g.warm else "warm-up")
         torch.cuda.set_sync_debug_mode("default")  # the timing's own syncs are not counted
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -537,15 +640,16 @@ def drive_serve(params, cfg, prompts, rt):
             torch.cuda.set_sync_debug_mode("warn")
             out = decode()
             torch.cuda.set_sync_debug_mode("default")
-        decode_syncs[0] += sum("synchroniz" in str(w.message) for w in seen)
+        decode_syncs[kind] += sum("synchroniz" in str(w.message) for w in seen)
         torch.cuda.synchronize()
-        decode_s[0] += time.perf_counter() - t
+        decode_s[kind] += time.perf_counter() - t
+        chunks[kind] += 1
         torch.cuda.set_sync_debug_mode("warn")
         return out
 
-    eng._admit_group, eng._decode_chunk = counted_admit, timed_decode
+    eng._admit_group, eng._decode = counted_admit, timed_decode
     torch.cuda.reset_peak_memory_stats()
-    with no_plain_versions("serve"):
+    with no_plain_versions("serve"), graph_launch_log() as captures:
         for p in prompts:
             eng.submit(p, max_new=NEW_TOKENS)
         T.reset_launch_counts()
@@ -561,8 +665,24 @@ def drive_serve(params, cfg, prompts, rt):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = T.launch_counts()
-    syncs = decode_syncs[0] + sum("synchroniz" in str(w.message) for w in seen)
-    return out, launches, eng.stats(), wall, decode_s[0], groups, decode_syncs[0], syncs
+    if len(captures) > 1:
+        raise AssertionError(f"serve: {len(captures)} decode-graph captures in one engine")
+    replay = dict(device_launches(eng._graph.graph.replay, reps=1)) if profile_replay else None
+    return {"replay_kernels": replay, "out": out, "launches": launches, "device_launches": device_launches_of(launches, captures),
+            "capture_launches": captures[0][1] if captures else None, "stats": eng.stats(),
+            "wall": wall, "groups": groups, "chunks": chunks, "decode_s": decode_s,
+            "decode_syncs": decode_syncs,
+            "syncs": sum(decode_syncs.values()) + sum("synchroniz" in str(w.message) for w in seen),
+            "requests": eng._requests, "log": rlog}
+
+
+def path_launches(cfg, calls: int) -> dict:
+    """The serving path's wrapper launches over ``calls`` model calls: 30
+    fused gates, 31 planned products (30 ``w_down``, the LM head) and 30
+    emitted-mask plans each."""
+    return {"tensordash_matmul_fused": cfg.num_layers * calls,
+            "tensordash_matmul_planned": (cfg.num_layers + 1) * calls,
+            "planner[emitted]": cfg.num_layers * calls}
 
 
 def serve_phase():
@@ -586,13 +706,11 @@ def serve_phase():
     prompts = [rng.integers(0, cfg.vocab_size, size=int(s)) for s in rng.integers(16, 33, size=REQUESTS)]
 
     rt = rtm.Runtime(backend="cuda", device="cuda")
-    out, launches, st, wall, decode_s, groups, _, _ = drive_serve(params, cfg, prompts, rt)
+    run = drive_serve(params, cfg, prompts, rt)
+    out, launches, st, wall, groups = run["out"], run["launches"], run["stats"], run["wall"], run["groups"]
     calls = len(groups) + st["steps_run"]  # model invocations: prefill groups + decode steps
     want = {k: 0 for k in launches}
-    want.update({"tensordash_matmul_fused": cfg.num_layers * calls,
-                 "tensordash_matmul_planned": (cfg.num_layers + 1) * calls,
-                 "planner[emitted]": cfg.num_layers * calls,  # each w_down plan, from the gate's mask
-                 "planner[values]": 1})  # the LM head's weight plan, built once
+    want.update(path_launches(cfg, calls), **{"planner[values]": 1})  # the LM head's plan, built once
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != path's {want}")
     if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
@@ -602,6 +720,9 @@ def serve_phase():
     pc = st["plan_cache"]
     if pc["misses"] != 1 or pc["hits"] != calls - 1:
         raise AssertionError(f"LM-head plan cache {pc}, expected 1 miss and {calls - 1} hits")
+    if run["decode_syncs"]["eager"]:
+        raise AssertionError(f"serve: {run['decode_syncs']['eager']} host syncs inside eager decode chunks")
+    decode_s = run["decode_s"]["eager"]
     summary = {
         "tokens": st["tokens_out"], "wall_s": wall, "tok_per_s": st["tokens_out"] / wall,
         "decode_steps": st["steps_run"], "ms_per_decode_step": decode_s / st["steps_run"] * 1e3,
@@ -609,14 +730,208 @@ def serve_phase():
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "plan_cache": pc,
         "greedy_tokens": out,
     }
-    log(f"serve: {REQUESTS} requests x {NEW_TOKENS} new tokens, slots {SLOTS}, chunk {CHUNK}: "
-        f"{summary['tokens']} tokens in {wall:.3f} s = {summary['tok_per_s']:.2f} tok/s; "
+    log(f"serve: {REQUESTS} requests x {NEW_TOKENS} new tokens, slots {SLOTS}, chunk {CHUNK}, eager decode "
+        f"chunk: {summary['tokens']} tokens in {wall:.3f} s = {summary['tok_per_s']:.2f} tok/s; "
         f"{summary['ms_per_decode_step']:.3f} ms per decode step over {st['steps_run']} steps; "
-        f"{len(groups)} prefill groups; peak memory {summary['peak_mem_gb']:.2f} GB")
+        f"{len(groups)} prefill groups; peak memory {summary['peak_mem_gb']:.2f} GB; 0 host syncs "
+        f"inside decode chunks")
     log(f"serve: kernel launches {launches} == path's (30 fused + 31 planned + 30 emitted-mask "
         f"plans per model call, {calls} calls; 1 values plan for the LM head); plan cache "
         f"{pc['hits']} hits / {pc['misses']} miss; no plain executor or planner chain ran")
+    summary["graph"] = serve_graph_phase(params, cfg, prompts, rt, summary)
+    summary["faults"] = serve_fault_phase(params, cfg, prompts, rt, summary["graph"])
     return params, cfg, prompts, summary
+
+
+def first_difference(got: dict, want: dict):
+    """The first (rid, token index) where two runs' tokens differ; token
+    ``i`` of a request comes from its prefill when ``i == 0``, else from its
+    decode step ``i - 1``."""
+    for rid in sorted(want):
+        a, b = got.get(rid, []), want[rid]
+        for i in range(max(len(a), len(b))):
+            if i >= len(a) or i >= len(b) or a[i] != b[i]:
+                return rid, i
+    return None
+
+
+def serve_graph_phase(params, cfg, prompts, rt, eager):
+    """The serve phase's requests with the decode chunk as one CUDA graph:
+    the eager run's greedy tokens exactly; one capture over a run with
+    backfill; the capture's launches are one chunk's; a replay per chunk
+    after the warm-up; no host sync inside a replayed chunk."""
+    import torch
+
+    run = drive_serve(params, cfg, prompts, rt, cuda_graph=True, profile_replay=True)
+    out, st, groups = run["out"], run["stats"], run["groups"]
+    diff = first_difference(out, eager["greedy_tokens"])
+    if diff is not None:
+        rid, i = diff
+        raise AssertionError(f"serve graph: greedy tokens differ from the eager run's, first at request "
+                             f"{rid} token {i} ({'prefill' if i == 0 else f'decode step {i - 1}'})")
+    zero = dict.fromkeys(run["launches"], 0)
+    want_capture = dict(zero, **path_launches(cfg, CHUNK))
+    if st["decode_graph_captures"] != 1 or run["capture_launches"] != want_capture:
+        raise AssertionError(f"serve graph: {st['decode_graph_captures']} captures, capture launches "
+                             f"{run['capture_launches']} != one chunk's {want_capture}")
+    # the card runs at each replay what the wrappers counted at capture
+    replayed: dict[str, int] = {}
+    for k, v in run["replay_kernels"].items():
+        w = wrapper_of(k)
+        if w is not None:
+            replayed[w] = replayed.get(w, 0) + v
+    if replayed != by_wrapper(run["capture_launches"]):
+        raise AssertionError(f"serve graph: one replay's device launches {replayed} != the capture's "
+                             f"{by_wrapper(run['capture_launches'])}")
+    replay_total = sum(run["replay_kernels"].values())
+    if st["decode_graph_replays"] != st["chunks_run"] - 1 or run["chunks"]["warm-up"] != 1:
+        raise AssertionError(f"serve graph: {st['decode_graph_replays']} replays over {st['chunks_run']} "
+                             f"chunks, {run['chunks']['warm-up']} warm-up chunks")
+    # the wrappers count the prefills, the warm-up chunk and the capture once
+    counted = len(groups) + 2 * CHUNK
+    want = dict(zero, **path_launches(cfg, counted), **{"planner[values]": 1})
+    if run["launches"] != want:
+        raise AssertionError(f"serve graph: launches {run['launches']} != path's {want}")
+    pc = st["plan_cache"]
+    if pc["misses"] != 1 or pc["hits"] != counted - 1:
+        raise AssertionError(f"serve graph: LM-head plan cache {pc}, expected 1 miss and {counted - 1} "
+                             "hits (the replays look up nothing)")
+    if run["decode_syncs"]["replay"] or run["decode_syncs"]["warm-up"]:
+        raise AssertionError(f"serve graph: host syncs inside decode chunks {run['decode_syncs']}")
+    n_rep, n_warm = run["chunks"]["replay"], run["chunks"]["warm-up"] + run["chunks"]["capture"]
+    replay_ms = run["decode_s"]["replay"] / (n_rep * CHUNK) * 1e3
+    summary = {
+        "tokens": st["tokens_out"], "wall_s": run["wall"], "tok_per_s": st["tokens_out"] / run["wall"],
+        "decode_steps": st["steps_run"], "ms_per_decode_step_replayed": replay_ms,
+        "ms_per_decode_step_all_chunks": sum(run["decode_s"].values()) / st["steps_run"] * 1e3,
+        "ms_warmup_chunk": run["decode_s"]["warm-up"] * 1e3, "ms_capture_chunk": run["decode_s"]["capture"] * 1e3,
+        "chunks": run["chunks"], "decode_syncs": run["decode_syncs"], "launches": run["launches"],
+        "device_launches": run["device_launches"], "capture_launches": run["capture_launches"],
+        "replay_launches": replayed, "replay_device_launches_all": replay_total,
+        "captures": st["decode_graph_captures"], "replays": st["decode_graph_replays"], "plan_cache": pc,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"serve graph: {summary['tokens']} tokens in {run['wall']:.3f} s = {summary['tok_per_s']:.2f} tok/s "
+        f"(eager {eager['tok_per_s']:.2f}); {replay_ms:.3f} ms per decode step over {n_rep} replayed chunks "
+        f"(eager {eager['ms_per_decode_step']:.3f}); warm-up chunk {summary['ms_warmup_chunk']:.1f} ms, "
+        f"capture chunk {summary['ms_capture_chunk']:.1f} ms ({n_warm} chunks); greedy tokens == eager run's")
+    log(f"serve graph: the profiler saw {replay_total} device launches in one replay "
+        f"({replay_total / CHUNK:.0f} per decode step), {replayed} of them the port's kernels == the "
+        "capture's wrapper launches")
+    log(f"serve graph: captured once ({want_capture} launches, one chunk of the path), replayed "
+        f"{st['decode_graph_replays']}x over {st['chunks_run']} chunks with backfill; wrapper launches "
+        f"{run['launches']} == path's over {len(groups)} prefills + warm-up + capture; device launches "
+        f"{run['device_launches']}; host syncs by chunk kind {run['decode_syncs']}; plan cache "
+        f"{pc['hits']} hits / {pc['misses']} miss")
+    summary["greedy_tokens"] = out
+    return summary
+
+
+#: the fault replays through the graph: (plan, the poisoned slot)
+SERVE_FAULTS = (("nan_logits@1:slot=0", 0), ("inf_logits@1:slot=2", 2))
+
+
+def serve_fault_phase(params, cfg, prompts, rt, graph):
+    """Each of :data:`SERVE_FAULTS` through the graph: the poisoned slot's
+    request finishes ``"error"`` by the watchdog, its tokens before the
+    fault are the clean graph run's; every other request's tokens equal the
+    clean graph run's; one ``retire-slot`` event; no recapture."""
+    from repro_torch.resilience import FaultPlan
+
+    clean, runs = graph["greedy_tokens"], []
+    for spec, slot in SERVE_FAULTS:
+        run = drive_serve(params, cfg, prompts, rt, cuda_graph=True, fault_plan=FaultPlan.parse(spec))
+        st, reqs = run["stats"], run["requests"]
+        errs = [r for r in reqs.values() if r.finish_reason == "error"]
+        events = [(e.kind, e.site, e.action, e.detail.get("slot")) for e in run["log"].events]
+        if len(errs) != 1 or "watchdog" not in (errs[0].error or ""):
+            raise AssertionError(f"serve fault {spec}: errored requests {[(r.rid, r.error) for r in errs]}")
+        victim = errs[0]
+        if events != [("nonfinite", "serve.decode.watchdog", "retire-slot", slot)]:
+            raise AssertionError(f"serve fault {spec}: resilience events {events}")
+        if victim.tokens != clean[victim.rid][:len(victim.tokens)] or len(victim.tokens) >= NEW_TOKENS:
+            raise AssertionError(f"serve fault {spec}: the victim's tokens are not a clean prefix")
+        others = {rid: toks for rid, toks in run["out"].items() if rid != victim.rid}
+        if others != {rid: clean[rid] for rid in others} or not all(reqs[rid].ok for rid in others):
+            raise AssertionError(f"serve fault {spec}: a healthy request's tokens differ from the clean run's "
+                                 f"(first at {first_difference(others, {r: clean[r] for r in others})})")
+        if st["decode_graph_captures"] != 1 or run["decode_syncs"]["replay"]:
+            raise AssertionError(f"serve fault {spec}: {st['decode_graph_captures']} captures, "
+                                 f"{run['decode_syncs']['replay']} host syncs in replayed chunks")
+        log(f"serve fault {spec}: request {victim.rid} (slot {slot}) retired by the watchdog after "
+            f"{len(victim.tokens)} clean tokens; {len(others)} others equal the clean graph run's; 1 retire-slot "
+            f"event; captured once, replayed {st['decode_graph_replays']}x; device launches "
+            f"{run['device_launches']}")
+        runs.append({"spec": spec, "victim": victim.rid, "victim_tokens": len(victim.tokens),
+                     "replays": st["decode_graph_replays"], "device_launches": run["device_launches"]})
+    return runs
+
+
+#: the serve launcher's full-width replay on the card
+SERVE_LAUNCH_ARGS = ["--arch", "deepseek-7b", "--activation", "relu", "--requests", "8", "--slots", "4",
+                     "--prompt-len", "32", "--new", "16", "--max-len", "128",
+                     "--inject-faults", "nan_logits@1:slot=0"]
+
+
+def _serve_launch(tag: str, argv: list) -> dict:
+    """One in-process run of ``repro_torch.launch.serve.main``: its stdout,
+    seconds, tokens/s, decode-graph captures and device launches (a
+    capture's times its replays), the counts set to 0 just before it."""
+    import gc
+    import io
+    import re
+
+    import torch
+    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.launch import serve as LS
+
+    buf = io.StringIO()
+    T.reset_launch_counts()
+    t0 = time.perf_counter()
+    with no_plain_versions("launch serve"), graph_launch_log() as captures, contextlib.redirect_stdout(buf):
+        try:
+            LS.main(argv)
+        except SystemExit as e:
+            raise AssertionError(f"launch serve ({tag}) exited with {e.code}:\n{buf.getvalue()}") from e
+    seconds = time.perf_counter() - t0
+    launches = device_launches_of(T.launch_counts(), captures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"launch serve ({tag}): {line}")
+    reasons = re.search(r"finish reasons: (.*)", out).group(1)
+    if not ("error=1" in reasons and "length=" in reasons and "retire-slot" in out):
+        raise AssertionError(f"launch serve ({tag}): missing mixed finish reasons or retire-slot:\n{out}")
+    tok_s = float(re.search(r"\(([\d.]+) tok/s\)", out).group(1))
+    log(f"launch serve ({tag}): exit 0 in {seconds:.1f} s (weights initialised in the run); {tok_s} tok/s; "
+        f"device launches {launches}")
+    return {"stdout": out, "seconds": seconds, "tok_per_s": tok_s, "launches": launches,
+            "captures": len(captures)}
+
+
+def launch_serve_phase():
+    """``repro_torch.launch.serve.main`` in process at full width with a
+    poisoned slot, the decode chunk as one CUDA graph and then eagerly
+    (``--no-cuda-graph``): exit 0, mixed finish reasons and a
+    ``retire-slot`` line each; one capture, then none; the greedy tokens
+    are the same (the finish-reason line and the tokens served equal); the
+    launches of both runs (a capture's times its replays) and tokens/s."""
+    import re
+
+    graph = _serve_launch("graph", SERVE_LAUNCH_ARGS)
+    eager = _serve_launch("eager", SERVE_LAUNCH_ARGS + ["--no-cuda-graph"])
+    if not ("decode graph captured 1x" in graph["stdout"] and graph["captures"] == 1
+            and "decode graph captured 0x" in eager["stdout"] and eager["captures"] == 0):
+        raise AssertionError("launch serve: expected one capture with the graph and none with --no-cuda-graph")
+    served = [re.search(r"served (\d+) tokens", r["stdout"]).group(1) for r in (graph, eager)]
+    reasons = [re.search(r"finish reasons: (.*)", r["stdout"]).group(1) for r in (graph, eager)]
+    if served[0] != served[1] or reasons[0] != reasons[1]:
+        raise AssertionError(f"launch serve: the graph and eager runs served {served} tokens, reasons {reasons}")
+    log(f"launch serve: {graph['tok_per_s']} tok/s with the graph, {eager['tok_per_s']} with --no-cuda-graph")
+    launches = {k: graph["launches"][k] + eager["launches"][k] for k in graph["launches"]}
+    return {"graph": graph, "eager": eager, "tok_per_s": graph["tok_per_s"],
+            "tok_per_s_eager": eager["tok_per_s"], "launches": launches}
 
 
 def reference_phase(params, cfg, prompts):
@@ -867,8 +1182,9 @@ def serve_auto_phase(params, cfg, prompts, tuned_db, ragged_tokens):
     runs = {}
     for name, db in (("tuned", tuned_db), ("pinned_v2", pinned_v2_db(cfg, tuned_db.platform))):
         rt = rtm.Runtime(backend="cuda", device="cuda", geometry="auto", tuning_db=db)
-        out, launches, st, wall, decode_s, groups, decode_syncs, syncs = drive_serve(
-            params, cfg, prompts, rt)
+        run = drive_serve(params, cfg, prompts, rt)
+        out, launches, st, wall, groups = run["out"], run["launches"], run["stats"], run["wall"], run["groups"]
+        decode_s, decode_syncs, syncs = run["decode_s"]["eager"], run["decode_syncs"]["eager"], run["syncs"]
         if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
             raise AssertionError(f"serve-auto {name}: tokens per request {[len(v) for v in out.values()]}")
         d, d_ff, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
@@ -1784,6 +2100,8 @@ def main() -> int:
     auto = serve_auto_phase(params, cfg, prompts, tuned_db, serve["greedy_tokens"])
     del params
     torch.cuda.empty_cache()
+    log("launch serve: repro_torch.launch.serve.main at full width with a poisoned slot")
+    launch_serve = launch_serve_phase()
     log(f"train kernels: the backward products at {TRAIN_TOKENS} tokens, fp32 operands, bf16 output")
     train_rows, train_launch = train_kernel_phase(bw)
     log("planner: every mode at the path's shapes against the plain chain on the card")
@@ -1804,7 +2122,14 @@ def main() -> int:
         out["block_zero_mask"] = sum(counts[c] for c in PLANNER)
         return out
 
-    serve_runs = grouped(serve["launches"])
+    # the serving path's runs: eager, through the graph (clean and the two
+    # fault replays; a capture's launches once per replay) and the launcher
+    serve_counts = dict(serve["launches"])
+    for extra in (serve["graph"]["device_launches"], *(f["device_launches"] for f in serve["faults"]),
+                  launch_serve["launches"]):
+        for k, v in extra.items():
+            serve_counts[k] += v
+    serve_runs = grouped(serve_counts)
     pinned = grouped(auto["pinned_v2"]["launches"])
     for fam in ("tensordash_matmul_planned[v2/v1]", "tensordash_matmul_fused[v2/v1]"):
         serve_runs[fam] = pinned[fam]  # the v2/v1 kernels serve under the v2-pinned DB
@@ -1836,6 +2161,7 @@ def main() -> int:
          "reference_top1": top1, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
          "train_launch_check": train_launch, "planner_cases": planner_rows,
          "planner_launch_check": planner_launch, "train": train, "launch_train": launch,
+         "launch_serve": launch_serve,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -33,6 +33,7 @@ per planner mode.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Literal, NamedTuple
@@ -401,6 +402,34 @@ _COUNTERS = tuple(f"{w}{'' if g == 'ragged' else f'[{g}]'}"
 _ARRIVALS: dict[tuple[int, int], torch.Tensor] = {}
 
 
+#: inside :func:`holding`: what the launches there read from outside a
+#: CUDA graph's memory pool; ``None`` outside
+_HELD: list | None = None
+
+
+@contextlib.contextmanager
+def holding():
+    """Collect, until the block ends, what the products and launches made in
+    it read through raw pointers from memory that a cache owns: the plans
+    handed to a backend (the plan cache's, the dense-plan memo's) and the
+    counter workspaces.  A CUDA graph captured in the block replays those
+    pointers, so its owner keeps the list as long as it keeps the graph: a
+    cache that evicts one of them then cannot free it under the graph."""
+    global _HELD
+    prev, _HELD = _HELD, []
+    try:
+        yield _HELD
+    finally:
+        _HELD = prev
+
+
+def hold(*objs) -> None:
+    """Add ``objs`` to the innermost :func:`holding` block's list (outside
+    one: nothing)."""
+    if _HELD is not None:
+        _HELD.extend(objs)
+
+
 def _launched(wrapper: str, grid: str) -> None:
     _LAUNCHES[wrapper if grid == "ragged" else f"{wrapper}[{grid}]"] += 1
 
@@ -414,6 +443,7 @@ def _arrivals(device: torch.device, stream: int, count: int) -> torch.Tensor:
     if ws is None or ws.numel() < count:
         ws = torch.zeros(max(count, 1 << 16), dtype=_I32, device=device)
         _ARRIVALS[key] = ws
+    hold(ws)
     return ws
 
 

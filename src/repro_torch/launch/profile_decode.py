@@ -1,15 +1,25 @@
-"""Where a decode step's time goes on the card.
+"""Where a decode step's time goes on the card: the eager chunk against the
+CUDA graph.
 
     python -m repro_torch.launch.profile_decode --arch deepseek-7b --activation relu
 
-Fills ``--slots`` slots of a :class:`~repro_torch.serve.engine.ServeEngine`
-(bf16, seeded random weights, ``cuda`` backend), runs one warm-up step, times
-``--steps`` engine steps (``--chunk`` decode steps each) untraced, then
-traces as many with ``torch.profiler`` and prints the wall time per decode
-step (untraced and traced), the device's busy time per decode step (the sum
-of kernel times), its idle share, the kernels that take the most device time
-and the host-side ops that take the most host time.
-Needs a CUDA card; it does not fall back to the CPU.
+Builds bf16 weights from seed 0 once, then, one after the other, two
+:class:`~repro_torch.serve.engine.ServeEngine`\\ s on the ``cuda`` backend
+over the same ``--slots`` prompts: one running the decode chunk eagerly
+(``cuda_graph=False``), one replaying it as one CUDA graph.  Each engine
+runs two warm-up steps (admission and the eager chunk; the graph's capture),
+timed, then times ``--steps`` engine steps (``--chunk`` decode steps each) untraced,
+then traces as many with ``torch.profiler`` and prints the wall time per
+decode step (untraced and traced), the device's busy time per decode step
+(the sum of kernel times), its idle share, the device launches per decode
+step (every kernel row of the trace: a kernel replayed inside the graph
+counts as a launch), the kernels that take the most device time and the
+host-side ops that take the most host time; last, what the capture step
+costs over the eager engine's second step and from which chunk on the
+graph's engine is ahead, untraced.  Where the trace shows less
+than half the eager chunk's kernels for the graph, it says that the
+profiler did not see the graph's kernels.  Needs a CUDA card; it does not
+fall back to the CPU.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from repro_torch.models.common import init_params
 from repro_torch.serve.engine import ServeEngine
 
 PROMPT_LEN = 32  # prompt tokens per slot (weights and prompts drawn from seed 0)
+WARMUP_STEPS = 2  # engine steps before timing: the eager warm-up chunk, then the capture
 
 
 def _device_us(evt) -> float:
@@ -37,13 +48,60 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def profile_engine(params, cfg, rt, prompts, *, slots: int, chunk: int, steps: int,
+                   cuda_graph: bool) -> dict:
+    """Warm up, time and trace ``steps`` engine steps of a fresh engine."""
+    new = chunk * (WARMUP_STEPS + 2 * steps) + 1
+    eng = ServeEngine(params, cfg, slots=slots, chunk=chunk, max_len=PROMPT_LEN + new, rt=rt,
+                      cuda_graph=cuda_graph)
+    for p in prompts:
+        eng.submit(p, max_new=new)
+    warm = []  # seconds of each warm-up step
+    for _ in range(WARMUP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = steps * chunk
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    rows = prof.key_averages()
+    kernels = sorted(((e.key, _device_us(e), e.count) for e in rows
+                      if getattr(e, "device_type", None) == cuda and _device_us(e) > 0),
+                     key=lambda r: -r[1])
+    host = sorted(((e.key, float(e.self_cpu_time_total), e.count) for e in rows
+                   if getattr(e, "device_type", None) == cpu), key=lambda r: -r[1])
+    busy_us = sum(us for _, us, _ in kernels)
+    st = eng.stats()
+    return {
+        "decode_steps": n, "untraced_ms": untraced / n * 1e3, "traced_ms": wall / n * 1e3,
+        "busy_ms": busy_us / n / 1e3, "idle_share": 1 - busy_us / 1e6 / wall,
+        "launches": sum(c for _, _, c in kernels) / n, "host_ops": sum(c for _, _, c in host) / n,
+        "kernels": kernels, "host": host, "captures": st["decode_graph_captures"],
+        "replays": st["decode_graph_replays"], "warm_s": warm,
+    }
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
     ap.add_argument("--activation", default=None)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--chunk", type=int, default=8)
-    ap.add_argument("--steps", type=int, default=2, help="engine steps traced")
+    ap.add_argument("--steps", type=int, default=2, help="engine steps timed, then as many traced")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
 
@@ -53,53 +111,42 @@ def main(argv=None) -> None:
     if args.activation:
         cfg = dataclasses.replace(cfg, activation=args.activation)
     params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device=rt.device)
-    new = args.chunk * (2 * args.steps + 1) + 1
-    eng = ServeEngine(params, cfg, slots=args.slots, chunk=args.chunk,
-                      max_len=PROMPT_LEN + new, rt=rt)
     gen = torch.Generator().manual_seed(0)
-    for _ in range(args.slots):
-        eng.submit(torch.randint(0, cfg.vocab_size, (PROMPT_LEN,), generator=gen), max_new=new)
-    eng.step()  # admission (prefill) + one warm-up chunk
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        eng.step()
-    torch.cuda.synchronize()
-    untraced = time.perf_counter() - t0
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    steps = args.steps * args.chunk
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = sorted(((e.key, _device_us(e), e.count) for e in prof.key_averages()
-                      if getattr(e, "device_type", None) == cuda and _device_us(e) > 0),
-                     key=lambda r: -r[1])
-    busy_us = sum(us for _, us, _ in kernels)
+    prompts = [torch.randint(0, cfg.vocab_size, (PROMPT_LEN,), generator=gen) for _ in range(args.slots)]
     name = torch.cuda.get_device_name(rt.device)
     print(f"device={name} arch={cfg.name} activation={cfg.activation} slots={args.slots} "
-          f"decode steps traced={steps}")
-    print(f"wall (untraced) {untraced / steps * 1e3:.3f} ms per decode step; wall (traced) "
-          f"{wall / steps * 1e3:.3f} ms per decode step; device busy "
-          f"{busy_us / steps / 1e3:.3f} ms per decode step; idle share "
-          f"{1 - busy_us / 1e6 / wall:.3f}")
-    print(f"{'kernel':<72} {'ms/step':>9} {'calls/step':>10} {'share':>6}")
-    for key, us, count in kernels[: args.top]:
-        print(f"{key[:72]:<72} {us / steps / 1e3:>9.4f} {count / steps:>10.1f} "
-              f"{us / busy_us:>6.1%}")
-    cpu = torch.autograd.DeviceType.CPU
-    host = sorted(((e.key, float(e.self_cpu_time_total), e.count) for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == cpu), key=lambda r: -r[1])
-    launches = sum(count for _, _, count in kernels)
-    print(f"host: {launches / steps:.0f} device kernels and copies launched per decode step; "
-          f"{sum(c for _, _, c in host) / steps:.0f} host ops per decode step")
-    print(f"{'host op':<72} {'ms/step':>9} {'calls/step':>10}")
-    for key, us, count in host[: args.top]:
-        print(f"{key[:72]:<72} {us / steps / 1e3:>9.4f} {count / steps:>10.1f}")
+          f"chunk={args.chunk} decode steps timed={args.steps * args.chunk}, then as many traced")
+    res = {}
+    for label, graph in (("eager", False), ("graph", True)):
+        r = res[label] = profile_engine(params, cfg, rt, prompts, slots=args.slots, chunk=args.chunk,
+                                        steps=args.steps, cuda_graph=graph)
+        print(f"[{label}] wall (untraced) {r['untraced_ms']:.3f} ms per decode step; wall (traced) "
+              f"{r['traced_ms']:.3f} ms per decode step; device busy {r['busy_ms']:.3f} ms per decode "
+              f"step; idle share {r['idle_share']:.3f}; {r['launches']:.0f} device launches and "
+              f"{r['host_ops']:.0f} host ops per decode step; graph captures {r['captures']}, "
+              f"replays {r['replays']}")
+        print(f"[{label}] {'kernel':<72} {'ms/step':>9} {'calls/step':>10} {'share':>6}")
+        for key, us, count in r["kernels"][: args.top]:
+            print(f"[{label}] {key[:72]:<72} {us / r['decode_steps'] / 1e3:>9.4f} "
+                  f"{count / r['decode_steps']:>10.1f} {us / max(r['busy_ms'] * r['decode_steps'] * 1e3, 1e-9):>6.1%}")
+        print(f"[{label}] {'host op':<72} {'ms/step':>9} {'calls/step':>10}")
+        for key, us, count in r["host"][: args.top]:
+            print(f"[{label}] {key[:72]:<72} {us / r['decode_steps'] / 1e3:>9.4f} "
+                  f"{count / r['decode_steps']:>10.1f}")
+    # the second warm-up step is an eager chunk for one engine and the
+    # capture (with its first replay) for the other; the first steps (the
+    # prefill, an eager chunk each) are left out: the first engine's also
+    # builds and loads the kernels
+    extra = res["graph"]["warm_s"][1] - res["eager"]["warm_s"][1]
+    saving = (res["eager"]["untraced_ms"] - res["graph"]["untraced_ms"]) * args.chunk / 1e3
+    ahead = f"from its chunk {WARMUP_STEPS + 1 + int(max(extra, 0.0) // saving)} on" if saving > 0 else "never"
+    print(f"[graph/eager] capture step {res['graph']['warm_s'][1]:.3f} s, the eager engine's second step "
+          f"{res['eager']['warm_s'][1]:.3f} s ({extra:+.3f} s); a replayed chunk saves {saving:.3f} s "
+          f"untraced; the graph engine is ahead {ahead}")
+    if res["graph"]["launches"] < res["eager"]["launches"] / 2:
+        print(f"note: the profiler saw {res['graph']['launches']:.0f} kernels per decode step under the graph "
+              f"against {res['eager']['launches']:.0f} eager: it does not see every kernel of a graph replay, "
+              "so the graph's busy time and idle share are not measured")
 
 
 if __name__ == "__main__":

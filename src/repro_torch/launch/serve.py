@@ -15,6 +15,18 @@ to the card.
 CPU.  Weights are drawn from ``--seed``.  ``--rate`` requests/second shapes
 the arrival stream (0 = all at t=0); prompt lengths and decode budgets are
 jittered per request so slots finish at different times and backfill.
+
+On the card the decode chunk replays as one CUDA graph under greedy
+decoding (``--no-cuda-graph`` runs it eagerly); the report prints the
+graph's captures and replays.
+
+Resilience: ``--inject-faults`` replays a seeded
+:class:`repro_torch.resilience.FaultPlan` (``nan_logits@1:slot=0`` ...)
+through the serve loop; ``--ttl``/``--max-pending``/``--work-budget``
+exercise deadlines, bounded admission and plan-aware load shedding.
+Finish-reason counts and the :class:`~repro_torch.resilience.ResilienceLog`
+summary are printed with the report; the replay exits with code 2 when no
+request finishes cleanly.
 """
 from __future__ import annotations
 
@@ -30,6 +42,9 @@ from repro_torch import runtime as rtm
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.models import model as M
 from repro_torch.models.common import init_params
+from repro_torch.resilience import FaultPlan, ResilienceLog, capture_warnings
+from repro_torch.resilience import faults as rfaults
+from repro_torch.resilience import log as rlog
 from repro_torch.serve.engine import QueueFull, ServeEngine
 
 
@@ -66,6 +81,21 @@ def main(argv=None) -> None:
     ap.add_argument("--geometry", default="explicit", choices=rtm.GEOMETRIES,
                     help="'auto' resolves tile geometry / grid family per call site "
                          "from the TuningDB (python -m repro_torch.tune)")
+    ap.add_argument("--inject-faults", default="", metavar="SPEC",
+                    help="seeded fault replay, e.g. 'nan_logits@1:slot=0' "
+                         "(repro_torch.resilience.FaultPlan grammar)")
+    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--ttl", type=float, default=None,
+                    help="per-request deadline (seconds after submit)")
+    ap.add_argument("--max-pending", type=int, default=None,
+                    help="bounded admission queue (QueueFull beyond this)")
+    ap.add_argument("--work-budget", type=float, default=None,
+                    help="plan-aware load shedding: max outstanding decode "
+                         "work (cached-plan total_work units)")
+    ap.add_argument("--no-watchdog", action="store_true",
+                    help="disable the non-finite logits watchdog of the decode chunk")
+    ap.add_argument("--no-cuda-graph", action="store_true",
+                    help="run the decode chunk eagerly instead of as one CUDA graph")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -85,26 +115,32 @@ def main(argv=None) -> None:
     arrivals = (np.zeros(args.requests) if args.rate <= 0
                 else np.cumsum(rng.exponential(1.0 / args.rate, size=args.requests)))
 
+    log = ResilienceLog()
+    fp = FaultPlan.parse(args.inject_faults, seed=args.fault_seed)
     eng = ServeEngine(
         params, cfg, slots=args.slots, max_len=args.max_len or (args.prompt_len + args.new),
         rt=rt, temperature=args.temperature, seed=args.seed, chunk=args.chunk,
+        max_pending=args.max_pending, work_budget=args.work_budget,
+        watchdog=not args.no_watchdog, fault_plan=fp if fp else None, log=log,
+        cuda_graph=False if args.no_cuda_graph else None,
     )
     arrivals = arrivals + eng.now()
     t_start = time.monotonic()
     submitted = 0
-    while submitted < args.requests or eng.sched.has_work:
-        now = eng.now()
-        while submitted < args.requests and arrivals[submitted] <= now:
-            try:
-                eng.submit(prompts[submitted], max_new=int(budgets[submitted]),
-                           arrival=float(arrivals[submitted]))
-                submitted += 1
-            except QueueFull:
-                break
-        if not eng.sched.has_work:
-            time.sleep(min(max(arrivals[submitted] - now, 0.0), 0.05))
-            continue
-        eng.step()
+    with rlog.use_log(log), rfaults.inject(fp), capture_warnings(log):
+        while submitted < args.requests or eng.sched.has_work:
+            now = eng.now()
+            while submitted < args.requests and arrivals[submitted] <= now:
+                try:
+                    eng.submit(prompts[submitted], max_new=int(budgets[submitted]),
+                               arrival=float(arrivals[submitted]), ttl=args.ttl)
+                    submitted += 1
+                except QueueFull:
+                    break  # drain a chunk below, then retry this submit
+            if not eng.sched.has_work:
+                time.sleep(min(max(arrivals[submitted] - now, 0.0), 0.05))
+                continue
+            eng.step()
     if rt.device.type == "cuda":
         torch.cuda.synchronize(rt.device)
     dt = time.monotonic() - t_start
@@ -119,7 +155,8 @@ def main(argv=None) -> None:
     print(f"arch={cfg.name} backend={rt.backend} device={where} slots={args.slots} "
           f"chunk={args.chunk} requests={args.requests}")
     print(f"served {st['tokens_out']} tokens in {dt:.2f}s "
-          f"({st['tokens_out']/dt:.1f} tok/s); {st['decode_chunks']} decode chunks")
+          f"({st['tokens_out']/dt:.1f} tok/s); decode graph captured {st['decode_graph_captures']}x, "
+          f"replayed {st['decode_graph_replays']}x, {st['chunks_run']} chunks")
     print(f"latency  ttft p50={_ms(_pct(ttft,50))} p95={_ms(_pct(ttft,95))}"
           f"   e2e p50={_ms(_pct(e2e,50))} p95={_ms(_pct(e2e,95))}")
     reasons: dict[str, int] = {}
@@ -133,6 +170,8 @@ def main(argv=None) -> None:
               f"shape={tuple(ps['shape'])} block={ps['block']} "
               f"total_work={ps['total_work']}/{ps['blocks']} blocks "
               f"skipped={ps['skipped_fraction']:.0%}")
+    if len(log):
+        print(log.summary())
     if rt._db is not None:
         ts = rt.tuning_db.stats()
         print(f"tuning db: {rt.tuning_db.path or '(none found)'} platform={ts['platform']!r} "

@@ -16,7 +16,12 @@ Two halves, one contract:
 The train launcher (``repro_torch.launch.train``) consumes both: a
 non-finite step is skipped, a straggler or repeated faults checkpoint and
 abort, a preemption saves and exits, and every degradation lands in the
-log.  The serving engine's hooks wait for ROADMAP queue 1, item 10.
+log.  So does the serve engine (``repro_torch.serve.engine``, driven by
+``repro_torch.launch.serve``): poisoned decode logits (``poison_slots``) are
+retired by its watchdog, a failed cache allocation
+(``maybe_alloc_failure``) halves its slots or requeues an admission,
+``step_stall`` stalls its step, and deadlines, the bounded queue and
+work-budget shedding record into the same log.
 """
 from repro_torch.resilience.faults import (  # noqa: F401
     DB_CORRUPTIONS,

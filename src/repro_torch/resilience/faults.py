@@ -25,9 +25,9 @@ Injection happens only at trust boundaries — the places where bad data
 Plans install ambiently (``with inject(plan): ...``) for sites that cannot
 take a plan argument, or ride explicitly on the train launcher.  Ticks are
 per-site call counters kept *on the plan*, so a replay that makes the same
-sequence of calls fires the same faults.  The serving engine's hooks
-(watchdog, slot halving, shedding) are not ported yet (ROADMAP queue 1,
-item 10).
+sequence of calls fires the same faults.  The serve engine ticks the
+JAX engine's sites (``serve.step``, ``serve.decode_chunk``,
+``alloc:slot_caches``, ``alloc:grow_caches``) in the same order.
 """
 from __future__ import annotations
 

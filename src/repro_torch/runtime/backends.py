@@ -30,6 +30,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.tensordash_spmm import (
     _check_compact_grid,
     check_launch,
+    hold,
     tensordash_matmul_fused,
     tensordash_matmul_planned,
 )
@@ -119,6 +120,7 @@ class KernelBackend:
         plan across microbatches, ``db`` (a ``repro_torch.tune.TuningDB``)
         tunes each backward product.  Otherwise one executor call."""
         compact_grid = _check_compact_grid(compact_grid)
+        hold(plan)  # a CUDA graph captured around this product replays the plan's pointers
         wq = plan.workqueue() if compact_grid == "ragged" else None
         if not needs_grad(a, b):
             return self.execute_planned(KernelRequest(
@@ -141,6 +143,7 @@ class KernelBackend:
         :func:`fused_planned_matmul`): a ReLU-family epilogue plans the
         backward's cotangent from the emitted mask."""
         compact_grid = _check_compact_grid(compact_grid)
+        hold(plan)
         wq = plan.workqueue() if compact_grid == "ragged" else None
         if not needs_grad(a, b, bias, residual):
             return self.execute_fused(KernelRequest(

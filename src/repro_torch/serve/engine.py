@@ -3,34 +3,52 @@
 * :class:`Scheduler` — host-side bookkeeping only: a bounded pending queue
   with priority-with-aging admission, and a slot table.
 * :class:`ServeEngine` — per-slot device state (last token, position,
-  active flag, remaining budget) plus ONE packed decode-cache allocation
-  (``Runtime.slot_caches``).  A request's prefill caches are written into
-  its batch slot (``Runtime.write_slot``), so admission is a slot write.
-* The decode chunk is a Python loop of ``chunk`` decode steps over all
-  slots.  Inactive slots still flow through the model, but their position
-  is frozen and their emission set to ``pad_id``; the KV row they write at
-  the frozen position is overwritten by the next occupant before it is read
-  and masked out of attention until then.  The host reads the chunk's
-  tokens once, at its end.
+  active flag, remaining budget, poison code) in static buffers plus ONE
+  packed decode-cache allocation (``Runtime.slot_caches``).  A request's
+  prefill caches are written into its batch slot (``Runtime.write_slot``),
+  so admission is a slot write; admission, expiry and retirement update the
+  buffers in place, never rebind them.
+* The decode chunk (:meth:`ServeEngine._chunk`) is ``chunk`` decode steps
+  over all slots, reading and writing only those buffers and the caches.
+  Inactive slots still flow through the model, but their position is frozen
+  and their emission set to ``pad_id``; the KV row they write at the frozen
+  position is overwritten by the next occupant before it is read and masked
+  out of attention until then.  The host reads the chunk's tokens, emission
+  flags and watchdog flags once, at its end.
+* On a CUDA device under greedy decoding the chunk runs as one CUDA graph
+  (:class:`_DecodeGraph`), the port's counterpart of the JAX engine's jitted
+  ``lax.scan`` program: the first chunk runs eagerly on a side stream (the
+  warm-up), the second is captured there, and every later chunk replays it.
+  Admitting, finishing, expiring and faulting change the buffers' data,
+  never the graph (``stats()["decode_graph_captures"]``).
 
 Under a sparse runtime the LM-head plan is built at the first prefill (one
-plan-cache miss) and replayed on every later prefill and decode step (hits).
+plan-cache miss) and replayed on every later prefill and eager decode step
+(hits); the graph replays the plan it looked up at capture, as the JAX
+program hoists the weight plan out of its scan.
 
 Sampling: greedy (``temperature == 0``) or temperature sampling with one
 ``torch.Generator`` per request, seeded from ``(seed, rid)``, advanced only
 when that request samples.  These streams do not reproduce the JAX engine's
 ``jax.random`` streams: token parity with the JAX package holds for greedy
-decoding only.
+decoding only.  Sampled decoding runs the chunk eagerly: its per-request
+generators are read on the host each step.
 
-The JAX engine's resilience hooks (fault injection, the ``isfinite``
-watchdog, TTL deadlines, work-budget shedding and slot halving on a failed
-allocation) wait for the serving slice (ROADMAP queue 1, item 10); their
-injectors are ported (:mod:`repro_torch.resilience`).
+Resilience (:mod:`repro_torch.resilience`), as in the JAX engine: a bounded
+pending queue (``QueueFull``, typed), per-request TTL deadlines, shedding
+against a work budget priced by the cached plans' ``total_work``, slot
+halving when the cache allocation fails, admission requeue and retry after a
+failed prefill allocation, and an ``isfinite`` watchdog inside the chunk
+that retires a NaN/Inf-poisoned slot with an error status without
+perturbing its batch-mates.  The watchdog is a device-side flag (no host
+read per step), so the chunk stays capturable.  Every degradation lands in
+the engine's :class:`~repro_torch.resilience.ResilienceLog`.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import itertools
 import time
 from typing import Any
@@ -39,13 +57,33 @@ import torch
 
 from repro_torch import runtime as rtm
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.tensordash_spmm import holding
 from repro_torch.models import model as M
+from repro_torch.resilience import faults as rfaults
+from repro_torch.resilience import log as rlog
+from repro_torch.runtime.plan import _version
 
-__all__ = ["Request", "Scheduler", "ServeEngine", "QueueFull", "generate"]
+__all__ = [
+    "Request", "Scheduler", "ServeEngine", "QueueFull",
+    "prefill_step", "decode_one", "generate",
+]
 
 
 class QueueFull(RuntimeError):
-    """The bounded pending queue is at capacity (retry with backoff)."""
+    """The bounded pending queue is at capacity (retry with backoff).
+
+    Distinct from shed-by-policy, which admits the submit and later finishes
+    the victim with ``finish_reason="shed"``."""
+
+
+def prefill_step(params, cfg: ModelConfig, batch):
+    """Prompt -> (last-position logits, filled caches)."""
+    return M.prefill(params, cfg, batch)
+
+
+def decode_one(params, cfg: ModelConfig, caches, step_batch, pos):
+    """One token for every sequence in the batch (``pos`` scalar or [B])."""
+    return M.decode_step(params, cfg, caches, step_batch, pos)
 
 
 @dataclasses.dataclass
@@ -57,10 +95,13 @@ class Request:
     max_new: int
     arrival: float = 0.0  # traffic-replay timestamp (seconds, engine clock)
     priority: int = 0  # higher admits first (aged so low never starves)
+    deadline: float | None = None  # absolute engine-clock TTL expiry
     tokens: list = dataclasses.field(default_factory=list)
     finished: bool = False
-    finish_reason: str | None = None  # "eos" | "length"
+    finish_reason: str | None = None  # "eos"|"length"|"error"|"expired"|"shed"
+    error: str | None = None  # detail for finish_reason == "error"
     slot: int | None = None
+    retries: int = 0  # admission retries after transient (alloc) failures
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: float = 0.0  # first token (produced at admission, from prefill)
@@ -68,6 +109,7 @@ class Request:
 
     @property
     def ok(self) -> bool:
+        """Finished by producing its output (EOS or budget), not degraded."""
         return self.finished and self.finish_reason in ("eos", "length")
 
 
@@ -105,6 +147,14 @@ class Scheduler:
     def effective_priority(self, req: Request, now: float) -> float:
         return req.priority + self.age_boost * max(now - req.t_submit, 0.0)
 
+    def expire_pending(self, now: float) -> list[Request]:
+        """Drop (and return) pending requests whose deadline has passed."""
+        expired = [r for r in self.pending if r.deadline is not None and r.deadline <= now]
+        if expired:
+            dead = set(id(r) for r in expired)
+            self.pending = collections.deque(r for r in self.pending if id(r) not in dead)
+        return expired
+
     def admit(self, now: float = 0.0) -> list[tuple[int, Request]]:
         placed = []
         for slot in self.free_slots():
@@ -130,23 +180,138 @@ class Scheduler:
         return req
 
 
+class _DecodeGraph:
+    """One engine's decode chunk as a CUDA graph.
+
+    :meth:`run` runs the chunk eagerly on :attr:`stream` the first time (the
+    warm-up: it makes the memoized dense plans, the kernels' counter
+    workspace of that stream, cuBLAS's workspace and loads the kernels, so
+    none of them is first made inside the capture), captures it on the same
+    stream the second time and replays the capture then and every later
+    time.  The chunk reads and writes only the engine's static buffers and
+    caches, so a replay sees the slots as admission left them.
+
+    The LM-head plan is looked up once, at capture, and replayed.  The head
+    tensor's identity and version are recorded then, as
+    ``PlanCache.lookup`` checks them: when the head is replaced or modified
+    in place, the graph is dropped, the next chunk warms up eagerly (and
+    replans the head) and the one after recaptures.  :attr:`held` keeps
+    what the captured launches read from caches outside the graph's pool
+    (the plans, the dense-plan memo's tensors, the counter workspace), so
+    an eviction from those caches cannot free memory under a replay.
+    """
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.out = None  # the captured chunk's static outputs
+        self.warm = False
+        self.head: tuple[torch.Tensor, int | None] | None = None
+        self.held: list = []
+        self.captures = 0
+        self.replays = 0
+
+    def run(self, chunk, head: torch.Tensor):
+        if self.graph is not None and (head is not self.head[0] or _version(head) != self.head[1]):
+            self.graph = self.out = self.head = None
+            self.held, self.warm = [], False
+        if self.graph is None:
+            current = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(current)
+            if not self.warm:
+                with torch.cuda.stream(self.stream):
+                    out = chunk()
+                current.wait_stream(self.stream)
+                self.warm = True
+                return out
+            self.capture(chunk, head)
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+    def capture(self, chunk, head: torch.Tensor) -> None:
+        """Record ``chunk`` into a new graph on :attr:`stream` (nothing runs
+        until the first replay).  A failed capture raises.
+
+        A CUDA graph destroyed while this one captures invalidates the
+        capture, and an old engine's graph may wait in cyclic garbage: the
+        collector stays off until the capture ends.  (Collecting first
+        instead would charge the capture for freeing whatever the process
+        left in cycles, seconds after a profiler session.)"""
+        graph = torch.cuda.CUDAGraph()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with holding() as held, torch.cuda.graph(graph, stream=self.stream):
+                out = chunk()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing the decode chunk as a CUDA graph failed ({e}); "
+                "ServeEngine(cuda_graph=False) runs it eagerly") from e
+        finally:
+            if enabled:
+                gc.enable()
+        self.graph, self.out, self.held, self.head = graph, out, held, (head, _version(head))
+        self.captures += 1
+
+
 class ServeEngine:
     """Continuous-batching generation over a fixed-capacity slot array.
 
     One engine owns one packed cache allocation on ``rt.device`` and one
     plan cache (the runtime's).  ``chunk`` decode steps run per
-    :meth:`step` between admissions.
+    :meth:`step` between admissions.  ``cuda_graph`` (``None``: on a CUDA
+    device under greedy decoding) runs the chunk as one CUDA graph;
+    ``True`` where that cannot hold raises ``ValueError``.
     """
+
+    #: admission retries before a transient-alloc-failed request is failed
+    MAX_ADMIT_RETRIES = 3
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  max_len: int = 256, rt: "rtm.Runtime | None" = None,
                  temperature: float = 0.0, eos_id: int | None = None,
                  pad_id: int = 0, seed: int = 0, chunk: int = 8,
-                 max_pending: int | None = None, age_boost: float = 0.1):
+                 max_pending: int | None = None, age_boost: float = 0.1,
+                 work_budget: float | None = None, watchdog: bool = True,
+                 fault_plan: "rfaults.FaultPlan | None" = None,
+                 log: "rlog.ResilienceLog | None" = None,
+                 cuda_graph: bool | None = None):
         self.params = params
         self.cfg = cfg
         self.rt = rtm.resolve(rt)
         self.device = self.rt.device
+        self.max_len = int(max_len)
+        self.temperature = float(temperature)
+        self.eos_id = eos_id
+        self.pad_id = int(pad_id)
+        self.seed = int(seed)
+        self.chunk = max(int(chunk), 1)
+        self.watchdog = bool(watchdog)
+        self.work_budget = work_budget
+        self.fault_plan = fault_plan
+        self.log = log if log is not None else (rlog.ambient_log() or rlog.ResilienceLog())
+        graphable = self.device.type == "cuda" and self.temperature == 0.0
+        if cuda_graph and not graphable:
+            raise ValueError(
+                f"cuda_graph=True needs a CUDA device and temperature 0 (device {self.device}, "
+                f"temperature {self.temperature}): sampled decoding reads its generators on the host")
+        self.sched = Scheduler(slots, max_pending=max_pending, age_boost=age_boost)
+        self._rids = itertools.count()
+        self._requests: dict[int, Request] = {}
+        self._gens: dict[int, torch.Generator] = {}
+        self._t0 = time.monotonic()
+        with torch.inference_mode():
+            # a failed cache allocation degrades to half the slot count
+            self.caches, slots = self._alloc_slot_caches(cfg, slots)
+            zeros = lambda dt: torch.zeros((slots,), dtype=dt, device=self.device)
+            self.tok = zeros(torch.int64)
+            self.pos = zeros(torch.int64)
+            self.active = zeros(torch.bool)
+            self.remaining = zeros(torch.int64)
+            self.poison = zeros(torch.int32)  # 0 clean, 1 NaN, 2 Inf logits
+        self.sched.num_slots = slots
+        self.sched.table = self.sched.table[:slots]
         if self.rt._db is not None:
             # warm the TuningDB memo for the decode call sites (FFN gate and
             # w_down, LM head at slot-batch width) so the first decode step
@@ -155,34 +320,34 @@ class ServeEngine:
             for op, kdim, ndim in (("matmul_fused", d, d_ff), ("matmul", d_ff, d),
                                    ("matmul", d, cfg.vocab_size)):
                 self.rt._policy(op, (slots, kdim), (kdim, ndim), dtype)
-        self.max_len = int(max_len)
-        self.temperature = float(temperature)
-        self.eos_id = eos_id
-        self.pad_id = int(pad_id)
-        self.seed = int(seed)
-        self.chunk = max(int(chunk), 1)
-        self.sched = Scheduler(slots, max_pending=max_pending, age_boost=age_boost)
-        self._rids = itertools.count()
-        self._requests: dict[int, Request] = {}
-        self._gens: dict[int, torch.Generator] = {}
-        self._t0 = time.monotonic()
-        with torch.inference_mode():
-            self.caches = self.rt.slot_caches(cfg, slots, self.max_len)
-            zeros = lambda dt: torch.zeros((slots,), dtype=dt, device=self.device)
-            self.tok = zeros(torch.int64)
-            self.pos = zeros(torch.int64)
-            self.active = zeros(torch.bool)
-            self.remaining = zeros(torch.int64)
+        self._graph = _DecodeGraph(self.device) if (graphable if cuda_graph is None else cuda_graph) else None
         self.tokens_out = 0
         self.chunks_run = 0
         self.steps_run = 0
 
+    def _alloc_slot_caches(self, cfg, slots: int):
+        """Allocate the packed decode caches, halving ``slots`` (down to 1)
+        on allocation failure: serving degrades to reduced concurrency
+        instead of dying at construction."""
+        while True:
+            try:
+                rfaults.maybe_alloc_failure(self.fault_plan or rfaults.active(), "slot_caches")
+                return self.rt.slot_caches(cfg, slots, self.max_len), slots
+            except (rfaults.SimulatedAllocFailure, torch.cuda.OutOfMemoryError, MemoryError) as e:
+                if slots <= 1:
+                    raise
+                self.log.record("alloc", "serve.slot_caches", "halve-slots", slots=slots, error=str(e))
+                slots //= 2
+
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new: int = 32, arrival: float = 0.0, *,
-               priority: int = 0) -> int:
+               priority: int = 0, ttl: float | None = None) -> int:
         """Queue one request; returns its rid.  ``prompt`` is int ``[s]``
-        with ``s + max_new <= max_len``.  Raises :class:`QueueFull` when the
-        bounded pending queue is at capacity."""
+        with ``s + max_new <= max_len``.  ``ttl`` seconds bounds the
+        request's whole lifetime (``finish_reason="expired"`` past it).
+        Raises :class:`QueueFull` when the bounded pending queue is at
+        capacity; under a work budget the engine may instead admit the
+        submit and shed the cheapest-to-drop request (``"shed"``)."""
         prompt = torch.as_tensor(prompt, dtype=torch.int64).cpu()
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be rank-1, got {tuple(prompt.shape)}")
@@ -195,9 +360,16 @@ class ServeEngine:
             )
         now = self._now()
         req = Request(rid=next(self._rids), prompt=prompt, max_new=int(max_new),
-                      arrival=float(arrival), priority=int(priority), t_submit=now)
-        self.sched.submit(req)
+                      arrival=float(arrival), priority=int(priority),
+                      deadline=None if ttl is None else now + float(ttl), t_submit=now)
+        try:
+            self.sched.submit(req)
+        except QueueFull:
+            self.log.record("queue", "serve.submit", "reject", rid=req.rid,
+                            pending=len(self.sched.pending))
+            raise
         self._requests[req.rid] = req
+        self._shed_to_budget(now)
         return req.rid
 
     def _now(self) -> float:
@@ -206,6 +378,64 @@ class ServeEngine:
     def now(self) -> float:
         """Seconds on the engine clock (origin = engine construction)."""
         return self._now()
+
+    # -- plan-aware load shedding ------------------------------------------
+    def _plan_cost(self) -> float:
+        """Per-token admission cost: the cached plans' ``total_work`` (the
+        ragged-grid steps a decode step replays), or 1.0 when no plan is
+        cached (dense runtime, cold cache)."""
+        total = sum(ps["total_work"] for ps in self.rt.plan_cache.plan_stats())
+        return float(total) if total > 0 else 1.0
+
+    def _outstanding_work(self) -> float:
+        cost = self._plan_cost()
+        work = sum(cost * r.max_new for r in self.sched.pending)
+        return work + sum(cost * max(r.max_new - len(r.tokens), 0) for _, r in self.sched.occupied())
+
+    def _shed_to_budget(self, now: float) -> list[Request]:
+        """Shed pending requests (lowest effective priority first) until the
+        outstanding work fits the budget; a policy decision recorded on the
+        victim (``finish_reason="shed"``), not a :class:`QueueFull`."""
+        if self.work_budget is None:
+            return []
+        shed: list[Request] = []
+        while self.sched.pending and self._outstanding_work() > self.work_budget:
+            victim = min(self.sched.pending,
+                         key=lambda r: (self.sched.effective_priority(r, now), -r.rid))
+            self.sched.pending.remove(victim)
+            victim.finished = True
+            victim.finish_reason = "shed"
+            victim.t_finish = now
+            self.log.record("queue", "serve.admission", "shed", rid=victim.rid,
+                            priority=victim.priority, cost=self._plan_cost() * victim.max_new,
+                            budget=self.work_budget)
+            shed.append(victim)
+        return shed
+
+    # -- deadlines ---------------------------------------------------------
+    def _expire(self, now: float) -> list[Request]:
+        """TTL expiry: drop pending requests and evict running slots whose
+        deadline passed (the slot's ``active`` lane is cleared in place; its
+        cache rows are overwritten by the next occupant's slot write)."""
+        out = []
+        for req in self.sched.expire_pending(now):
+            req.finished = True
+            req.finish_reason = "expired"
+            req.t_finish = now
+            self.log.record("deadline", "serve.pending", "expire", rid=req.rid,
+                            waited=now - req.t_submit)
+            out.append(req)
+        for slot, req in self.sched.occupied():
+            if req.deadline is not None and req.deadline <= now:
+                self.sched.evict(slot)
+                self.active[slot] = False
+                req.finished = True
+                req.finish_reason = "expired"
+                req.t_finish = now
+                self.log.record("deadline", "serve.slot", "expire", rid=req.rid, slot=slot,
+                                emitted=len(req.tokens))
+                out.append(req)
+        return out
 
     # -- sampling ----------------------------------------------------------
     def _generator(self, rid: int) -> torch.Generator:
@@ -237,6 +467,7 @@ class ServeEngine:
         prompts = torch.stack([r.prompt for _, r in placements]).to(self.device)
         with self.rt.use():
             logits, caches = M.prefill(self.params, self.cfg, {"tokens": prompts})
+        rfaults.maybe_alloc_failure(self.fault_plan or rfaults.active(), "grow_caches")
         part = self.rt.grow_caches(self.cfg, caches, g, self.max_len)
         axes = rtm.cache_batch_axes(self.cfg)
         for j, (slot, _) in enumerate(placements):
@@ -260,12 +491,31 @@ class ServeEngine:
 
     def _admit_all(self) -> None:
         """Admit pending requests into free slots, batching same-length
-        prompts into one prefill each."""
+        prompts into one prefill each.  A failed allocation during a group's
+        admission sends its requests back to the queue (at most
+        :attr:`MAX_ADMIT_RETRIES` times, then ``finish_reason="error"``)."""
         by_len: dict[int, list[tuple[int, Request]]] = {}
         for slot, req in self.sched.admit(self._now()):
             by_len.setdefault(req.prompt.shape[0], []).append((slot, req))
         for group in by_len.values():
-            self._admit_group(group)
+            try:
+                self._admit_group(group)
+            except (rfaults.SimulatedAllocFailure, torch.cuda.OutOfMemoryError, MemoryError) as e:
+                now = self._now()
+                for slot, req in group:
+                    self.sched.evict(slot)
+                    req.retries += 1
+                    if req.retries > self.MAX_ADMIT_RETRIES:
+                        req.finished = True
+                        req.finish_reason = "error"
+                        req.error = f"admission failed: {e}"
+                        req.t_finish = now
+                        self.log.record("alloc", "serve.admit", "fail-request", rid=req.rid,
+                                        retries=req.retries)
+                    else:
+                        self.sched.pending.appendleft(req)
+                        self.log.record("alloc", "serve.admit", "requeue", rid=req.rid,
+                                        retries=req.retries)
 
     def _retire_finished(self) -> list[Request]:
         """Evict every occupied slot whose device state went inactive."""
@@ -284,54 +534,103 @@ class ServeEngine:
         return out
 
     # -- the decode chunk --------------------------------------------------
-    def _decode_chunk(self):
-        """``chunk`` decode steps over the packed slot batch.  Returns
-        ``(tokens [chunk, B], emitted [chunk, B])`` on the device."""
+    def _chunk(self):
+        """``chunk`` decode steps over the packed slot batch, carrying
+        ``(tok, pos, active, remaining)`` from the static buffers and back
+        into them in place, with ``poison`` read from its buffer.  Returns
+        ``(toks [chunk, B], emitted [chunk, B], faulted [B])`` on the device.
+
+        ``poison`` codes overwrite a slot's last-position fp32 logits row
+        (1 NaN, 2 Inf).  With the watchdog a slot whose row is not finite is
+        retired: it emits ``pad_id``, its position and budget freeze, it
+        leaves ``active`` and ``faulted`` marks it; its row is zeroed before
+        sampling.  No host read, except the live rows of sampled decoding."""
         rids = [r.rid if r is not None else None for r in self.sched.table]
+        tok, pos, active, remaining, poison = self.tok, self.pos, self.active, self.remaining, self.poison
+        faulted = torch.zeros_like(active)
         toks, emitted = [], []
-        tok, pos, active, remaining = self.tok, self.pos, self.active, self.remaining
+        for _ in range(self.chunk):
+            logits, _ = M.decode_step(self.params, self.cfg, self.caches, {"tokens": tok[:, None]}, pos)
+            row = logits[:, -1].float()
+            if self.fault_plan is not None:  # without one the poison buffer stays zero
+                row = row.masked_fill((poison == 1)[:, None], float("nan"))
+                row = row.masked_fill((poison == 2)[:, None], float("inf"))
+            if self.watchdog:
+                finite = torch.isfinite(row).all(dim=-1)
+                faulted = faulted | (active & ~finite)
+                good = active & finite
+                row = row.masked_fill(~good[:, None], 0.0)
+            else:
+                good = active
+            live_rids = rids if self.temperature == 0.0 else [
+                rid if g else None for rid, g in zip(rids, good.tolist())
+            ]
+            nxt = torch.where(good, self._sample(row, live_rids), self.pad_id)
+            live = good.long()
+            pos = pos + live
+            remaining = remaining - live
+            done = remaining <= 0
+            if self.eos_id is not None:
+                done = done | (nxt == self.eos_id)
+            toks.append(nxt)
+            emitted.append(good)
+            active = good & ~done
+            tok = nxt
+        out = torch.stack(toks), torch.stack(emitted), faulted
+        for buf, val in ((self.tok, tok), (self.pos, pos), (self.active, active),
+                         (self.remaining, remaining)):
+            buf.copy_(val)
+        return out
+
+    def _decode(self):
+        """One decode chunk: through the CUDA graph when the engine has one,
+        else eagerly."""
         with self.rt.use():
-            for _ in range(self.chunk):
-                logits, self.caches = M.decode_step(
-                    self.params, self.cfg, self.caches, {"tokens": tok[:, None]}, pos
-                )
-                live_rids = rids if self.temperature == 0.0 else [
-                    rid if a else None for rid, a in zip(rids, active.tolist())
-                ]
-                nxt = torch.where(active, self._sample(logits[:, -1].float(), live_rids), self.pad_id)
-                live = active.long()
-                pos = pos + live
-                remaining = remaining - live
-                done = remaining <= 0
-                if self.eos_id is not None:
-                    done = done | (nxt == self.eos_id)
-                toks.append(nxt)
-                emitted.append(active)
-                active = active & ~done
-                tok = nxt
-        self.tok, self.pos, self.active, self.remaining = tok, pos, active, remaining
-        return torch.stack(toks), torch.stack(emitted)
+            if self._graph is None:
+                return self._chunk()
+            return self._graph.run(self._chunk, self.params["lm_head"])
+
+    def _chunk_poison(self) -> None:
+        """Set the poison buffer for this chunk from the fault plan (with
+        none it stays all zeros and nothing is uploaded)."""
+        if self.fault_plan is not None:
+            p = rfaults.poison_slots(self.fault_plan, self.fault_plan.tick("serve.decode_chunk"),
+                                     self.sched.num_slots)
+            self.poison.copy_(torch.from_numpy(p))
 
     # -- the serving loop --------------------------------------------------
     @torch.inference_mode()
     def step(self) -> list[Request]:
-        """Admit, run one decode chunk, retire finished.  Returns the
-        requests that finished during this call."""
+        """Stall (injected), expire, shed, admit, retire, admit (backfill),
+        retire, run one decode chunk, retire.  Returns the requests that
+        finished during this call, expired, shed and errored ones included."""
+        now = self._now()
+        if self.fault_plan is not None:
+            rfaults.stall(self.fault_plan, "step_stall", self.fault_plan.tick("serve.step"))
+        finished = self._expire(now)
+        finished += self._shed_to_budget(now)
         self._admit_all()
-        finished = self._retire_finished()  # requests done at admission
+        finished += self._retire_finished()  # requests done at admission
         # backfill slots freed by admission-time finishes before decoding
         self._admit_all()
         finished += self._retire_finished()
         if not bool(self.active.any()):
             return finished
-        toks, emitted = self._decode_chunk()
+        self._chunk_poison()
+        toks, emitted, faulted = (t.cpu() for t in self._decode())
         self.chunks_run += 1
         self.steps_run += self.chunk
-        toks, emitted = toks.cpu(), emitted.cpu()
         for slot, req in self.sched.occupied():
             new = toks[emitted[:, slot], slot].tolist()
             req.tokens.extend(new)
             self.tokens_out += len(new)
+            if faulted[slot]:
+                # the watchdog retired this slot inside the chunk: record the
+                # error before _retire_finished assigns a reason
+                req.finish_reason = "error"
+                req.error = "non-finite logits (watchdog)"
+                self.log.record("nonfinite", "serve.decode.watchdog", "retire-slot", rid=req.rid,
+                                slot=slot, chunk=self.chunks_run - 1, emitted=len(req.tokens))
         finished += self._retire_finished()
         return finished
 
@@ -342,15 +641,19 @@ class ServeEngine:
         return {rid: r.tokens for rid, r in self._requests.items()}
 
     def stats(self) -> dict:
-        """Engine + plan-cache counters.  ``decode_chunks`` counts decode
-        chunk calls (the JAX engine's trace counter has no counterpart:
-        PyTorch runs eagerly)."""
+        """Engine + plan-cache counters.  ``decode_graph_captures`` is the
+        counterpart of the JAX engine's ``decode_traces``: one per engine
+        under the CUDA graph (0 when the chunk runs eagerly)."""
+        g = self._graph
         return {
             "tokens_out": self.tokens_out,
-            "decode_chunks": self.chunks_run,
+            "chunks_run": self.chunks_run,
             "steps_run": self.steps_run,
             "slots": self.sched.num_slots,
+            "decode_graph_captures": g.captures if g else 0,
+            "decode_graph_replays": g.replays if g else 0,
             "plan_cache": self.rt.plan_cache.stats(),
+            "resilience_events": len(self.log),
         }
 
 

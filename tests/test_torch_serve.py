@@ -71,7 +71,7 @@ def test_engine_and_generate_greedy_tokens_match_jax_and_lm_head_plan_replays(mo
     assert tout == jout
     assert [len(tout[r]) for r in range(5)] == BUDGETS
     st = teng.stats()
-    assert st["tokens_out"] == sum(BUDGETS) and st["decode_chunks"] >= 3
+    assert st["tokens_out"] == sum(BUDGETS) and st["chunks_run"] >= 3
     # the LM head: one plan built at the first prefill, every later prefill
     # group and decode step replays it
     pc = st["plan_cache"]
