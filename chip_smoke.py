@@ -14,8 +14,12 @@ from the root of a checkout, on a machine with one H100.  It
    and at a prime M = 29, ``bm = M``) and at small block-sparse shapes in
    fp32 and bf16, and times the kernel, the plain version and one
    ``torch.matmul`` of the same product (each row prints its ratio to that
-   call and its share of the bound); then counts, with the profiler, the
-   CUDA launches of a few calls of each wrapper: exactly one per call;
+   call and its share of the bound), and at the MoE experts' ``w_down``
+   (qwen3-moe widths, a plan by value at ``bm`` = the capacity: a routed
+   decode slot, a prefill capacity of 10 with pad rows, and an expert no
+   token reached, whose empty plan must write zeros); then counts, with the
+   profiler, the CUDA launches of a few calls of each wrapper: exactly one
+   per call;
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
    weights) through ``ServeEngine`` on the ``cuda`` backend, the decode
    chunk eager, and checks that every FFN gate, ``w_down`` and LM-head
@@ -52,7 +56,18 @@ from the root of a checkout, on a machine with one H100.  It
    nan_logits@1:slot=0``): exit 0, mixed finish reasons, a
    ``retire-slot`` line, one capture; and once more with
    ``--no-cuda-graph`` (no capture), for its tokens/s beside the graph's;
-8. holds the planned kernel at the training step's backward shapes (one
+8. serves full-width qwen3-moe-235b-a22b with a ReLU gate cut to 8 layers
+   (bf16 experts, fp32 routers, seeded random weights; the deepseek weights
+   freed first) with the same requests through ``ServeEngine``, eager and
+   as one CUDA graph: the same greedy tokens, every expert's ``w_down`` one
+   planned launch on one planner launch by value (128 x 8 of each a model
+   call) as the path implies, no plain version, no host sync in a decode
+   chunk; prints ms per decode step and tokens/s of both runs, peak memory,
+   device launches per decode step by wrapper and the share of expert
+   blocks the plans skip; then its prefill logits against ``reference``,
+   held on the cuda run's routes (routing itself reported: the router's
+   top-k flips where two experts tie within a rounding);
+9. holds the planned kernel at the training step's backward shapes (one
    microbatch of 1024 tokens at full widths, fp32 operands and transposed
    views, bf16 output: the gate's, ``w_down``'s and the LM head's ``da``
    and ``db``) against its plain version (fp32, rtol = atol = 2e-4), its
@@ -60,19 +75,20 @@ from the root of a checkout, on a machine with one H100.  It
    two rows, each timed against one fp32 ``torch.matmul`` and its bound;
    ``block_zero_mask`` on the two fp32 cotangents; one device launch per
    wrapper call;
-9. runs the one-launch planner in every mode: 477 edge cases (one block
+10. runs the one-launch planner in every mode: 477 edge cases (one block
    row, one K block, 86 and 800 K blocks, several shared-memory stages,
    views off the 16-byte grid, NaN, bool and int8 masks, coarsen 2 / 4 /
    Nb), then the path's shapes (the decode and training gate masks, the
    LM-head weight ``lm_head.T`` in bf16, the fp32 ``w_down`` and LM-head
    cotangents, the three transposed forward plans of the weight
-   gradients), each plan's five int32 arrays bit-equal to the plain chain
+   gradients, the MoE experts' ``h[e]`` at capacity 1 and 10 and a pad
+   row alone), each plan's five int32 arrays bit-equal to the plain chain
    on the card; each path shape timed (device ms and host wall per call)
    beside the chain, the unfused path on the card (the mask kernel, then the
    chain's compaction; its device launches per call) and
    ``torch.count_nonzero``, with its bound; one device launch per
    planner call;
-10. trains deepseek-7b-ReLU at full width cut to 4 layers (bf16 params,
+11. trains deepseek-7b-ReLU at full width cut to 4 layers (bf16 params,
    fp32 AdamW moments; 30 layers of that state would not fit the card's 80
    GB) through ``make_train_step`` on the ``cuda`` backend: step 1's loss
    and gradients against the ``dense`` backend on the card (loss within
@@ -83,7 +99,7 @@ from the root of a checkout, on a machine with one H100.  It
    or planner chain run, two profiled steps
    (device time by kernel), and a ``guard_nonfinite`` step with poison 2
    that must leave params and optimizer state unchanged;
-11. drives the train launcher, ``repro_torch.launch.train.main``, in process
+12. drives the train launcher, ``repro_torch.launch.train.main``, in process
    on full-width qwen3-4b (grouped-query attention with qk-norm, vocab
    151936) cut to 8 layers, 8 x 256 tokens in 2 microbatches, taps on:
    (a) 6 steps with a checkpoint at step 4 (bytes, save seconds, free disk);
@@ -96,11 +112,11 @@ from the root of a checkout, on a machine with one H100.  It
    forward plan at every refresh, with blocks skipped, and every edited plan
    bit-equal to the planner's fresh plan of its mask; each step's launches
    held to the path's, no plain version run;
-12. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
+13. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode; each with its
-   launches over the serve runs (eager, graph, fault replays and the serve
-   launcher; a captured launch counted once per replay), the timed
+   launches over the serve runs (eager, graph, fault replays, the serve
+   launcher and the MoE runs; a captured launch counted once per replay), the timed
    training steps and launcher runs (a) and (c), on the serving path
    alone, per training step and per launcher step), the card line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
@@ -162,6 +178,11 @@ TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ // TRAIN_MICRO
 #: orders, as REF_REL_L2 says for serving): loss relative, each leaf's
 #: gradient relative L2
 LOSS_REL, GRAD_REL_L2 = 2**-7, 2**-5
+#: the MoE serve phase: qwen3-moe-235b-a22b with a ReLU gate at full width,
+#: cut from 94 to MOE_LAYERS layers (94 layers of bf16 weights are ~467 GB;
+#: 8 make ~42.3 GB), served as the deepseek-7b serve phase serves; a full
+#: 4 x 32-token prefill group gives each expert MOE_PREFILL_CAP slots
+MOE_ARCH, MOE_LAYERS, MOE_PREFILL_CAP = "qwen3-moe-235b-a22b", 8, 10
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -438,6 +459,26 @@ def kernel_phase(bw: float):
         run_case(f"tall rows bm={bm} planned", "tensordash_matmul_planned", dtype, a, b, bm, 64, 64, plan)
         run_case(f"tall rows bm={bm} fused relu+bias", "tensordash_matmul_fused", dtype, a, b, bm, 64, 64,
                  plan, bias=bias)
+
+    # -- the MoE experts' w_down at qwen3-moe widths (d 4096, expert d_ff
+    #    1536), planned by value at bm = the capacity (Runtime.fit): a routed
+    #    decode slot, a prefill group's capacity with 3 pad rows, and an
+    #    expert no token reached (its only slot the all-zero pad row)
+    w_exp = (torch.randn(1536, 4096, generator=gdev, device=dev) / 39).to(bf16)
+    for label, cap, pad, stage in (("moe w_down decode, routed", 1, 0, "moe decode"),
+                                   (f"moe w_down prefill cap {MOE_PREFILL_CAP}", MOE_PREFILL_CAP, 3,
+                                    "moe prefill"),
+                                   ("moe w_down decode, empty plan", 1, 1, "moe decode")):
+        he = (torch.clamp_min(torch.randn(cap, 1536, generator=gen), 0) * torch.randn(cap, 1536, generator=gen))
+        he[cap - pad:] = 0
+        he = he.to(dev, bf16)
+        plan = T.plan_blocks_csr(he, cap, 512)
+        run_case(label, "tensordash_matmul_planned", bf16, he, w_exp, cap, 512, 128, plan,
+                 main=stage == "moe decode", stage=stage)
+        if pad == cap:
+            out = T.tensordash_matmul_planned(*plan[:2], he, w_exp, bm=cap, bk=512, bn=128, workqueue=plan[2:])
+            if int(plan[0].sum()) != 0 or bool(out.any()):
+                raise AssertionError(f"{label}: a pad-row expert must plan no block and write zeros")
     return rows, count_launches(calls)
 
 
@@ -676,13 +717,18 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
             "requests": eng._requests, "log": rlog}
 
 
-def path_launches(cfg, calls: int) -> dict:
-    """The serving path's wrapper launches over ``calls`` model calls: 30
-    fused gates, 31 planned products (30 ``w_down``, the LM head) and 30
-    emitted-mask plans each."""
-    return {"tensordash_matmul_fused": cfg.num_layers * calls,
-            "tensordash_matmul_planned": (cfg.num_layers + 1) * calls,
-            "planner[emitted]": cfg.num_layers * calls}
+def path_launches(cfg, calls: int, head_plans: int = 0) -> dict:
+    """The serving path's wrapper launches over ``calls`` model calls and
+    ``head_plans`` LM-head plans.  Each call: per dense ReLU block a fused
+    gate, a planned ``w_down`` and its emitted-mask plan (deepseek-7b: 30
+    each); per MoE block one planned ``w_down`` and one plan by value per
+    expert (qwen3-moe: 128 each); the planned LM head (its plan cached)."""
+    n_moe = cfg.num_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
+    dense, experts = cfg.num_layers - n_moe, n_moe * cfg.num_experts
+    return {"tensordash_matmul_fused": dense * calls,
+            "tensordash_matmul_planned": (dense + experts + 1) * calls,
+            "planner[emitted]": dense * calls,
+            "planner[values]": experts * calls + head_plans}
 
 
 def serve_phase():
@@ -710,7 +756,7 @@ def serve_phase():
     out, launches, st, wall, groups = run["out"], run["launches"], run["stats"], run["wall"], run["groups"]
     calls = len(groups) + st["steps_run"]  # model invocations: prefill groups + decode steps
     want = {k: 0 for k in launches}
-    want.update(path_launches(cfg, calls), **{"planner[values]": 1})  # the LM head's plan, built once
+    want.update(path_launches(cfg, calls, head_plans=1))  # the LM head's plan, built once
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != path's {want}")
     if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
@@ -755,7 +801,7 @@ def first_difference(got: dict, want: dict):
     return None
 
 
-def serve_graph_phase(params, cfg, prompts, rt, eager):
+def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph"):
     """The serve phase's requests with the decode chunk as one CUDA graph:
     the eager run's greedy tokens exactly; one capture over a run with
     backfill; the capture's launches are one chunk's; a replay per chunk
@@ -767,12 +813,12 @@ def serve_graph_phase(params, cfg, prompts, rt, eager):
     diff = first_difference(out, eager["greedy_tokens"])
     if diff is not None:
         rid, i = diff
-        raise AssertionError(f"serve graph: greedy tokens differ from the eager run's, first at request "
+        raise AssertionError(f"{tag}: greedy tokens differ from the eager run's, first at request "
                              f"{rid} token {i} ({'prefill' if i == 0 else f'decode step {i - 1}'})")
     zero = dict.fromkeys(run["launches"], 0)
     want_capture = dict(zero, **path_launches(cfg, CHUNK))
     if st["decode_graph_captures"] != 1 or run["capture_launches"] != want_capture:
-        raise AssertionError(f"serve graph: {st['decode_graph_captures']} captures, capture launches "
+        raise AssertionError(f"{tag}: {st['decode_graph_captures']} captures, capture launches "
                              f"{run['capture_launches']} != one chunk's {want_capture}")
     # the card runs at each replay what the wrappers counted at capture
     replayed: dict[str, int] = {}
@@ -781,23 +827,23 @@ def serve_graph_phase(params, cfg, prompts, rt, eager):
         if w is not None:
             replayed[w] = replayed.get(w, 0) + v
     if replayed != by_wrapper(run["capture_launches"]):
-        raise AssertionError(f"serve graph: one replay's device launches {replayed} != the capture's "
+        raise AssertionError(f"{tag}: one replay's device launches {replayed} != the capture's "
                              f"{by_wrapper(run['capture_launches'])}")
     replay_total = sum(run["replay_kernels"].values())
     if st["decode_graph_replays"] != st["chunks_run"] - 1 or run["chunks"]["warm-up"] != 1:
-        raise AssertionError(f"serve graph: {st['decode_graph_replays']} replays over {st['chunks_run']} "
+        raise AssertionError(f"{tag}: {st['decode_graph_replays']} replays over {st['chunks_run']} "
                              f"chunks, {run['chunks']['warm-up']} warm-up chunks")
     # the wrappers count the prefills, the warm-up chunk and the capture once
     counted = len(groups) + 2 * CHUNK
-    want = dict(zero, **path_launches(cfg, counted), **{"planner[values]": 1})
+    want = dict(zero, **path_launches(cfg, counted, head_plans=1))
     if run["launches"] != want:
-        raise AssertionError(f"serve graph: launches {run['launches']} != path's {want}")
+        raise AssertionError(f"{tag}: launches {run['launches']} != path's {want}")
     pc = st["plan_cache"]
     if pc["misses"] != 1 or pc["hits"] != counted - 1:
-        raise AssertionError(f"serve graph: LM-head plan cache {pc}, expected 1 miss and {counted - 1} "
+        raise AssertionError(f"{tag}: LM-head plan cache {pc}, expected 1 miss and {counted - 1} "
                              "hits (the replays look up nothing)")
     if run["decode_syncs"]["replay"] or run["decode_syncs"]["warm-up"]:
-        raise AssertionError(f"serve graph: host syncs inside decode chunks {run['decode_syncs']}")
+        raise AssertionError(f"{tag}: host syncs inside decode chunks {run['decode_syncs']}")
     n_rep, n_warm = run["chunks"]["replay"], run["chunks"]["warm-up"] + run["chunks"]["capture"]
     replay_ms = run["decode_s"]["replay"] / (n_rep * CHUNK) * 1e3
     summary = {
@@ -811,14 +857,14 @@ def serve_graph_phase(params, cfg, prompts, rt, eager):
         "captures": st["decode_graph_captures"], "replays": st["decode_graph_replays"], "plan_cache": pc,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    log(f"serve graph: {summary['tokens']} tokens in {run['wall']:.3f} s = {summary['tok_per_s']:.2f} tok/s "
+    log(f"{tag}: {summary['tokens']} tokens in {run['wall']:.3f} s = {summary['tok_per_s']:.2f} tok/s "
         f"(eager {eager['tok_per_s']:.2f}); {replay_ms:.3f} ms per decode step over {n_rep} replayed chunks "
         f"(eager {eager['ms_per_decode_step']:.3f}); warm-up chunk {summary['ms_warmup_chunk']:.1f} ms, "
         f"capture chunk {summary['ms_capture_chunk']:.1f} ms ({n_warm} chunks); greedy tokens == eager run's")
-    log(f"serve graph: the profiler saw {replay_total} device launches in one replay "
+    log(f"{tag}: the profiler saw {replay_total} device launches in one replay "
         f"({replay_total / CHUNK:.0f} per decode step), {replayed} of them the port's kernels == the "
         "capture's wrapper launches")
-    log(f"serve graph: captured once ({want_capture} launches, one chunk of the path), replayed "
+    log(f"{tag}: captured once ({want_capture} launches, one chunk of the path), replayed "
         f"{st['decode_graph_replays']}x over {st['chunks_run']} chunks with backfill; wrapper launches "
         f"{run['launches']} == path's over {len(groups)} prefills + warm-up + capture; device launches "
         f"{run['device_launches']}; host syncs by chunk kind {run['decode_syncs']}; plan cache "
@@ -958,6 +1004,208 @@ def reference_phase(params, cfg, prompts):
     if worst > REF_REL_L2:
         raise AssertionError(f"cuda vs reference relative L2 {worst} > {REF_REL_L2}")
     return worst, agree
+
+
+def moe_reference_phase(params, cfg, prompts):
+    """Each prompt's prefill logits under ``cuda`` and ``reference`` for the
+    MoE model.  Its router's top-k is discontinuous: where a token's 8th and
+    9th expert probabilities lie within a rounding of each other, a bf16
+    rounding that the kernels and the plain executor take differently sends
+    the token to the other expert, and every later layer follows from there
+    (the ``dense`` backend, cuBLAS's products, parts from ``reference`` the
+    same way: its relative L2 is reported beside the kernels').  So the
+    reference run is made twice: routing itself (its relative L2, the
+    tokens routed apart per layer and, in the first layer where they part,
+    their 8th-9th probability margins: reported), and with each MoE
+    layer's experts pinned to the cuda run's, so the same products run on
+    the same routes: held to :data:`REF_REL_L2`, as the dense model is."""
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+
+    route, seen, pinned = moe_mod._route, [], []
+
+    def recording(c, x2, w):
+        seen.append(route(c, x2, w))
+        return seen[-1]
+
+    def pinning(c, x2, w):
+        _, _, probs = route(c, x2, w)
+        experts = pinned.pop(0)
+        top_p = torch.gather(probs, 1, experts)
+        return top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9), experts, probs
+
+    def prefill(toks, backend, fn):
+        seen.clear()
+        moe_mod._route = fn
+        try:
+            with torch.inference_mode(), rtm.Runtime(backend=backend, device="cuda").use():
+                return M.prefill(params, cfg, {"tokens": toks})[0][0, -1].float(), list(seen)
+        finally:
+            moe_mod._route = route
+
+    def rel(got, want):
+        return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+    rows = []
+    for p in prompts:
+        toks = torch.as_tensor(p, device="cuda")[None]
+        got, routes = prefill(toks, "cuda", recording)
+        want, ref_routes = prefill(toks, "reference", recording)
+        pinned[:] = [e for _, e, _ in routes]
+        held, _ = prefill(toks, "reference", pinning)
+        dense, _ = prefill(toks, "dense", recording)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("moe reference: non-finite cuda logits")
+        apart, margins = [], []
+        for (_, e_c, _), (_, e_r, probs) in zip(routes, ref_routes):
+            moved = (e_c.sort(-1).values != e_r.sort(-1).values).any(-1)
+            apart.append(int(moved.sum()))
+            if moved.any() and not margins:
+                top = probs.sort(-1, descending=True).values
+                margins = (top[:, cfg.top_k - 1] - top[:, cfg.top_k])[moved].tolist()
+        rows.append({"tokens": len(p), "rel_l2": rel(got, want), "rel_l2_routes_pinned": rel(got, held),
+                     "rel_l2_dense": rel(dense, want),
+                     "top1": int(got.argmax() == want.argmax()), "routed_apart_per_layer": apart,
+                     "first_margins": margins})
+    worst = max(r["rel_l2_routes_pinned"] for r in rows)
+    free = max(r["rel_l2"] for r in rows)
+    margins = [m for r in rows for m in r["first_margins"]]
+    log(f"moe reference: prefill last-token logits, cuda vs reference backend on the card, the same routes: "
+        f"worst relative L2 {worst:.3e} (bound {REF_REL_L2:.3e}); each routing itself: worst {free:.3e}, "
+        f"per prompt {[round(r['rel_l2'], 5) for r in rows]} (dense backend against reference "
+        f"{[round(r['rel_l2_dense'], 5) for r in rows]}), top-1 agreement {sum(r['top1'] for r in rows)}/"
+        f"{len(rows)}; tokens routed apart per layer {[r['routed_apart_per_layer'] for r in rows]}; 8th-9th "
+        f"probability margins where the routes first part: max {max(margins) if margins else None}")
+    if worst > REF_REL_L2:
+        raise AssertionError(f"moe reference: cuda vs reference on the same routes, relative L2 {worst} > "
+                             f"{REF_REL_L2}")
+    return rows
+
+
+def moe_serve_phase():
+    """Full-width qwen3-moe-235b-a22b with a ReLU gate, cut to MOE_LAYERS
+    layers, served as the deepseek-7b serve phase serves (same requests,
+    slots, chunk): every expert's ``w_down`` is one planned product on a plan
+    by value (one planner launch each), so a decode step launches 128 x 8
+    planned products and plans besides the LM head.  Eager, then through the
+    decode graph (the eager tokens exactly, one capture, a replay's device
+    launches the capture's), then prefill logits against ``reference``.
+    Launches must be the path's, with no plain version and no host sync in a
+    decode chunk.  Reports decode ms per step, tokens/s, peak memory,
+    launches per decode step and the share of expert blocks the plans skip."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+    from repro_torch.runtime import runtime as rt_mod
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), activation="relu", num_layers=MOE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    param_gb = torch.cuda.memory_allocated() / 1e9
+    router = params["layers"][0]["mlp"]["router"]
+    if router.dtype != torch.float32 or params["layers"][0]["mlp"]["w_down"].dtype != torch.bfloat16:
+        raise AssertionError("moe serve: the router must be fp32 and the experts bf16")
+    log(f"moe serve: {MOE_ARCH} relu, {cfg.num_layers} of 94 layers, d_model {cfg.d_model}, "
+        f"{cfg.num_experts} experts top-{cfg.top_k} of d_ff {cfg.moe_d_ff}, {cfg.param_count() / 1e9:.2f} B "
+        f"params ({param_gb:.2f} GB allocated) initialised on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(s)) for s in rng.integers(16, 33, size=REQUESTS)]
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+
+    # the experts' plans (the only plans made without a key), by the engine
+    # call that made them; read after the run, since a read inside a decode
+    # chunk would sync the host
+    plans, kind = {"prefill": [], "decode": []}, ["prefill"]
+    plan_operand, admit, decode = rt_mod.plan_operand, ServeEngine._admit_group, ServeEngine._decode
+
+    def recording(a, *args, **kw):
+        plans[kind[0]].append(plan_operand(a, *args, **kw))
+        return plans[kind[0]][-1]
+
+    def tagged(method, name):
+        def run(self, *args):
+            kind[0] = name
+            return method(self, *args)
+        return run
+
+    rt_mod.plan_operand = recording
+    ServeEngine._admit_group, ServeEngine._decode = tagged(admit, "prefill"), tagged(decode, "decode")
+    try:
+        run = drive_serve(params, cfg, prompts, rt)
+    finally:
+        rt_mod.plan_operand = plan_operand
+        ServeEngine._admit_group, ServeEngine._decode = admit, decode
+    out, launches, st, wall, groups = run["out"], run["launches"], run["stats"], run["wall"], run["groups"]
+    calls = len(groups) + st["steps_run"]
+    want = dict.fromkeys(launches, 0)
+    want.update(path_launches(cfg, calls, head_plans=1))
+    if launches != want:
+        raise AssertionError(f"moe serve: kernel launches {launches} != path's {want}")
+    experts = cfg.num_layers * cfg.num_experts
+    if (len(plans["decode"]), len(plans["prefill"])) != (experts * st["steps_run"], experts * len(groups)):
+        raise AssertionError(f"moe serve: {len(plans['decode'])} decode and {len(plans['prefill'])} prefill "
+                             f"expert plans over {st['steps_run']} steps and {len(groups)} prefills")
+    if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
+        raise AssertionError(f"moe serve: tokens per request {[len(v) for v in out.values()]}")
+    if any(t < 0 or t >= cfg.vocab_size for v in out.values() for t in v):
+        raise AssertionError("moe serve: token outside the vocabulary")
+    if run["decode_syncs"]["eager"]:
+        raise AssertionError(f"moe serve: {run['decode_syncs']['eager']} host syncs inside eager decode chunks")
+    skip = {}
+    for name, ps in plans.items():
+        if any(p.block_rows != 1 for p in ps):  # bm = the capacity (Runtime.fit)
+            raise AssertionError(f"moe serve: a {name} expert plan with more than one block row")
+        nnz = torch.cat([p.nnz for p in ps])
+        blocks = sum(p.total_blocks for p in ps)
+        skip[name] = {"plans": len(ps), "blocks": blocks, "effectual": int(nnz.sum()),
+                      "skipped_share": 1 - int(nnz.sum()) / blocks, "empty_plans": int((nnz == 0).sum()),
+                      "rows": sorted({p.shape[0] for p in ps})}
+    steps = st["steps_run"]
+    eager = {
+        "tokens": st["tokens_out"], "wall_s": wall, "tok_per_s": st["tokens_out"] / wall,
+        "decode_steps": steps, "ms_per_decode_step": run["decode_s"]["eager"] / steps * 1e3,
+        "prefill_groups": groups, "launches": launches,
+        "launches_per_model_call": {k: v / calls for k, v in by_wrapper(launches).items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "param_gb": param_gb,
+        "plan_cache": st["plan_cache"], "expert_plans": skip, "greedy_tokens": out,
+    }
+    d = skip["decode"]
+    log(f"moe serve: {REQUESTS} requests x {NEW_TOKENS} new tokens, slots {SLOTS}, chunk {CHUNK}, eager decode "
+        f"chunk: {eager['tokens']} tokens in {wall:.3f} s = {eager['tok_per_s']:.2f} tok/s; "
+        f"{eager['ms_per_decode_step']:.3f} ms per decode step over {steps} steps; prefill groups {groups}; "
+        f"peak memory {eager['peak_mem_gb']:.2f} GB; 0 host syncs inside decode chunks")
+    log(f"moe serve: kernel launches {launches} == path's ({experts} planned expert products and {experts} "
+        f"plans by value per model call, {calls} calls, + the LM head); no plain version ran")
+    log(f"moe serve: decode expert plans: {d['plans']} over {steps} steps, rows {d['rows']}, "
+        f"{d['effectual']}/{d['blocks']} blocks effectual, skipped share {d['skipped_share']:.4f}; "
+        f"{d['empty_plans'] / (steps * cfg.num_layers):.2f} of {cfg.num_experts} experts per layer "
+        f"and step plan no block; prefill: skipped share {skip['prefill']['skipped_share']:.4f}, "
+        f"capacities {skip['prefill']['rows']}")
+    del plans
+    graph = serve_graph_phase(params, cfg, prompts, rt, eager, tag="moe serve graph")
+    per_step = {k: v / CHUNK for k, v in by_wrapper(graph["capture_launches"]).items()}
+    log(f"moe serve: device launches per decode step: {graph['replay_device_launches_all'] / CHUNK:.0f} "
+        f"(one profiled replay / {CHUNK}), of them the port's kernels {per_step}; decode ms per step "
+        f"eager {eager['ms_per_decode_step']:.3f}, graph {graph['ms_per_decode_step_replayed']:.3f}; tokens/s "
+        f"eager {eager['tok_per_s']:.2f}, graph {graph['tok_per_s']:.2f}")
+    reference = moe_reference_phase(params, cfg, prompts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager.update(graph=graph, reference=reference, launches_per_decode_step_graph=per_step)
+    return eager
 
 
 # ---------------------------------------------------------------------------
@@ -1531,6 +1779,14 @@ def planner_phase(bw: float):
     values_case("w_down cotangent", g, 128, 128, "train")
     dlogits = torch.randn(t, v, generator=gen, device=dev) * 1e-4
     values_case("LM head cotangent dlogits.T", dlogits.T, 128, 128, "train")
+    # each MoE expert's h[e] at qwen3-moe widths, bm = its capacity: a routed
+    # decode slot, a prefill capacity with 3 pad rows, a pad row alone
+    for label, cap, pad in (("moe h[e] decode, routed", 1, 0), (f"moe h[e] prefill cap {MOE_PREFILL_CAP}",
+                                                                MOE_PREFILL_CAP, 3),
+                            ("moe h[e] decode, pad row", 1, 1)):
+        he = torch.clamp_min(torch.randn(cap, 1536, generator=gen, device=dev), 0)
+        he[cap - pad:] = 0
+        values_case(label, he.to(torch.bfloat16), cap, 512, "moe prefill" if cap > 1 else "moe decode")
     # the weight-gradient products' transposed forward plans
     transpose_case("gate db (dense gate plan)", *T.dense_plan(t // 128, d // 512, dev), "train")
     transpose_case("w_down db (gate mask plan)", *T.plan_from_mask(gmask), "train")
@@ -2100,6 +2356,8 @@ def main() -> int:
     auto = serve_auto_phase(params, cfg, prompts, tuned_db, serve["greedy_tokens"])
     del params
     torch.cuda.empty_cache()
+    log(f"moe serve: {MOE_ARCH} relu at full width, {MOE_LAYERS} layers, eager and through the decode graph")
+    moe = moe_serve_phase()
     log("launch serve: repro_torch.launch.serve.main at full width with a poisoned slot")
     launch_serve = launch_serve_phase()
     log(f"train kernels: the backward products at {TRAIN_TOKENS} tokens, fp32 operands, bf16 output")
@@ -2123,10 +2381,12 @@ def main() -> int:
         return out
 
     # the serving path's runs: eager, through the graph (clean and the two
-    # fault replays; a capture's launches once per replay) and the launcher
+    # fault replays; a capture's launches once per replay), the launcher and
+    # the MoE serve runs (eager and graph)
+    moe_runs = grouped({k: moe["launches"][k] + moe["graph"]["device_launches"][k] for k in moe["launches"]})
     serve_counts = dict(serve["launches"])
     for extra in (serve["graph"]["device_launches"], *(f["device_launches"] for f in serve["faults"]),
-                  launch_serve["launches"]):
+                  launch_serve["launches"], moe["launches"], moe["graph"]["device_launches"]):
         for k, v in extra.items():
             serve_counts[k] += v
     serve_runs = grouped(serve_counts)
@@ -2149,7 +2409,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
-            "launches_serve": serve_runs[kname], "launches_per_train_step": per_train_step[kname],
+            "launches_serve": serve_runs[kname], "launches_moe_serve": moe_runs[kname],
+            "launches_per_train_step": per_train_step[kname],
             "launches_launch_train": launch_runs[kname],
             "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
         })
@@ -2161,7 +2422,7 @@ def main() -> int:
          "reference_top1": top1, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
          "train_launch_check": train_launch, "planner_cases": planner_rows,
          "planner_launch_check": planner_launch, "train": train, "launch_train": launch,
-         "launch_serve": launch_serve,
+         "launch_serve": launch_serve, "moe_serve": moe,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

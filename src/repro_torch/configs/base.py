@@ -76,14 +76,29 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
 
     def param_count(self) -> int:
-        """Parameter count of the dense family (the only one ported)."""
-        if self.family != "dense" or self.use_mla:
+        """Parameter count of the dense and MoE families (the ported ones;
+        MLA is not ported), as the JAX package counts it."""
+        if self.family not in ("dense", "moe") or self.use_mla:
             raise NotImplementedError(f"param_count: family {self.family!r} not ported")
         d, l, v = self.d_model, self.num_layers, self.vocab_size
         hd = self.resolved_head_dim
         attn = d * hd * (self.num_heads * 2 + self.num_kv_heads * 2)
+        n = 2 * v * d  # embed + head
+        if self.family == "moe":
+            moe_l = l - self.first_dense_layers
+            ffn = moe_l * 3 * d * self.moe_d_ff * (self.num_experts + self.num_shared_experts)
+            ffn += self.first_dense_layers * 3 * d * self.d_ff
+            return n + l * attn + ffn
         per_ffn = (3 if self.mlp_gated else 2) * d * self.d_ff
-        return 2 * v * d + l * (attn + per_ffn)
+        return n + l * (attn + per_ffn)
+
+    def active_param_count(self) -> int:
+        """Parameters a token activates: of the MoE experts, only its top-k."""
+        if self.family != "moe":
+            return self.param_count()
+        moe_l = self.num_layers - self.first_dense_layers
+        per_expert = moe_l * 3 * self.d_model * self.moe_d_ff
+        return self.param_count() - per_expert * self.num_experts + per_expert * self.top_k
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
+
 def tensor_from_numpy(x, device="cpu") -> torch.Tensor:
     """One numpy leaf as a tensor of the same dtype on ``device``."""
     x = np.asarray(x)
@@ -29,16 +30,25 @@ def _map(fn, tree):
 
 
 def params_from_jax(tree, cfg: ModelConfig, *, device="cpu") -> dict:
-    """The port's parameters from the JAX dense-family parameter pytree."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense only)")
-    stacked = _map(lambda x: tensor_from_numpy(x, device), tree["layers"])
-    n = stacked["ln1"].shape[0]
-    if n != cfg.num_layers:
-        raise ValueError(f"{n} stacked layers, config says {cfg.num_layers}")
-    return {
-        "embed": tensor_from_numpy(tree["embed"], device),
-        "layers": [_map(lambda x, i=i: x[i].clone(), stacked) for i in range(n)],
-        "final_norm": tensor_from_numpy(tree["final_norm"], device),
-        "lm_head": tensor_from_numpy(tree["lm_head"], device),
-    }
+    """The port's parameters from the JAX dense- or MoE-family parameter
+    pytree: each stacked layer stack (``layers``, and a MoE config's
+    ``dense_layers``) becomes a list of per-layer dicts.  Every leaf keeps
+    its dtype (the MoE router its fp32); expert weights stay ``[E, ...]``."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense and moe only)")
+    n_dense = cfg.first_dense_layers if cfg.family == "moe" else 0
+    want = {"layers": cfg.num_layers - n_dense, "dense_layers": n_dense}
+    out = {"embed": tensor_from_numpy(tree["embed"], device)}
+    for stack in ("layers", "dense_layers"):
+        if stack not in tree:
+            if want[stack]:
+                raise ValueError(f"no {stack!r} stack, config says {want[stack]} layers")
+            continue
+        stacked = _map(lambda x: tensor_from_numpy(x, device), tree[stack])
+        n = stacked["ln1"].shape[0]
+        if n != want[stack]:
+            raise ValueError(f"{n} stacked {stack}, config says {want[stack]}")
+        out[stack] = [_map(lambda x, i=i: x[i].clone(), stacked) for i in range(n)]
+    out["final_norm"] = tensor_from_numpy(tree["final_norm"], device)
+    out["lm_head"] = tensor_from_numpy(tree["lm_head"], device)
+    return out

@@ -2,11 +2,14 @@
 CUDA graph.
 
     python -m repro_torch.launch.profile_decode --arch deepseek-7b --activation relu
+    python -m repro_torch.launch.profile_decode --arch qwen3-moe-235b-a22b --activation relu --layers 8
 
 Builds bf16 weights from seed 0 once, then, one after the other, two
 :class:`~repro_torch.serve.engine.ServeEngine`\\ s on the ``cuda`` backend
 over the same ``--slots`` prompts: one running the decode chunk eagerly
-(``cuda_graph=False``), one replaying it as one CUDA graph.  Each engine
+(``cuda_graph=False``), one replaying it as one CUDA graph.  ``--layers``
+cuts the config's depth, for a model whose weights do not fit the card
+(qwen3-moe-235b-a22b's 94 layers need ~467 GB).  Each engine
 runs two warm-up steps (admission and the eager chunk; the graph's capture),
 timed, then times ``--steps`` engine steps (``--chunk`` decode steps each) untraced,
 then traces as many with ``torch.profiler`` and prints the wall time per
@@ -103,6 +106,7 @@ def main(argv=None) -> None:
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--steps", type=int, default=2, help="engine steps timed, then as many traced")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--layers", type=int, default=None, help="cut the config to this many layers")
     args = ap.parse_args(argv)
 
     rt = rtm.Runtime(backend="cuda", device="cuda")
@@ -110,11 +114,13 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.activation:
         cfg = dataclasses.replace(cfg, activation=args.activation)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device=rt.device)
     gen = torch.Generator().manual_seed(0)
     prompts = [torch.randint(0, cfg.vocab_size, (PROMPT_LEN,), generator=gen) for _ in range(args.slots)]
     name = torch.cuda.get_device_name(rt.device)
-    print(f"device={name} arch={cfg.name} activation={cfg.activation} slots={args.slots} "
+    print(f"device={name} arch={cfg.name} layers={cfg.num_layers} activation={cfg.activation} slots={args.slots} "
           f"chunk={args.chunk} decode steps timed={args.steps * args.chunk}, then as many traced")
     res = {}
     for label, graph in (("eager", False), ("graph", True)):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 
@@ -20,34 +21,51 @@ DEFAULT_DTYPE = torch.bfloat16
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
-    """Declaration of one parameter tensor (shape + initializer)."""
+    """Declaration of one parameter tensor (shape + initializer).  ``scale``
+    overrides the initializer's std; ``dtype`` (a torch dtype) overrides the
+    tree's dtype for this leaf, as the MoE router stays fp32."""
 
     shape: tuple
-    init: str = "normal"  # normal | ones | zeros | embed
+    init: str = "normal"  # normal | ones | zeros | embed | scaled
+    scale: float | None = None
+    dtype: Any = None
+
+
+def _fan_in(shape: tuple) -> int:
+    # convention: last dim is the output features; everything else is fan-in,
+    # except a leading dim of a rank > 2 weight (the experts of an [E, d, f] stack)
+    if len(shape) == 1:
+        return shape[0]
+    return max(1, math.prod(shape[:-1]) // (shape[0] if len(shape) > 2 else 1))
 
 
 def init_params(specs, *, seed: int = 0, dtype=DEFAULT_DTYPE, device="cuda"):
     """Materialize a spec tree on ``device`` from one seeded generator.
 
-    ``normal`` draws N(0, 1/fan_in) with fan_in the first dim (the input
-    features), ``embed`` N(0, 1); values are drawn in fp32 and cast, one
-    tensor at a time, so the fp32 scratch never exceeds one parameter."""
+    ``normal`` draws N(0, 1/fan_in) (the JAX package's ``_fan_in`` rule),
+    ``scaled`` N(0, 0.02^2), both with the spec's ``scale`` as std when it
+    has one, and ``embed`` N(0, 1); values are drawn in fp32 and cast to
+    the spec's dtype or ``dtype``, one tensor at a time, so the fp32 scratch
+    never exceeds one parameter."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def make(spec: Spec):
+        dt = spec.dtype or dtype
         if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dtype, device=device)
+            return torch.ones(spec.shape, dtype=dt, device=device)
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dtype, device=device)
+            return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "embed":
             std = 1.0
         elif spec.init == "normal":
-            std = 1.0 / math.sqrt(spec.shape[0])
+            std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
+        elif spec.init == "scaled":
+            std = spec.scale if spec.scale is not None else 0.02
         else:
             raise ValueError(spec.init)
         x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
-        return x.mul_(std).to(dtype)
+        return x.mul_(std).to(dt)
 
     def walk(tree):
         if isinstance(tree, Spec):

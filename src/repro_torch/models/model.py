@@ -1,4 +1,4 @@
-"""Family dispatch (port of ``repro/models/model.py``), dense family only.
+"""Family dispatch (port of ``repro/models/model.py``), dense and MoE families.
 
     param_specs(cfg)                             -> Spec tree
     forward(params, cfg, batch, probes, taps)    -> logits
@@ -8,7 +8,7 @@
     init_cache(cfg, batch, max_len, device=...)  -> decode caches
 
 ``decode_step``'s ``pos`` is a scalar or an int ``[B]`` tensor (each batch
-slot at its own position).  MoE, SSM and hybrid families wait for ROADMAP
+slot at its own position).  The SSM and hybrid families wait for ROADMAP
 queue 1, item 12.
 """
 from __future__ import annotations
@@ -21,18 +21,19 @@ from repro_torch.models import transformer as tfm
 __all__ = ["param_specs", "forward", "loss_fn", "prefill", "decode_step", "init_cache"]
 
 
-def _dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense only)")
+def _supported(cfg: ModelConfig) -> None:
+    """The transformer backbone runs the dense and MoE families."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense and moe only)")
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _dense(cfg)
+    _supported(cfg)
     return tfm.backbone_specs(cfg)
 
 
 def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
-    _dense(cfg)
+    _supported(cfg)
     return tfm.forward(params, cfg, batch, probes=probes, taps=taps)
 
 
@@ -47,16 +48,16 @@ def loss_fn(params, cfg: ModelConfig, batch, probes=None, taps=None):
 
 
 def prefill(params, cfg: ModelConfig, batch):
-    _dense(cfg)
+    _supported(cfg)
     return tfm.prefill(params, cfg, batch)
 
 
 def decode_step(params, cfg: ModelConfig, caches, batch, pos):
-    _dense(cfg)
+    _supported(cfg)
     return tfm.decode_step(params, cfg, caches, batch, pos)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
     """Zero decode caches (bf16 KV rows), allocated on ``device``."""
-    _dense(cfg)
+    _supported(cfg)
     return tfm.init_layer_caches(cfg, batch, max_len, device=device)

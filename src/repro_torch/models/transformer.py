@@ -1,4 +1,4 @@
-"""Decoder-only transformer backbone, dense family (port of
+"""Decoder-only transformer backbone, dense and MoE families (port of
 ``repro/models/transformer.py``).
 
 Layers run in a Python loop over per-layer parameter dicts in place of the
@@ -16,6 +16,11 @@ that layer's output-gradient stream G, paper Eq. 2/3), ``taps`` collects the
 FFN activation's measured sparsity (the A stream), and ``cfg.remat``
 recomputes each layer in the backward (``torch.utils.checkpoint``), its
 planned kernels included.
+
+A MoE config (``family="moe"``) runs its first ``first_dense_layers``
+blocks with the dense FFN (``params["dense_layers"]``) and the rest with
+:func:`repro_torch.models.moe.moe_ffn` (``params["layers"]``); a block takes
+the MoE branch when its MLP has a ``router``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -28,10 +33,13 @@ from repro_torch import runtime as rtm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparsity as sps
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ACTIVATIONS, Spec, rms_norm, softcap
 
 __all__ = [
     "attn_config",
+    "moe_config",
+    "block_specs",
     "backbone_specs",
     "mlp_fwd",
     "head_matmul",
@@ -48,8 +56,8 @@ _UNPORTED = ("use_mla", "post_norms", "sliding_window", "mrope_sections",
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense only)")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense and moe only)")
     used = [f for f in _UNPORTED if getattr(cfg, f)]
     if used:
         raise NotImplementedError(f"{cfg.name}: {', '.join(used)} not ported yet")
@@ -68,6 +76,19 @@ def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
     )
 
 
+def moe_config(cfg: ModelConfig) -> moe_mod.MoEConfig:
+    return moe_mod.MoEConfig(
+        d_model=cfg.d_model,
+        num_experts=cfg.num_experts,
+        top_k=cfg.top_k,
+        d_ff=cfg.moe_d_ff,
+        num_shared_experts=cfg.num_shared_experts,
+        capacity_factor=cfg.capacity_factor,
+        activation=cfg.activation,
+        a2a_quant=cfg.moe_a2a_quant,
+    )
+
+
 def mlp_specs(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_gated:
@@ -75,25 +96,35 @@ def mlp_specs(cfg: ModelConfig) -> dict:
     return {"w_up": Spec((d, f)), "w_down": Spec((f, d))}
 
 
-def block_specs(cfg: ModelConfig) -> dict:
+def block_specs(cfg: ModelConfig, *, moe: bool = False) -> dict:
     d = cfg.d_model
     return {
         "ln1": Spec((d,), init="ones"),
         "ln2": Spec((d,), init="ones"),
         "attn": attn.attention_specs(attn_config(cfg)),
-        "mlp": mlp_specs(cfg),
+        "mlp": moe_mod.moe_specs(moe_config(cfg)) if moe else mlp_specs(cfg),
     }
 
 
 def backbone_specs(cfg: ModelConfig) -> dict:
+    """The spec tree; a MoE config's first ``first_dense_layers`` blocks go
+    to ``"dense_layers"``, ahead of ``"layers"`` in the forward."""
     check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
-    return {
-        "embed": Spec((v, d), init="embed"),
-        "layers": [block_specs(cfg) for _ in range(cfg.num_layers)],
-        "final_norm": Spec((d,), init="ones"),
-        "lm_head": Spec((d, v)),
-    }
+    is_moe = cfg.family == "moe"
+    n = cfg.num_layers - cfg.first_dense_layers if is_moe else cfg.num_layers
+    specs = {"embed": Spec((v, d), init="embed")}
+    specs["layers"] = [block_specs(cfg, moe=is_moe) for _ in range(n)]
+    if is_moe and cfg.first_dense_layers:
+        specs["dense_layers"] = [block_specs(cfg) for _ in range(cfg.first_dense_layers)]
+    specs["final_norm"] = Spec((d,), init="ones")
+    specs["lm_head"] = Spec((d, v))
+    return specs
+
+
+def _stacks(params) -> list[str]:
+    """The layer stacks of ``params`` in the order the forward runs them."""
+    return [k for k in ("dense_layers", "layers") if k in params]
 
 
 def mlp_fwd(params, cfg: ModelConfig, x, rt=None, taps: dict | None = None):
@@ -144,16 +175,28 @@ def _embed_in(params, cfg: ModelConfig, tokens):
     return h
 
 
+def _ffn(p, cfg: ModelConfig, x, rt=None, taps: dict | None = None):
+    """The block's FFN: the MoE FFN where its MLP has a router, whose taps
+    measure the MoE output (there is no hidden activation to tap inside the
+    expert dispatch), else :func:`mlp_fwd`."""
+    if cfg.num_experts and "router" in p:
+        m = moe_mod.moe_ffn(p, moe_config(cfg), x, rt=rt)
+        if taps is not None:
+            taps["ffn_act"] = sps.measure(m)
+        return m
+    return mlp_fwd(p, cfg, x, rt=rt, taps=taps)
+
+
 def _block_fwd(p, cfg: ModelConfig, h, positions, rope, *, return_cache: bool = False,
                probe=None, taps: dict | None = None, rt=None):
     """One block.  ``probe`` (a zero tensor) is added at the MLP output, so
-    its gradient is this layer's G stream; ``taps`` as in :func:`mlp_fwd`."""
+    its gradient is this layer's G stream; ``taps`` as in :func:`_ffn`."""
     a = rms_norm(h, p["ln1"])
     out = attn.attention_fwd(p["attn"], attn_config(cfg), a, positions, rope,
                              return_cache=return_cache)
     a, cache = out if return_cache else (out, None)
     h = h + a
-    m = mlp_fwd(p["mlp"], cfg, rms_norm(h, p["ln2"]), rt=rt, taps=taps)
+    m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"]), rt=rt, taps=taps)
     if probe is not None:  # cast, so the add never promotes a bf16 activation
         m = m + probe.to(m.dtype)
     return h + m, cache
@@ -167,9 +210,10 @@ def _head(params, cfg: ModelConfig, h):
 def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
     """Full-sequence forward -> logits ``[B, S, V]`` (training and eval).
 
-    ``probes["layers"]`` is a zero ``[n_layers, B, S, D]`` tensor added at
-    each layer's MLP output: its gradient is the per-layer G_O stream.  A
-    dict passed as ``taps`` receives ``taps["layers"] = {"ffn_act":
+    ``probes`` maps stack names (``"layers"``, and a MoE config's
+    ``"dense_layers"``) to zero ``[n_layers, B, S, D]`` tensors added at
+    each layer's MLP output: their gradients are the per-layer G_O streams.
+    A dict passed as ``taps`` receives, under the same keys, ``{"ffn_act":
     SparsityStats}`` with a leading ``[n_layers]`` axis on each count.
     With ``cfg.remat`` and grad mode on, each layer is recomputed in the
     backward; the runtime is resolved here and passed in, since the
@@ -180,27 +224,36 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
     h = _embed_in(params, cfg, batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
     rope = attn.rope_tables(attn_config(cfg), positions)
-    layer_probes = (probes or {}).get("layers")
-    stats = []
-    for i, p in enumerate(params["layers"]):
-        t = {} if taps is not None else None
-        pr = None if layer_probes is None else layer_probes[i]
-        body = lambda h, pr, p=p, t=t: _block_fwd(p, cfg, h, positions, rope, probe=pr, taps=t, rt=rt)[0]
-        if cfg.remat and torch.is_grad_enabled():
-            h = torch.utils.checkpoint.checkpoint(body, h, pr, use_reentrant=False)
-        else:
-            h = body(h, pr)
-        stats.append(t)
-    if taps is not None:
-        taps["layers"] = {"ffn_act": sps.SparsityStats(*map(torch.stack, zip(*(t["ffn_act"] for t in stats))))}
+    for stack in _stacks(params):
+        stack_probes = (probes or {}).get(stack)
+        stats = []
+        for i, p in enumerate(params[stack]):
+            t = {} if taps is not None else None
+            pr = None if stack_probes is None else stack_probes[i]
+            body = lambda h, pr, p=p, t=t: _block_fwd(p, cfg, h, positions, rope, probe=pr, taps=t, rt=rt)[0]
+            if cfg.remat and torch.is_grad_enabled():
+                h = torch.utils.checkpoint.checkpoint(body, h, pr, use_reentrant=False)
+            else:
+                h = body(h, pr)
+            stats.append(t)
+        if taps is not None:
+            taps[stack] = {"ffn_act": sps.SparsityStats(*map(torch.stack, zip(*(t["ffn_act"] for t in stats))))}
     return _head(params, cfg, h)
 
 
 def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
-    """Zero decode caches: ``{"layers": [KVCache, ...]}``, one per layer."""
+    """Zero decode caches: ``{"layers": [KVCache, ...]}``, one per layer, and
+    ``"dense_layers"`` for a MoE config's dense blocks."""
     acfg = attn_config(cfg)
-    return {"layers": [attn.init_cache(acfg, batch, max_len, device=device)
-                       for _ in range(cfg.num_layers)]}
+    n_dense = cfg.first_dense_layers if cfg.family == "moe" else 0
+
+    def one(n):
+        return [attn.init_cache(acfg, batch, max_len, device=device) for _ in range(n)]
+
+    caches = {"layers": one(cfg.num_layers - n_dense)}
+    if n_dense:
+        caches["dense_layers"] = one(n_dense)
+    return caches
 
 
 def decode_step(params, cfg: ModelConfig, caches, batch, pos):
@@ -210,10 +263,11 @@ def decode_step(params, cfg: ModelConfig, caches, batch, pos):
     h = _embed_in(params, cfg, batch["tokens"])
     acfg = attn_config(cfg)
     rope = attn.rope_tables(acfg, attn.decode_positions(pos, h.shape[0], h.device))
-    for p, cache in zip(params["layers"], caches["layers"]):
-        a, _ = attn.attention_decode(p["attn"], acfg, rms_norm(h, p["ln1"]), cache, pos, rope)
-        h = h + a
-        h = h + mlp_fwd(p["mlp"], cfg, rms_norm(h, p["ln2"]))
+    for stack in _stacks(params):
+        for p, cache in zip(params[stack], caches[stack]):
+            a, _ = attn.attention_decode(p["attn"], acfg, rms_norm(h, p["ln1"]), cache, pos, rope)
+            h = h + a
+            h = h + _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"]))
     return _head(params, cfg, h), caches
 
 
@@ -224,8 +278,10 @@ def prefill(params, cfg: ModelConfig, batch):
     h = _embed_in(params, cfg, batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
     rope = attn.rope_tables(attn_config(cfg), positions)
-    caches: dict[str, Any] = {"layers": []}
-    for p in params["layers"]:
-        h, cache = _block_fwd(p, cfg, h, positions, rope, return_cache=True)
-        caches["layers"].append(cache)
+    caches: dict[str, Any] = {}
+    for stack in _stacks(params):
+        caches[stack] = []
+        for p in params[stack]:
+            h, cache = _block_fwd(p, cfg, h, positions, rope, return_cache=True)
+            caches[stack].append(cache)
     return _head(params, cfg, h[:, -1:]), caches

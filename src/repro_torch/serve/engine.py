@@ -59,6 +59,7 @@ from repro_torch import runtime as rtm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.tensordash_spmm import holding
 from repro_torch.models import model as M
+from repro_torch.models.moe import expert_capacity
 from repro_torch.resilience import faults as rfaults
 from repro_torch.resilience import log as rlog
 from repro_torch.runtime.plan import _version
@@ -74,6 +75,23 @@ class QueueFull(RuntimeError):
 
     Distinct from shed-by-policy, which admits the submit and later finishes
     the victim with ``finish_reason="shed"``."""
+
+
+def _decode_sites(cfg: ModelConfig, slots: int) -> list[tuple[str, tuple, tuple]]:
+    """``(op, a_shape, b_shape)`` of the tuned call sites of one decode step
+    over ``slots`` rows: the dense FFN's gate and ``w_down`` (a dense config,
+    or a MoE config's dense blocks), each expert's ``w_down`` at the decode
+    capacity of ``slots`` tokens, the LM head."""
+    d = cfg.d_model
+    sites = []
+    if cfg.family != "moe" or cfg.first_dense_layers:
+        d_ff = cfg.d_ff or d * 4
+        sites += [("matmul_fused", (slots, d), (d, d_ff)), ("matmul", (slots, d_ff), (d_ff, d))]
+    if cfg.family == "moe":
+        cap = expert_capacity(cfg, slots)
+        sites.append(("moe_expert", (cap, cfg.moe_d_ff), (cfg.moe_d_ff, d)))
+    sites.append(("matmul", (slots, d), (d, cfg.vocab_size)))
+    return sites
 
 
 def prefill_step(params, cfg: ModelConfig, batch):
@@ -314,12 +332,11 @@ class ServeEngine:
         self.sched.table = self.sched.table[:slots]
         if self.rt._db is not None:
             # warm the TuningDB memo for the decode call sites (FFN gate and
-            # w_down, LM head at slot-batch width) so the first decode step
-            # resolves against warm probes
-            d, d_ff, dtype = cfg.d_model, cfg.d_ff or cfg.d_model * 4, params["embed"].dtype
-            for op, kdim, ndim in (("matmul_fused", d, d_ff), ("matmul", d_ff, d),
-                                   ("matmul", d, cfg.vocab_size)):
-                self.rt._policy(op, (slots, kdim), (kdim, ndim), dtype)
+            # w_down, each expert's w_down at its decode capacity, LM head at
+            # slot-batch width) so the first decode step resolves against
+            # warm probes
+            for op, a_shape, b_shape in _decode_sites(cfg, slots):
+                self.rt._policy(op, a_shape, b_shape, params["embed"].dtype)
         self._graph = _DecodeGraph(self.device) if (graphable if cuda_graph is None else cuda_graph) else None
         self.tokens_out = 0
         self.chunks_run = 0

@@ -1,12 +1,15 @@
 """The port's config registry against the JAX package's, and the qwen3-4b
 model (grouped-query attention with qk-norm, the train launcher's default
-``--arch``) against JAX's on the CPU.
+``--arch``) and the qwen3-moe-235b-a22b model (the MoE family) against
+JAX's on the CPU.
 
 Every config the port registers equals JAX's field for field, reduced or
-not.  Reduced qwen3-4b (2 layers, d_model 64, 4 query heads over 2 KV
-heads, qk-norm) gives the same ``forward`` and ``prefill`` logits as JAX's
-within ``tests/test_torch_model.py``'s tolerances (fp32 rtol = atol = 1e-4;
-bf16 atol 0.1), parameters carried across by ``params_from_jax``.
+not, with the same ``param_count`` and ``active_param_count``.  Reduced
+qwen3-4b (2 layers, d_model 64, 4 query heads over 2 KV heads, qk-norm) and
+reduced qwen3-moe (the same attention, 8 experts top-2) give the same
+``forward`` and ``prefill`` logits as JAX's within
+``tests/test_torch_model.py``'s tolerances (fp32 rtol = atol = 1e-4; bf16
+atol 0.1), parameters carried across by ``params_from_jax``.
 """
 import dataclasses
 
@@ -38,22 +41,36 @@ def _few_threads():
 
 
 def test_the_port_registers_deepseek_and_qwen3():
-    assert tconfigs.ALL_ARCHS == ["deepseek-7b", "qwen3-4b"]
+    assert tconfigs.ALL_ARCHS == ["deepseek-7b", "qwen3-4b", "qwen3-moe-235b-a22b"]
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-4b", "qwen3-moe-235b-a22b"])
 def test_registered_config_equals_jax_field_for_field(arch):
     t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert dataclasses.asdict(tconfigs.reduce_config(t)) == dataclasses.asdict(jconfigs.reduce_config(j))
     assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count()
 
 
-@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
-@pytest.mark.parametrize("backend", ["dense", "reference"])
-def test_qwen3_reduced_logits_match_jax(backend, dtype_name):
-    jcfg = jconfigs.reduce_config(jconfigs.get_config("qwen3-4b"))
-    tcfg = tconfigs.reduce_config(tconfigs.get_config("qwen3-4b"))
+@pytest.mark.parametrize("kw", [dict(), dict(first_dense_layers=1, num_shared_experts=1, d_ff=128),
+                                dict(num_layers=8)], ids=["registered", "dense1-shared", "8-layers"])
+def test_moe_param_counts_equal_jax(kw):
+    t = dataclasses.replace(tconfigs.get_config("qwen3-moe-235b-a22b"), **kw)
+    j = dataclasses.replace(jconfigs.get_config("qwen3-moe-235b-a22b"), **kw)
+    assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count() < t.param_count()
+
+
+def test_param_count_refuses_mla():
+    cfg = dataclasses.replace(tconfigs.get_config("qwen3-moe-235b-a22b"), use_mla=True)
+    with pytest.raises(NotImplementedError):
+        cfg.param_count()
+
+
+def _reduced_logits_match_jax(arch, backend, dtype_name):
+    jcfg = jconfigs.reduce_config(jconfigs.get_config(arch))
+    tcfg = tconfigs.reduce_config(tconfigs.get_config(arch))
     assert tcfg.qk_norm and tcfg.num_kv_heads < tcfg.num_heads
     jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(2), dtype=getattr(jnp, dtype_name))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
@@ -67,3 +84,15 @@ def test_qwen3_reduced_logits_match_jax(backend, dtype_name):
     for t, j in ((tl, jl), (tpl, jpl)):
         assert tuple(t.shape) == tuple(j.shape)
         np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), **TOL[dtype_name])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_qwen3_reduced_logits_match_jax(backend, dtype_name):
+    _reduced_logits_match_jax("qwen3-4b", backend, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_qwen3_moe_reduced_logits_match_jax(backend, dtype_name):
+    _reduced_logits_match_jax("qwen3-moe-235b-a22b", backend, dtype_name)

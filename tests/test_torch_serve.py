@@ -155,3 +155,55 @@ def test_geometry_auto_engine_pinned_to_v1_matches_jax(model):
     head = trt_auto._resolved("matmul", (2, d), (d, v), torch.float32)
     assert gate.compact_grid == "v1" and head.compact_grid == "ragged"
     assert tdb.stats()["hits"] > 0
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    """Reduced qwen3-moe-235b-a22b with a ReLU gate, fp32: 8 experts top-2, so
+    a decode step over 2 slots has expert capacity 1."""
+    jcfg = dataclasses.replace(jreduce_config(jget_config("qwen3-moe-235b-a22b")), activation="relu")
+    tcfg = dataclasses.replace(reduce_config(get_config("qwen3-moe-235b-a22b")), activation="relu")
+    jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    return jcfg, tcfg, jp, tp
+
+
+def test_moe_engine_greedy_tokens_match_jax_with_an_inactive_slot(moe_model):
+    """Every decode row is routed, an inactive slot's too, and at capacity 1
+    it can take an expert's only slot: the port must feed inactive slots
+    what JAX's engine feeds them (the pad token at a frozen position) and
+    prefill in the same groups, or the greedy tokens diverge."""
+    jcfg, tcfg, jp, tp = moe_model
+    rng = np.random.default_rng(11)
+    plens, budgets = [5, 8, 5, 7], [2, 7, 4, 3]
+    prompts = [rng.integers(0, jcfg.vocab_size, size=n).astype(np.int32) for n in plens]
+    jeng = JServeEngine(jp, jcfg, slots=2, max_len=16, chunk=3,
+                        rt=jrt.Runtime(backend="reference", **GEOM))
+    teng = ServeEngine(tp, tcfg, slots=2, max_len=16, chunk=3,
+                       rt=trt.Runtime(backend="reference", device="cpu", **GEOM))
+    starts = []
+    decode = teng._decode
+    teng._decode = lambda: (starts.append(teng.active.tolist()), decode())[1]
+    for p, n in zip(prompts, budgets):
+        jeng.submit(p, max_new=n)
+        teng.submit(torch.from_numpy(p), max_new=n)
+    jout, tout = jeng.run(), teng.run()
+    assert tout == jout
+    assert [len(tout[r]) for r in range(4)] == budgets
+    assert [True, False] in starts or [False, True] in starts  # a chunk with an inactive slot
+    assert all(r.ok for r in teng._requests.values())
+
+
+def test_decode_sites_warm_the_moe_expert_cell():
+    from repro_torch.serve.engine import _decode_sites
+
+    dense = reduce_config(get_config("deepseek-7b"))
+    moe = reduce_config(get_config("qwen3-moe-235b-a22b"))
+    d, v = dense.d_model, dense.vocab_size
+    assert _decode_sites(dense, 4) == [("matmul_fused", (4, d), (d, 128)), ("matmul", (4, 128), (128, d)),
+                                       ("matmul", (4, d), (d, v))]
+    # 4 tokens x top-2 over 8 experts x 1.25: capacity 1
+    assert _decode_sites(moe, 4) == [("moe_expert", (1, 32), (32, d)), ("matmul", (4, d), (d, v))]
+    mixed = dataclasses.replace(moe, first_dense_layers=1, num_layers=3)
+    assert [s[0] for s in _decode_sites(mixed, 16)] == ["matmul_fused", "matmul", "moe_expert", "matmul"]
+    assert _decode_sites(mixed, 16)[2] == ("moe_expert", (5, 32), (32, d))
