@@ -17,9 +17,12 @@ from the root of a checkout, on a machine with one H100.  It
    call and its share of the bound), and at the MoE experts' ``w_down``
    (qwen3-moe widths, a plan by value at ``bm`` = the capacity: a routed
    decode slot, a prefill capacity of 10 with pad rows, and an expert no
-   token reached, whose empty plan must write zeros); then counts, with the
-   profiler, the CUDA launches of a few calls of each wrapper: exactly one
-   per call;
+   token reached, whose empty plan must write zeros) and at deepseek-v2's
+   decode shapes (the dense first block's gate [4,5120]@[5120,12288] and its
+   ``w_down`` on the gate's emitted mask, an expert's ``w_down``
+   [1,1536]@[1536,5120] routed and empty, the LM head side B [102400,5120]);
+   then counts, with the profiler, the CUDA launches of a few calls of each
+   wrapper: exactly one per call;
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
    weights) through ``ServeEngine`` on the ``cuda`` backend, the decode
    chunk eager, and checks that every FFN gate, ``w_down`` and LM-head
@@ -66,7 +69,12 @@ from the root of a checkout, on a machine with one H100.  It
    device launches per decode step by wrapper and the share of expert
    blocks the plans skip; then its prefill logits against ``reference``,
    held on the cuda run's routes (routing itself reported: the router's
-   top-k flips where two experts tie within a rounding);
+   top-k flips where two experts tie within a rounding); then the same for
+   full-width deepseek-v2-236b (multi-head latent attention, 160 experts
+   top-6 with 2 shared, a dense first block) with a ReLU gate cut to 6
+   layers: the dense block's fused gate, emitted plan and planned ``w_down``
+   and 160 x 5 planned expert products on plans by value a model call, at
+   least 0.85 of the expert blocks skipped at decode;
 9. holds the planned kernel at the training step's backward shapes (one
    microbatch of 1024 tokens at full widths, fp32 operands and transposed
    views, bf16 output: the gate's, ``w_down``'s and the LM head's ``da``
@@ -183,6 +191,11 @@ LOSS_REL, GRAD_REL_L2 = 2**-7, 2**-5
 #: 8 make ~42.3 GB), served as the deepseek-7b serve phase serves; a full
 #: 4 x 32-token prefill group gives each expert MOE_PREFILL_CAP slots
 MOE_ARCH, MOE_LAYERS, MOE_PREFILL_CAP = "qwen3-moe-235b-a22b", 8, 10
+#: the MLA serve phase: deepseek-v2-236b with a ReLU gate at full width, cut
+#: from 60 to DSV2_LAYERS layers (60 layers of bf16 weights are ~471 GB; 6,
+#: the dense first block and 5 MoE blocks, make ~42.5 GB), served as the MoE
+#: serve phase serves
+DSV2_ARCH, DSV2_LAYERS = "deepseek-v2-236b", 6
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -352,6 +365,7 @@ def check_close(name, got, want, mask_got=None, mask_want=None):
 
 def kernel_phase(bw: float):
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ref, tensordash_spmm as T
 
     dev = torch.device("cuda")
@@ -479,6 +493,44 @@ def kernel_phase(bw: float):
             out = T.tensordash_matmul_planned(*plan[:2], he, w_exp, bm=cap, bk=512, bn=128, workqueue=plan[2:])
             if int(plan[0].sum()) != 0 or bool(out.any()):
                 raise AssertionError(f"{label}: a pad-row expert must plan no block and write zeros")
+    del w_exp
+
+    # -- deepseek-v2-236b's decode shapes (d 5120, dense first block d_ff
+    #    12288, expert d_ff 1536, vocab 102400) at the runtime's geometry:
+    #    the dense gate on the all-effectual plan, its w_down on the gate's
+    #    emitted mask coarsened from 128 to bk = 512 columns, each expert's
+    #    w_down planned by value at bm = 1 (routed, and the empty plan), the
+    #    LM head side B
+    v2 = get_config(DSV2_ARCH)
+    d, f, fe = v2.d_model, v2.d_ff, v2.moe_d_ff
+    xd = torch.randn(SLOTS, d, generator=gen).to(dev, bf16)
+    w_gate = (torch.randn(d, f, generator=gdev, device=dev) / d**0.5).to(bf16)
+    w_up = (torch.randn(d, f, generator=gdev, device=dev) / d**0.5).to(bf16)
+    dplan = T.dense_plan_csr(1, d // 512, dev)
+    run_case("dsv2 dense gate (fused relu)", "tensordash_matmul_fused", bf16, xd, w_gate, SLOTS, 512, 128,
+             dplan, stage="dsv2 decode")
+    g, gmask = T.tensordash_matmul_fused(*dplan[:2], xd, w_gate, activation="relu", bm=SLOTS, bk=512, bn=128,
+                                         workqueue=dplan[2:])
+    h = g * (xd @ w_up)
+    del w_gate, w_up
+    w_down = (torch.randn(f, d, generator=gdev, device=dev) / f**0.5).to(bf16)
+    run_case("dsv2 dense w_down (emitted-mask plan)", "tensordash_matmul_planned", bf16, h, w_down, SLOTS,
+             512, 128, T.plan_from_mask_csr(gmask, coarsen=512 // 128), stage="dsv2 decode")
+    del w_down
+    w_exp = (torch.randn(fe, d, generator=gdev, device=dev) / fe**0.5).to(bf16)
+    for label, pad in (("dsv2 expert w_down, routed", 0), ("dsv2 expert w_down, empty plan", 1)):
+        he = torch.clamp_min(torch.randn(1, fe, generator=gen), 0) * torch.randn(1, fe, generator=gen)
+        he = (he * (1 - pad)).to(dev, bf16)
+        plan = T.plan_blocks_csr(he, 1, 512)
+        run_case(label, "tensordash_matmul_planned", bf16, he, w_exp, 1, 512, 128, plan, stage="dsv2 decode")
+        if pad and int(plan[0].sum()) != 0:
+            raise AssertionError(f"{label}: a pad-row expert must plan no block")
+    del w_exp
+    lm_head = (torch.randn(d, v2.vocab_size, generator=gdev, device=dev) / d**0.5).to(bf16)
+    a_t, b_t = lm_head.T, torch.randn(SLOTS, d, generator=gen).to(dev, bf16).T
+    run_case("dsv2 LM head (side B, strided)", "tensordash_matmul_planned", bf16, a_t, b_t, 128, 512, SLOTS,
+             T.plan_blocks_csr(a_t, 128, 512), stage="dsv2 decode")
+    del lm_head, a_t
     return rows, count_launches(calls)
 
 
@@ -1006,10 +1058,10 @@ def reference_phase(params, cfg, prompts):
     return worst, agree
 
 
-def moe_reference_phase(params, cfg, prompts):
-    """Each prompt's prefill logits under ``cuda`` and ``reference`` for the
-    MoE model.  Its router's top-k is discontinuous: where a token's 8th and
-    9th expert probabilities lie within a rounding of each other, a bf16
+def moe_reference_phase(params, cfg, prompts, tag: str = "moe reference"):
+    """Each prompt's prefill logits under ``cuda`` and ``reference`` for a
+    MoE model.  Its router's top-k is discontinuous: where a token's k-th and
+    (k+1)-th expert probabilities lie within a rounding of each other, a bf16
     rounding that the kernels and the plain executor take differently sends
     the token to the other expert, and every later layer follows from there
     (the ``dense`` backend, cuBLAS's products, parts from ``reference`` the
@@ -1057,7 +1109,7 @@ def moe_reference_phase(params, cfg, prompts):
         held, _ = prefill(toks, "reference", pinning)
         dense, _ = prefill(toks, "dense", recording)
         if not bool(torch.isfinite(got).all()):
-            raise AssertionError("moe reference: non-finite cuda logits")
+            raise AssertionError(f"{tag}: non-finite cuda logits")
         apart, margins = [], []
         for (_, e_c, _), (_, e_r, probs) in zip(routes, ref_routes):
             moved = (e_c.sort(-1).values != e_r.sort(-1).values).any(-1)
@@ -1072,29 +1124,34 @@ def moe_reference_phase(params, cfg, prompts):
     worst = max(r["rel_l2_routes_pinned"] for r in rows)
     free = max(r["rel_l2"] for r in rows)
     margins = [m for r in rows for m in r["first_margins"]]
-    log(f"moe reference: prefill last-token logits, cuda vs reference backend on the card, the same routes: "
+    log(f"{tag}: prefill last-token logits, cuda vs reference backend on the card, the same routes: "
         f"worst relative L2 {worst:.3e} (bound {REF_REL_L2:.3e}); each routing itself: worst {free:.3e}, "
         f"per prompt {[round(r['rel_l2'], 5) for r in rows]} (dense backend against reference "
         f"{[round(r['rel_l2_dense'], 5) for r in rows]}), top-1 agreement {sum(r['top1'] for r in rows)}/"
-        f"{len(rows)}; tokens routed apart per layer {[r['routed_apart_per_layer'] for r in rows]}; 8th-9th "
-        f"probability margins where the routes first part: max {max(margins) if margins else None}")
+        f"{len(rows)}; tokens routed apart per MoE layer {[r['routed_apart_per_layer'] for r in rows]}; "
+        f"top-{cfg.top_k} probability margins where the routes first part: max {max(margins) if margins else None}")
     if worst > REF_REL_L2:
-        raise AssertionError(f"moe reference: cuda vs reference on the same routes, relative L2 {worst} > "
+        raise AssertionError(f"{tag}: cuda vs reference on the same routes, relative L2 {worst} > "
                              f"{REF_REL_L2}")
     return rows
 
 
-def moe_serve_phase():
-    """Full-width qwen3-moe-235b-a22b with a ReLU gate, cut to MOE_LAYERS
-    layers, served as the deepseek-7b serve phase serves (same requests,
-    slots, chunk): every expert's ``w_down`` is one planned product on a plan
-    by value (one planner launch each), so a decode step launches 128 x 8
-    planned products and plans besides the LM head.  Eager, then through the
+def moe_serve_phase(arch: str = MOE_ARCH, layers: int = MOE_LAYERS, tag: str = "moe serve"):
+    """Full-width ``arch`` with a ReLU gate, cut to ``layers`` layers,
+    served as the deepseek-7b serve phase serves (same requests, slots,
+    chunk): every expert's ``w_down`` is one planned product on a plan by
+    value (one planner launch each), so a decode step launches experts x MoE
+    layers planned products and plans (qwen3-moe: 128 x 8; deepseek-v2: 160
+    x 5) besides the LM head and, for a dense first block, its fused gate,
+    emitted-mask plan and planned ``w_down``.  Eager, then through the
     decode graph (the eager tokens exactly, one capture, a replay's device
     launches the capture's), then prefill logits against ``reference``.
     Launches must be the path's, with no plain version and no host sync in a
-    decode chunk.  Reports decode ms per step, tokens/s, peak memory,
-    launches per decode step and the share of expert blocks the plans skip."""
+    decode chunk; at most slots x top-k experts a MoE layer get a decode
+    token, so the plans must skip at least ``1 - slots * top_k /
+    num_experts`` of the expert blocks.  Reports decode ms per step,
+    tokens/s, peak memory, launches per decode step and the share of expert
+    blocks the plans skip."""
     import dataclasses
     import gc
 
@@ -1107,19 +1164,24 @@ def moe_serve_phase():
     from repro_torch.runtime import runtime as rt_mod
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = dataclasses.replace(get_config(MOE_ARCH), activation="relu", num_layers=MOE_LAYERS)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, activation="relu", num_layers=layers)
     gc.collect()
     torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
     params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    param_gb = torch.cuda.memory_allocated() / 1e9
+    param_gb = torch.cuda.memory_allocated() / 1e9 - before_gb
     router = params["layers"][0]["mlp"]["router"]
     if router.dtype != torch.float32 or params["layers"][0]["mlp"]["w_down"].dtype != torch.bfloat16:
-        raise AssertionError("moe serve: the router must be fp32 and the experts bf16")
-    log(f"moe serve: {MOE_ARCH} relu, {cfg.num_layers} of 94 layers, d_model {cfg.d_model}, "
-        f"{cfg.num_experts} experts top-{cfg.top_k} of d_ff {cfg.moe_d_ff}, {cfg.param_count() / 1e9:.2f} B "
-        f"params ({param_gb:.2f} GB allocated) initialised on the card in {time.perf_counter() - t0:.1f} s")
+        raise AssertionError(f"{tag}: the router must be fp32 and the experts bf16")
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    log(f"{tag}: {arch} relu, {cfg.num_layers} of {full.num_layers} layers ({cfg.first_dense_layers} dense, "
+        f"{n_moe} MoE), d_model {cfg.d_model}, {'MLA' if cfg.use_mla else 'GQA'} attention, {cfg.num_experts} "
+        f"experts top-{cfg.top_k} of d_ff {cfg.moe_d_ff} + {cfg.num_shared_experts} shared, "
+        f"{cfg.param_count() / 1e9:.2f} B params ({param_gb:.2f} GB allocated; {before_gb:.2f} GB held before) "
+        f"initialised on the card in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(s)) for s in rng.integers(16, 33, size=REQUESTS)]
     rt = rtm.Runtime(backend="cuda", device="cuda")
@@ -1152,26 +1214,30 @@ def moe_serve_phase():
     want = dict.fromkeys(launches, 0)
     want.update(path_launches(cfg, calls, head_plans=1))
     if launches != want:
-        raise AssertionError(f"moe serve: kernel launches {launches} != path's {want}")
-    experts = cfg.num_layers * cfg.num_experts
+        raise AssertionError(f"{tag}: kernel launches {launches} != path's {want}")
+    experts = n_moe * cfg.num_experts
     if (len(plans["decode"]), len(plans["prefill"])) != (experts * st["steps_run"], experts * len(groups)):
-        raise AssertionError(f"moe serve: {len(plans['decode'])} decode and {len(plans['prefill'])} prefill "
+        raise AssertionError(f"{tag}: {len(plans['decode'])} decode and {len(plans['prefill'])} prefill "
                              f"expert plans over {st['steps_run']} steps and {len(groups)} prefills")
     if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
-        raise AssertionError(f"moe serve: tokens per request {[len(v) for v in out.values()]}")
+        raise AssertionError(f"{tag}: tokens per request {[len(v) for v in out.values()]}")
     if any(t < 0 or t >= cfg.vocab_size for v in out.values() for t in v):
-        raise AssertionError("moe serve: token outside the vocabulary")
+        raise AssertionError(f"{tag}: token outside the vocabulary")
     if run["decode_syncs"]["eager"]:
-        raise AssertionError(f"moe serve: {run['decode_syncs']['eager']} host syncs inside eager decode chunks")
+        raise AssertionError(f"{tag}: {run['decode_syncs']['eager']} host syncs inside eager decode chunks")
     skip = {}
     for name, ps in plans.items():
         if any(p.block_rows != 1 for p in ps):  # bm = the capacity (Runtime.fit)
-            raise AssertionError(f"moe serve: a {name} expert plan with more than one block row")
+            raise AssertionError(f"{tag}: a {name} expert plan with more than one block row")
         nnz = torch.cat([p.nnz for p in ps])
         blocks = sum(p.total_blocks for p in ps)
         skip[name] = {"plans": len(ps), "blocks": blocks, "effectual": int(nnz.sum()),
                       "skipped_share": 1 - int(nnz.sum()) / blocks, "empty_plans": int((nnz == 0).sum()),
                       "rows": sorted({p.shape[0] for p in ps})}
+    least = 1 - SLOTS * cfg.top_k / cfg.num_experts
+    if skip["decode"]["skipped_share"] < least:
+        raise AssertionError(f"{tag}: decode expert plans skip {skip['decode']['skipped_share']:.4f} of the "
+                             f"blocks, below the {least:.4f} that at most {SLOTS} x {cfg.top_k} routed experts leave")
     steps = st["steps_run"]
     eager = {
         "tokens": st["tokens_out"], "wall_s": wall, "tok_per_s": st["tokens_out"] / wall,
@@ -1182,25 +1248,27 @@ def moe_serve_phase():
         "plan_cache": st["plan_cache"], "expert_plans": skip, "greedy_tokens": out,
     }
     d = skip["decode"]
-    log(f"moe serve: {REQUESTS} requests x {NEW_TOKENS} new tokens, slots {SLOTS}, chunk {CHUNK}, eager decode "
+    log(f"{tag}: {REQUESTS} requests x {NEW_TOKENS} new tokens, slots {SLOTS}, chunk {CHUNK}, eager decode "
         f"chunk: {eager['tokens']} tokens in {wall:.3f} s = {eager['tok_per_s']:.2f} tok/s; "
         f"{eager['ms_per_decode_step']:.3f} ms per decode step over {steps} steps; prefill groups {groups}; "
         f"peak memory {eager['peak_mem_gb']:.2f} GB; 0 host syncs inside decode chunks")
-    log(f"moe serve: kernel launches {launches} == path's ({experts} planned expert products and {experts} "
-        f"plans by value per model call, {calls} calls, + the LM head); no plain version ran")
-    log(f"moe serve: decode expert plans: {d['plans']} over {steps} steps, rows {d['rows']}, "
-        f"{d['effectual']}/{d['blocks']} blocks effectual, skipped share {d['skipped_share']:.4f}; "
-        f"{d['empty_plans'] / (steps * cfg.num_layers):.2f} of {cfg.num_experts} experts per layer "
+    dense = (f"; per dense block a fused gate, an emitted-mask plan and a planned w_down"
+             if cfg.first_dense_layers else "")
+    log(f"{tag}: kernel launches {launches} == path's ({experts} planned expert products and {experts} "
+        f"plans by value per model call, {calls} calls, + the LM head{dense}); no plain version ran")
+    log(f"{tag}: decode expert plans: {d['plans']} over {steps} steps, rows {d['rows']}, "
+        f"{d['effectual']}/{d['blocks']} blocks effectual, skipped share {d['skipped_share']:.4f} "
+        f"(at least {least:.4f}); {d['empty_plans'] / (steps * n_moe):.2f} of {cfg.num_experts} experts per layer "
         f"and step plan no block; prefill: skipped share {skip['prefill']['skipped_share']:.4f}, "
         f"capacities {skip['prefill']['rows']}")
     del plans
-    graph = serve_graph_phase(params, cfg, prompts, rt, eager, tag="moe serve graph")
+    graph = serve_graph_phase(params, cfg, prompts, rt, eager, tag=f"{tag} graph")
     per_step = {k: v / CHUNK for k, v in by_wrapper(graph["capture_launches"]).items()}
-    log(f"moe serve: device launches per decode step: {graph['replay_device_launches_all'] / CHUNK:.0f} "
+    log(f"{tag}: device launches per decode step: {graph['replay_device_launches_all'] / CHUNK:.0f} "
         f"(one profiled replay / {CHUNK}), of them the port's kernels {per_step}; decode ms per step "
         f"eager {eager['ms_per_decode_step']:.3f}, graph {graph['ms_per_decode_step_replayed']:.3f}; tokens/s "
         f"eager {eager['tok_per_s']:.2f}, graph {graph['tok_per_s']:.2f}")
-    reference = moe_reference_phase(params, cfg, prompts)
+    reference = moe_reference_phase(params, cfg, prompts, tag=tag.replace("serve", "reference"))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2358,6 +2426,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"moe serve: {MOE_ARCH} relu at full width, {MOE_LAYERS} layers, eager and through the decode graph")
     moe = moe_serve_phase()
+    log(f"dsv2 serve: {DSV2_ARCH} relu at full width, {DSV2_LAYERS} layers, MLA attention, eager and through "
+        "the decode graph")
+    dsv2 = moe_serve_phase(DSV2_ARCH, DSV2_LAYERS, tag="dsv2 serve")
     log("launch serve: repro_torch.launch.serve.main at full width with a poisoned slot")
     launch_serve = launch_serve_phase()
     log(f"train kernels: the backward products at {TRAIN_TOKENS} tokens, fp32 operands, bf16 output")
@@ -2382,11 +2453,13 @@ def main() -> int:
 
     # the serving path's runs: eager, through the graph (clean and the two
     # fault replays; a capture's launches once per replay), the launcher and
-    # the MoE serve runs (eager and graph)
+    # the MoE and MLA serve runs (eager and graph)
     moe_runs = grouped({k: moe["launches"][k] + moe["graph"]["device_launches"][k] for k in moe["launches"]})
+    dsv2_runs = grouped({k: dsv2["launches"][k] + dsv2["graph"]["device_launches"][k] for k in dsv2["launches"]})
     serve_counts = dict(serve["launches"])
     for extra in (serve["graph"]["device_launches"], *(f["device_launches"] for f in serve["faults"]),
-                  launch_serve["launches"], moe["launches"], moe["graph"]["device_launches"]):
+                  launch_serve["launches"], moe["launches"], moe["graph"]["device_launches"],
+                  dsv2["launches"], dsv2["graph"]["device_launches"]):
         for k, v in extra.items():
             serve_counts[k] += v
     serve_runs = grouped(serve_counts)
@@ -2410,6 +2483,7 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
             "launches_serve": serve_runs[kname], "launches_moe_serve": moe_runs[kname],
+            "launches_dsv2_serve": dsv2_runs[kname],
             "launches_per_train_step": per_train_step[kname],
             "launches_launch_train": launch_runs[kname],
             "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
@@ -2422,7 +2496,7 @@ def main() -> int:
          "reference_top1": top1, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
          "train_launch_check": train_launch, "planner_cases": planner_rows,
          "planner_launch_check": planner_launch, "train": train, "launch_train": launch,
-         "launch_serve": launch_serve, "moe_serve": moe,
+         "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -76,13 +76,22 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
 
     def param_count(self) -> int:
-        """Parameter count of the dense and MoE families (the ported ones;
-        MLA is not ported), as the JAX package counts it."""
-        if self.family not in ("dense", "moe") or self.use_mla:
+        """Parameter count of the dense and MoE families (the ported ones),
+        GQA or MLA attention, as the JAX package counts it."""
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(f"param_count: family {self.family!r} not ported")
         d, l, v = self.d_model, self.num_layers, self.vocab_size
         hd = self.resolved_head_dim
-        attn = d * hd * (self.num_heads * 2 + self.num_kv_heads * 2)
+        if self.use_mla:
+            attn = (
+                d * self.q_lora_rank
+                + self.q_lora_rank * self.num_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+                + d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                + self.kv_lora_rank * self.num_heads * (self.qk_nope_head_dim + self.v_head_dim)
+                + self.num_heads * self.v_head_dim * d
+            )
+        else:
+            attn = d * hd * (self.num_heads * 2 + self.num_kv_heads * 2)
         n = 2 * v * d  # embed + head
         if self.family == "moe":
             moe_l = l - self.first_dense_layers

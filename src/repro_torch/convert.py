@@ -32,8 +32,11 @@ def _map(fn, tree):
 def params_from_jax(tree, cfg: ModelConfig, *, device="cpu") -> dict:
     """The port's parameters from the JAX dense- or MoE-family parameter
     pytree: each stacked layer stack (``layers``, and a MoE config's
-    ``dense_layers``) becomes a list of per-layer dicts.  Every leaf keeps
-    its dtype (the MoE router its fp32); expert weights stay ``[E, ...]``."""
+    ``dense_layers``) becomes a list of per-layer dicts, whatever the
+    attention's leaves (GQA's ``wq``/``wk``/``wv``/``wo``, MLA's ``wq_a``,
+    ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``).  Every
+    leaf keeps its dtype (the MoE router its fp32); expert weights stay
+    ``[E, ...]``."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense and moe only)")
     n_dense = cfg.first_dense_layers if cfg.family == "moe" else 0

@@ -3,13 +3,16 @@ CUDA graph.
 
     python -m repro_torch.launch.profile_decode --arch deepseek-7b --activation relu
     python -m repro_torch.launch.profile_decode --arch qwen3-moe-235b-a22b --activation relu --layers 8
+    python -m repro_torch.launch.profile_decode --arch deepseek-v2-236b --activation relu --layers 6
 
 Builds bf16 weights from seed 0 once, then, one after the other, two
 :class:`~repro_torch.serve.engine.ServeEngine`\\ s on the ``cuda`` backend
 over the same ``--slots`` prompts: one running the decode chunk eagerly
 (``cuda_graph=False``), one replaying it as one CUDA graph.  ``--layers``
 cuts the config's depth, for a model whose weights do not fit the card
-(qwen3-moe-235b-a22b's 94 layers need ~467 GB).  Each engine
+(qwen3-moe-235b-a22b's 94 layers need ~467 GB, deepseek-v2-236b's 60
+~471 GB); a dense first block stays (deepseek-v2 at 6 layers: 1 dense, 5
+MoE).  Each engine
 runs two warm-up steps (admission and the eager chunk; the graph's capture),
 timed, then times ``--steps`` engine steps (``--chunk`` decode steps each) untraced,
 then traces as many with ``torch.profiler`` and prints the wall time per

@@ -1,0 +1,170 @@
+"""Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434; port of
+``repro/models/mla.py``).
+
+KV activations are down-projected to a ``kv_lora_rank`` latent plus a small
+shared RoPE key; the decode cache holds only ``c_kv [B, S, kv_lora]`` and
+``k_pe [B, S, rope]`` (bf16).  Training and prefill run the naive
+up-projected form (:func:`mla_fwd`); decode runs the absorbed form
+(:func:`mla_decode`): ``W_UK`` folded into the query and ``W_UV`` into the
+output, so the scores are taken against the latent cache directly.
+
+Scores and softmax are plain tensor ops in the JAX order: fp32 scores, the
+``-1e30`` mask, softmax, then a cast to the activation dtype before the
+value product.  As in :mod:`repro_torch.models.attention`, the callers build
+the RoPE tables once per model call (:func:`rope_tables`, over
+``qk_rope_head_dim``) and decode writes the new latent row into the cache
+tensors in place at ``pos``, with no host read of ``pos``, so a decode step
+can be captured in a CUDA graph.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.models.attention import decode_positions
+from repro_torch.models.common import Spec, apply_rope, causal_mask, rms_norm, rotary_embedding
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    num_heads: int
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 1e4
+    q_chunk: int = 1024
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+def mla_specs(cfg: MLAConfig) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    return {
+        "wq_a": Spec((d, cfg.q_lora_rank)),
+        "q_norm": Spec((cfg.q_lora_rank,), init="ones"),
+        "wq_b": Spec((cfg.q_lora_rank, h * cfg.qk_head_dim)),
+        "wkv_a": Spec((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim)),
+        "kv_norm": Spec((cfg.kv_lora_rank,), init="ones"),
+        "wkv_b": Spec((cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim))),
+        "wo": Spec((h * cfg.v_head_dim, d)),
+    }
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor  # [B, S, kv_lora] bf16
+    k_pe: torch.Tensor  # [B, S, rope_dim] bf16
+
+
+def rope_tables(cfg: MLAConfig, positions):
+    """RoPE ``(cos, sin)`` over ``qk_rope_head_dim`` for positions ``[S]``
+    or ``[B, S]``, broadcast over heads (the shared key gets a unit head
+    axis)."""
+    cos, sin = rotary_embedding(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    return cos[..., None, :], sin[..., None, :]
+
+
+def _queries(params, cfg: MLAConfig, x, rope):
+    """``(q_nope [B,S,H,nope], q_pe [B,S,H,rope])`` through the query
+    latent; ``q_pe`` rotated."""
+    b, s, _ = x.shape
+    q = rms_norm(x @ params["wq_a"], params["q_norm"]) @ params["wq_b"]
+    q = q.reshape(b, s, cfg.num_heads, cfg.qk_head_dim)
+    q_nope, q_pe = torch.split(q, [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_pe, *rope)
+
+
+def _latent_kv(params, cfg: MLAConfig, x, rope):
+    """``(c_kv [B,S,kv_lora], k_pe [B,S,rope])``: the normed latent and the
+    rotated shared RoPE key, what the decode cache stores."""
+    kv = x @ params["wkv_a"]
+    c_kv, k_pe = torch.split(kv, [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
+    c_kv = rms_norm(c_kv, params["kv_norm"])
+    k_pe = apply_rope(k_pe[:, :, None, :], *rope)[:, :, 0]
+    return c_kv, k_pe
+
+
+def _softmax_probs(scores, mask, dtype):
+    """Masked fp32 softmax cast to the activation dtype; ``mask``
+    broadcasts to ``scores [B, H, T, S]`` after a head axis is added."""
+    scores = torch.where(mask[:, None], scores, -1e30)
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def mla_fwd(params, cfg: MLAConfig, x, positions, rope, *, return_cache: bool = False):
+    """Training / prefill path (naive up-projected attention) over positions
+    ``[S]``; ``rope = rope_tables(cfg, positions)``.  Queries run in
+    ``q_chunk`` chunks when ``S`` is a multiple of it, as in the JAX
+    package.  With ``return_cache`` also returns ``MLACache(c_kv, k_pe)`` in
+    the activation dtype."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_pe = _queries(params, cfg, x, rope)
+    c_kv, k_pe = _latent_kv(params, cfg, x, rope)
+    kv = (c_kv @ params["wkv_b"]).reshape(b, s, h, cfg.qk_nope_head_dim + cfg.v_head_dim)
+    k_nope, v = torch.split(kv, [cfg.qk_nope_head_dim, cfg.v_head_dim], dim=-1)
+    scale = cfg.qk_head_dim ** -0.5
+    c = cfg.q_chunk
+    c = c if (s > c and s % c == 0) else s
+    outs = []
+    for i in range(0, s, c):
+        qn, qp, pi = q_nope[:, i:i + c], q_pe[:, i:i + c], positions[i:i + c]
+        scores = (torch.einsum("bthd,bshd->bhts", qn.float(), k_nope.float())
+                  + torch.einsum("bthd,bsd->bhts", qp.float(), k_pe.float())) * scale
+        probs = _softmax_probs(scores, causal_mask(pi, positions)[None], x.dtype)
+        outs.append(torch.einsum("bhts,bshd->bthd", probs, v))
+    out = torch.cat(outs, dim=1).reshape(b, s, h * cfg.v_head_dim)
+    y = out @ params["wo"]
+    if return_cache:
+        return y, MLACache(c_kv=c_kv, k_pe=k_pe)
+    return y
+
+
+def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device="cpu") -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        k_pe=torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=dtype, device=device),
+    )
+
+
+def mla_decode(params, cfg: MLAConfig, x, cache: MLACache, pos, rope):
+    """Absorbed one-token decode over the latent cache.  ``x [B, 1, d]``;
+    ``cache`` is filled up to ``pos`` (exclusive) and the new token's latent
+    row is written in place at ``pos``.  ``pos`` is a scalar or an int
+    ``[B]`` tensor (each batch slot at its own position); ``rope =
+    rope_tables(cfg, decode_positions(pos, B, device))``.  Returns ``(y,
+    cache)``."""
+    b = x.shape[0]
+    h = cfg.num_heads
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = decode_positions(pos, b, x.device)
+    q_nope, q_pe = _queries(params, cfg, x, rope)  # [B,1,H,*]
+    c_new, k_new = _latent_kv(params, cfg, x, rope)
+    if pos.ndim == 1:
+        rows = torch.arange(b, device=x.device)
+        cache.c_kv[rows, pos] = c_new[:, 0].to(cache.c_kv.dtype)
+        cache.k_pe[rows, pos] = k_new[:, 0].to(cache.k_pe.dtype)
+    else:
+        cache.c_kv[:, pos] = c_new[:, 0].to(cache.c_kv.dtype)
+        cache.k_pe[:, pos] = k_new[:, 0].to(cache.k_pe.dtype)
+    wkv_b = params["wkv_b"].reshape(cfg.kv_lora_rank, h, cfg.qk_nope_head_dim + cfg.v_head_dim)
+    w_uk, w_uv = wkv_b[..., :cfg.qk_nope_head_dim], wkv_b[..., cfg.qk_nope_head_dim:]
+    # absorb: the query in latent space, q_lat = q_nope @ W_UK^T per head
+    q_lat = torch.einsum("bthd,lhd->bthl", q_nope, w_uk)
+    scale = cfg.qk_head_dim ** -0.5
+    scores = (torch.einsum("bthl,bsl->bhts", q_lat.float(), cache.c_kv.float())
+              + torch.einsum("bthd,bsd->bhts", q_pe.float(), cache.k_pe.float())) * scale
+    mask = causal_mask(positions, torch.arange(cache.c_kv.shape[1], device=x.device))
+    probs = _softmax_probs(scores, mask if mask.ndim == 3 else mask[None], x.dtype)
+    # a bf16 cache against fp32 probabilities computes in fp32, as JAX promotes
+    dt = torch.promote_types(probs.dtype, cache.c_kv.dtype)
+    ctx_lat = torch.einsum("bhts,bsl->bthl", probs.to(dt), cache.c_kv.to(dt))  # [B,1,H,lora]
+    out = torch.einsum("bthl,lhd->bthd", ctx_lat, w_uv.to(dt)).reshape(b, 1, h * cfg.v_head_dim)
+    return out @ params["wo"].to(dt), cache

@@ -1,4 +1,5 @@
-"""Family dispatch (port of ``repro/models/model.py``), dense and MoE families.
+"""Family dispatch (port of ``repro/models/model.py``): the dense and MoE
+families, each with GQA or multi-head latent attention (MLA, deepseek-v2).
 
     param_specs(cfg)                             -> Spec tree
     forward(params, cfg, batch, probes, taps)    -> logits
@@ -8,7 +9,8 @@
     init_cache(cfg, batch, max_len, device=...)  -> decode caches
 
 ``decode_step``'s ``pos`` is a scalar or an int ``[B]`` tensor (each batch
-slot at its own position).  The SSM and hybrid families wait for ROADMAP
+slot at its own position).  An MLA config's caches are
+:class:`~repro_torch.models.mla.MLACache` latents, decoded in absorbed form.  The SSM and hybrid families wait for ROADMAP
 queue 1, item 12.
 """
 from __future__ import annotations
@@ -22,9 +24,11 @@ __all__ = ["param_specs", "forward", "loss_fn", "prefill", "decode_step", "init_
 
 
 def _supported(cfg: ModelConfig) -> None:
-    """The transformer backbone runs the dense and MoE families."""
+    """The transformer backbone runs the dense and MoE families, with GQA or
+    MLA attention."""
     if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense and moe only)")
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported "
+                                  "(dense and moe, with GQA or MLA attention, only)")
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -58,6 +62,7 @@ def decode_step(params, cfg: ModelConfig, caches, batch, pos):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
-    """Zero decode caches (bf16 KV rows), allocated on ``device``."""
+    """Zero decode caches (bf16 KV rows, or bf16 MLA latents), allocated on
+    ``device``."""
     _supported(cfg)
     return tfm.init_layer_caches(cfg, batch, max_len, device=device)

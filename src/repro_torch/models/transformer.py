@@ -1,5 +1,5 @@
-"""Decoder-only transformer backbone, dense and MoE families (port of
-``repro/models/transformer.py``).
+"""Decoder-only transformer backbone, dense and MoE families, with GQA or
+multi-head latent attention (port of ``repro/models/transformer.py``).
 
 Layers run in a Python loop over per-layer parameter dicts in place of the
 JAX ``lax.scan``.  Execution policy resolves through
@@ -21,6 +21,10 @@ A MoE config (``family="moe"``) runs its first ``first_dense_layers``
 blocks with the dense FFN (``params["dense_layers"]``) and the rest with
 :func:`repro_torch.models.moe.moe_ffn` (``params["layers"]``); a block takes
 the MoE branch when its MLP has a ``router``, as in the JAX package.
+
+A config with ``use_mla`` (deepseek-v2) runs :mod:`repro_torch.models.mla`
+in place of GQA attention: its RoPE tables span ``qk_rope_head_dim`` and its
+decode caches are :class:`~repro_torch.models.mla.MLACache` latents.
 """
 from __future__ import annotations
 
@@ -33,11 +37,13 @@ from repro_torch import runtime as rtm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sparsity as sps
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ACTIVATIONS, Spec, rms_norm, softcap
 
 __all__ = [
     "attn_config",
+    "mla_config",
     "moe_config",
     "block_specs",
     "backbone_specs",
@@ -51,7 +57,7 @@ __all__ = [
 
 #: ModelConfig features of the JAX package's dense family that the port
 #: does not run yet; a config using one is refused, never run approximately
-_UNPORTED = ("use_mla", "post_norms", "sliding_window", "mrope_sections",
+_UNPORTED = ("post_norms", "sliding_window", "mrope_sections",
              "kv_cache_quant", "local_global_alternate", "frontend")
 
 
@@ -72,6 +78,20 @@ def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
         rope_theta=cfg.rope_theta,
         qk_norm=cfg.qk_norm,
         attn_softcap=cfg.attn_softcap,
+        q_chunk=cfg.q_chunk,
+    )
+
+
+def mla_config(cfg: ModelConfig) -> mla_mod.MLAConfig:
+    return mla_mod.MLAConfig(
+        d_model=cfg.d_model,
+        num_heads=cfg.num_heads,
+        kv_lora_rank=cfg.kv_lora_rank,
+        q_lora_rank=cfg.q_lora_rank,
+        qk_nope_head_dim=cfg.qk_nope_head_dim,
+        qk_rope_head_dim=cfg.qk_rope_head_dim,
+        v_head_dim=cfg.v_head_dim,
+        rope_theta=cfg.rope_theta,
         q_chunk=cfg.q_chunk,
     )
 
@@ -101,7 +121,7 @@ def block_specs(cfg: ModelConfig, *, moe: bool = False) -> dict:
     return {
         "ln1": Spec((d,), init="ones"),
         "ln2": Spec((d,), init="ones"),
-        "attn": attn.attention_specs(attn_config(cfg)),
+        "attn": mla_mod.mla_specs(mla_config(cfg)) if cfg.use_mla else attn.attention_specs(attn_config(cfg)),
         "mlp": moe_mod.moe_specs(moe_config(cfg)) if moe else mlp_specs(cfg),
     }
 
@@ -187,13 +207,27 @@ def _ffn(p, cfg: ModelConfig, x, rt=None, taps: dict | None = None):
     return mlp_fwd(p, cfg, x, rt=rt, taps=taps)
 
 
+def _attention(cfg: ModelConfig):
+    """``(config, rope_tables, fwd, decode)`` of the block's attention, MLA
+    or GQA: the two modules' functions take the same arguments.  MLA's RoPE
+    spans ``qk_rope_head_dim``, GQA's the head dim."""
+    if cfg.use_mla:
+        return mla_config(cfg), mla_mod.rope_tables, mla_mod.mla_fwd, mla_mod.mla_decode
+    return attn_config(cfg), attn.rope_tables, attn.attention_fwd, attn.attention_decode
+
+
+def _rope(cfg: ModelConfig, positions):
+    """The RoPE tables of one model call, shared by its layers."""
+    acfg, tables, _, _ = _attention(cfg)
+    return tables(acfg, positions)
+
+
 def _block_fwd(p, cfg: ModelConfig, h, positions, rope, *, return_cache: bool = False,
                probe=None, taps: dict | None = None, rt=None):
     """One block.  ``probe`` (a zero tensor) is added at the MLP output, so
     its gradient is this layer's G stream; ``taps`` as in :func:`_ffn`."""
-    a = rms_norm(h, p["ln1"])
-    out = attn.attention_fwd(p["attn"], attn_config(cfg), a, positions, rope,
-                             return_cache=return_cache)
+    acfg, _, fwd, _ = _attention(cfg)
+    out = fwd(p["attn"], acfg, rms_norm(h, p["ln1"]), positions, rope, return_cache=return_cache)
     a, cache = out if return_cache else (out, None)
     h = h + a
     m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"]), rt=rt, taps=taps)
@@ -223,7 +257,7 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
     rt = rtm.resolve()
     h = _embed_in(params, cfg, batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
-    rope = attn.rope_tables(attn_config(cfg), positions)
+    rope = _rope(cfg, positions)
     for stack in _stacks(params):
         stack_probes = (probes or {}).get(stack)
         stats = []
@@ -242,13 +276,15 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
 
 
 def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
-    """Zero decode caches: ``{"layers": [KVCache, ...]}``, one per layer, and
-    ``"dense_layers"`` for a MoE config's dense blocks."""
-    acfg = attn_config(cfg)
+    """Zero decode caches: ``{"layers": [KVCache, ...]}`` (``MLACache`` with
+    ``use_mla``), one per layer, and ``"dense_layers"`` for a MoE config's
+    dense blocks."""
     n_dense = cfg.first_dense_layers if cfg.family == "moe" else 0
 
     def one(n):
-        return [attn.init_cache(acfg, batch, max_len, device=device) for _ in range(n)]
+        if cfg.use_mla:
+            return [mla_mod.init_mla_cache(mla_config(cfg), batch, max_len, device=device) for _ in range(n)]
+        return [attn.init_cache(attn_config(cfg), batch, max_len, device=device) for _ in range(n)]
 
     caches = {"layers": one(cfg.num_layers - n_dense)}
     if n_dense:
@@ -261,11 +297,11 @@ def decode_step(params, cfg: ModelConfig, caches, batch, pos):
     caches)`` with the caches updated in place."""
     check_supported(cfg)
     h = _embed_in(params, cfg, batch["tokens"])
-    acfg = attn_config(cfg)
-    rope = attn.rope_tables(acfg, attn.decode_positions(pos, h.shape[0], h.device))
+    acfg, tables, _, decode = _attention(cfg)
+    rope = tables(acfg, attn.decode_positions(pos, h.shape[0], h.device))
     for stack in _stacks(params):
         for p, cache in zip(params[stack], caches[stack]):
-            a, _ = attn.attention_decode(p["attn"], acfg, rms_norm(h, p["ln1"]), cache, pos, rope)
+            a, _ = decode(p["attn"], acfg, rms_norm(h, p["ln1"]), cache, pos, rope)
             h = h + a
             h = h + _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"]))
     return _head(params, cfg, h), caches
@@ -273,11 +309,12 @@ def decode_step(params, cfg: ModelConfig, caches, batch, pos):
 
 def prefill(params, cfg: ModelConfig, batch):
     """Forward over the prompt: last-token logits and the filled KV caches
-    (in the activation dtype; ``Runtime.grow_caches`` casts them to bf16)."""
+    (``MLACache(c_kv, k_pe)`` latents with ``use_mla``; in the activation
+    dtype: ``Runtime.grow_caches`` casts them to bf16)."""
     check_supported(cfg)
     h = _embed_in(params, cfg, batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
-    rope = attn.rope_tables(attn_config(cfg), positions)
+    rope = _rope(cfg, positions)
     caches: dict[str, Any] = {}
     for stack in _stacks(params):
         caches[stack] = []

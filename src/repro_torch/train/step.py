@@ -63,30 +63,46 @@ def init_train_state(cfg: ModelConfig, params):
     return init_opt_state(params)
 
 
-def _tap_metrics(taps: dict, gprobe: torch.Tensor) -> dict:
-    """Per-layer A/G densities and the ideal work-skipping bound: each of
-    the three training products does the same MACs and TensorDash at best
-    prices FWD at ``dA``, BWD_INPUT at ``dG`` and BWD_WEIGHT at ``min(dA,
-    dG)`` (paper Eq. 1-3)."""
-    act = taps["layers"]["ffn_act"]
-    a_density = 1.0 - act.zeros / torch.clamp_min(act.total, 1.0)
-    g_density = torch.mean((gprobe != 0).float(), dim=tuple(range(1, gprobe.ndim)))
+def _tap_stacks(cfg: ModelConfig) -> dict[str, int]:
+    """The probed layer stacks of ``cfg`` (name -> layers) in the order the
+    forward runs them: a MoE config's dense blocks ahead of its MoE blocks."""
+    if cfg.family == "moe":
+        stacks = {"dense_layers": cfg.first_dense_layers} if cfg.first_dense_layers else {}
+        return stacks | {"layers": cfg.num_layers - cfg.first_dense_layers}
+    return {"layers": cfg.num_layers}
+
+
+def _tap_metrics(cfg: ModelConfig, taps: dict, gprobes: dict) -> dict:
+    """Per-layer A/G densities over every stack, concatenated in the order
+    of :func:`_tap_stacks`, and the ideal work-skipping bound: each of the
+    three training products does the same MACs and TensorDash at best prices
+    FWD at ``dA``, BWD_INPUT at ``dG`` and BWD_WEIGHT at ``min(dA, dG)``
+    (paper Eq. 1-3)."""
+    a_parts, g_parts = [], []
+    for stack in _tap_stacks(cfg):
+        act, g = taps[stack]["ffn_act"], gprobes[stack]
+        a_parts.append(1.0 - act.zeros / torch.clamp_min(act.total, 1.0))
+        g_parts.append(torch.mean((g != 0).float(), dim=tuple(range(1, g.ndim))))
+    a_density, g_density = torch.cat(a_parts), torch.cat(g_parts)
     ideal = 3.0 / (a_density + g_density + torch.minimum(a_density, g_density))
     return {"A_density": a_density, "G_density": g_density, "modeled_speedup": torch.mean(ideal)}
 
 
 def _grads_of(loss_fn, cfg: ModelConfig, params, leaves, batch, sparsity_taps: bool):
-    """``(loss, grads in the leaves' order, tap metrics)`` of one batch."""
+    """``(loss, grads in the leaves' order, tap metrics)`` of one batch;
+    with taps, one zero probe ``[n_stack, B, S, D]`` per layer stack."""
     if not sparsity_taps:
         loss = loss_fn(params, batch)
         return loss.detach(), list(torch.autograd.grad(loss, leaves)), {}
     b, s = batch["tokens"].shape
-    probe = torch.zeros((cfg.num_layers, b, s, cfg.d_model), dtype=torch.float32,
-                        device=batch["tokens"].device, requires_grad=True)
+    probes = {stack: torch.zeros((n, b, s, cfg.d_model), dtype=torch.float32,
+                                 device=batch["tokens"].device, requires_grad=True)
+              for stack, n in _tap_stacks(cfg).items()}
     taps: dict = {}
-    loss = loss_fn(params, batch, probes={"layers": probe}, taps=taps)
-    *grads, gprobe = torch.autograd.grad(loss, leaves + [probe])
-    return loss.detach(), grads, _tap_metrics(taps, gprobe)
+    loss = loss_fn(params, batch, probes=probes, taps=taps)
+    grads = torch.autograd.grad(loss, leaves + list(probes.values()))
+    gprobes = dict(zip(probes, grads[len(leaves):]))
+    return loss.detach(), list(grads[:len(leaves)]), _tap_metrics(cfg, taps, gprobes)
 
 
 def accumulate_grads(loss_fn, cfg: ModelConfig, params, batch, *, microbatches: int = 1,

@@ -9,18 +9,27 @@
   the newest steps, ``latest_step``/``all_steps`` follow, restore places
   tensors on the ``like`` tree's device and dtype, and ``shardings=``
   raises.
+* A model tree both ways: reduced deepseek-v2-236b (a ``dense_layers``
+  stack, MLA leaves, ``[E, d, f]`` expert stacks and the fp32 router), its
+  per-layer layout saved by one package and restored by the other bit for
+  bit, keys and dtypes as the other writes them.
 """
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.checkpoint import manager as jman
+from repro.models import model as JM
+from repro.models.common import init_params as jinit_params
 from repro_torch.checkpoint import manager as tman
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.convert import params_from_jax
 from repro_torch.models import model as TM
 from repro_torch.models.common import init_params
 from repro_torch.optim.adamw import OptState, init_opt_state, tree_leaves
@@ -111,6 +120,52 @@ def test_params_and_opt_state_round_trip_keep_k(tmp_path):
     with np.load(tmp_path / "step_000000000004" / "arrays.npz") as z:
         assert "params/layers/1/attn/wq" in z.files and "opt/step" in z.files
         assert "opt/m/layers/0/mlp/w_down" in z.files
+
+
+def _deepseek_v2_trees():
+    """Reduced deepseek-v2-236b's bf16 parameters: the JAX tree in the
+    port's per-layer layout (each stack unstacked into a list) and the
+    port's tree converted from it."""
+    jcfg = jconfigs.reduce_config(jconfigs.get_config("deepseek-v2-236b"))
+    tcfg = reduce_config(get_config("deepseek-v2-236b"))
+    jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(5), dtype=jnp.bfloat16)
+    unstacked = {k: ([jax.tree.map(lambda x, i=i: x[i], v) for i in range(jax.tree.leaves(v)[0].shape[0])]
+                     if k in ("layers", "dense_layers") else v) for k, v in jp.items()}
+    return tcfg, unstacked, params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+
+
+def _same_bits(tparams, jtree):
+    for t, j in zip(tree_leaves(tparams), jax.tree.leaves(jtree)):
+        assert t.dtype == {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}[j.dtype.type]
+        assert tuple(t.shape) == tuple(j.shape)
+        want = np.asarray(j).view(np.uint16) if t.dtype == torch.bfloat16 else np.asarray(j)
+        np.testing.assert_array_equal(_bits(t), want)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_deepseek_v2_tree_round_trips_both_ways(tmp_path, writer):
+    tcfg, jtree, tparams = _deepseek_v2_trees()
+    mlp = tparams["layers"][0]["mlp"]
+    assert len(tparams["dense_layers"]) == 1 and mlp["router"].dtype == torch.float32
+    assert mlp["w_gate"].shape == (tcfg.num_experts, tcfg.d_model, tcfg.moe_d_ff)
+    assert "wkv_b" in tparams["layers"][1]["attn"]
+    if writer == "port":
+        tman.save(tmp_path, 2, {"params": tparams})
+        like = {"params": jax.tree.map(jnp.zeros_like, jtree)}
+        got = jman.restore(str(tmp_path), 2, like)["params"]
+        _same_bits(tparams, got)
+    else:
+        jman.save(str(tmp_path), 2, {"params": jtree})
+        like = {"params": init_params(TM.param_specs(tcfg), seed=1, dtype=torch.bfloat16, device="cpu")}
+        got = tman.restore(tmp_path, 2, like)["params"]
+        _same_bits(got, jtree)
+    with np.load(tmp_path / "step_000000000002" / "arrays.npz") as z:
+        for key in ("params/dense_layers/0/mlp/w_down", "params/layers/1/mlp/router",
+                    "params/layers/0/mlp/shared/w_up", "params/layers/1/attn/kv_norm"):
+            assert key in z.files, key
+    with open(tmp_path / "step_000000000002" / "meta.json") as f:
+        dtypes = json.load(f)["dtypes"]
+    assert "params/layers/1/mlp/router" not in dtypes and dtypes["params/layers/1/attn/wq_a"] == "bfloat16"
 
 
 def test_restore_casts_to_like_and_refuses_shardings(tmp_path):

@@ -4,7 +4,8 @@ model (grouped-query attention with qk-norm, the train launcher's default
 JAX's on the CPU.
 
 Every config the port registers equals JAX's field for field, reduced or
-not, with the same ``param_count`` and ``active_param_count``.  Reduced
+not, with the same ``param_count`` and ``active_param_count``; so do MLA
+configs (deepseek-v2-236b, and qwen3-moe with MLA attention).  Reduced
 qwen3-4b (2 layers, d_model 64, 4 query heads over 2 KV heads, qk-norm) and
 reduced qwen3-moe (the same attention, 8 experts top-2) give the same
 ``forward`` and ``prefill`` logits as JAX's within
@@ -41,10 +42,10 @@ def _few_threads():
 
 
 def test_the_port_registers_deepseek_and_qwen3():
-    assert tconfigs.ALL_ARCHS == ["deepseek-7b", "qwen3-4b", "qwen3-moe-235b-a22b"]
+    assert tconfigs.ALL_ARCHS == ["deepseek-7b", "deepseek-v2-236b", "qwen3-4b", "qwen3-moe-235b-a22b"]
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "qwen3-4b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "deepseek-v2-236b", "qwen3-4b", "qwen3-moe-235b-a22b"])
 def test_registered_config_equals_jax_field_for_field(arch):
     t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -62,10 +63,19 @@ def test_moe_param_counts_equal_jax(kw):
     assert t.active_param_count() == j.active_param_count() < t.param_count()
 
 
-def test_param_count_refuses_mla():
-    cfg = dataclasses.replace(tconfigs.get_config("qwen3-moe-235b-a22b"), use_mla=True)
-    with pytest.raises(NotImplementedError):
-        cfg.param_count()
+@pytest.mark.parametrize("arch,kw", [("qwen3-moe-235b-a22b", dict(use_mla=True)),
+                                     ("deepseek-v2-236b", dict()),
+                                     ("deepseek-v2-236b", dict(num_layers=6))],
+                         ids=["qwen3-moe-mla", "deepseek-v2", "deepseek-v2-6-layers"])
+def test_mla_param_counts_equal_jax(arch, kw):
+    """MLA's attention term (query and KV latents, their up-projections and
+    the output), counted as JAX counts it, in place of GQA's."""
+    t = dataclasses.replace(tconfigs.get_config(arch), **kw)
+    j = dataclasses.replace(jconfigs.get_config(arch), **kw)
+    assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count() < t.param_count()
+    gqa = dataclasses.replace(t, use_mla=False)
+    assert t.param_count() != gqa.param_count()
 
 
 def _reduced_logits_match_jax(arch, backend, dtype_name):

@@ -23,6 +23,8 @@ packages; the JAX side runs under ``reference`` or ``dense``, never
   ``first_dense_layers=1`` of 3 layers, a shared expert and ``d_ff=128``): ``forward``,
   ``prefill`` and per-row-``pos`` ``decode_step`` logits within ``TOL``,
   and a ``params_from_jax`` round trip of the MoE tree.
+* Reduced qwen3-moe with MLA attention (the family no longer refuses it):
+  ``forward`` and ``prefill`` within ``TOL``.
 """
 import dataclasses
 import math
@@ -327,7 +329,28 @@ def test_convert_round_trips_the_moe_tree():
     assert shapes(mine) == shapes(tp)
 
 
-def test_moe_family_refuses_mla():
-    cfg = dataclasses.replace(tconfigs.reduce_config(tconfigs.get_config(ARCH)), use_mla=True)
-    with pytest.raises(NotImplementedError, match="use_mla"):
-        TM.param_specs(cfg)
+#: MLA widths of the reduced deepseek-v2 config (``reduce_config``)
+MLA_KW = dict(use_mla=True, kv_lora_rank=32, q_lora_rank=48, qk_nope_head_dim=16, qk_rope_head_dim=8,
+              v_head_dim=16)
+
+
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_moe_family_runs_mla(backend):
+    """Reduced qwen3-moe with MLA attention: MLA's spec tree in every block
+    and ``forward``/``prefill`` logits within ``TOL`` of JAX's (fp32)."""
+    jcfg = dataclasses.replace(jconfigs.reduce_config(jconfigs.get_config(ARCH)), activation="relu", **MLA_KW)
+    tcfg = dataclasses.replace(tconfigs.reduce_config(tconfigs.get_config(ARCH)), activation="relu", **MLA_KW)
+    specs = TM.param_specs(tcfg)
+    assert sorted(specs["layers"][0]["attn"]) == ["kv_norm", "q_norm", "wkv_a", "wkv_b", "wo", "wq_a", "wq_b"]
+    jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(3), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab_size, size=(2, 10)).astype(np.int32)
+    with jrt.use(jrt.Runtime(backend=backend, **GEOM)):
+        jl = JM.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+        jpl, _ = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    with trt.Runtime(backend=backend, device="cpu", **GEOM).use():
+        tl = TM.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+        tpl, tc = TM.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    _close(jl, tl, "float32")
+    _close(jpl, tpl, "float32")
+    assert tuple(tc["layers"][0].c_kv.shape) == (2, 10, 32)

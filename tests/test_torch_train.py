@@ -45,6 +45,8 @@ from repro_torch.data import SyntheticLM, host_shard
 from repro_torch.models import model as TM
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import step as tstep
+from repro import configs as jconfigs
+from repro_torch import configs as tconfigs
 from test_torch_model import relu_lm_cfgs
 
 GEOM = dict(bm=8, bk=16, bn=16)
@@ -159,7 +161,7 @@ def test_tap_metrics_and_modeled_speedup_equal_jax_bit_for_bit():
     jstats = jsps.SparsityStats(*(jnp.asarray(c) for c in counts))
     tstats = tsps.SparsityStats(*(torch.from_numpy(c) for c in counts))
     jm = jstep._tap_metrics(jcfg, {"layers": {"ffn_act": jstats}}, {"layers": jnp.asarray(gprobe)})
-    tm = tstep._tap_metrics({"layers": {"ffn_act": tstats}}, torch.from_numpy(gprobe))
+    tm = tstep._tap_metrics(tcfg, {"layers": {"ffn_act": tstats}}, {"layers": torch.from_numpy(gprobe)})
     for k in ("A_density", "G_density", "modeled_speedup"):
         np.testing.assert_array_equal(tm[k].numpy(), np.asarray(jm[k]))
     jl = jpm.ffn_layers_from_config(jcfg, n_layers=2)
@@ -274,6 +276,85 @@ def test_train_step_bf16_loss_near_jax():
         tp2, _, tm = fn(tp, tstep.init_train_state(tcfg, tp), tdata.batch_at(0, device="cpu"))
     assert tadamw.tree_leaves(tp2)[0].dtype == torch.bfloat16
     assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-2)
+
+
+#: MoE configs whose first block is dense, so the zero probes and the taps
+#: span two stacks (``dense_layers`` ahead of ``layers``): reduced qwen3-moe
+#: with a dense first block and a shared expert (``test_torch_moe``'s
+#: ``relu-dense1-shared``), and reduced deepseek-v2 (MLA, a dense first block,
+#: MoE with a shared expert), both with a ReLU gate
+MOE_TRAIN = {
+    "qwen3-moe-relu-dense1-shared": ("qwen3-moe-235b-a22b", dict(
+        activation="relu", num_layers=3, first_dense_layers=1, num_shared_experts=1, d_ff=128)),
+    "deepseek-v2-relu": ("deepseek-v2-236b", dict(activation="relu")),
+}
+#: fp32 bound of the MoE step (ROADMAP queue 3's runtime-level bound)
+MOE_TOL = dict(rtol=1e-5, atol=1e-5)
+#: AdamW's first step moves a parameter by ``lr * g / (|g| + eps)``: where
+#: ``|g|`` is within a few ``eps`` of zero, a difference of 1e-10 in ``g`` (the
+#: products' fp32 summation order) moves the parameter by ~1e-5.  Parameters
+#: are held to MOE_TOL where ``|g| >= WELL_CONDITIONED`` (there the update's
+#: slope ``eps / (|g| + eps)**2`` is below 1e4, so a gradient difference of
+#: 1e-9 moves the parameter by less than 1e-8) or both gradients are zero
+#: (an expert no token reached), and within the update's range, ``2 * lr``,
+#: elsewhere
+WELL_CONDITIONED = 100 * tadamw.OptConfig().eps
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("model", list(MOE_TRAIN))
+def test_moe_train_step_with_taps_equals_jax(model, microbatches):
+    """One ``sparsity_taps`` step of a MoE config with a dense first block:
+    loss, gradients (each microbatch's own routing and capacity, so JAX's
+    gradients are taken per microbatch and averaged), first moments and the
+    updated parameters (see ``WELL_CONDITIONED``) within ``MOE_TOL``; one A
+    and one G density per layer, dense block first, equal to JAX's, and the
+    modeled speedup with them."""
+    arch, kw = MOE_TRAIN[model]
+    jcfg = dataclasses.replace(jconfigs.reduce_config(jconfigs.get_config(arch)), **kw)
+    tcfg = dataclasses.replace(tconfigs.reduce_config(tconfigs.get_config(arch)), **kw)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg) and tcfg.first_dense_layers == 1
+    jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    jbatch = JSyntheticLM(vocab_size=jcfg.vocab_size, seq_len=16, global_batch=4, seed=5).batch_at(0)
+    tbatch = SyntheticLM(vocab_size=tcfg.vocab_size, seq_len=16, global_batch=4, seed=5).batch_at(0, device="cpu")
+    per = 4 // microbatches
+    with jrt.use(jrt.Runtime(backend="reference", **GEOM)):
+        grad_fn = jax.value_and_grad(jstep.make_loss_fn(jcfg))
+        parts = [grad_fn(jp, {k: v[i * per:(i + 1) * per] for k, v in jbatch.items()})
+                 for i in range(microbatches)]
+        jloss = sum(float(l) for l, _ in parts) / microbatches
+        jgrads = jax.tree.map(lambda *g: sum(g) / microbatches, *(g for _, g in parts))
+        jfn = jax.jit(jstep.make_train_step(jcfg, jadamw.OptConfig(**OPT), microbatches=microbatches,
+                                            sparsity_taps=True))
+        jp2, jo2, jm = jfn(jp, jadamw.init_opt_state(jp), jbatch)
+    with trt.Runtime(backend="reference", device="cpu", **GEOM).use():
+        loss, grads, taps = tstep.accumulate_grads(tstep.make_loss_fn(tcfg), tcfg, tp, tbatch,
+                                                   microbatches=microbatches, sparsity_taps=True)
+        fn = tstep.make_train_step(tcfg, tadamw.OptConfig(**OPT), microbatches=microbatches,
+                                   sparsity_taps=True)
+        tp2, to2, tm = fn(tp, tstep.init_train_state(tcfg, tp), tbatch)
+    assert float(loss) == pytest.approx(jloss, rel=1e-5)
+    assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    for g, jg in zip(grads, _jax_leaves_as_port(jgrads, tcfg)):
+        np.testing.assert_allclose(g.float().numpy(), jg.numpy(), **MOE_TOL)
+    for t, j in zip(tadamw.tree_leaves(to2.m), _jax_leaves_as_port(jo2.m, tcfg)):
+        np.testing.assert_allclose(t.numpy(), j.numpy(), **MOE_TOL)
+    conditioned = 0
+    for t, j, g, jg in zip(tadamw.tree_leaves(tp2), _jax_leaves_as_port(jp2, tcfg), grads,
+                           _jax_leaves_as_port(jgrads, tcfg)):
+        t, j, g, jg = t.detach().numpy(), j.numpy(), g.float().numpy(), jg.numpy()
+        well = (np.abs(jg) >= WELL_CONDITIONED) | ((g == 0) & (jg == 0))
+        np.testing.assert_allclose(t[well], j[well], **MOE_TOL)
+        np.testing.assert_array_less(np.abs(t - j), 2 * OPT["lr"])
+        conditioned += int(well.sum())
+    assert conditioned > 0.98 * sum(p.numel() for p in tadamw.tree_leaves(tp2))
+    for k in ("A_density", "G_density"):
+        assert tuple(tm[k].shape) == tuple(taps[k].shape) == (tcfg.num_layers,)
+        np.testing.assert_array_equal(tm[k].numpy(), np.asarray(jm[k]))
+    assert float(tm["modeled_speedup"]) == pytest.approx(float(jm["modeled_speedup"]), rel=1e-6)
+    kw = dict(max_t=32, sample_groups=1)
+    assert tstep.modeled_speedup(tm, tcfg, **kw) == jstep.modeled_speedup(jm, jcfg, **kw)
 
 
 def test_plan_cache_counts_over_training_steps():
