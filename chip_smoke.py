@@ -20,7 +20,10 @@ from the root of a checkout, on a machine with one H100.  It
    token reached, whose empty plan must write zeros) and at deepseek-v2's
    decode shapes (the dense first block's gate [4,5120]@[5120,12288] and its
    ``w_down`` on the gate's emitted mask, an expert's ``w_down``
-   [1,1536]@[1536,5120] routed and empty, the LM head side B [102400,5120]);
+   [1,1536]@[1536,5120] routed and empty, the LM head side B [102400,5120])
+   and at the SSM and hybrid models' LM heads side B ([50280,1536] at the
+   fitted block row 120, [32000,2560] at 128), dense and with 40% of the
+   head's blocks zero;
    then counts, with the profiler, the CUDA launches of a few calls of each
    wrapper: exactly one per call;
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
@@ -74,7 +77,15 @@ from the root of a checkout, on a machine with one H100.  It
    top-6 with 2 shared, a dense first block) with a ReLU gate cut to 6
    layers: the dense block's fused gate, emitted plan and planned ``w_down``
    and 160 x 5 planned expert products on plans by value a model call, at
-   least 0.85 of the expert blocks skipped at decode;
+   least 0.85 of the expert blocks skipped at decode; then mamba2-780m (48
+   Mamba2 layers) and zamba2-2.7b (54 Mamba2 layers in 9 groups, each after
+   the shared attention block, tanh-GELU MLP) as registered, whole, with
+   the same requests, eager and as one CUDA graph: the same greedy tokens,
+   one planned LM-head launch and no fused one a model call, the head's
+   ``values`` plan built once an engine at its fitted block, no host sync in
+   a decode chunk, prefill logits within ``REF_REL_L2`` of ``reference``;
+   ms per decode step against the bound from the bytes a step moves,
+   tokens/s, peak memory, device launches per decode step;
 9. holds the planned kernel at the training step's backward shapes (one
    microbatch of 1024 tokens at full widths, fp32 operands and transposed
    views, bf16 output: the gate's, ``w_down``'s and the LM head's ``da``
@@ -90,7 +101,8 @@ from the root of a checkout, on a machine with one H100.  It
    LM-head weight ``lm_head.T`` in bf16, the fp32 ``w_down`` and LM-head
    cotangents, the three transposed forward plans of the weight
    gradients, the MoE experts' ``h[e]`` at capacity 1 and 10 and a pad
-   row alone), each plan's five int32 arrays bit-equal to the plain chain
+   row alone, the SSM and hybrid heads at block rows 120 and 128, the
+   former also with 40% of its blocks zero), each plan's five int32 arrays bit-equal to the plain chain
    on the card; each path shape timed (device ms and host wall per call)
    beside the chain, the unfused path on the card (the mask kernel, then the
    chain's compaction; its device launches per call) and
@@ -124,7 +136,8 @@ from the root of a checkout, on a machine with one H100.  It
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode; each with its
    launches over the serve runs (eager, graph, fault replays, the serve
-   launcher and the MoE runs; a captured launch counted once per replay), the timed
+   launcher, the MoE, MLA, SSM and hybrid runs; a captured launch counted
+   once per replay; each of the last four also alone), the timed
    training steps and launcher runs (a) and (c), on the serving path
    alone, per training step and per launcher step), the card line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
@@ -196,6 +209,11 @@ MOE_ARCH, MOE_LAYERS, MOE_PREFILL_CAP = "qwen3-moe-235b-a22b", 8, 10
 #: the dense first block and 5 MoE blocks, make ~42.5 GB), served as the MoE
 #: serve phase serves
 DSV2_ARCH, DSV2_LAYERS = "deepseek-v2-236b", 6
+#: the SSM and hybrid serve phases: mamba2-780m and zamba2-2.7b as
+#: registered, whole (48 and 54 layers; ~1.7 and ~4.9 GB of bf16 weights),
+#: served as the deepseek-7b serve phase serves; their LM head is the one
+#: planned product of a model call
+SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "zamba2-2.7b"
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -365,6 +383,7 @@ def check_close(name, got, want, mask_got=None, mask_want=None):
 
 def kernel_phase(bw: float):
     import torch
+    from repro_torch import runtime as rtm
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref, tensordash_spmm as T
 
@@ -531,6 +550,28 @@ def kernel_phase(bw: float):
     run_case("dsv2 LM head (side B, strided)", "tensordash_matmul_planned", bf16, a_t, b_t, 128, 512, SLOTS,
              T.plan_blocks_csr(a_t, 128, 512), stage="dsv2 decode")
     del lm_head, a_t
+
+    # -- the SSM and hybrid models' LM heads side B at the runtime's fitted
+    #    weight-side block row (the largest divisor of the vocab <= 128:
+    #    120 for mamba2's 50280, 128 for zamba2's 32000), dense and with 40%
+    #    of the head's blocks zeroed, so the kernel skips them
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        c = get_config(arch)
+        d, v = c.d_model, c.vocab_size
+        fit = rtm.Runtime(backend="cuda", device="cuda").fit((SLOTS, d), (d, v))
+        bm, bk = fit.bn, fit.bk  # the side-B plan's blocking (Runtime.plan(side="B"))
+        w = torch.randn(v, d, generator=gdev, device=dev) / d**0.5
+        for pruned in (False, True):
+            if pruned:
+                keep = torch.rand(v // bm, d // bk, generator=gdev, device=dev) >= 0.4
+                w = (w.reshape(v // bm, bm, d // bk, bk) * keep[:, None, :, None]).reshape(v, d)
+            lm_head = w.to(bf16).T.contiguous()  # [d, v], as the model holds it
+            a_t, b_t = lm_head.T, torch.randn(SLOTS, d, generator=gen).to(dev, bf16).T
+            label = f"{c.family} LM head bm={bm} (side B){', 40% zero' if pruned else ''}"
+            run_case(label, "tensordash_matmul_planned", bf16, a_t, b_t, bm, bk, SLOTS,
+                     T.plan_blocks_csr(a_t, bm, bk), stage=f"{c.family} decode")
+            del lm_head, a_t
+        del w
     return rows, count_launches(calls)
 
 
@@ -766,7 +807,7 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
             "wall": wall, "groups": groups, "chunks": chunks, "decode_s": decode_s,
             "decode_syncs": decode_syncs,
             "syncs": sum(decode_syncs.values()) + sum("synchroniz" in str(w.message) for w in seen),
-            "requests": eng._requests, "log": rlog}
+            "requests": eng._requests, "log": rlog, "plans": eng.rt.plan_cache.plan_stats()}
 
 
 def path_launches(cfg, calls: int, head_plans: int = 0) -> dict:
@@ -774,13 +815,36 @@ def path_launches(cfg, calls: int, head_plans: int = 0) -> dict:
     ``head_plans`` LM-head plans.  Each call: per dense ReLU block a fused
     gate, a planned ``w_down`` and its emitted-mask plan (deepseek-7b: 30
     each); per MoE block one planned ``w_down`` and one plan by value per
-    expert (qwen3-moe: 128 each); the planned LM head (its plan cached)."""
+    expert (qwen3-moe: 128 each); the planned LM head (its plan cached).  An
+    SSM or hybrid model has no FFN on the runtime: the LM head alone."""
     n_moe = cfg.num_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
-    dense, experts = cfg.num_layers - n_moe, n_moe * cfg.num_experts
+    dense = cfg.num_layers - n_moe if cfg.family in ("dense", "moe") else 0
+    experts = n_moe * cfg.num_experts
     return {"tensordash_matmul_fused": dense * calls,
             "tensordash_matmul_planned": (dense + experts + 1) * calls,
             "planner[emitted]": dense * calls,
             "planner[values]": experts * calls + head_plans}
+
+
+def check_eager_run(tag: str, cfg, run) -> int:
+    """The checks every eager serve run passes: the wrapper launches equal
+    the path's over the run's model calls (prefill groups and decode steps;
+    the LM head's plan built once), every request got its tokens, each in
+    the vocabulary, and no eager decode chunk synced the host.  Returns the
+    model calls."""
+    out, launches, st = run["out"], run["launches"], run["stats"]
+    calls = len(run["groups"]) + st["steps_run"]
+    want = dict.fromkeys(launches, 0)
+    want.update(path_launches(cfg, calls, head_plans=1))
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches} != path's {want}")
+    if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
+        raise AssertionError(f"{tag}: tokens per request {[len(v) for v in out.values()]}")
+    if any(t < 0 or t >= cfg.vocab_size for v in out.values() for t in v):
+        raise AssertionError(f"{tag}: token outside the vocabulary")
+    if run["decode_syncs"]["eager"]:
+        raise AssertionError(f"{tag}: {run['decode_syncs']['eager']} host syncs inside eager decode chunks")
+    return calls
 
 
 def serve_phase():
@@ -806,20 +870,10 @@ def serve_phase():
     rt = rtm.Runtime(backend="cuda", device="cuda")
     run = drive_serve(params, cfg, prompts, rt)
     out, launches, st, wall, groups = run["out"], run["launches"], run["stats"], run["wall"], run["groups"]
-    calls = len(groups) + st["steps_run"]  # model invocations: prefill groups + decode steps
-    want = {k: 0 for k in launches}
-    want.update(path_launches(cfg, calls, head_plans=1))  # the LM head's plan, built once
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != path's {want}")
-    if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
-        raise AssertionError(f"tokens per request {[len(v) for v in out.values()]}")
-    if any(t < 0 or t >= cfg.vocab_size for v in out.values() for t in v):
-        raise AssertionError("token outside the vocabulary")
+    calls = check_eager_run("serve", cfg, run)
     pc = st["plan_cache"]
     if pc["misses"] != 1 or pc["hits"] != calls - 1:
         raise AssertionError(f"LM-head plan cache {pc}, expected 1 miss and {calls - 1} hits")
-    if run["decode_syncs"]["eager"]:
-        raise AssertionError(f"serve: {run['decode_syncs']['eager']} host syncs inside eager decode chunks")
     decode_s = run["decode_s"]["eager"]
     summary = {
         "tokens": st["tokens_out"], "wall_s": wall, "tok_per_s": st["tokens_out"] / wall,
@@ -1032,7 +1086,7 @@ def launch_serve_phase():
             "tok_per_s_eager": eager["tok_per_s"], "launches": launches}
 
 
-def reference_phase(params, cfg, prompts):
+def reference_phase(params, cfg, prompts, tag: str = "reference"):
     """Each prompt's prefill logits under ``cuda`` and ``reference``."""
     import torch
     from repro_torch import runtime as rtm
@@ -1051,10 +1105,10 @@ def reference_phase(params, cfg, prompts):
                 raise AssertionError("non-finite cuda logits")
             worst = max(worst, float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)))
             agree += int(got.argmax() == want.argmax())
-    log(f"reference: prefill last-token logits, cuda vs reference backend on the card: "
+    log(f"{tag}: prefill last-token logits, cuda vs reference backend on the card: "
         f"worst relative L2 {worst:.3e} (bound {REF_REL_L2:.3e}); top-1 agreement {agree}/{len(prompts)}")
     if worst > REF_REL_L2:
-        raise AssertionError(f"cuda vs reference relative L2 {worst} > {REF_REL_L2}")
+        raise AssertionError(f"{tag}: cuda vs reference relative L2 {worst} > {REF_REL_L2}")
     return worst, agree
 
 
@@ -1210,21 +1264,11 @@ def moe_serve_phase(arch: str = MOE_ARCH, layers: int = MOE_LAYERS, tag: str = "
         rt_mod.plan_operand = plan_operand
         ServeEngine._admit_group, ServeEngine._decode = admit, decode
     out, launches, st, wall, groups = run["out"], run["launches"], run["stats"], run["wall"], run["groups"]
-    calls = len(groups) + st["steps_run"]
-    want = dict.fromkeys(launches, 0)
-    want.update(path_launches(cfg, calls, head_plans=1))
-    if launches != want:
-        raise AssertionError(f"{tag}: kernel launches {launches} != path's {want}")
+    calls = check_eager_run(tag, cfg, run)
     experts = n_moe * cfg.num_experts
     if (len(plans["decode"]), len(plans["prefill"])) != (experts * st["steps_run"], experts * len(groups)):
         raise AssertionError(f"{tag}: {len(plans['decode'])} decode and {len(plans['prefill'])} prefill "
                              f"expert plans over {st['steps_run']} steps and {len(groups)} prefills")
-    if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
-        raise AssertionError(f"{tag}: tokens per request {[len(v) for v in out.values()]}")
-    if any(t < 0 or t >= cfg.vocab_size for v in out.values() for t in v):
-        raise AssertionError(f"{tag}: token outside the vocabulary")
-    if run["decode_syncs"]["eager"]:
-        raise AssertionError(f"{tag}: {run['decode_syncs']['eager']} host syncs inside eager decode chunks")
     skip = {}
     for name, ps in plans.items():
         if any(p.block_rows != 1 for p in ps):  # bm = the capacity (Runtime.fit)
@@ -1273,6 +1317,110 @@ def moe_serve_phase(arch: str = MOE_ARCH, layers: int = MOE_LAYERS, tag: str = "
     gc.collect()
     torch.cuda.empty_cache()
     eager.update(graph=graph, reference=reference, launches_per_decode_step_graph=per_step)
+    return eager
+
+
+def decode_bytes(params, caches, cfg) -> dict:
+    """Least bytes a decode step over :data:`SLOTS` rows moves, by part:
+    every weight read once (of the embedding only the rows gathered), each
+    SSM cache leaf (conv tails, state) read and written, each KV cache
+    read."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    embed = params["embed"]
+    ssm = caches if cfg.family == "ssm" else [c for g in caches.ssm for c in g]
+    kv = [] if cfg.family == "ssm" else caches.kv
+    return {"weights": nbytes(tree_leaves(params)) - nbytes([embed]) + SLOTS * embed.shape[1] * embed.element_size(),
+            "ssm_caches_read_and_written": 2 * nbytes(t for c in ssm for t in c),
+            "kv_caches_read": nbytes(t for c in kv for t in c)}
+
+
+def ssm_serve_phase(arch: str, tag: str):
+    """``arch`` (an SSM or hybrid config) as registered, whole, served as
+    the deepseek-7b serve phase serves (same requests, slots, chunk; bf16
+    weights from seed 0): its only planned product is the LM head, so a
+    model call launches one planned SpMM and no fused one, and the engine
+    one ``values`` plan, the head's, at the runtime's fitted block row, then
+    replays it.  Eager, then through the decode graph (the eager tokens
+    exactly, one capture, a replay's device launches the capture's), then
+    prefill logits against ``reference``.  Launches must be the path's,
+    with no plain version and no host sync in a decode chunk.  Reports
+    decode ms per step, tokens/s, peak memory, device launches per decode
+    step and the step's bound from the bytes it moves."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.plan import _fit_block
+
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    param_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    layout = f", {cfg.num_layers // cfg.attn_every} groups of {cfg.attn_every} after the shared block" \
+        if cfg.family == "hybrid" else ""
+    log(f"{tag}: {arch} as registered, {cfg.num_layers} layers{layout}, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, activation {cfg.activation}; {sum(t.numel() for t in leaves) / 1e9:.3f} B "
+        f"parameters in the tensors ({param_gb:.3f} GB bf16; param_count() says "
+        f"{cfg.param_count() / 1e9:.3f} B) initialised on the card in {time.perf_counter() - t0:.1f} s "
+        f"({before_gb:.2f} GB held before)")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(s)) for s in rng.integers(16, 33, size=REQUESTS)]
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+    run = drive_serve(params, cfg, prompts, rt)
+    out, launches, st, wall, groups = run["out"], run["launches"], run["stats"], run["wall"], run["groups"]
+    calls = check_eager_run(tag, cfg, run)
+    pc = st["plan_cache"]
+    if pc["misses"] != 1 or pc["hits"] != calls - 1:
+        raise AssertionError(f"{tag}: LM-head plan cache {pc}, expected 1 miss and {calls - 1} hits")
+    head = run["plans"]
+    block = (_fit_block(128, cfg.vocab_size), 512)
+    if len(head) != 1 or head[0]["block"] != block or head[0]["shape"] != (cfg.vocab_size, cfg.d_model):
+        raise AssertionError(f"{tag}: plans {head}, expected the LM head's alone at block {block}")
+    steps = st["steps_run"]
+    step_bytes = decode_bytes(params, M.init_cache(cfg, SLOTS, MAX_LEN, device="meta"), cfg)
+    bound_ms = sum(step_bytes.values()) / mem_bandwidth(torch.cuda.get_device_name(0)) * 1e3
+    eager = {
+        "tokens": st["tokens_out"], "wall_s": wall, "tok_per_s": st["tokens_out"] / wall,
+        "decode_steps": steps, "ms_per_decode_step": run["decode_s"]["eager"] / steps * 1e3,
+        "prefill_groups": groups, "launches": launches,
+        "launches_per_model_call": {k: v / calls for k, v in by_wrapper(launches).items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "param_gb": param_gb,
+        "decode_bytes": step_bytes, "decode_bound_ms": bound_ms, "plan_cache": pc, "head_plan": head[0],
+        "greedy_tokens": out,
+    }
+    log(f"{tag}: {REQUESTS} requests x {NEW_TOKENS} new tokens, slots {SLOTS}, chunk {CHUNK}, eager decode "
+        f"chunk: {eager['tokens']} tokens in {wall:.3f} s = {eager['tok_per_s']:.2f} tok/s; "
+        f"{eager['ms_per_decode_step']:.3f} ms per decode step over {steps} steps (bound {bound_ms:.4f} ms "
+        f"from the bytes a step moves, GB: { {k: round(v / 1e9, 3) for k, v in step_bytes.items()} }); "
+        f"prefill groups {groups}; peak memory {eager['peak_mem_gb']:.2f} GB; 0 host syncs inside decode chunks")
+    log(f"{tag}: kernel launches {launches} == path's (one planned LM head a model call, {calls} calls, "
+        f"no fused launch; one values plan, the head's: block {block}, {head[0]['blocks']} blocks); plan "
+        f"cache {pc['hits']} hits / {pc['misses']} miss; no plain version ran")
+    graph = serve_graph_phase(params, cfg, prompts, rt, eager, tag=f"{tag} graph")
+    per_step = {k: v / CHUNK for k, v in by_wrapper(graph["capture_launches"]).items()}
+    log(f"{tag}: device launches per decode step: {graph['replay_device_launches_all'] / CHUNK:.0f} "
+        f"(one profiled replay / {CHUNK}), of them the port's kernels {per_step}; decode ms per step "
+        f"eager {eager['ms_per_decode_step']:.3f}, graph {graph['ms_per_decode_step_replayed']:.3f} (bound "
+        f"{bound_ms:.4f}); tokens/s eager {eager['tok_per_s']:.2f}, graph {graph['tok_per_s']:.2f}; peak "
+        f"memory {max(eager['peak_mem_gb'], graph['peak_mem_gb']):.2f} GB")
+    ref_l2, top1 = reference_phase(params, cfg, prompts, tag=tag.replace("serve", "reference"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager.update(graph=graph, reference_rel_l2=ref_l2, reference_top1=top1,
+                 launches_per_decode_step_graph=per_step)
     return eager
 
 
@@ -1758,7 +1906,9 @@ def planner_phase(bw: float):
     the profiler's device launches of one chain call; then one device
     launch per planner call."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import block_mask, ref, tensordash_spmm as T
+    from repro_torch.runtime.plan import _fit_block
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1855,6 +2005,20 @@ def planner_phase(bw: float):
         he = torch.clamp_min(torch.randn(cap, 1536, generator=gen, device=dev), 0)
         he[cap - pad:] = 0
         values_case(label, he.to(torch.bfloat16), cap, 512, "moe prefill" if cap > 1 else "moe decode")
+    # the SSM and hybrid LM heads at their fitted block rows (120 x 512 for
+    # mamba2's vocab 50280), the mamba2 head also with 40% of its blocks zero
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        c = get_config(arch)
+        hv, hd = c.vocab_size, c.d_model
+        bm = _fit_block(128, hv)
+        w = torch.randn(hv, hd, generator=gen, device=dev) / hd**0.5
+        as_view = lambda w: w.to(torch.bfloat16).T.contiguous().T  # lm_head.T of the [d, V] head
+        values_case(f"{c.family} LM head weight lm_head.T", as_view(w), bm, 512, f"{c.family} decode")
+        if c.family == "ssm":
+            keep = torch.rand(hv // bm, hd // 512, generator=gen, device=dev) >= 0.4
+            w = (w.reshape(hv // bm, bm, hd // 512, 512) * keep[:, None, :, None]).reshape(hv, hd)
+            values_case("ssm LM head weight, 40% zero", as_view(w), bm, 512, "ssm decode")
+        del w
     # the weight-gradient products' transposed forward plans
     transpose_case("gate db (dense gate plan)", *T.dense_plan(t // 128, d // 512, dev), "train")
     transpose_case("w_down db (gate mask plan)", *T.plan_from_mask(gmask), "train")
@@ -2429,6 +2593,10 @@ def main() -> int:
     log(f"dsv2 serve: {DSV2_ARCH} relu at full width, {DSV2_LAYERS} layers, MLA attention, eager and through "
         "the decode graph")
     dsv2 = moe_serve_phase(DSV2_ARCH, DSV2_LAYERS, tag="dsv2 serve")
+    log(f"ssm serve: {SSM_ARCH} as registered, whole, eager and through the decode graph")
+    ssm = ssm_serve_phase(SSM_ARCH, "ssm serve")
+    log(f"hybrid serve: {HYBRID_ARCH} as registered, whole, eager and through the decode graph")
+    hybrid = ssm_serve_phase(HYBRID_ARCH, "hybrid serve")
     log("launch serve: repro_torch.launch.serve.main at full width with a poisoned slot")
     launch_serve = launch_serve_phase()
     log(f"train kernels: the backward products at {TRAIN_TOKENS} tokens, fp32 operands, bf16 output")
@@ -2456,10 +2624,14 @@ def main() -> int:
     # the MoE and MLA serve runs (eager and graph)
     moe_runs = grouped({k: moe["launches"][k] + moe["graph"]["device_launches"][k] for k in moe["launches"]})
     dsv2_runs = grouped({k: dsv2["launches"][k] + dsv2["graph"]["device_launches"][k] for k in dsv2["launches"]})
+    ssm_runs = grouped({k: ssm["launches"][k] + ssm["graph"]["device_launches"][k] for k in ssm["launches"]})
+    hybrid_runs = grouped({k: hybrid["launches"][k] + hybrid["graph"]["device_launches"][k]
+                           for k in hybrid["launches"]})
     serve_counts = dict(serve["launches"])
     for extra in (serve["graph"]["device_launches"], *(f["device_launches"] for f in serve["faults"]),
                   launch_serve["launches"], moe["launches"], moe["graph"]["device_launches"],
-                  dsv2["launches"], dsv2["graph"]["device_launches"]):
+                  dsv2["launches"], dsv2["graph"]["device_launches"], ssm["launches"],
+                  ssm["graph"]["device_launches"], hybrid["launches"], hybrid["graph"]["device_launches"]):
         for k, v in extra.items():
             serve_counts[k] += v
     serve_runs = grouped(serve_counts)
@@ -2483,7 +2655,8 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
             "launches_serve": serve_runs[kname], "launches_moe_serve": moe_runs[kname],
-            "launches_dsv2_serve": dsv2_runs[kname],
+            "launches_dsv2_serve": dsv2_runs[kname], "launches_ssm_serve": ssm_runs[kname],
+            "launches_hybrid_serve": hybrid_runs[kname],
             "launches_per_train_step": per_train_step[kname],
             "launches_launch_train": launch_runs[kname],
             "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
@@ -2496,7 +2669,8 @@ def main() -> int:
          "reference_top1": top1, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
          "train_launch_check": train_launch, "planner_cases": planner_rows,
          "planner_launch_check": planner_launch, "train": train, "launch_train": launch,
-         "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2,
+         "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2, "ssm_serve": ssm,
+         "hybrid_serve": hybrid,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

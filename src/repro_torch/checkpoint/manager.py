@@ -11,7 +11,8 @@
   ``uint16`` bit pattern and ``float8_e4m3fn`` as ``uint8``, written through
   ``Tensor.view`` and read back the same way (no ``ml_dtypes``), so either
   package reads the other's checkpoints.
-* Trees are nested dicts, lists (the port's per-layer parameter list) and
+* Trees are nested dicts, lists (the port's per-layer parameter list; a
+  hybrid model's groups are lists of lists) and
   named tuples (the optimizer's ``OptState``); leaves are tensors and
   Python scalars (``OptState.step``).  :func:`restore` places
   each tensor on the device and in the dtype of the ``like`` tree's leaf.

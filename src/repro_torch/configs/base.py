@@ -76,11 +76,23 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
 
     def param_count(self) -> int:
-        """Parameter count of the dense and MoE families (the ported ones),
-        GQA or MLA attention, as the JAX package counts it."""
+        """Parameter count as the JAX package counts it.  For the SSM and
+        hybrid families that formula takes ``3·d·d_inner + 2·d·N + d_inner·d``
+        a Mamba2 layer, about ``d·d_inner`` more than its tensors hold (they
+        have ``in_z``, ``in_x`` and ``out_proj``, plus the small ``in_dt``),
+        and is kept so that the counts agree; tensor bytes are read from the
+        tensors, never from this count."""
+        d, l, v = self.d_model, self.num_layers, self.vocab_size
+        n = 2 * v * d  # embed + head
+        if self.family in ("ssm", "hybrid"):
+            di = self.ssm_expand * d
+            n += l * (3 * d * di + 2 * d * self.ssm_state + di * d)
+            if self.family == "hybrid":
+                shd = self.shared_attn_heads * (d // max(self.shared_attn_heads, 1))
+                n += 2 * d * d + 4 * d * shd + 3 * d * self.shared_d_ff  # shared block
+            return n
         if self.family not in ("dense", "moe"):
             raise NotImplementedError(f"param_count: family {self.family!r} not ported")
-        d, l, v = self.d_model, self.num_layers, self.vocab_size
         hd = self.resolved_head_dim
         if self.use_mla:
             attn = (
@@ -92,7 +104,6 @@ class ModelConfig:
             )
         else:
             attn = d * hd * (self.num_heads * 2 + self.num_kv_heads * 2)
-        n = 2 * v * d  # embed + head
         if self.family == "moe":
             moe_l = l - self.first_dense_layers
             ffn = moe_l * 3 * d * self.moe_d_ff * (self.num_experts + self.num_shared_experts)

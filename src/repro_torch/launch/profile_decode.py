@@ -4,6 +4,8 @@ CUDA graph.
     python -m repro_torch.launch.profile_decode --arch deepseek-7b --activation relu
     python -m repro_torch.launch.profile_decode --arch qwen3-moe-235b-a22b --activation relu --layers 8
     python -m repro_torch.launch.profile_decode --arch deepseek-v2-236b --activation relu --layers 6
+    python -m repro_torch.launch.profile_decode --arch mamba2-780m
+    python -m repro_torch.launch.profile_decode --arch zamba2-2.7b
 
 Builds bf16 weights from seed 0 once, then, one after the other, two
 :class:`~repro_torch.serve.engine.ServeEngine`\\ s on the ``cuda`` backend
@@ -12,7 +14,8 @@ over the same ``--slots`` prompts: one running the decode chunk eagerly
 cuts the config's depth, for a model whose weights do not fit the card
 (qwen3-moe-235b-a22b's 94 layers need ~467 GB, deepseek-v2-236b's 60
 ~471 GB); a dense first block stays (deepseek-v2 at 6 layers: 1 dense, 5
-MoE).  Each engine
+MoE), and a hybrid config takes a multiple of its ``attn_every`` (whole
+groups: the shared block runs once per group).  Each engine
 runs two warm-up steps (admission and the eager chunk; the graph's capture),
 timed, then times ``--steps`` engine steps (``--chunk`` decode steps each) untraced,
 then traces as many with ``torch.profiler`` and prints the wall time per
@@ -112,13 +115,16 @@ def main(argv=None) -> None:
     ap.add_argument("--layers", type=int, default=None, help="cut the config to this many layers")
     args = ap.parse_args(argv)
 
-    rt = rtm.Runtime(backend="cuda", device="cuda")
-    rt.kernel.check_platform()
     cfg = get_config(args.arch)
     if args.activation:
         cfg = dataclasses.replace(cfg, activation=args.activation)
     if args.layers:
+        if cfg.family == "hybrid" and args.layers % cfg.attn_every:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} runs whole groups of "
+                             f"{cfg.attn_every} layers; give a multiple of {cfg.attn_every}")
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+    rt.kernel.check_platform()
     params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device=rt.device)
     gen = torch.Generator().manual_seed(0)
     prompts = [torch.randint(0, cfg.vocab_size, (PROMPT_LEN,), generator=gen) for _ in range(args.slots)]

@@ -7,6 +7,8 @@ throughput (port of ``repro/launch/serve.py``).
 
 runs full width on the card (``--device cuda --backend cuda``, the
 defaults; deepseek-7b's ReLU-gated variant takes ``--activation relu``).
+Any registered ``--arch`` serves, the SSM ``mamba2-780m`` and the hybrid
+``zamba2-2.7b`` whole (their LM head is their one planned product).
 ``--geometry auto`` resolves each call site's tile geometry and grid family
 from the port's TuningDB (``TUNING_db_torch.json``, written by ``python -m
 repro_torch.tune``; ``$REPRO_TORCH_TUNING_DB`` names another file), keyed

@@ -103,7 +103,13 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
-ACTIVATIONS = {"silu": silu, "relu": lambda x: torch.clamp_min(x, 0)}
+def gelu(x):
+    """The tanh approximation, as ``jax.nn.gelu(x, approximate=True)``
+    (torch's default is the erf form)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"silu": silu, "gelu": gelu, "relu": lambda x: torch.clamp_min(x, 0)}
 
 
 def rotary_embedding(positions, dim: int, theta: float = 1e4):

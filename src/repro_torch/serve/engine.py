@@ -81,10 +81,12 @@ def _decode_sites(cfg: ModelConfig, slots: int) -> list[tuple[str, tuple, tuple]
     """``(op, a_shape, b_shape)`` of the tuned call sites of one decode step
     over ``slots`` rows: the dense FFN's gate and ``w_down`` (a dense config,
     or a MoE config's dense blocks), each expert's ``w_down`` at the decode
-    capacity of ``slots`` tokens, the LM head."""
+    capacity of ``slots`` tokens, the LM head.  An SSM or hybrid config has
+    no FFN on the runtime (the hybrid's shared MLP is plain ``@``): its only
+    site is the LM head."""
     d = cfg.d_model
     sites = []
-    if cfg.family != "moe" or cfg.first_dense_layers:
+    if cfg.family == "dense" or (cfg.family == "moe" and cfg.first_dense_layers):
         d_ff = cfg.d_ff or d * 4
         sites += [("matmul_fused", (slots, d), (d, d_ff)), ("matmul", (slots, d_ff), (d_ff, d))]
     if cfg.family == "moe":

@@ -12,7 +12,9 @@
 * A model tree both ways: reduced deepseek-v2-236b (a ``dense_layers``
   stack, MLA leaves, ``[E, d, f]`` expert stacks and the fp32 router), its
   per-layer layout saved by one package and restored by the other bit for
-  bit, keys and dtypes as the other writes them.
+  bit, keys and dtypes as the other writes them; the same for reduced
+  mamba2-780m (its SSM layers) and reduced zamba2-2.7b (its groups, stacked
+  twice in JAX, as lists of lists, and the shared block).
 """
 import json
 import os
@@ -166,6 +168,47 @@ def test_deepseek_v2_tree_round_trips_both_ways(tmp_path, writer):
     with open(tmp_path / "step_000000000002" / "meta.json") as f:
         dtypes = json.load(f)["dtypes"]
     assert "params/layers/1/mlp/router" not in dtypes and dtypes["params/layers/1/attn/wq_a"] == "bfloat16"
+
+
+def _unstack(tree):
+    """A stacked JAX tree as a list of its slices along the first axis."""
+    return [jax.tree.map(lambda x, i=i: x[i], tree) for i in range(jax.tree.leaves(tree)[0].shape[0])]
+
+
+def _ssm_trees(arch):
+    """Reduced ``arch``'s bf16 parameters: the JAX tree in the port's layout
+    (``layers`` unstacked into a list; a hybrid's ``groups``, stacked
+    ``[n_groups, attn_every, ...]``, unstacked twice into lists of lists)
+    and the port's tree converted from it."""
+    jcfg = jconfigs.reduce_config(jconfigs.get_config(arch))
+    tcfg = reduce_config(get_config(arch))
+    jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(6), dtype=jnp.bfloat16)
+    layout = {"layers": _unstack, "groups": lambda g: [_unstack(x) for x in _unstack(g)]}
+    unstacked = {k: layout.get(k, lambda v: v)(v) for k, v in jp.items()}
+    return tcfg, unstacked, params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_and_hybrid_trees_round_trip_both_ways(tmp_path, arch, writer):
+    tcfg, jtree, tparams = _ssm_trees(arch)
+    if writer == "port":
+        tman.save(tmp_path, 3, {"params": tparams})
+        like = {"params": jax.tree.map(jnp.zeros_like, jtree)}
+        got = jman.restore(str(tmp_path), 3, like)["params"]
+        _same_bits(tparams, got)
+    else:
+        jman.save(str(tmp_path), 3, {"params": jtree})
+        like = {"params": init_params(TM.param_specs(tcfg), seed=1, dtype=torch.bfloat16, device="cpu")}
+        got = tman.restore(tmp_path, 3, like)["params"]
+        _same_bits(got, jtree)
+    keys = (("params/groups/1/0/ssm/in_z", "params/groups/0/1/ssm/conv_x_w", "params/shared/attn/wq",
+             "params/shared/mlp/w_down") if tcfg.family == "hybrid"
+            else ("params/layers/1/ssm/out_proj", "params/layers/0/ln"))
+    with np.load(tmp_path / "step_000000000003" / "arrays.npz") as z:
+        for key in keys:
+            assert key in z.files, key
+        assert len(z.files) == len(tree_leaves(tparams))
 
 
 def test_restore_casts_to_like_and_refuses_shardings(tmp_path):

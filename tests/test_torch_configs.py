@@ -5,7 +5,10 @@ JAX's on the CPU.
 
 Every config the port registers equals JAX's field for field, reduced or
 not, with the same ``param_count`` and ``active_param_count``; so do MLA
-configs (deepseek-v2-236b, and qwen3-moe with MLA attention).  Reduced
+configs (deepseek-v2-236b, and qwen3-moe with MLA attention) and the SSM
+and hybrid configs (mamba2-780m, zamba2-2.7b: JAX's count, which takes
+``3·d·d_inner + 2·d·N + d_inner·d`` a Mamba2 layer, is mirrored as it is).
+Reduced mamba2-780m and zamba2-2.7b give JAX's logits too.  Reduced
 qwen3-4b (2 layers, d_model 64, 4 query heads over 2 KV heads, qk-norm) and
 reduced qwen3-moe (the same attention, 8 experts top-2) give the same
 ``forward`` and ``prefill`` logits as JAX's within
@@ -42,10 +45,12 @@ def _few_threads():
 
 
 def test_the_port_registers_deepseek_and_qwen3():
-    assert tconfigs.ALL_ARCHS == ["deepseek-7b", "deepseek-v2-236b", "qwen3-4b", "qwen3-moe-235b-a22b"]
+    assert tconfigs.ALL_ARCHS == ["deepseek-7b", "deepseek-v2-236b", "mamba2-780m", "qwen3-4b",
+                                  "qwen3-moe-235b-a22b", "zamba2-2.7b"]
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "deepseek-v2-236b", "qwen3-4b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "deepseek-v2-236b", "mamba2-780m", "qwen3-4b",
+                                  "qwen3-moe-235b-a22b", "zamba2-2.7b"])
 def test_registered_config_equals_jax_field_for_field(arch):
     t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -81,7 +86,8 @@ def test_mla_param_counts_equal_jax(arch, kw):
 def _reduced_logits_match_jax(arch, backend, dtype_name):
     jcfg = jconfigs.reduce_config(jconfigs.get_config(arch))
     tcfg = tconfigs.reduce_config(tconfigs.get_config(arch))
-    assert tcfg.qk_norm and tcfg.num_kv_heads < tcfg.num_heads
+    if tcfg.family in ("dense", "moe"):
+        assert tcfg.qk_norm and tcfg.num_kv_heads < tcfg.num_heads
     jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(2), dtype=getattr(jnp, dtype_name))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
     toks = np.random.default_rng(3).integers(0, jcfg.vocab_size, size=(2, 12)).astype(np.int32)
@@ -106,3 +112,24 @@ def test_qwen3_reduced_logits_match_jax(backend, dtype_name):
 @pytest.mark.parametrize("backend", ["dense", "reference"])
 def test_qwen3_moe_reduced_logits_match_jax(backend, dtype_name):
     _reduced_logits_match_jax("qwen3-moe-235b-a22b", backend, dtype_name)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(num_layers=12), dict(ssm_state=16, ssm_expand=4)],
+                         ids=["registered", "12-layers", "state16-expand4"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_and_hybrid_param_counts_equal_jax(arch, kw):
+    t = dataclasses.replace(tconfigs.get_config(arch), **kw)
+    j = dataclasses.replace(jconfigs.get_config(arch), **kw)
+    assert t.param_count() == j.param_count() == t.active_param_count()
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_mamba2_reduced_logits_match_jax(backend, dtype_name):
+    _reduced_logits_match_jax("mamba2-780m", backend, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_zamba2_reduced_logits_match_jax(backend, dtype_name):
+    _reduced_logits_match_jax("zamba2-2.7b", backend, dtype_name)

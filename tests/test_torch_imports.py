@@ -29,7 +29,8 @@ def _imported_roots(path: Path):
 
 def test_the_port_has_modules_and_chip_smoke():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
-    assert ROOT / "src" / "repro_torch" / "models" / "mla.py" in FILES
+    for module in ("mla.py", "ssm.py", "hybrid.py"):
+        assert ROOT / "src" / "repro_torch" / "models" / module in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -7,6 +7,13 @@ token for token, and ``generate()`` on two of the prompts gives the same
 tokens.  The LM-head plan is built once (one miss) and every later prefill
 and decode step replays it (hits).  These counts are not compared with JAX's: the JAX
 decode chunk is jitted, so its decode-time plans are ``traced``, not hits.
+
+Reduced mamba2-780m and zamba2-2.7b (fp32) run the same prompts and
+budgets through two slots: their greedy tokens equal JAX's engine's (with
+both packages' SSM conv tails in fp32, the one layout JAX's engine can
+carry for an fp32 model), and, on the port's default bf16 tails, each
+request's tokens equal a solo run's, so a reused slot keeps nothing of its
+last request's state.
 """
 import dataclasses
 
@@ -207,3 +214,108 @@ def test_decode_sites_warm_the_moe_expert_cell():
     mixed = dataclasses.replace(moe, first_dense_layers=1, num_layers=3)
     assert [s[0] for s in _decode_sites(mixed, 16)] == ["matmul_fused", "matmul", "moe_expert", "matmul"]
     assert _decode_sites(mixed, 16)[2] == ("moe_expert", (5, 32), (32, d))
+
+
+#: the SSM and hybrid engine cases: reduced mamba2-780m (2 Mamba2 layers)
+#: and reduced zamba2-2.7b (2 groups of 2 Mamba2 layers, each after the
+#: shared attention block), fp32
+SSM_ARCHS = ["mamba2-780m", "zamba2-2.7b"]
+
+
+@pytest.fixture(scope="module", params=SSM_ARCHS)
+def ssm_model(request):
+    jcfg = jreduce_config(jget_config(request.param))
+    tcfg = reduce_config(get_config(request.param))
+    jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    return jcfg, tcfg, jp, tp
+
+
+def _fp32_conv_tails(monkeypatch):
+    """Both packages' SSM decode caches with fp32 conv tails.  With fp32
+    activations JAX's ``_conv_step`` returns fp32 tails, and its engine's
+    decode scan must carry the dtypes it started from, so JAX's engine runs
+    an fp32 model only on fp32 tails (on the default bf16 ones it raises a
+    carry-type error); the port's in-place writes take either."""
+    import functools
+
+    from repro.models import ssm as jssm
+    from repro_torch.models import ssm as tssm
+
+    monkeypatch.setattr(jssm, "init_ssm_cache", functools.partial(jssm.init_ssm_cache, dtype=jnp.float32))
+    monkeypatch.setattr(tssm, "init_ssm_cache", functools.partial(tssm.init_ssm_cache, dtype=torch.float32))
+
+
+def test_ssm_and_hybrid_engine_greedy_tokens_match_jax(ssm_model, monkeypatch):
+    """PLENS/BUDGETS through two slots, so slots backfill (a request decodes
+    from a state and conv tails another request left, each overwritten by
+    the slot write) and a chunk runs with an inactive slot: the greedy tokens
+    equal JAX's ``ServeEngine``'s; the LM head, the model's only planned
+    product, is planned once and hit after."""
+    jcfg, tcfg, jp, tp = ssm_model
+    _fp32_conv_tails(monkeypatch)
+    prompts = _prompts(jcfg.vocab_size)
+    jeng = JServeEngine(jp, jcfg, slots=2, max_len=16, chunk=3,
+                        rt=jrt.Runtime(backend="reference", **GEOM))
+    teng = ServeEngine(tp, tcfg, slots=2, max_len=16, chunk=3,
+                       rt=trt.Runtime(backend="reference", device="cpu", **GEOM))
+    leaf = teng.caches[0] if tcfg.family == "ssm" else teng.caches.ssm[0][0]
+    assert leaf.conv_x.dtype == torch.float32
+    groups, starts = [], []
+    admit, decode = teng._admit_group, teng._decode
+    teng._admit_group = lambda placements: (groups.append(len(placements)), admit(placements))
+    teng._decode = lambda: (starts.append(teng.active.tolist()), decode())[1]
+    for p, n in zip(prompts, BUDGETS):
+        jeng.submit(p, max_new=n)
+        teng.submit(torch.from_numpy(p), max_new=n)
+    jout, tout = jeng.run(), teng.run()
+    assert tout == jout
+    assert [len(tout[r]) for r in range(5)] == BUDGETS
+    assert [True, False] in starts or [False, True] in starts  # a chunk with an inactive slot
+    st = teng.stats()
+    pc = st["plan_cache"]
+    assert pc["misses"] == 1 and pc["entries"] == 1
+    assert pc["hits"] == len(groups) + st["steps_run"] - 1
+    assert all(r.ok for r in teng._requests.values())
+
+
+def test_ssm_and_hybrid_reused_slot_equals_a_solo_run(ssm_model):
+    """On the default bf16 conv tails: every request's greedy tokens through
+    two backfilled slots equal its tokens served alone in a fresh one-slot
+    engine, so a slot write leaves nothing of the slot's last request (a KV
+    row past ``pos`` is masked; an SSM state is not, and must be
+    overwritten whole)."""
+    _, tcfg, _, tp = ssm_model
+    prompts = _prompts(tcfg.vocab_size)
+    rt = lambda: trt.Runtime(backend="reference", device="cpu", **GEOM)
+    eng = ServeEngine(tp, tcfg, slots=2, max_len=16, chunk=3, rt=rt())
+    slots = {}
+    admit = eng._admit_group
+    eng._admit_group = lambda placements: (slots.update((r.rid, s) for s, r in placements), admit(placements))
+    for p, n in zip(prompts, BUDGETS):
+        eng.submit(torch.from_numpy(p), max_new=n)
+    out = eng.run()
+    assert len(set(slots.values())) == 2 and len(slots) == 5  # slots reused
+    for rid, (p, n) in enumerate(zip(prompts, BUDGETS)):
+        solo = ServeEngine(tp, tcfg, slots=1, max_len=16, chunk=3, rt=rt())
+        solo.submit(torch.from_numpy(p), max_new=n)
+        assert solo.run()[0] == out[rid], rid
+
+
+def test_decode_sites_of_ssm_and_hybrid_are_the_lm_head():
+    from repro_torch.serve.engine import _decode_sites
+
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        assert _decode_sites(cfg, 4) == [("matmul", (4, cfg.d_model), (cfg.d_model, cfg.vocab_size))]
+
+
+def test_profile_decode_cuts_a_hybrid_only_at_whole_groups():
+    from repro_torch.launch import profile_decode
+    from repro_torch.runtime.backends import BackendCapabilityError
+
+    with pytest.raises(ValueError, match="multiple of 6"):
+        profile_decode.main(["--arch", "zamba2-2.7b", "--layers", "8"])
+    if not torch.cuda.is_available():  # 12 layers pass the check and reach the card's
+        with pytest.raises(BackendCapabilityError):
+            profile_decode.main(["--arch", "zamba2-2.7b", "--layers", "12"])
