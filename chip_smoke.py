@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-from the root of a checkout, on a machine with one H100.  It
+from the root of a checkout, on a machine with one H100.
+``python3 chip_smoke.py --profiler-stress N`` instead runs only
+:func:`profiler_stress` (N sessions each way).  With no arguments it
 
 1. prints the card (``nvidia-smi`` name and power limit), builds the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` (timed) and prints
@@ -21,9 +23,11 @@ from the root of a checkout, on a machine with one H100.  It
    decode shapes (the dense first block's gate [4,5120]@[5120,12288] and its
    ``w_down`` on the gate's emitted mask, an expert's ``w_down``
    [1,1536]@[1536,5120] routed and empty, the LM head side B [102400,5120])
-   and at the SSM and hybrid models' LM heads side B ([50280,1536] at the
-   fitted block row 120, [32000,2560] at 128), dense and with 40% of the
-   head's blocks zero;
+   and at the SSM, hybrid, starcoder2 and gemma2 LM heads side B
+   ([50280,1536] at the fitted block 120 x 512, [32000,2560] and
+   [49152,3072] at 128 x 512, [256000,2304] at 128 x 384), dense and with
+   40% of the head's blocks zero, and at gemma2-ReLU's decode gate
+   [4,2304]@[2304,9216] (bk 384) and its ``w_down`` on the emitted mask;
    then counts, with the profiler, the CUDA launches of a few calls of each
    wrapper: exactly one per call;
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
@@ -85,20 +89,31 @@ from the root of a checkout, on a machine with one H100.  It
    ``values`` plan built once an engine at its fitted block, no host sync in
    a decode chunk, prefill logits within ``REF_REL_L2`` of ``reference``;
    ms per decode step against the bound from the bytes a step moves,
-   tokens/s, peak memory, device launches per decode step;
+   tokens/s, peak memory, device launches per decode step; then, the same
+   way, starcoder2-3b as registered (30 layers, a non-gated GELU FFN: the LM
+   head alone on the kernels), gemma2-2b with a ReLU gate (26 layers,
+   sliding-window attention on alternate layers, sandwich norms: 26 fused
+   gates, emitted plans and planned ``w_down`` a model call) and one
+   5120-token request past its 4096-token window, its decode logits held
+   to a teacher-forced forward, and deepseek-7b-ReLU with the int8 KV cache
+   at 1024 rows a slot: int8 K/V and fp32 scales at 0.516x the bf16 cache's
+   bytes, its decode ms per step beside the bf16 cache's, its decode logits
+   against the bf16 cache's within ``KV_REL_L2``;
 9. holds the planned kernel at the training step's backward shapes (one
    microbatch of 1024 tokens at full widths, fp32 operands and transposed
    views, bf16 output: the gate's, ``w_down``'s and the LM head's ``da``
    and ``db``) against its plain version (fp32, rtol = atol = 2e-4), its
    bf16 store equal to one rounding of its fp32 result, v2/v1 bit-equal on
-   two rows, each timed against one fp32 ``torch.matmul`` and its bound;
+   two rows, each timed against one fp32 ``torch.matmul`` and its bound,
+   and the mamba2 head's two backward products at its block 120;
    ``block_zero_mask`` on the two fp32 cotangents; one device launch per
    wrapper call;
 10. runs the one-launch planner in every mode: 477 edge cases (one block
    row, one K block, 86 and 800 K blocks, several shared-memory stages,
    views off the 16-byte grid, NaN, bool and int8 masks, coarsen 2 / 4 /
    Nb), then the path's shapes (the decode and training gate masks, the
-   LM-head weight ``lm_head.T`` in bf16, the fp32 ``w_down`` and LM-head
+   LM-head weights ``lm_head.T`` in bf16 (deepseek, SSM, hybrid,
+   starcoder2, gemma2), gemma2's gate mask, the fp32 ``w_down`` and LM-head
    cotangents, the three transposed forward plans of the weight
    gradients, the MoE experts' ``h[e]`` at capacity 1 and 10 and a pad
    row alone, the SSM and hybrid heads at block rows 120 and 128, the
@@ -118,7 +133,12 @@ from the root of a checkout, on a machine with one H100.  It
    recompute included; each plan one planner launch) with no plain executor
    or planner chain run, two profiled steps
    (device time by kernel), and a ``guard_nonfinite`` step with poison 2
-   that must leave params and optimizer state unchanged;
+   that must leave params and optimizer state unchanged; then mamba2-780m
+   and zamba2-2.7b whole (the deepest cut reckoned to fit; 8 x 256 tokens,
+   two SSD chunks a sequence) through ``make_train_step`` on ``cuda``: taps
+   refused, step 1's loss and gradient norm against ``dense``, 3 steps with
+   the LM head's launches and plan-cache counts held to the path's, and one
+   chunked 256-token prefill against ``reference``;
 12. drives the train launcher, ``repro_torch.launch.train.main``, in process
    on full-width qwen3-4b (grouped-query attention with qk-norm, vocab
    151936) cut to 8 layers, 8 x 256 tokens in 2 microbatches, taps on:
@@ -136,10 +156,11 @@ from the root of a checkout, on a machine with one H100.  It
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode; each with its
    launches over the serve runs (eager, graph, fault replays, the serve
-   launcher, the MoE, MLA, SSM and hybrid runs; a captured launch counted
-   once per replay; each of the last four also alone), the timed
-   training steps and launcher runs (a) and (c), on the serving path
-   alone, per training step and per launcher step), the card line, and last the result
+   launcher, the MoE, MLA, SSM, hybrid, starcoder2, gemma2 and int8-cache
+   runs; a captured launch counted once per replay; each of the last seven
+   also alone), the timed training steps (deepseek, SSM, hybrid) and
+   launcher runs (a) and (c), on the serving path alone, per training step
+   and per launcher step), the card line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
 
@@ -214,6 +235,28 @@ DSV2_ARCH, DSV2_LAYERS = "deepseek-v2-236b", 6
 #: served as the deepseek-7b serve phase serves; their LM head is the one
 #: planned product of a model call
 SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "zamba2-2.7b"
+#: the dense archs served whole: starcoder2-3b as registered (30 layers, a
+#: non-gated GELU FFN: the LM head is its one planned product) and gemma2-2b
+#: with a ReLU gate (26 layers, local/global sliding-window attention,
+#: sandwich norms; the gated FFN takes the fused path), ~6.4 GB of bf16
+#: weights each
+STARCODER_ARCH, GEMMA_ARCH = "starcoder2-3b", "gemma2-2b"
+#: gemma2's long request: 5 query chunks of 1024 prompt tokens and LONG_NEW
+#: new ones, so each local layer masks keys more than its 4096-token window back
+LONG_PROMPT, LONG_NEW = 5120, 16
+#: the int8 KV cache phase: deepseek-7b-ReLU with ``kv_cache_quant`` at
+#: KV_MAX_LEN cache rows a slot, so the cache is a visible share of a step's
+#: bytes; its decode logits against the bf16 cache's within KV_REL_L2: JAX's
+#: own test (tests/test_kv_quant.py) accepts an int8-cache decode within
+#: rtol = atol = 0.08 of the full forward, up to 8% at every logit, and a
+#: relative L2 of 0.08 allows the same error on average
+KV_MAX_LEN, KV_REL_L2 = 1024, 0.08
+#: the SSM and hybrid training phases: bytes a parameter of a bf16 model
+#: trained with fp32 AdamW moments and gradient accumulators (the deepseek
+#: train phase's 45.34 GB peak over its 1.65 B parameters), and the card
+#: memory a cut in depth is reckoned against (80 GB less room for the step-1
+#: comparison's two gradient sets and the activations)
+TRAIN_BYTES_PER_PARAM, TRAIN_BUDGET_GB = 27.5, 72
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -551,11 +594,12 @@ def kernel_phase(bw: float):
              T.plan_blocks_csr(a_t, 128, 512), stage="dsv2 decode")
     del lm_head, a_t
 
-    # -- the SSM and hybrid models' LM heads side B at the runtime's fitted
-    #    weight-side block row (the largest divisor of the vocab <= 128:
-    #    120 for mamba2's 50280, 128 for zamba2's 32000), dense and with 40%
-    #    of the head's blocks zeroed, so the kernel skips them
-    for arch in (SSM_ARCH, HYBRID_ARCH):
+    # -- the LM heads side B at the runtime's fitted weight-side block (the
+    #    largest divisors of the vocab <= 128 and of d_model <= 512: 120 x 512
+    #    for mamba2's 50280 x 1536, 128 x 512 for zamba2's and starcoder2's,
+    #    128 x 384 for gemma2's 256000 x 2304), dense and with 40% of the
+    #    head's blocks zeroed, so the kernel skips them
+    for arch in (SSM_ARCH, HYBRID_ARCH, STARCODER_ARCH, GEMMA_ARCH):
         c = get_config(arch)
         d, v = c.d_model, c.vocab_size
         fit = rtm.Runtime(backend="cuda", device="cuda").fit((SLOTS, d), (d, v))
@@ -567,12 +611,40 @@ def kernel_phase(bw: float):
                 w = (w.reshape(v // bm, bm, d // bk, bk) * keep[:, None, :, None]).reshape(v, d)
             lm_head = w.to(bf16).T.contiguous()  # [d, v], as the model holds it
             a_t, b_t = lm_head.T, torch.randn(SLOTS, d, generator=gen).to(dev, bf16).T
-            label = f"{c.family} LM head bm={bm} (side B){', 40% zero' if pruned else ''}"
+            label = f"{tag_of(c)} LM head {bm}x{bk} (side B){', 40% zero' if pruned else ''}"
             run_case(label, "tensordash_matmul_planned", bf16, a_t, b_t, bm, bk, SLOTS,
-                     T.plan_blocks_csr(a_t, bm, bk), stage=f"{c.family} decode")
+                     T.plan_blocks_csr(a_t, bm, bk), stage=f"{tag_of(c)} decode")
             del lm_head, a_t
         del w
+
+    # -- gemma2-2b with a ReLU gate at decode: the gate [4,2304]@[2304,9216]
+    #    on the all-effectual plan at the fitted bk 384, its w_down
+    #    [4,9216]@[9216,2304] on the gate's emitted mask coarsened from 128 to
+    #    bk = 512 columns
+    c = get_config(GEMMA_ARCH)
+    d, f = c.d_model, c.d_ff
+    bk = rtm.Runtime(backend="cuda", device="cuda").fit((SLOTS, d), (d, f)).bk
+    xg = torch.randn(SLOTS, d, generator=gen).to(dev, bf16)
+    w_gate = (torch.randn(d, f, generator=gdev, device=dev) / d**0.5).to(bf16)
+    w_up = (torch.randn(d, f, generator=gdev, device=dev) / d**0.5).to(bf16)
+    gplan = T.dense_plan_csr(1, d // bk, dev)
+    run_case(f"gemma2 gate bk={bk} (fused relu)", "tensordash_matmul_fused", bf16, xg, w_gate, SLOTS, bk, 128,
+             gplan, stage="gemma2 decode")
+    g, gmask = T.tensordash_matmul_fused(*gplan[:2], xg, w_gate, activation="relu", bm=SLOTS, bk=bk, bn=128,
+                                         workqueue=gplan[2:])
+    h = g * (xg @ w_up)
+    del w_gate, w_up
+    w_down = (torch.randn(f, d, generator=gdev, device=dev) / f**0.5).to(bf16)
+    run_case("gemma2 w_down (emitted-mask plan)", "tensordash_matmul_planned", bf16, h, w_down, SLOTS, 512, 128,
+             T.plan_from_mask_csr(gmask, coarsen=512 // 128), stage="gemma2 decode")
+    del w_down
     return rows, count_launches(calls)
+
+
+def tag_of(cfg) -> str:
+    """A config's short name in phase tags and row labels: the family for
+    the SSM and hybrid configs, else the name's first part."""
+    return cfg.family if cfg.family in ("ssm", "hybrid") else cfg.name.split("-")[0]
 
 
 def row_dtype(dtype) -> str:
@@ -589,68 +661,129 @@ def family_call(kernel, grid, nnz, idx, a, b, bm, bk, bn, bias, residual, activa
     return lambda: T.tensordash_matmul_planned(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, compact_grid=grid)
 
 
-#: spin-kernel launches that open and close each profiler session, and the
-#: sessions opened before a count gives up
-MARKERS, TRIES = 16, 3
+#: spin-kernel launches that open and close each profiler session, the host
+#: pause in seconds inside the session before the first and after the last of
+#: them, and the sessions opened before a count gives up
+MARKERS, PAUSE_S, TRIES = 64, 0.05, 6
+
+
+def marker_session(fn, reps: int, pause: float = PAUSE_S):
+    """One ``torch.profiler`` session over ``reps`` calls of ``fn``,
+    between :data:`MARKERS` spin-kernel launches that open it and as many
+    that close it, with the card idle for ``pause`` seconds after the
+    session starts and before it stops.  Returns ``(lead, trail, outside,
+    counts)``: the opening and closing markers seen, the launches reported
+    before the first marker or after the last, and ``{kernel: count}`` of
+    the launches between the two runs of markers, or ``None`` when the
+    session saw no marker on one side of them."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(pause)
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(pause)
+    names = [e.name for e in sorted(
+        (e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+    marker = ["spin_kernel" in n for n in names]
+    if True not in marker:
+        return 0, 0, names, None
+    # the opening run of markers starts at the first marker, the closing
+    # run ends at the last; what the session reports outside them (a
+    # launch of an earlier session delivered late) is not this fn's
+    first, last = marker.index(True), len(names) - 1 - marker[::-1].index(True)
+    start, end = first, last
+    while start < last and marker[start + 1]:
+        start += 1
+    while end > start + 1 and marker[end - 1]:
+        end -= 1
+    if start >= end:
+        return start - first + 1, 0, names[:first] + names[last + 1:], None
+    counts: dict[str, int] = {}
+    for n in names[start + 1:end]:
+        counts[n] = counts.get(n, 0) + 1
+    return start - first + 1, last - end + 1, names[:first] + names[last + 1:], counts
 
 
 def device_launches(fn, reps: int = LAUNCH_REPS) -> list[tuple[str, int]]:
     """``(kernel, count)`` of the device launches ``torch.profiler`` sees
-    over ``reps`` calls of ``fn``, between :data:`MARKERS` spin-kernel
-    launches that open the session and as many that close it, all left out
-    of the count, as are launches reported before the first marker or after
-    the last.  A session after the first in a process was seen to drop
-    the first launches it should record (on torch 2.11: two opening markers
-    in every such session, and once, with eight opening markers, two of the
-    counted launches, so the count came up two short).  So the
-    launches are ordered by start time and counted only when at least one
-    opening and one closing marker came through: a dropped run of first (or
-    last) launches then ended (or began) among the markers, and none
-    between them was dropped.  A session that fails this is opened again,
-    at most :data:`TRIES` times."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    over ``reps`` calls of ``fn``, counted by :func:`marker_session`: the
+    launches between the opening and the closing run of markers.  On torch
+    2.11 a session after the first in a process was seen to drop its first
+    launches (up to 12 of 16 opening markers, and once, with eight opening
+    markers, two of the counted launches), to report no launch at all, or
+    to report a broken closing run with launches after it.  So a count
+    stands only when at least one opening and one closing marker came
+    through: a dropped run of first (or last) launches then ended (or
+    began) among the markers, and none between them was dropped.  With the
+    card idle for :data:`PAUSE_S` at each end of the session no session
+    reported nothing (150 of 150 against 147 of 150 without), but sessions
+    late in a full run still lost their first 11 launches: hence 64
+    markers a side.  A session that fails this is opened again, after the
+    same pause, at most :data:`TRIES` times."""
     for _ in range(TRIES):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(MARKERS):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            for _ in range(MARKERS):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        names = [e.name for e in sorted(
-            (e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
-            key=lambda e: e.time_range.start)]
-        marker = ["spin_kernel" in n for n in names]
-        if True not in marker:
-            log(f"launches: the profiler saw no marker launch among {len(names)}")
-            continue
-        # the opening run of markers starts at the first marker, the closing
-        # run ends at the last; what the session reports outside them (a
-        # launch of an earlier session delivered late) is not this fn's
-        first, last = marker.index(True), len(names) - 1 - marker[::-1].index(True)
-        start, end = first, last
-        while start < last and marker[start + 1]:
-            start += 1
-        while end > start + 1 and marker[end - 1]:
-            end -= 1
-        lead, trail = start - first + 1, last - end + 1
-        outside = names[:first] + names[last + 1:]
+        lead, trail, outside, counts = marker_session(fn, reps)
         if (lead, trail) != (MARKERS, MARKERS) or outside:
             log(f"launches: the profiler saw {lead} of {MARKERS} opening and {trail} of {MARKERS} "
                 f"closing marker launches, and {len(outside)} launches outside them "
                 f"({sorted(set(n[:60] for n in outside))[:4]})")
-        if start < end:
-            counts: dict[str, int] = {}
-            for n in names[start + 1:end]:
-                counts[n] = counts.get(n, 0) + 1
+        if counts is not None:
             return list(counts.items())
+        time.sleep(PAUSE_S)
     raise AssertionError(f"the profiler dropped every opening or closing marker launch in {TRIES} sessions")
+
+
+def profiler_stress(n: int) -> dict:
+    """How often a marker session fails, with the card idle for
+    :data:`PAUSE_S` at its ends and without: after the planner's edge
+    cases, ``n`` sessions each way, interleaved, over one call of the
+    decode gate mask's plain plan chain (38 launches), each after the
+    timings the planner phase makes between two counts.  Prints and returns
+    per pause the sessions with both runs of markers whole, those with no
+    count, and the counts seen."""
+    import collections
+
+    import torch
+    from repro_torch.kernels import ref, tensordash_spmm as T
+
+    planner_edge_cases()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mask = (torch.rand(1, 11008 // 128, generator=gen, device=dev) < 0.4).to(torch.int8)
+
+    def call():
+        return T.plan_from_mask_csr(mask, coarsen=1)
+
+    def plain():
+        return ref.plan_from_mask_csr_ref(mask, coarsen=1)
+
+    seen: dict[float, list] = {0.0: [], PAUSE_S: []}
+    for _ in range(n):
+        for pause in seen:
+            cuda_ms(call), host_ms(call), cuda_ms(plain, iters=5), host_ms(plain, iters=5)
+            lead, trail, outside, counts = marker_session(plain, 1, pause=pause)
+            seen[pause].append((lead, trail, len(outside), None if counts is None else sum(counts.values())))
+    out = {}
+    for pause, runs in seen.items():
+        out[str(pause)] = {
+            "sessions": len(runs), "full_brackets": sum(r[:3] == (MARKERS, MARKERS, 0) for r in runs),
+            "no_count": sum(r[3] is None for r in runs),
+            "counts": dict(collections.Counter(str(r[3]) for r in runs)),
+            "leads": dict(collections.Counter(r[0] for r in runs)),
+            "trails": dict(collections.Counter(r[1] for r in runs)),
+        }
+        log(f"profiler stress, pause {pause} s: {json.dumps(out[str(pause)])}")
+    return out
 
 
 def count_launches(calls: dict, kernel: str = "td_spmm_kernel") -> dict:
@@ -730,10 +863,13 @@ def device_launches_of(counted: dict, seen: list) -> dict:
     return out
 
 
-def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, profile_replay=False):
-    """Serve ``prompts`` through a fresh ``ServeEngine`` on ``rt`` (with a
-    fresh plan cache), the decode chunk eagerly or (``cuda_graph=True``) as one CUDA graph, under
-    ``fault_plan``.  Returns the greedy tokens, the wrapper launch counts of
+def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, profile_replay=False,
+                max_len=MAX_LEN):
+    """Serve ``prompts`` through a fresh ``ServeEngine`` of ``max_len`` cache
+    rows a slot on ``rt`` (with a fresh plan cache), the decode chunk eagerly
+    or (``cuda_graph=True``) as one CUDA graph, under ``fault_plan``.
+    Returns the greedy tokens, the decode caches' bytes and leaf dtypes, the
+    wrapper launch counts of
     the run (set to 0 just before it; a capture counted once), the device
     launches (a capture's times its replays), the launches of the capture,
     stats, wall seconds, prefill group sizes, decode chunks, seconds and
@@ -745,14 +881,16 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
     graph reads).  Fails if a plain executor ran."""
     import torch
     from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.resilience import ResilienceLog
     from repro_torch.runtime import PlanCache
     from repro_torch.serve.engine import ServeEngine
 
     rlog = ResilienceLog()
     rt = rt.replace(plan_cache=PlanCache())  # each run builds its LM-head plan once
-    eng = ServeEngine(params, cfg, slots=SLOTS, chunk=CHUNK, max_len=MAX_LEN, rt=rt,
+    eng = ServeEngine(params, cfg, slots=SLOTS, chunk=CHUNK, max_len=max_len, rt=rt,
                       cuda_graph=cuda_graph, fault_plan=fault_plan, log=rlog)
+    cache_leaves = tree_leaves(eng.caches)
     kinds = ("eager", "warm-up", "capture", "replay")
     groups, chunks, decode_s, decode_syncs = [], dict.fromkeys(kinds, 0), dict.fromkeys(kinds, 0.0), \
         dict.fromkeys(kinds, 0)
@@ -803,6 +941,8 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
         raise AssertionError(f"serve: {len(captures)} decode-graph captures in one engine")
     replay = dict(device_launches(eng._graph.graph.replay, reps=1)) if profile_replay else None
     return {"replay_kernels": replay, "out": out, "launches": launches, "device_launches": device_launches_of(launches, captures),
+            "cache_bytes": sum(t.numel() * t.element_size() for t in cache_leaves),
+            "cache_dtypes": sorted({str(t.dtype).replace("torch.", "") for t in cache_leaves}),
             "capture_launches": captures[0][1] if captures else None, "stats": eng.stats(),
             "wall": wall, "groups": groups, "chunks": chunks, "decode_s": decode_s,
             "decode_syncs": decode_syncs,
@@ -812,13 +952,15 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
 
 def path_launches(cfg, calls: int, head_plans: int = 0) -> dict:
     """The serving path's wrapper launches over ``calls`` model calls and
-    ``head_plans`` LM-head plans.  Each call: per dense ReLU block a fused
-    gate, a planned ``w_down`` and its emitted-mask plan (deepseek-7b: 30
-    each); per MoE block one planned ``w_down`` and one plan by value per
-    expert (qwen3-moe: 128 each); the planned LM head (its plan cached).  An
-    SSM or hybrid model has no FFN on the runtime: the LM head alone."""
+    ``head_plans`` LM-head plans.  Each call: per dense block with a ReLU
+    gate a fused gate, a planned ``w_down`` and its emitted-mask plan
+    (deepseek-7b: 30 each); per MoE block one planned ``w_down`` and one
+    plan by value per expert (qwen3-moe: 128 each); the planned LM head (its
+    plan cached).  A non-gated or non-ReLU dense FFN (starcoder2) and an SSM
+    or hybrid model put no FFN on the runtime: the LM head alone."""
     n_moe = cfg.num_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
-    dense = cfg.num_layers - n_moe if cfg.family in ("dense", "moe") else 0
+    fused = cfg.family in ("dense", "moe") and cfg.mlp_gated and cfg.activation == "relu"
+    dense = cfg.num_layers - n_moe if fused else 0
     experts = n_moe * cfg.num_experts
     return {"tensordash_matmul_fused": dense * calls,
             "tensordash_matmul_planned": (dense + experts + 1) * calls,
@@ -907,14 +1049,14 @@ def first_difference(got: dict, want: dict):
     return None
 
 
-def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph"):
+def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph", max_len: int = MAX_LEN):
     """The serve phase's requests with the decode chunk as one CUDA graph:
     the eager run's greedy tokens exactly; one capture over a run with
     backfill; the capture's launches are one chunk's; a replay per chunk
     after the warm-up; no host sync inside a replayed chunk."""
     import torch
 
-    run = drive_serve(params, cfg, prompts, rt, cuda_graph=True, profile_replay=True)
+    run = drive_serve(params, cfg, prompts, rt, cuda_graph=True, profile_replay=True, max_len=max_len)
     out, st, groups = run["out"], run["stats"], run["groups"]
     diff = first_difference(out, eager["greedy_tokens"])
     if diff is not None:
@@ -961,7 +1103,8 @@ def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph")
         "device_launches": run["device_launches"], "capture_launches": run["capture_launches"],
         "replay_launches": replayed, "replay_device_launches_all": replay_total,
         "captures": st["decode_graph_captures"], "replays": st["decode_graph_replays"], "plan_cache": pc,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "cache_bytes": run["cache_bytes"],
+        "cache_dtypes": run["cache_dtypes"],
     }
     log(f"{tag}: {summary['tokens']} tokens in {run['wall']:.3f} s = {summary['tok_per_s']:.2f} tok/s "
         f"(eager {eager['tok_per_s']:.2f}); {replay_ms:.3f} ms per decode step over {n_rep} replayed chunks "
@@ -1323,43 +1466,32 @@ def moe_serve_phase(arch: str = MOE_ARCH, layers: int = MOE_LAYERS, tag: str = "
 def decode_bytes(params, caches, cfg) -> dict:
     """Least bytes a decode step over :data:`SLOTS` rows moves, by part:
     every weight read once (of the embedding only the rows gathered), each
-    SSM cache leaf (conv tails, state) read and written, each KV cache
-    read."""
+    SSM cache leaf (conv tails, state) read and written, each KV cache leaf
+    read (int8 rows and fp32 scales under ``kv_cache_quant``)."""
     from repro_torch.optim.adamw import tree_leaves
 
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     embed = params["embed"]
-    ssm = caches if cfg.family == "ssm" else [c for g in caches.ssm for c in g]
-    kv = [] if cfg.family == "ssm" else caches.kv
+    if cfg.family == "ssm":
+        ssm, kv = caches, []
+    elif cfg.family == "hybrid":
+        ssm, kv = [c for g in caches.ssm for c in g], caches.kv
+    else:
+        ssm, kv = [], [c for stack in caches.values() for c in stack]
     return {"weights": nbytes(tree_leaves(params)) - nbytes([embed]) + SLOTS * embed.shape[1] * embed.element_size(),
-            "ssm_caches_read_and_written": 2 * nbytes(t for c in ssm for t in c),
-            "kv_caches_read": nbytes(t for c in kv for t in c)}
+            "ssm_caches_read_and_written": 2 * nbytes(tree_leaves(ssm)),
+            "kv_caches_read": nbytes(tree_leaves(kv))}
 
 
-def ssm_serve_phase(arch: str, tag: str):
-    """``arch`` (an SSM or hybrid config) as registered, whole, served as
-    the deepseek-7b serve phase serves (same requests, slots, chunk; bf16
-    weights from seed 0): its only planned product is the LM head, so a
-    model call launches one planned SpMM and no fused one, and the engine
-    one ``values`` plan, the head's, at the runtime's fitted block row, then
-    replays it.  Eager, then through the decode graph (the eager tokens
-    exactly, one capture, a replay's device launches the capture's), then
-    prefill logits against ``reference``.  Launches must be the path's,
-    with no plain version and no host sync in a decode chunk.  Reports
-    decode ms per step, tokens/s, peak memory, device launches per decode
-    step and the step's bound from the bytes it moves."""
+def init_whole(cfg, tag: str):
+    """``cfg``'s bf16 weights from seed 0 on the card, with what they hold."""
     import gc
 
-    import numpy as np
     import torch
-    from repro_torch import runtime as rtm
-    from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.models.common import init_params
     from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.runtime.plan import _fit_block
 
-    cfg = get_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
     before_gb = torch.cuda.memory_allocated() / 1e9
@@ -1370,45 +1502,83 @@ def ssm_serve_phase(arch: str, tag: str):
     param_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
     layout = f", {cfg.num_layers // cfg.attn_every} groups of {cfg.attn_every} after the shared block" \
         if cfg.family == "hybrid" else ""
-    log(f"{tag}: {arch} as registered, {cfg.num_layers} layers{layout}, d_model {cfg.d_model}, "
-        f"vocab {cfg.vocab_size}, activation {cfg.activation}; {sum(t.numel() for t in leaves) / 1e9:.3f} B "
-        f"parameters in the tensors ({param_gb:.3f} GB bf16; param_count() says "
-        f"{cfg.param_count() / 1e9:.3f} B) initialised on the card in {time.perf_counter() - t0:.1f} s "
-        f"({before_gb:.2f} GB held before)")
+    log(f"{tag}: {cfg.name}, activation {cfg.activation}{', int8 KV cache' if cfg.kv_cache_quant else ''}, "
+        f"{cfg.num_layers} layers{layout}, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}; {sum(t.numel() for t in leaves) / 1e9:.3f} B parameters in the tensors "
+        f"({param_gb:.3f} GB bf16; param_count() says {cfg.param_count() / 1e9:.3f} B) initialised on the card "
+        f"in {time.perf_counter() - t0:.1f} s ({before_gb:.2f} GB held before)")
+    return params, param_gb
+
+
+def free() -> None:
+    """Return the card's cached blocks once the caller dropped its tensors."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def whole_serve_phase(cfg, tag: str, *, max_len: int = MAX_LEN, then=None):
+    """``cfg`` at full width and full depth (bf16 weights from seed 0),
+    served as the deepseek-7b serve phase serves (same requests, slots,
+    chunk) at ``max_len`` cache rows a slot: eager, then through the decode
+    graph (the eager tokens exactly, one capture, a replay's device launches
+    the capture's), then prefill logits against ``reference``.  Launches
+    must be the path's (:func:`path_launches`: the LM head's alone where no
+    FFN is on the runtime), the head's ``values`` plan built once an engine
+    at the runtime's fitted block and replayed, no plain version, no host
+    sync in a decode chunk.  Reports decode ms per step, tokens/s, peak
+    memory, the caches' bytes, device launches per decode step and the
+    step's bound from the bytes it moves.  ``then(params, cfg, summary,
+    prompts, rt)`` runs the phase's own checks on the same weights before
+    they are freed."""
+    import numpy as np
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.models import model as M
+    from repro_torch.runtime.plan import _fit_block
+
+    params, param_gb = init_whole(cfg, tag)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(s)) for s in rng.integers(16, 33, size=REQUESTS)]
     rt = rtm.Runtime(backend="cuda", device="cuda")
-    run = drive_serve(params, cfg, prompts, rt)
+    run = drive_serve(params, cfg, prompts, rt, max_len=max_len)
     out, launches, st, wall, groups = run["out"], run["launches"], run["stats"], run["wall"], run["groups"]
     calls = check_eager_run(tag, cfg, run)
     pc = st["plan_cache"]
     if pc["misses"] != 1 or pc["hits"] != calls - 1:
         raise AssertionError(f"{tag}: LM-head plan cache {pc}, expected 1 miss and {calls - 1} hits")
     head = run["plans"]
-    block = (_fit_block(128, cfg.vocab_size), 512)
+    block = (_fit_block(128, cfg.vocab_size), _fit_block(512, cfg.d_model))
     if len(head) != 1 or head[0]["block"] != block or head[0]["shape"] != (cfg.vocab_size, cfg.d_model):
         raise AssertionError(f"{tag}: plans {head}, expected the LM head's alone at block {block}")
     steps = st["steps_run"]
-    step_bytes = decode_bytes(params, M.init_cache(cfg, SLOTS, MAX_LEN, device="meta"), cfg)
+    step_bytes = decode_bytes(params, M.init_cache(cfg, SLOTS, max_len, device="meta"), cfg)
     bound_ms = sum(step_bytes.values()) / mem_bandwidth(torch.cuda.get_device_name(0)) * 1e3
     eager = {
         "tokens": st["tokens_out"], "wall_s": wall, "tok_per_s": st["tokens_out"] / wall,
         "decode_steps": steps, "ms_per_decode_step": run["decode_s"]["eager"] / steps * 1e3,
         "prefill_groups": groups, "launches": launches,
         "launches_per_model_call": {k: v / calls for k, v in by_wrapper(launches).items()},
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "param_gb": param_gb,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "param_gb": param_gb, "max_len": max_len,
+        "cache_bytes": run["cache_bytes"], "cache_dtypes": run["cache_dtypes"],
         "decode_bytes": step_bytes, "decode_bound_ms": bound_ms, "plan_cache": pc, "head_plan": head[0],
         "greedy_tokens": out,
     }
-    log(f"{tag}: {REQUESTS} requests x {NEW_TOKENS} new tokens, slots {SLOTS}, chunk {CHUNK}, eager decode "
-        f"chunk: {eager['tokens']} tokens in {wall:.3f} s = {eager['tok_per_s']:.2f} tok/s; "
+    log(f"{tag}: {REQUESTS} requests x {NEW_TOKENS} new tokens, slots {SLOTS}, chunk {CHUNK}, max_len {max_len}, "
+        f"eager decode chunk: {eager['tokens']} tokens in {wall:.3f} s = {eager['tok_per_s']:.2f} tok/s; "
         f"{eager['ms_per_decode_step']:.3f} ms per decode step over {steps} steps (bound {bound_ms:.4f} ms "
         f"from the bytes a step moves, GB: { {k: round(v / 1e9, 3) for k, v in step_bytes.items()} }); "
-        f"prefill groups {groups}; peak memory {eager['peak_mem_gb']:.2f} GB; 0 host syncs inside decode chunks")
-    log(f"{tag}: kernel launches {launches} == path's (one planned LM head a model call, {calls} calls, "
-        f"no fused launch; one values plan, the head's: block {block}, {head[0]['blocks']} blocks); plan "
-        f"cache {pc['hits']} hits / {pc['misses']} miss; no plain version ran")
-    graph = serve_graph_phase(params, cfg, prompts, rt, eager, tag=f"{tag} graph")
+        f"prefill groups {groups}; decode caches {run['cache_bytes'] / 1e9:.4f} GB {run['cache_dtypes']}; peak "
+        f"memory {eager['peak_mem_gb']:.2f} GB; 0 host syncs inside decode chunks")
+    ffn = path_launches(cfg, 1)["tensordash_matmul_fused"]
+    log(f"{tag}: kernel launches {launches} == path's ({ffn} fused gates, {ffn} emitted-mask plans and "
+        f"{ffn + 1} planned products (w_down and the LM head) a model call, {calls} calls; one values plan, "
+        f"the head's: block {block}, {head[0]['blocks']} blocks); plan cache {pc['hits']} hits / "
+        f"{pc['misses']} miss; no plain version ran")
+    graph = serve_graph_phase(params, cfg, prompts, rt, eager, tag=f"{tag} graph", max_len=max_len)
     per_step = {k: v / CHUNK for k, v in by_wrapper(graph["capture_launches"]).items()}
     log(f"{tag}: device launches per decode step: {graph['replay_device_launches_all'] / CHUNK:.0f} "
         f"(one profiled replay / {CHUNK}), of them the port's kernels {per_step}; decode ms per step "
@@ -1416,12 +1586,161 @@ def ssm_serve_phase(arch: str, tag: str):
         f"{bound_ms:.4f}); tokens/s eager {eager['tok_per_s']:.2f}, graph {graph['tok_per_s']:.2f}; peak "
         f"memory {max(eager['peak_mem_gb'], graph['peak_mem_gb']):.2f} GB")
     ref_l2, top1 = reference_phase(params, cfg, prompts, tag=tag.replace("serve", "reference"))
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
     eager.update(graph=graph, reference_rel_l2=ref_l2, reference_top1=top1,
                  launches_per_decode_step_graph=per_step)
+    if then is not None:
+        eager.update(then(params, cfg, eager, prompts, rt))
+    del params
+    free()
     return eager
+
+
+def decode_logits(params, cfg, prompt, tokens, rt, max_len: int):
+    """One request's logits along ``tokens`` (its greedy tokens), decoded as
+    the engine decodes: the prompt's prefill (the first token's logits),
+    its caches grown to ``max_len`` rows, then ``tokens[:-1]`` fed back one
+    decode step each at a per-row position.  ``[len(tokens), V]`` fp32."""
+    import torch
+    from repro_torch.models import model as M
+
+    toks = torch.as_tensor(prompt, device=rt.device)[None]
+    with torch.inference_mode(), rt.use():
+        first, caches = M.prefill(params, cfg, {"tokens": toks})
+        caches = rt.grow_caches(cfg, caches, 1, max_len)
+        out, pos = [first[0, -1].float()], torch.tensor([toks.shape[1]], device=rt.device)
+        for t in tokens[:-1]:
+            logits, caches = M.decode_step(params, cfg, caches, {"tokens": torch.tensor([[t]], device=rt.device)},
+                                           pos)
+            out.append(logits[0, -1].float())
+            pos += 1
+    return torch.stack(out)
+
+
+def row_rel_l2(got, want) -> list:
+    """Relative L2 of each row of ``got`` against the same row of ``want``."""
+    import torch
+
+    return (torch.linalg.vector_norm(got - want, dim=-1) / torch.linalg.vector_norm(want, dim=-1)).tolist()
+
+
+def gemma2_long_request(params, cfg, summary, prompts, rt) -> dict:
+    """One LONG_PROMPT-token request and LONG_NEW new tokens through an
+    engine of ``LONG_PROMPT + LONG_NEW`` cache rows (the decode chunk as one
+    CUDA graph): prefill runs 5 query chunks, and every local layer masks
+    keys more than ``sliding_window`` positions back at every decode step.
+    Its decode logits (:func:`decode_logits`, along the engine's greedy
+    tokens, which they must give back) are held against a teacher-forced
+    ``M.forward`` over prompt + tokens on the card (``dense`` backend: one
+    unchunked pass) within ``REF_REL_L2`` per position; top-1 agreement is
+    reported.  Logs the cache GB, the prefill and decode times and the peak
+    memory."""
+    import numpy as np
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.models import model as M
+    from repro_torch.runtime import PlanCache
+    from repro_torch.serve.engine import ServeEngine
+
+    max_len = LONG_PROMPT + LONG_NEW
+    if not (cfg.local_global_alternate and LONG_PROMPT - cfg.sliding_window >= 1024 and
+            LONG_PROMPT % cfg.q_chunk == 0 and LONG_PROMPT // cfg.q_chunk > 1):
+        raise AssertionError("gemma2 long: the prompt must run chunked prefill and reach past the window")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=LONG_PROMPT)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(params, cfg, slots=1, chunk=CHUNK, max_len=max_len,
+                      rt=rt.replace(plan_cache=PlanCache()), cuda_graph=True)
+    cache_gb = sum(t.numel() * t.element_size() for c in eng.caches["layers"] for t in c if t is not None) / 1e9
+    eng.submit(prompt, max_new=LONG_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()  # admission: the 5120-token prefill, then the eager warm-up chunk
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tokens = eng.run()[0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    st = eng.stats()
+    del eng
+    free()
+    if len(tokens) != LONG_NEW or st["decode_graph_captures"] != 1:
+        raise AssertionError(f"gemma2 long: {len(tokens)} tokens, {st['decode_graph_captures']} captures")
+    got = decode_logits(params, cfg, prompt, tokens, rt, max_len)
+    decode_top1 = int((got.argmax(-1).cpu() == torch.tensor(tokens)).sum())
+    if decode_top1 != LONG_NEW:
+        raise AssertionError(f"gemma2 long: decode_logits gives back {decode_top1}/{LONG_NEW} of the engine's tokens")
+    seq = torch.as_tensor(np.concatenate([prompt, tokens[:-1]]), device="cuda")[None]
+    with torch.inference_mode(), rtm.Runtime(backend="dense", device="cuda").use():
+        want = M.forward(params, cfg, {"tokens": seq})[0, LONG_PROMPT - 1:].float()
+    rel = row_rel_l2(got, want)
+    top1 = int((want.argmax(-1) == got.argmax(-1)).sum())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {"prompt": LONG_PROMPT, "new": LONG_NEW, "max_len": max_len, "cache_gb": cache_gb,
+           "prefill_and_warmup_s": t1 - t0, "rest_s": t2 - t1, "steps": st["steps_run"],
+           "rel_l2_per_position": rel, "worst_rel_l2": max(rel), "top1_vs_forward": top1, "peak_mem_gb": peak}
+    log(f"gemma2 long: {LONG_PROMPT}-token prompt + {LONG_NEW} new tokens, max_len {max_len}, decode caches "
+        f"{cache_gb:.3f} GB (bf16, 1 slot); admission (prefill, {LONG_PROMPT // cfg.q_chunk} query chunks) and the "
+        f"warm-up chunk {t1 - t0:.3f} s, the rest {t2 - t1:.3f} s; captured once; decode logits against a "
+        f"teacher-forced forward over {seq.shape[1]} tokens (dense backend, local layers windowed at "
+        f"{cfg.sliding_window}): worst relative L2 {max(rel):.3e} (bound {REF_REL_L2:.3e}), per position "
+        f"{[round(r, 5) for r in rel]}; top-1 agreement {top1}/{LONG_NEW}; peak memory {peak:.2f} GB")
+    if max(rel) > REF_REL_L2:
+        raise AssertionError(f"gemma2 long: decode against forward relative L2 {max(rel)} > {REF_REL_L2}")
+    return {"long_request": res}
+
+
+def kv_int8_checks(params, cfg8, summary, prompts, rt) -> dict:
+    """The int8 KV cache against the bf16 one on the same weights and
+    requests: the served caches hold int8 K/V and fp32 scales at
+    ``(128 + 4) / 256`` of the bf16 cache's bytes; the bf16-cache engine's
+    decode ms per step under the graph at the same ``max_len``, beside the
+    int8 one's; then each request's decode logits along the int8 run's
+    greedy tokens (:func:`decode_logits`) with either cache, within
+    ``KV_REL_L2`` relative L2 per step, top-1 agreement reported."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg16 = dataclasses.replace(cfg8, kv_cache_quant=False)
+    layer = M.init_cache(cfg8, SLOTS, KV_MAX_LEN, device="meta")["layers"][0]
+    nbytes = lambda c: sum(t.numel() * t.element_size() for t in tree_leaves(c))
+    bytes8, bytes16 = (nbytes(M.init_cache(c, SLOTS, KV_MAX_LEN, device="meta")) for c in (cfg8, cfg16))
+    want_ratio = (cfg8.resolved_head_dim + 4) / (2 * cfg8.resolved_head_dim)
+    served = (summary["cache_dtypes"], summary["graph"]["cache_dtypes"])
+    if not (layer.k.dtype == torch.int8 and layer.k_scale.dtype == torch.float32 and
+            served == (["float32", "int8"], ["float32", "int8"]) and summary["cache_bytes"] == bytes8 and
+            abs(bytes8 / bytes16 - want_ratio) < 1e-12):
+        raise AssertionError(f"kv-int8: cache dtypes {served}, bytes {summary['cache_bytes']} / {bytes8} / {bytes16}")
+    bf16 = drive_serve(params, cfg16, prompts, rt, cuda_graph=True, max_len=KV_MAX_LEN)
+    ms16 = bf16["decode_s"]["replay"] / (bf16["chunks"]["replay"] * CHUNK) * 1e3
+    ms8 = summary["graph"]["ms_per_decode_step_replayed"]
+    tokens = summary["graph"]["greedy_tokens"]
+    rel, top1, n, given = [], 0, 0, 0
+    for rid, p in enumerate(prompts):
+        got = decode_logits(params, cfg8, p, tokens[rid], rt, KV_MAX_LEN)
+        want = decode_logits(params, cfg16, p, tokens[rid], rt, KV_MAX_LEN)
+        # batch 1 here against the engine's 4 rows: other block rows, other
+        # bf16 roundings, so a near-tie may pick another token
+        given += int((got.argmax(-1).cpu() == torch.tensor(tokens[rid])).sum())
+        rel += row_rel_l2(got[1:], want[1:])  # the decode steps (row 0 is the prefill's, cache-free)
+        top1 += int((got[1:].argmax(-1) == want[1:].argmax(-1)).sum())
+        n += got.shape[0] - 1
+    res = {"cache_bytes_int8": bytes8, "cache_bytes_bf16": bytes16, "cache_ratio": bytes8 / bytes16,
+           "ms_per_decode_step_int8": ms8, "ms_per_decode_step_bf16": ms16,
+           "bf16_greedy_tokens_equal": bf16["out"] == tokens, "decode_rel_l2_worst": max(rel),
+           "decode_rel_l2_mean": sum(rel) / len(rel), "decode_top1": top1, "decode_steps": n,
+           "engine_tokens_given_back": given}
+    log(f"kv-int8: caches int8 K/V + fp32 scales, {bytes8 / 1e9:.4f} GB against {bytes16 / 1e9:.4f} GB in bf16 "
+        f"({bytes8 / bytes16:.4f}x, (128 + 4) / 256 = {want_ratio:.4f}) at {SLOTS} slots x {KV_MAX_LEN} rows; "
+        f"graph decode {ms8:.3f} ms per step against {ms16:.3f} ms with the bf16 cache (the whole cache is "
+        f"dequantized every step, as JAX does); greedy tokens {'equal' if res['bf16_greedy_tokens_equal'] else 'differ'}")
+    log(f"kv-int8: decode logits int8 against bf16 cache along the int8 run's tokens, {n} steps: relative L2 "
+        f"worst {max(rel):.3e}, mean {res['decode_rel_l2_mean']:.3e} (bound {KV_REL_L2}); top-1 agreement {top1}/{n}; "
+        f"batch-1 int8 decode gives back {given}/{n + len(prompts)} of the 4-slot engine's tokens")
+    if max(rel) > KV_REL_L2:
+        raise AssertionError(f"kv-int8: int8 against bf16 cache relative L2 {max(rel)} > {KV_REL_L2}")
+    return {"kv_int8": res}
 
 
 # ---------------------------------------------------------------------------
@@ -1705,7 +2024,9 @@ def train_kernel_phase(bw: float):
     cotangents planned by value, and a launch count: one device launch per
     wrapper call of the fp32-in, bf16-out instantiation."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ref, tensordash_spmm as T
+    from repro_torch.runtime.plan import _fit_block
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1797,6 +2118,18 @@ def train_kernel_phase(bw: float):
              T.transpose_plan_csr(wnnz, widx))
     mask_rows.append(mask_row("LM head cotangent", gt, 128, 128, bw, main=True, stage="train"))
     del lm_head, h, dlogits, gt
+    # the mamba2 head's (SSM train phase): vocab 50280 at block 120, the
+    # weight gradient's K blocks 120 wide
+    c = get_config(SSM_ARCH)
+    sv, sd, sb = c.vocab_size, c.d_model, _fit_block(128, c.vocab_size)
+    gt = rand(t, sv, scale=1e-4).T
+    h = rand(t, sd).to(bf16)
+    bwd_case("ssm LM head da = g'.T-view @ h", gt, h.float(), sb, 128, 512, T.plan_blocks_csr(gt, sb, 128))
+    lm_head = rand(sd, sv, scale=sd**-0.5).to(bf16)
+    wnnz, widx = T.plan_blocks(lm_head.T, sb, 512)
+    bwd_case(f"ssm LM head db = lm_head @ g' (bk {sb})", lm_head.T.float().T, gt, 512, sb, 128,
+             T.transpose_plan_csr(wnnz, widx))
+    del lm_head, h, gt
     launch = count_launches(calls)
     torch.cuda.empty_cache()
     return rows + mask_rows, launch
@@ -2005,20 +2338,25 @@ def planner_phase(bw: float):
         he = torch.clamp_min(torch.randn(cap, 1536, generator=gen, device=dev), 0)
         he[cap - pad:] = 0
         values_case(label, he.to(torch.bfloat16), cap, 512, "moe prefill" if cap > 1 else "moe decode")
-    # the SSM and hybrid LM heads at their fitted block rows (120 x 512 for
-    # mamba2's vocab 50280), the mamba2 head also with 40% of its blocks zero
-    for arch in (SSM_ARCH, HYBRID_ARCH):
+    # the SSM, hybrid, starcoder2 and gemma2 LM heads at their fitted blocks
+    # (120 x 512 for mamba2's vocab 50280, 128 x 384 for gemma2's d_model
+    # 2304), the mamba2 head also with 40% of its blocks zero
+    for arch in (SSM_ARCH, HYBRID_ARCH, STARCODER_ARCH, GEMMA_ARCH):
         c = get_config(arch)
         hv, hd = c.vocab_size, c.d_model
-        bm = _fit_block(128, hv)
+        bm, bk = _fit_block(128, hv), _fit_block(512, hd)
         w = torch.randn(hv, hd, generator=gen, device=dev) / hd**0.5
         as_view = lambda w: w.to(torch.bfloat16).T.contiguous().T  # lm_head.T of the [d, V] head
-        values_case(f"{c.family} LM head weight lm_head.T", as_view(w), bm, 512, f"{c.family} decode")
+        values_case(f"{tag_of(c)} LM head weight lm_head.T", as_view(w), bm, bk, f"{tag_of(c)} decode")
         if c.family == "ssm":
-            keep = torch.rand(hv // bm, hd // 512, generator=gen, device=dev) >= 0.4
-            w = (w.reshape(hv // bm, bm, hd // 512, 512) * keep[:, None, :, None]).reshape(hv, hd)
-            values_case("ssm LM head weight, 40% zero", as_view(w), bm, 512, "ssm decode")
+            keep = torch.rand(hv // bm, hd // bk, generator=gen, device=dev) >= 0.4
+            w = (w.reshape(hv // bm, bm, hd // bk, bk) * keep[:, None, :, None]).reshape(hv, hd)
+            values_case("ssm LM head weight, 40% zero", as_view(w), bm, bk, "ssm decode")
         del w
+    # gemma2-ReLU's decode gate mask (72 blocks of 128), coarsened to w_down's bk 512
+    c = get_config(GEMMA_ARCH)
+    emitted_case("gemma2 gate mask, coarsen 4", (torch.rand(1, c.d_ff // 128, generator=gen, device=dev) < 0.4)
+                 .to(torch.int8), 4, "gemma2 decode")
     # the weight-gradient products' transposed forward plans
     transpose_case("gate db (dense gate plan)", *T.dense_plan(t // 128, d // 512, dev), "train")
     transpose_case("w_down db (gate mask plan)", *T.plan_from_mask(gmask), "train")
@@ -2221,6 +2559,177 @@ def train_phase():
                                        "top": [(k, c / 2, ms / 2) for k, c, ms in top]},
         "dense_steps": dense,
     }
+
+
+def spec_numel(specs) -> int:
+    """Parameters a spec tree declares."""
+    import math
+
+    from repro_torch.models.common import Spec
+
+    if isinstance(specs, Spec):
+        return math.prod(specs.shape)
+    return sum(spec_numel(v) for v in (specs.values() if isinstance(specs, dict) else specs))
+
+
+def train_cut(cfg):
+    """The deepest cut of ``cfg`` that trains within TRAIN_BUDGET_GB at
+    TRAIN_BYTES_PER_PARAM, reckoned from its tensors before the run: whole
+    groups of ``attn_every`` layers for a hybrid config, and ``cfg`` itself
+    where the whole model fits."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    step = cfg.attn_every if cfg.family == "hybrid" else 1
+    for layers in range(cfg.num_layers, 0, -step):
+        cut = dataclasses.replace(cfg, num_layers=layers)
+        n = spec_numel(M.param_specs(cut))
+        if n * TRAIN_BYTES_PER_PARAM <= TRAIN_BUDGET_GB * 1e9:
+            return cut, n
+    raise AssertionError(f"{cfg.name}: not even {step} layers train within {TRAIN_BUDGET_GB} GB")
+
+
+def ssm_train_phase(arch: str, tag: str):
+    """Train ``arch`` (an SSM or hybrid config) through ``make_train_step``
+    on the ``cuda`` backend, at the deepest cut :func:`train_cut` reckons to
+    fit, on TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_MICRO microbatches (256
+    tokens: two SSD chunks of 128, so ``ssd_chunked`` runs its chunked path
+    at full width): taps refused as in JAX; step 1's loss and gradient
+    norm against the ``dense`` backend on the card (the worst leaf's relative
+    L2 reported); TRAIN_STEPS timed steps whose launches and plan-cache
+    counts equal the path's (the LM head is the one planned product: its
+    forward and two backward products a microbatch, its cotangent planned by
+    value a microbatch, its weight planned by value once a step after the
+    update and that plan transposed once), every loss finite, no plain
+    version run; then one chunked prefill of a TRAIN_SEQ-token prompt, its
+    logits ``cuda`` against ``reference``."""
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import OptConfig, global_norm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as S
+
+    full = get_config(arch)
+    cfg, n = train_cut(full)
+    mb = TRAIN_MICRO
+    if TRAIN_SEQ % cfg.ssm_chunk or TRAIN_SEQ // cfg.ssm_chunk < 2:
+        raise AssertionError(f"{tag}: {TRAIN_SEQ} tokens do not run ssd_chunked's chunked path")
+    free()
+    t0 = time.perf_counter()
+    params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda")
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    opt_cfg = OptConfig(lr=1e-4, warmup_steps=1)
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+    with rt.use():
+        opt = S.init_train_state(cfg, params)
+        step = S.make_train_step(cfg, opt_cfg, microbatches=mb)
+        try:
+            S.make_train_step(cfg, opt_cfg, microbatches=mb, sparsity_taps=True)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{tag}: sparsity taps must be refused for family {cfg.family!r}")
+    torch.cuda.synchronize()
+    unit = "groups" if cfg.family == "hybrid" else "layers"
+    per = cfg.attn_every if cfg.family == "hybrid" else 1
+    log(f"{tag}: {arch} at {cfg.num_layers // per} of {full.num_layers // per} {unit} ({cfg.num_layers} layers; "
+        f"{n / 1e9:.3f} B parameters in the tensors x {TRAIN_BYTES_PER_PARAM} B = "
+        f"{n * TRAIN_BYTES_PER_PARAM / 1e9:.1f} GB reckoned against {TRAIN_BUDGET_GB} GB), remat {cfg.remat}, "
+        f"bf16 params and fp32 AdamW moments on the card in {time.perf_counter() - t0:.1f} s; batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {mb} microbatches ({TRAIN_SEQ // cfg.ssm_chunk} SSD chunks of "
+        f"{cfg.ssm_chunk}); taps refused")
+
+    loss_fn, batch0 = S.make_loss_fn(cfg), data.batch_at(0)
+    got = {}
+    for backend in ("cuda", "dense"):
+        with rtm.Runtime(backend=backend, device="cuda").use():
+            loss, grads, _ = S.accumulate_grads(loss_fn, cfg, params, batch0, microbatches=mb)
+        got[backend] = (float(loss), grads, float(global_norm(grads)))
+    (lc, gc_, nc), (ld, gd, nd) = got["cuda"], got["dense"]
+    loss_rel, norm_rel = abs(lc - ld) / abs(ld), abs(nc - nd) / abs(nd)
+    names = [f"leaf{i}:{tuple(p.shape)}" for i, p in enumerate(tree_leaves(params))]
+    rels = {k: _rel_l2(a, b) for k, a, b in zip(names, gc_, gd)}
+    worst = max(rels, key=rels.get)
+    del got, gc_, gd
+    free()
+    log(f"{tag}: step 1 on cuda vs dense: loss {lc:.6f} vs {ld:.6f} (relative {loss_rel:.3e}, bound "
+        f"{LOSS_REL:.3e}); gradient norm {nc:.6f} vs {nd:.6f} (relative {norm_rel:.3e}, bound "
+        f"{GRAD_REL_L2:.3e}); worst leaf relative L2 {rels[worst]:.3e} at {worst}, over {len(rels)} leaves")
+    if not (loss_rel <= LOSS_REL and norm_rel <= GRAD_REL_L2):
+        raise AssertionError(f"{tag}: cuda disagrees with dense (loss {loss_rel}, grad norm {norm_rel})")
+
+    want = dict.fromkeys(T.launch_counts(), 0)
+    want.update({"tensordash_matmul_planned": 3 * mb, "planner[values]": mb + 1, "planner[transpose]": 1})
+    steps, prev = [], rt.plan_cache.stats()
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_versions(tag), rt.use():
+        for i in range(TRAIN_STEPS):
+            T.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, data.batch_at(i))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, pc = T.launch_counts(), rt.plan_cache.stats()
+            hits, misses = pc["hits"] - prev["hits"], pc["misses"] - prev["misses"]
+            prev = pc
+            steps.append({"step": i + 1, "ms": wall * 1e3, "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+                          "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "launches": launches,
+                          "plan_cache_hits": hits, "plan_cache_misses": misses})
+            log(f"{tag}: step {i + 1}: {wall * 1e3:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / wall:.1f} tok/s, loss "
+                f"{float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}, plan cache +{hits} hits / "
+                f"+{misses} misses, launches {by_wrapper(launches)}")
+            if launches != want:
+                raise AssertionError(f"{tag} step {i + 1}: launches {launches} != path's {want}")
+            # the head's weight plan (replanned after the update) and its
+            # transpose miss on the first microbatch and hit on the others;
+            # each microbatch's cotangent plan misses
+            if (hits, misses) != (2 * (mb - 1), 2 + mb):
+                raise AssertionError(f"{tag} step {i + 1}: plan cache +{hits}/+{misses}, path implies "
+                                     f"+{2 * (mb - 1)}/+{2 + mb}")
+            if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+                raise AssertionError(f"{tag} step {i + 1}: non-finite loss or gradient norm")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del opt, step, m
+    free()
+    log(f"{tag}: {TRAIN_STEPS} steps, launches per step {by_wrapper(want)} == path's (LM head planned "
+        f"3 x {mb}, its cotangent by value {mb} + its weight 1, one transpose); no plain version ran; peak "
+        f"memory {peak:.2f} GB ({peak / (n * 1e-9):.1f} B a parameter)")
+
+    # one chunked prefill over TRAIN_SEQ tokens, cuda against reference
+    prompt = data.batch_at(TRAIN_STEPS)["tokens"][:1]
+    logits, ms = {}, {}
+    with torch.inference_mode():
+        for backend in ("cuda", "reference"):
+            with rtm.Runtime(backend=backend, device="cuda").use():
+                run = lambda: M.prefill(params, cfg, {"tokens": prompt})[0][0, -1].float()
+                logits[backend] = run()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                ms[backend] = (time.perf_counter() - t0) * 1e3
+    ref_l2 = _rel_l2(logits["cuda"], logits["reference"])
+    finite = bool(torch.isfinite(logits["cuda"]).all())
+    log(f"{tag}: chunked prefill of a {TRAIN_SEQ}-token prompt ({TRAIN_SEQ // cfg.ssm_chunk} chunks): "
+        f"{ms['cuda']:.1f} ms on cuda, {ms['reference']:.1f} ms on reference; last-token logits relative L2 "
+        f"{ref_l2:.3e} (bound {REF_REL_L2:.3e}), top-1 "
+        f"{'equal' if int(logits['cuda'].argmax()) == int(logits['reference'].argmax()) else 'differs'}")
+    if not finite or ref_l2 > REF_REL_L2:
+        raise AssertionError(f"{tag}: prefill cuda vs reference relative L2 {ref_l2}, finite {finite}")
+    del params
+    free()
+    return {"layers": cfg.num_layers, "of_layers": full.num_layers, "params_b": n / 1e9,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": mb, "remat": cfg.remat, "steps": steps,
+            "peak_mem_gb": peak, "launches_per_step": want, "loss_rel_vs_dense": loss_rel,
+            "grad_norm_rel_vs_dense": norm_rel, "grad_rel_l2_vs_dense": rels, "prefill_ms": ms,
+            "prefill_rel_l2": ref_l2}
 
 
 # ---------------------------------------------------------------------------
@@ -2558,7 +3067,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    import dataclasses
+
     import torch
+    from repro_torch.configs import get_config
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA card visible", file=sys.stderr)
@@ -2572,6 +3084,12 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"memory bound at {bw / 1e12:.2f} TB/s")
     from repro_torch.kernels import _build
+
+    if sys.argv[1:2] == ["--profiler-stress"]:
+        _build.library()
+        profiler_stress(int(sys.argv[2]))
+        print(card)
+        return 0
 
     _build.library()
     log(f"build: nvcc sm_90a kernels ready in {_build.build_seconds:.1f} s")
@@ -2594,9 +3112,18 @@ def main() -> int:
         "the decode graph")
     dsv2 = moe_serve_phase(DSV2_ARCH, DSV2_LAYERS, tag="dsv2 serve")
     log(f"ssm serve: {SSM_ARCH} as registered, whole, eager and through the decode graph")
-    ssm = ssm_serve_phase(SSM_ARCH, "ssm serve")
+    ssm = whole_serve_phase(get_config(SSM_ARCH), "ssm serve")
     log(f"hybrid serve: {HYBRID_ARCH} as registered, whole, eager and through the decode graph")
-    hybrid = ssm_serve_phase(HYBRID_ARCH, "hybrid serve")
+    hybrid = whole_serve_phase(get_config(HYBRID_ARCH), "hybrid serve")
+    log(f"starcoder2 serve: {STARCODER_ARCH} as registered, whole, eager and through the decode graph")
+    starcoder = whole_serve_phase(get_config(STARCODER_ARCH), "starcoder2 serve")
+    log(f"gemma2 serve: {GEMMA_ARCH} relu, whole, eager and through the decode graph, then a "
+        f"{LONG_PROMPT}-token request")
+    gemma = whole_serve_phase(dataclasses.replace(get_config(GEMMA_ARCH), activation="relu"), "gemma2 serve",
+                              then=gemma2_long_request)
+    log(f"kv-int8 serve: deepseek-7b relu with the int8 KV cache, {KV_MAX_LEN} rows a slot")
+    kv8 = whole_serve_phase(dataclasses.replace(get_config("deepseek-7b"), activation="relu", kv_cache_quant=True),
+                            "kv-int8 serve", max_len=KV_MAX_LEN, then=kv_int8_checks)
     log("launch serve: repro_torch.launch.serve.main at full width with a poisoned slot")
     launch_serve = launch_serve_phase()
     log(f"train kernels: the backward products at {TRAIN_TOKENS} tokens, fp32 operands, bf16 output")
@@ -2604,6 +3131,10 @@ def main() -> int:
     log("planner: every mode at the path's shapes against the plain chain on the card")
     planner_rows, planner_launch = planner_phase(bw)
     train = train_phase()
+    log(f"ssm train: {SSM_ARCH} through make_train_step on cuda, {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    ssm_train = ssm_train_phase(SSM_ARCH, "ssm train")
+    log(f"hybrid train: {HYBRID_ARCH} through make_train_step on cuda, {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    hybrid_train = ssm_train_phase(HYBRID_ARCH, "hybrid train")
     log(f"launch: repro_torch.launch.train.main on qwen3-4b cut to {LAUNCH_LAYERS} layers: checkpoint, "
         "resume, dynamic sparse training")
     launch = launch_train_phase()
@@ -2624,21 +3155,23 @@ def main() -> int:
     # the MoE and MLA serve runs (eager and graph)
     moe_runs = grouped({k: moe["launches"][k] + moe["graph"]["device_launches"][k] for k in moe["launches"]})
     dsv2_runs = grouped({k: dsv2["launches"][k] + dsv2["graph"]["device_launches"][k] for k in dsv2["launches"]})
-    ssm_runs = grouped({k: ssm["launches"][k] + ssm["graph"]["device_launches"][k] for k in ssm["launches"]})
-    hybrid_runs = grouped({k: hybrid["launches"][k] + hybrid["graph"]["device_launches"][k]
-                           for k in hybrid["launches"]})
+    whole_runs = {tag: grouped({k: r["launches"][k] + r["graph"]["device_launches"][k] for k in r["launches"]})
+                  for tag, r in (("ssm", ssm), ("hybrid", hybrid), ("starcoder2", starcoder), ("gemma2", gemma),
+                                 ("kv_int8", kv8))}
     serve_counts = dict(serve["launches"])
     for extra in (serve["graph"]["device_launches"], *(f["device_launches"] for f in serve["faults"]),
                   launch_serve["launches"], moe["launches"], moe["graph"]["device_launches"],
-                  dsv2["launches"], dsv2["graph"]["device_launches"], ssm["launches"],
-                  ssm["graph"]["device_launches"], hybrid["launches"], hybrid["graph"]["device_launches"]):
+                  dsv2["launches"], dsv2["graph"]["device_launches"],
+                  *(c for r in (ssm, hybrid, starcoder, gemma, kv8) for c in (r["launches"],
+                                                                              r["graph"]["device_launches"]))):
         for k, v in extra.items():
             serve_counts[k] += v
     serve_runs = grouped(serve_counts)
     pinned = grouped(auto["pinned_v2"]["launches"])
     for fam in ("tensordash_matmul_planned[v2/v1]", "tensordash_matmul_fused[v2/v1]"):
         serve_runs[fam] = pinned[fam]  # the v2/v1 kernels serve under the v2-pinned DB
-    train_runs = grouped({k: sum(st["launches"][k] for st in train["steps"]) for k in train["launches_per_step"]})
+    train_runs = grouped({k: sum(st["launches"][k] for run in (train, ssm_train, hybrid_train) for st in run["steps"])
+                          for k in train["launches_per_step"]})
     per_train_step = grouped(train["launches_per_step"])
     launch_runs = grouped({k: launch["a"]["launches"][k] + launch["c"]["launches"][k]
                            for k in launch["a"]["launches"]})
@@ -2655,9 +3188,11 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
             "launches_serve": serve_runs[kname], "launches_moe_serve": moe_runs[kname],
-            "launches_dsv2_serve": dsv2_runs[kname], "launches_ssm_serve": ssm_runs[kname],
-            "launches_hybrid_serve": hybrid_runs[kname],
+            "launches_dsv2_serve": dsv2_runs[kname],
+            **{f"launches_{tag}_serve": runs[kname] for tag, runs in whole_runs.items()},
             "launches_per_train_step": per_train_step[kname],
+            "launches_per_ssm_train_step": grouped(ssm_train["launches_per_step"])[kname],
+            "launches_per_hybrid_train_step": grouped(hybrid_train["launches_per_step"])[kname],
             "launches_launch_train": launch_runs[kname],
             "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
         })
@@ -2670,7 +3205,8 @@ def main() -> int:
          "train_launch_check": train_launch, "planner_cases": planner_rows,
          "planner_launch_check": planner_launch, "train": train, "launch_train": launch,
          "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2, "ssm_serve": ssm,
-         "hybrid_serve": hybrid,
+         "hybrid_serve": hybrid, "starcoder2_serve": starcoder, "gemma2_serve": gemma, "kv_int8_serve": kv8,
+         "ssm_train": ssm_train, "hybrid_train": hybrid_train,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

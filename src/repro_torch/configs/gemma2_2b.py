@@ -1,0 +1,23 @@
+"""Gemma-2 2B: local/global alternating attention, logit softcaps, GeGLU,
+sandwich norms [arXiv:2408.00118; hf]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="gemma2-2b",
+    family="dense",
+    num_layers=26,
+    d_model=2304,
+    num_heads=8,
+    num_kv_heads=4,
+    head_dim=256,
+    d_ff=9216,
+    vocab_size=256000,
+    activation="gelu",
+    attn_softcap=50.0,
+    final_softcap=30.0,
+    sliding_window=4096,
+    local_global_alternate=True,
+    post_norms=True,
+    embed_scale=True,
+    rope_theta=1e4,
+))

@@ -6,6 +6,8 @@ CUDA graph.
     python -m repro_torch.launch.profile_decode --arch deepseek-v2-236b --activation relu --layers 6
     python -m repro_torch.launch.profile_decode --arch mamba2-780m
     python -m repro_torch.launch.profile_decode --arch zamba2-2.7b
+    python -m repro_torch.launch.profile_decode --arch starcoder2-3b
+    python -m repro_torch.launch.profile_decode --arch gemma2-2b --activation relu
 
 Builds bf16 weights from seed 0 once, then, one after the other, two
 :class:`~repro_torch.serve.engine.ServeEngine`\\ s on the ``cuda`` backend

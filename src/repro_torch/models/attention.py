@@ -1,12 +1,18 @@
-"""GQA attention with RoPE, qk-norm and logit softcap, a prefill path that
-returns the KV cache, and a decode path over a pre-filled cache with a
-per-row position (port of ``repro/models/attention.py``).
+"""GQA attention with RoPE, qk-norm, logit softcap and sliding windows, a
+prefill path that returns the KV cache, and a decode path over a pre-filled
+cache with a per-row position (port of ``repro/models/attention.py``).
 
 Scores and softmax are plain tensor ops in the JAX order: fp32 scores, the
 ``-1e30`` mask, softmax, then a cast to the query dtype.  The KV cache is
-bf16 whatever the parameter dtype.  Decode writes each row's new K/V into
-the cache tensors in place (the JAX version returns updated copies).
-Sliding windows, M-RoPE and the int8 KV cache are not ported yet.
+bf16 whatever the parameter dtype or, with ``kv_quant``, int8 with an fp32
+scale per (token, head).  Decode writes each row's new K/V (and scales)
+into the cache tensors in place (the JAX version returns updated copies).
+
+A local layer (``is_global=False`` under a ``sliding_window``) masks the
+keys at or before ``q_pos - window``; a global layer takes no window.  The
+port's layers run in a Python loop, so the flag is a per-layer Python bool,
+where JAX scans it as data (``window = 2**30`` on global layers): the two
+give the same mask.  M-RoPE is not ported yet.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ class AttnConfig:
     rope_theta: float = 1e4
     qk_norm: bool = False
     attn_softcap: float | None = None
+    sliding_window: int | None = None
     q_chunk: int = 1024
+    kv_quant: bool = False  # int8 KV cache with per-(token, head) fp32 scales
 
 
 def attention_specs(cfg: AttnConfig) -> dict:
@@ -45,8 +53,22 @@ def attention_specs(cfg: AttnConfig) -> dict:
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # [B, S, KVH, D] bf16
-    v: torch.Tensor  # [B, S, KVH, D] bf16
+    k: torch.Tensor  # [B, S, KVH, D] bf16, or int8 when quantized
+    v: torch.Tensor  # [B, S, KVH, D]
+    k_scale: torch.Tensor | None = None  # [B, S, KVH, 1] fp32 per-row scales
+    v_scale: torch.Tensor | None = None
+
+
+def _kv_quant_rows(x):
+    """Per-(token, head) symmetric int8: ``[.., D] -> (int8, fp32 scale)``,
+    rounding half to even as ``jnp.round`` does."""
+    x = x.float()
+    s = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True), 1e-12) / 127.0
+    return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
+
+
+def _kv_dequant(q, s, dtype=torch.bfloat16):
+    return (q.float() * s).to(dtype)
 
 
 def rope_tables(cfg: AttnConfig, positions):
@@ -70,9 +92,10 @@ def _project_qkv(params, cfg: AttnConfig, x, rope):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos):
+def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, window=None):
     """q [B,T,H,D]; k,v [B,S,KVH,D]; q_pos [T] or [B,T]; k_pos [S].
-    A 2-D ``q_pos`` gives every batch row its own causal frontier.
+    A 2-D ``q_pos`` gives every batch row its own causal frontier; a
+    ``window`` masks keys at or before ``q_pos - window``.
     Returns [B,T,H,D] in the promoted dtype of the probabilities and ``v``."""
     b, t, h, hd = q.shape
     kh = k.shape[2]
@@ -80,7 +103,7 @@ def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos):
     qg = q.reshape(b, t, kh, g, hd)
     scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * hd ** -0.5
     scores = softcap(scores, cfg.attn_softcap)
-    mask = causal_mask(q_pos, k_pos)  # [T, S] or [B, T, S]
+    mask = causal_mask(q_pos, k_pos, window)  # [T, S] or [B, T, S]
     if mask.ndim == 2:
         mask = mask[None]
     scores = torch.where(mask[:, None, None], scores, -1e30)
@@ -90,33 +113,49 @@ def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos):
     return out.reshape(b, t, h, hd)
 
 
-def attend_chunked(cfg: AttnConfig, q, k, v, q_pos, k_pos):
+def attend_chunked(cfg: AttnConfig, q, k, v, q_pos, k_pos, window=None):
     """Query-chunked attention: peak score memory B*H*chunk*S."""
     s = q.shape[1]
     c = cfg.q_chunk
     if s <= c or s % c != 0:
-        return _attend(cfg, q, k, v, q_pos, k_pos)
-    outs = [_attend(cfg, q[:, i : i + c], k, v, q_pos[i : i + c], k_pos) for i in range(0, s, c)]
+        return _attend(cfg, q, k, v, q_pos, k_pos, window)
+    outs = [_attend(cfg, q[:, i : i + c], k, v, q_pos[i : i + c], k_pos, window) for i in range(0, s, c)]
     return torch.cat(outs, dim=1)
 
 
-def attention_fwd(params, cfg: AttnConfig, x, positions, rope, *, return_cache: bool = False):
+def _window(cfg: AttnConfig, is_global: bool):
+    """The layer's sliding window: none on a global layer."""
+    return None if is_global else cfg.sliding_window
+
+
+def attention_fwd(params, cfg: AttnConfig, x, positions, rope, *, is_global: bool = True,
+                  return_cache: bool = False):
     """Training / prefill self-attention over positions ``[S]``;
-    ``rope = rope_tables(cfg, positions)``."""
+    ``rope = rope_tables(cfg, positions)``.  With ``kv_quant`` the returned
+    cache is int8 with fp32 scales."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, rope)
-    out = attend_chunked(cfg, q, k, v, positions, positions)
+    out = attend_chunked(cfg, q, k, v, positions, positions, _window(cfg, is_global))
     y = out.reshape(b, s, -1).to(x.dtype) @ params["wo"]
-    if return_cache:
-        return y, KVCache(k=k, v=v)
-    return y
+    if not return_cache:
+        return y
+    if cfg.kv_quant:
+        (kq, ks), (vq, vs) = _kv_quant_rows(k), _kv_quant_rows(v)
+        return y, KVCache(k=kq, v=vq, k_scale=ks, v_scale=vs)
+    return y, KVCache(k=k, v=v)
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cpu") -> KVCache:
+    """Zero cache: ``dtype`` K/V, or int8 K/V and fp32 ``[.., 1]`` scales
+    with ``kv_quant``."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+    zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    if cfg.kv_quant:
+        sshape = shape[:-1] + (1,)
+        return KVCache(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
+                       k_scale=zeros(sshape, torch.float32), v_scale=zeros(sshape, torch.float32))
+    return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype))
 
 
 def decode_positions(pos, b: int, device):
@@ -126,28 +165,36 @@ def decode_positions(pos, b: int, device):
     return pos.reshape(b, 1) if pos.ndim == 1 else pos.reshape(1)
 
 
-def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope):
+def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope, *, is_global: bool = True):
     """One-token decode.  ``x [B, 1, d]``; ``cache`` is filled up to ``pos``
-    (exclusive) and the new token's K/V is written in place at ``pos``.
-    ``pos`` is a scalar (every row at one position) or an int ``[B]``
-    tensor (each batch slot at its own position); ``rope =
-    rope_tables(cfg, decode_positions(pos, B, device))``.  Returns ``(y,
-    cache)``."""
+    (exclusive) and the new token's K/V is written in place at ``pos``
+    (with ``kv_quant``: its int8 rows and scales, then the whole cache is
+    dequantized to ``x``'s dtype for the step, as JAX does).  ``pos`` is a
+    scalar (every row at one position) or an int ``[B]`` tensor (each batch
+    slot at its own position); ``rope = rope_tables(cfg,
+    decode_positions(pos, B, device))``.  Returns ``(y, cache)``."""
     b = x.shape[0]
     s_max = cache.k.shape[1]
     pos = torch.as_tensor(pos, device=x.device)
-    per_row = pos.ndim == 1
+    rows = torch.arange(b, device=x.device) if pos.ndim == 1 else slice(None)
     positions = decode_positions(pos, b, x.device)
     q, k, v = _project_qkv(params, cfg, x, rope)
-    if per_row:
-        rows = torch.arange(b, device=x.device)
-        cache.k[rows, pos] = k[:, 0].to(cache.k.dtype)
-        cache.v[rows, pos] = v[:, 0].to(cache.v.dtype)
+
+    def write(full, new):
+        full[rows, pos] = new[:, 0].to(full.dtype)
+
+    if cfg.kv_quant:
+        (kq, ks), (vq, vs) = _kv_quant_rows(k), _kv_quant_rows(v)
+        for full, new in zip(cache, (kq, vq, ks, vs)):
+            write(full, new)
+        k_all = _kv_dequant(cache.k, cache.k_scale, x.dtype)
+        v_all = _kv_dequant(cache.v, cache.v_scale, x.dtype)
     else:
-        cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
-        cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
+        write(cache.k, k)
+        write(cache.v, v)
+        k_all, v_all = cache.k, cache.v
     k_pos = torch.arange(s_max, device=x.device)
-    out = _attend(cfg, q, cache.k, cache.v, positions, k_pos)
+    out = _attend(cfg, q, k_all, v_all, positions, k_pos, _window(cfg, is_global))
     dt = torch.promote_types(out.dtype, params["wo"].dtype)
     y = out.reshape(b, 1, -1).to(dt) @ params["wo"].to(dt)
     return y, cache

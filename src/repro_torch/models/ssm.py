@@ -4,7 +4,11 @@
 Chunked SSD: the sequence is split into chunks; within a chunk the
 semiseparable matrix is materialised, across chunks a small ``[H, P, N]``
 state is carried by a loop (the JAX version's ``lax.scan``).  The SSD math
-runs in fp32 whatever the activation dtype, as in the JAX version.
+runs in fp32 whatever the activation dtype, as in the JAX version.  The
+intra-chunk decay masks its exponent before ``exp`` where JAX masks the
+exponential after it: the same values, and a finite gradient where JAX's
+overflows to NaN (a chunk whose decay passes 88 nats, as the registered
+configs' 128-token chunks do at initialisation).
 
 The JAX package has no Pallas kernel here: every product is a plain ``@``,
 so the port's are plain torch too, under any runtime.
@@ -139,7 +143,11 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, *, chunk: int, init_state=None):
     # intra-chunk (diagonal blocks): L[i,j] = exp(cum_i - cum_j), i >= j
     li = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,Q,Q,H]
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    l_mat = torch.where(tri[None, None, :, :, None], torch.exp(li), 0.0)
+    # mask the exponent, not the exponential: above the diagonal li grows
+    # with the chunk's decay and exp overflows (past 88 in fp32), and the
+    # gradient of a masked inf is 0 * inf = NaN (JAX's where-after-exp
+    # gives NaN gradients there); the values are the same
+    l_mat = torch.exp(torch.where(tri[None, None, :, :, None], li, -torch.inf))
     cb = torch.einsum("bcin,bcjn->bcij", c_c, b_c)  # [B,nc,Q,Q]
     y_diag = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * l_mat, x_c)
 

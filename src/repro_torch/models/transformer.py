@@ -25,6 +25,13 @@ the MoE branch when its MLP has a ``router``, as in the JAX package.
 A config with ``use_mla`` (deepseek-v2) runs :mod:`repro_torch.models.mla`
 in place of GQA attention: its RoPE tables span ``qk_rope_head_dim`` and its
 decode caches are :class:`~repro_torch.models.mla.MLACache` latents.
+
+Gemma-2's block (``post_norms``) takes zero-centred ``(1 + w)`` norms and
+normalizes the attention and FFN outputs again before each residual add
+(``post_attn_norm`` / ``post_mlp_norm``); under ``local_global_alternate``
+the odd layers of each stack are global and the even ones attend within
+``sliding_window``.  ``kv_cache_quant`` keeps the KV cache in int8 with
+fp32 scales (:mod:`repro_torch.models.attention`).
 """
 from __future__ import annotations
 
@@ -57,8 +64,7 @@ __all__ = [
 
 #: ModelConfig features of the JAX package's dense family that the port
 #: does not run yet; a config using one is refused, never run approximately
-_UNPORTED = ("post_norms", "sliding_window", "mrope_sections",
-             "kv_cache_quant", "local_global_alternate", "frontend")
+_UNPORTED = ("mrope_sections", "frontend")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -78,7 +84,9 @@ def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
         rope_theta=cfg.rope_theta,
         qk_norm=cfg.qk_norm,
         attn_softcap=cfg.attn_softcap,
+        sliding_window=cfg.sliding_window,
         q_chunk=cfg.q_chunk,
+        kv_quant=cfg.kv_cache_quant,
     )
 
 
@@ -118,12 +126,16 @@ def mlp_specs(cfg: ModelConfig) -> dict:
 
 def block_specs(cfg: ModelConfig, *, moe: bool = False) -> dict:
     d = cfg.d_model
-    return {
+    specs = {
         "ln1": Spec((d,), init="ones"),
         "ln2": Spec((d,), init="ones"),
         "attn": mla_mod.mla_specs(mla_config(cfg)) if cfg.use_mla else attn.attention_specs(attn_config(cfg)),
         "mlp": moe_mod.moe_specs(moe_config(cfg)) if moe else mlp_specs(cfg),
     }
+    if cfg.post_norms:
+        specs["post_attn_norm"] = Spec((d,), init="ones")
+        specs["post_mlp_norm"] = Spec((d,), init="ones")
+    return specs
 
 
 def backbone_specs(cfg: ModelConfig) -> dict:
@@ -222,22 +234,40 @@ def _rope(cfg: ModelConfig, positions):
     return tables(acfg, positions)
 
 
-def _block_fwd(p, cfg: ModelConfig, h, positions, rope, *, return_cache: bool = False,
+def _layer_kw(cfg: ModelConfig, i: int) -> dict:
+    """Layer ``i``'s keyword for the attention call: GQA's ``is_global``
+    (odd layers of each stack under ``local_global_alternate``, every layer
+    otherwise, as JAX's ``_global_flags``); MLA takes none."""
+    if cfg.use_mla:
+        return {}
+    return {"is_global": not cfg.local_global_alternate or i % 2 == 1}
+
+
+def _post_norm(p, name: str, cfg: ModelConfig, x):
+    """Gemma-2's sandwich norm of a sublayer's output (``post_norms``)."""
+    return rms_norm(x, p[name], zero_centered=True) if cfg.post_norms else x
+
+
+def _block_fwd(p, cfg: ModelConfig, h, positions, rope, i: int, *, return_cache: bool = False,
                probe=None, taps: dict | None = None, rt=None):
-    """One block.  ``probe`` (a zero tensor) is added at the MLP output, so
-    its gradient is this layer's G stream; ``taps`` as in :func:`_ffn`."""
+    """Block ``i`` of its stack.  ``probe`` (a zero tensor) is added at the
+    MLP output, so its gradient is this layer's G stream; ``taps`` as in
+    :func:`_ffn`."""
     acfg, _, fwd, _ = _attention(cfg)
-    out = fwd(p["attn"], acfg, rms_norm(h, p["ln1"]), positions, rope, return_cache=return_cache)
+    zc = cfg.post_norms  # gemma-style (1 + w) norms
+    out = fwd(p["attn"], acfg, rms_norm(h, p["ln1"], zero_centered=zc), positions, rope,
+              return_cache=return_cache, **_layer_kw(cfg, i))
     a, cache = out if return_cache else (out, None)
-    h = h + a
-    m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"]), rt=rt, taps=taps)
+    h = h + _post_norm(p, "post_attn_norm", cfg, a)
+    m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"], zero_centered=zc), rt=rt, taps=taps)
+    m = _post_norm(p, "post_mlp_norm", cfg, m)
     if probe is not None:  # cast, so the add never promotes a bf16 activation
         m = m + probe.to(m.dtype)
     return h + m, cache
 
 
 def _head(params, cfg: ModelConfig, h):
-    h = rms_norm(h, params["final_norm"])
+    h = rms_norm(h, params["final_norm"], zero_centered=cfg.post_norms)
     return softcap(head_matmul(cfg, h, params["lm_head"]), cfg.final_softcap)
 
 
@@ -264,7 +294,8 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
         for i, p in enumerate(params[stack]):
             t = {} if taps is not None else None
             pr = None if stack_probes is None else stack_probes[i]
-            body = lambda h, pr, p=p, t=t: _block_fwd(p, cfg, h, positions, rope, probe=pr, taps=t, rt=rt)[0]
+            body = lambda h, pr, p=p, i=i, t=t: _block_fwd(p, cfg, h, positions, rope, i, probe=pr, taps=t,
+                                                           rt=rt)[0]
             if cfg.remat and torch.is_grad_enabled():
                 h = torch.utils.checkpoint.checkpoint(body, h, pr, use_reentrant=False)
             else:
@@ -299,18 +330,22 @@ def decode_step(params, cfg: ModelConfig, caches, batch, pos):
     h = _embed_in(params, cfg, batch["tokens"])
     acfg, tables, _, decode = _attention(cfg)
     rope = tables(acfg, attn.decode_positions(pos, h.shape[0], h.device))
+    zc = cfg.post_norms
     for stack in _stacks(params):
-        for p, cache in zip(params[stack], caches[stack]):
-            a, _ = decode(p["attn"], acfg, rms_norm(h, p["ln1"]), cache, pos, rope)
-            h = h + a
-            h = h + _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"]))
+        for i, (p, cache) in enumerate(zip(params[stack], caches[stack])):
+            a, _ = decode(p["attn"], acfg, rms_norm(h, p["ln1"], zero_centered=zc), cache, pos, rope,
+                          **_layer_kw(cfg, i))
+            h = h + _post_norm(p, "post_attn_norm", cfg, a)
+            m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"], zero_centered=zc))
+            h = h + _post_norm(p, "post_mlp_norm", cfg, m)
     return _head(params, cfg, h), caches
 
 
 def prefill(params, cfg: ModelConfig, batch):
     """Forward over the prompt: last-token logits and the filled KV caches
     (``MLACache(c_kv, k_pe)`` latents with ``use_mla``; in the activation
-    dtype: ``Runtime.grow_caches`` casts them to bf16)."""
+    dtype, or int8 with fp32 scales under ``kv_cache_quant``:
+    ``Runtime.grow_caches`` casts them to the decode caches' dtypes)."""
     check_supported(cfg)
     h = _embed_in(params, cfg, batch["tokens"])
     positions = torch.arange(h.shape[1], device=h.device)
@@ -318,7 +353,7 @@ def prefill(params, cfg: ModelConfig, batch):
     caches: dict[str, Any] = {}
     for stack in _stacks(params):
         caches[stack] = []
-        for p in params[stack]:
-            h, cache = _block_fwd(p, cfg, h, positions, rope, return_cache=True)
+        for i, p in enumerate(params[stack]):
+            h, cache = _block_fwd(p, cfg, h, positions, rope, i, return_cache=True)
             caches[stack].append(cache)
     return _head(params, cfg, h[:, -1:]), caches

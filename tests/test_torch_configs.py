@@ -8,7 +8,10 @@ not, with the same ``param_count`` and ``active_param_count``; so do MLA
 configs (deepseek-v2-236b, and qwen3-moe with MLA attention) and the SSM
 and hybrid configs (mamba2-780m, zamba2-2.7b: JAX's count, which takes
 ``3·d·d_inner + 2·d·N + d_inner·d`` a Mamba2 layer, is mirrored as it is).
-Reduced mamba2-780m and zamba2-2.7b give JAX's logits too.  Reduced
+Reduced mamba2-780m and zamba2-2.7b give JAX's logits too, and so do reduced
+starcoder2-3b (a non-gated tanh-GELU FFN, GQA over 2 KV heads) and reduced
+gemma2-2b (sliding-window attention on alternate layers, sandwich norms,
+logit softcaps; 16 tokens run past its window of 8).  Reduced
 qwen3-4b (2 layers, d_model 64, 4 query heads over 2 KV heads, qk-norm) and
 reduced qwen3-moe (the same attention, 8 experts top-2) give the same
 ``forward`` and ``prefill`` logits as JAX's within
@@ -44,13 +47,16 @@ def _few_threads():
     torch.set_num_threads(prev)
 
 
+PORTED = ["deepseek-7b", "deepseek-v2-236b", "gemma2-2b", "mamba2-780m", "qwen3-4b", "qwen3-moe-235b-a22b",
+          "starcoder2-3b", "zamba2-2.7b"]
+
+
 def test_the_port_registers_deepseek_and_qwen3():
-    assert tconfigs.ALL_ARCHS == ["deepseek-7b", "deepseek-v2-236b", "mamba2-780m", "qwen3-4b",
-                                  "qwen3-moe-235b-a22b", "zamba2-2.7b"]
+    assert tconfigs.ALL_ARCHS == PORTED
+    assert sorted(set(jconfigs.ALL_ARCHS) - set(PORTED)) == ["musicgen-large", "qwen2-vl-72b"]
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "deepseek-v2-236b", "mamba2-780m", "qwen3-4b",
-                                  "qwen3-moe-235b-a22b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", PORTED)
 def test_registered_config_equals_jax_field_for_field(arch):
     t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -83,14 +89,14 @@ def test_mla_param_counts_equal_jax(arch, kw):
     assert t.param_count() != gqa.param_count()
 
 
-def _reduced_logits_match_jax(arch, backend, dtype_name):
+def _reduced_logits_match_jax(arch, backend, dtype_name, seq=12):
     jcfg = jconfigs.reduce_config(jconfigs.get_config(arch))
     tcfg = tconfigs.reduce_config(tconfigs.get_config(arch))
     if tcfg.family in ("dense", "moe"):
-        assert tcfg.qk_norm and tcfg.num_kv_heads < tcfg.num_heads
+        assert tcfg.num_kv_heads < tcfg.num_heads
     jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(2), dtype=getattr(jnp, dtype_name))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
-    toks = np.random.default_rng(3).integers(0, jcfg.vocab_size, size=(2, 12)).astype(np.int32)
+    toks = np.random.default_rng(3).integers(0, jcfg.vocab_size, size=(2, seq)).astype(np.int32)
     with jrt.use(jrt.Runtime(backend=backend, **GEOM)):
         jl = JM.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
         jpl, _ = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)})
@@ -105,12 +111,14 @@ def _reduced_logits_match_jax(arch, backend, dtype_name):
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("backend", ["dense", "reference"])
 def test_qwen3_reduced_logits_match_jax(backend, dtype_name):
+    assert tconfigs.reduce_config(tconfigs.get_config("qwen3-4b")).qk_norm
     _reduced_logits_match_jax("qwen3-4b", backend, dtype_name)
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 @pytest.mark.parametrize("backend", ["dense", "reference"])
 def test_qwen3_moe_reduced_logits_match_jax(backend, dtype_name):
+    assert tconfigs.reduce_config(tconfigs.get_config("qwen3-moe-235b-a22b")).qk_norm
     _reduced_logits_match_jax("qwen3-moe-235b-a22b", backend, dtype_name)
 
 
@@ -133,3 +141,20 @@ def test_mamba2_reduced_logits_match_jax(backend, dtype_name):
 @pytest.mark.parametrize("backend", ["dense", "reference"])
 def test_zamba2_reduced_logits_match_jax(backend, dtype_name):
     _reduced_logits_match_jax("zamba2-2.7b", backend, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_starcoder2_reduced_logits_match_jax(backend, dtype_name):
+    cfg = tconfigs.get_config("starcoder2-3b")
+    assert not cfg.mlp_gated and cfg.activation == "gelu" and cfg.num_kv_heads == 2
+    assert "w_gate" not in TM.param_specs(tconfigs.reduce_config(cfg))["layers"][0]["mlp"]
+    _reduced_logits_match_jax("starcoder2-3b", backend, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_gemma2_reduced_logits_match_jax(backend, dtype_name):
+    cfg = tconfigs.reduce_config(tconfigs.get_config("gemma2-2b"))
+    assert cfg.sliding_window == 8 and cfg.local_global_alternate and cfg.post_norms and cfg.embed_scale
+    _reduced_logits_match_jax("gemma2-2b", backend, dtype_name, seq=16)

@@ -267,8 +267,8 @@ def test_cache_layouts_match_jax():
                 j, t = getattr(jcache.ssm, f), getattr(tcache.ssm[g][i], f)
                 assert tuple(t.shape) == tuple(j.shape[2:]) and str(t.dtype)[6:] == str(j.dtype)
     jaxes, taxes = jrt.cache_batch_axes(jcfg), trt.cache_batch_axes(tcfg)
-    # JAX's KVCache adds the int8 cache's scales (None here)
-    assert [tuple(a) for a in taxes.kv] == [tuple(x - 1 for x in jaxes.kv if x is not None)] * 2
+    # both KVCaches carry the int8 cache's scales (None here)
+    assert [tuple(a) for a in taxes.kv] == [tuple(None if x is None else x - 1 for x in jaxes.kv)] * 2
     assert [[tuple(c) for c in g] for g in taxes.ssm] == [[tuple(x - 2 for x in jaxes.ssm)] * 2] * 2
 
 
@@ -329,8 +329,10 @@ def test_train_step_equals_jax(arch):
     """One plain ``make_train_step`` step (no taps: both packages refuse
     them for these families) on ``reference``, fp32, from the same weights
     and batch: the loss, and the updated parameters as the MoE step holds
-    them."""
+    them.  The 16-token sequences are two ``ssm_chunk``\\ s, so the gradient
+    runs through ``ssd_chunked``'s chunked path."""
     jcfg, tcfg, jp, tp = _model(arch=arch)
+    assert 16 == 2 * tcfg.ssm_chunk
     jbatch = JSyntheticLM(vocab_size=jcfg.vocab_size, seq_len=16, global_batch=4, seed=5).batch_at(0)
     tbatch = SyntheticLM(vocab_size=tcfg.vocab_size, seq_len=16, global_batch=4, seed=5).batch_at(0, device="cpu")
     with jrt.use(jrt.Runtime(backend="reference", **GEOM)):

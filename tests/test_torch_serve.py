@@ -14,6 +14,14 @@ both packages' SSM conv tails in fp32, the one layout JAX's engine can
 carry for an fp32 model), and, on the port's default bf16 tails, each
 request's tokens equal a solo run's, so a reused slot keeps nothing of its
 last request's state.
+
+Reduced gemma2-2b (fp32, GELU as registered; sliding window 8, so the
+local layers mask keys once a request passes 8 tokens) serves the same
+prompts and budgets through two slots: the greedy tokens equal JAX's
+engine's.  Reduced deepseek-7b-ReLU with the int8 KV cache
+(``kv_cache_quant``) serves them too: the greedy tokens equal JAX's
+engine's and, through reused slots, each request's solo run, and the
+packed cache is int8 with fp32 scales.
 """
 import dataclasses
 
@@ -319,3 +327,68 @@ def test_profile_decode_cuts_a_hybrid_only_at_whole_groups():
     if not torch.cuda.is_available():  # 12 layers pass the check and reach the card's
         with pytest.raises(BackendCapabilityError):
             profile_decode.main(["--arch", "zamba2-2.7b", "--layers", "12"])
+
+
+@pytest.mark.parametrize("arch,kw", [("gemma2-2b", {}), ("deepseek-7b", dict(activation="relu", kv_cache_quant=True))],
+                         ids=["gemma2", "deepseek-relu-int8-kv"])
+def test_engine_greedy_tokens_match_jax_windowed_and_int8_kv(arch, kw):
+    """PLENS/BUDGETS through two slots (backfilled; requests reach position
+    13, past reduced gemma2's window of 8): the greedy tokens equal JAX's
+    ``ServeEngine``'s on ``reference``, fp32."""
+    jcfg = dataclasses.replace(jreduce_config(jget_config(arch)), **kw)
+    tcfg = dataclasses.replace(reduce_config(get_config(arch)), **kw)
+    jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    prompts = _prompts(jcfg.vocab_size)
+    assert max(len(p) + n for p, n in zip(prompts, BUDGETS)) - 1 > (tcfg.sliding_window or 0)
+    jeng = JServeEngine(jp, jcfg, slots=2, max_len=16, chunk=3,
+                        rt=jrt.Runtime(backend="reference", **GEOM))
+    teng = ServeEngine(tp, tcfg, slots=2, max_len=16, chunk=3,
+                       rt=trt.Runtime(backend="reference", device="cpu", **GEOM))
+    for p, n in zip(prompts, BUDGETS):
+        jeng.submit(p, max_new=n)
+        teng.submit(torch.from_numpy(p), max_new=n)
+    jout, tout = jeng.run(), teng.run()
+    assert tout == jout
+    assert [len(tout[r]) for r in range(5)] == BUDGETS
+    assert all(r.ok for r in teng._requests.values())
+    cache = teng.caches["layers"][0]
+    want = (torch.int8, torch.float32) if tcfg.kv_cache_quant else (torch.bfloat16, None)
+    assert (cache.k.dtype, None if cache.k_scale is None else cache.k_scale.dtype) == want
+
+
+def test_int8_kv_reused_slot_equals_a_solo_run():
+    """Reduced deepseek-7b-ReLU with the int8 KV cache: each request's
+    greedy tokens through two backfilled slots equal its tokens served
+    alone, so a slot write replaces the slot's int8 rows and scales."""
+    tcfg = dataclasses.replace(reduce_config(get_config("deepseek-7b")), activation="relu", kv_cache_quant=True)
+    jcfg = dataclasses.replace(jreduce_config(jget_config("deepseek-7b")), activation="relu", kv_cache_quant=True)
+    jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(1), dtype=jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    prompts = _prompts(tcfg.vocab_size)
+    rt = lambda: trt.Runtime(backend="reference", device="cpu", **GEOM)
+    eng = ServeEngine(tp, tcfg, slots=2, max_len=16, chunk=3, rt=rt())
+    slots = {}
+    admit = eng._admit_group
+    eng._admit_group = lambda placements: (slots.update((r.rid, s) for s, r in placements), admit(placements))
+    for p, n in zip(prompts, BUDGETS):
+        eng.submit(torch.from_numpy(p), max_new=n)
+    out = eng.run()
+    assert len(set(slots.values())) == 2 and len(slots) == 5  # slots reused
+    for rid, (p, n) in enumerate(zip(prompts, BUDGETS)):
+        solo = ServeEngine(tp, tcfg, slots=1, max_len=16, chunk=3, rt=rt())
+        solo.submit(torch.from_numpy(p), max_new=n)
+        assert solo.run()[0] == out[rid], rid
+
+
+@pytest.mark.parametrize("argv", [["--arch", "starcoder2-3b"], ["--arch", "gemma2-2b", "--activation", "relu"]])
+def test_profile_decode_takes_starcoder2_and_gemma2(argv):
+    """The launcher resolves both archs by name and takes their arguments
+    up to the card's check (here, with no card, its refusal)."""
+    from repro_torch.launch import profile_decode
+    from repro_torch.runtime.backends import BackendCapabilityError
+
+    if torch.cuda.is_available():
+        pytest.skip("runs the full-width model on a card: chip_smoke.py and the README's GPU lines drive it")
+    with pytest.raises(BackendCapabilityError):
+        profile_decode.main(argv)

@@ -372,9 +372,10 @@ def _fake_cuda(monkeypatch, graph_cls, graph_ctx):
 
 
 def _state(eng):
-    """An engine's static buffers and caches: what a decode chunk writes."""
+    """An engine's static buffers and caches: what a decode chunk writes
+    (a bf16 KV cache's scale fields are ``None``)."""
     return [eng.tok, eng.pos, eng.active, eng.remaining, eng.poison,
-            *(t for c in eng.caches["layers"] for t in c)]
+            *(t for c in eng.caches["layers"] for t in c if t is not None)]
 
 
 def test_decode_graph_warms_up_captures_once_and_recaptures_for_a_new_head(monkeypatch):

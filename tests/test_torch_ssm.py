@@ -10,7 +10,9 @@ packages; the JAX side runs under ``reference`` or ``dense``, never
 * ``_causal_conv`` and ``_conv_step``.
 * ``ssd_chunked`` over two chunks (S = 16, chunk 8) and over one chunk of
   the whole sequence (S = 7 is no multiple of 8, so Q = S), with and
-  without an initial state.
+  without an initial state; and over a 64-token chunk whose masked decay
+  exponents overflow fp32: JAX's gradient is NaN there, the port's equals
+  a float64 token-by-token recurrence's.
 * ``ssm_fwd`` with its cache, then three ``ssm_decode`` steps after it:
   the outputs, and the cache the port overwrites in place (JAX returns a
   new one).  The decode caches hold bf16 conv tails and an fp32 state;
@@ -138,6 +140,58 @@ def test_ssd_chunked_matches_jax(s, init):
         one, state = TS.ssd_chunked(tx, tdt, ta, tbi, tci, chunk=16, init_state=ts0)
         _close(np.asarray(ty), one)
         _close(np.asarray(tstate), state)
+
+
+def _ssd_scan64(x, dt, a_log, b_in, c_in):
+    """The SSD recurrence one token at a time in float64 (the plain
+    reference: ``state = exp(dt * a) * state + B (x dt)``, ``y = C state``),
+    whose decay factors are at most 1, so nothing overflows."""
+    a = -torch.exp(a_log.double())
+    state = torch.zeros(x.shape[0], x.shape[2], x.shape[3], b_in.shape[-1], dtype=torch.float64)
+    ys = []
+    for t in range(x.shape[1]):
+        dtt = dt[:, t].double()
+        state = torch.exp(dtt * a)[..., None, None] * state + torch.einsum(
+            "bhp,bn->bhpn", x[:, t].double() * dtt[..., None], b_in[:, t].double())
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c_in[:, t].double()))
+    return torch.stack(ys, dim=1)
+
+
+def test_ssd_chunked_gradient_is_finite_where_the_decay_overflows():
+    """A chunk of 64 tokens decaying ~3 nats a token puts ``exp`` of the
+    masked (upper-triangle) exponents far past fp32's range, as the
+    registered configs' 128-token chunks do at initialisation.  The values
+    equal JAX's; JAX's gradient, the ``0 * inf`` of a where after exp, is
+    NaN; the port, which masks the exponent before exp, gives the float64
+    recurrence's gradient and, for ``x``, JAX's (rtol = atol = 1e-4: sums of
+    64 terms in another order)."""
+    b, s, h, p, n = 2, 64, 3, 4, 5
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (1.0 + rng.random((b, s, h))).astype(np.float32)
+    a_log = np.full((h,), 0.5, np.float32)  # a = -e**0.5: 1.6 to 3.3 nats a token
+    b_in, c_in = (rng.standard_normal((b, s, n)).astype(np.float32) for _ in range(2))
+    w = rng.standard_normal((b, s, h, p)).astype(np.float32)  # a fixed cotangent
+
+    def jloss(x, dt):
+        return jnp.sum(JS.ssd_chunked(x, dt, a_log, b_in, c_in, chunk=64)[0] * w)
+
+    jy, _ = JS.ssd_chunked(jnp.asarray(x), jnp.asarray(dt), a_log, b_in, c_in, chunk=64)
+    jgx, jgdt = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(dt))
+    assert np.isnan(np.asarray(jgdt)).any()  # through the decay; x's gradient stays finite
+    tx, tdt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(dt).requires_grad_()
+    tb, tc, ta, tw = (torch.from_numpy(v) for v in (b_in, c_in, a_log, w))
+    ty, _ = TS.ssd_chunked(tx, tdt, ta, tb, tc, chunk=64)
+    _close(jy, ty.detach())
+    gx, gdt = torch.autograd.grad((ty * tw).sum(), (tx, tdt))
+    x64, dt64 = torch.from_numpy(x).double().requires_grad_(), torch.from_numpy(dt).double().requires_grad_()
+    ref = _ssd_scan64(x64, dt64, ta, tb, tc)
+    np.testing.assert_allclose(ty.detach().double().numpy(), ref.detach().numpy(), rtol=1e-4, atol=1e-4)
+    rx, rdt = torch.autograd.grad((ref * tw.double()).sum(), (x64, dt64))
+    assert torch.isfinite(gx).all() and torch.isfinite(gdt).all()
+    np.testing.assert_allclose(gx.double().numpy(), rx.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), rtol=1e-4, atol=1e-4)  # 64-term sums
+    np.testing.assert_allclose(gdt.double().numpy(), rdt.numpy(), rtol=1e-4, atol=1e-4)
 
 
 def _decode_cache(cfg, jcache):
