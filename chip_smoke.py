@@ -23,11 +23,14 @@ from the root of a checkout, on a machine with one H100.
    decode shapes (the dense first block's gate [4,5120]@[5120,12288] and its
    ``w_down`` on the gate's emitted mask, an expert's ``w_down``
    [1,1536]@[1536,5120] routed and empty, the LM head side B [102400,5120])
-   and at the SSM, hybrid, starcoder2 and gemma2 LM heads side B
-   ([50280,1536] at the fitted block 120 x 512, [32000,2560] and
-   [49152,3072] at 128 x 512, [256000,2304] at 128 x 384), dense and with
-   40% of the head's blocks zero, and at gemma2-ReLU's decode gate
-   [4,2304]@[2304,9216] (bk 384) and its ``w_down`` on the emitted mask;
+   and at the SSM, hybrid, starcoder2, gemma2 and qwen2-vl LM heads side B
+   ([50280,1536] at the fitted block 120 x 512, [32000,2560],
+   [49152,3072] and [152064,8192] at 128 x 512, [256000,2304] at 128 x
+   384), dense and with 40% of the head's blocks zero, and at the decode
+   gates of gemma2-ReLU [4,2304]@[2304,9216] (bk 384) and qwen2-vl-ReLU
+   [4,8192]@[8192,29568] (bk 512), each ``w_down`` on the emitted mask as
+   the runtime plans it (bk 512; qwen2-vl's 128, its fitted 462 being no
+   multiple of 128);
    then counts, with the profiler, the CUDA launches of a few calls of each
    wrapper: exactly one per call;
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
@@ -98,7 +101,21 @@ from the root of a checkout, on a machine with one H100.
    to a teacher-forced forward, and deepseek-7b-ReLU with the int8 KV cache
    at 1024 rows a slot: int8 K/V and fp32 scales at 0.516x the bf16 cache's
    bytes, its decode ms per step beside the bf16 cache's, its decode logits
-   against the bf16 cache's within ``KV_REL_L2``;
+   against the bf16 cache's within ``KV_REL_L2``; then the two frontend
+   configs through the model entry points (``prefill``, ``decode_step``,
+   ``forward``: the engine, as JAX's, serves tokens only): qwen2-vl-72b
+   with a ReLU gate at full width cut to 24 layers (M-RoPE; 4 sequences of
+   seeded embeddings, 32 text positions, a 1 x 12 x 16 image and 32 text
+   positions at Qwen2-VL's rope index, then 16 eager decode steps in text
+   mode) and musicgen-large whole (the same 256 + 16 positions, logits
+   ``[4, 1, 4, 2048]`` from its four codebook heads): the wrapper launches
+   the path's (qwen2-vl: 24 fused gates, 24 emitted plans and 25 planned
+   products a model call, the head's ``values`` plan once; musicgen: none,
+   JAX puts none of its products on a kernel), no plain version, prefill
+   logits within ``REF_REL_L2`` of ``reference`` and the prefill's and
+   every step's logits within it of a teacher-forced ``forward`` on
+   ``dense``; prefill ms, decode ms per step against the bound from the
+   bytes a step moves, peak memory, device launches per step;
 9. holds the planned kernel at the training step's backward shapes (one
    microbatch of 1024 tokens at full widths, fp32 operands and transposed
    views, bf16 output: the gate's, ``w_down``'s and the LM head's ``da``
@@ -108,12 +125,14 @@ from the root of a checkout, on a machine with one H100.
    and the mamba2 head's two backward products at its block 120;
    ``block_zero_mask`` on the two fp32 cotangents; one device launch per
    wrapper call;
-10. runs the one-launch planner in every mode: 477 edge cases (one block
-   row, one K block, 86 and 800 K blocks, several shared-memory stages,
+10. runs the one-launch planner in every mode: 693 edge cases (one block
+   row, one K block, 86, 231 and 800 K blocks, several shared-memory stages,
    views off the 16-byte grid, NaN, bool and int8 masks, coarsen 2 / 4 /
-   Nb), then the path's shapes (the decode and training gate masks, the
-   LM-head weights ``lm_head.T`` in bf16 (deepseek, SSM, hybrid,
-   starcoder2, gemma2), gemma2's gate mask, the fp32 ``w_down`` and LM-head
+   Nb and at 231 blocks 1 / 3 / 7 / 11), then the path's shapes (the decode
+   and training gate masks, the LM-head weights ``lm_head.T`` in bf16
+   (deepseek, SSM, hybrid, starcoder2, gemma2, qwen2-vl), gemma2's and
+   qwen2-vl's gate masks at the coarsening the runtime fits for their
+   ``w_down``, the fp32 ``w_down`` and LM-head
    cotangents, the three transposed forward plans of the weight
    gradients, the MoE experts' ``h[e]`` at capacity 1 and 10 and a pad
    row alone, the SSM and hybrid heads at block rows 120 and 128, the
@@ -157,10 +176,11 @@ from the root of a checkout, on a machine with one H100.
    ``planner[emitted]``, ``planner[transpose]`` for each mode; each with its
    launches over the serve runs (eager, graph, fault replays, the serve
    launcher, the MoE, MLA, SSM, hybrid, starcoder2, gemma2 and int8-cache
-   runs; a captured launch counted once per replay; each of the last seven
-   also alone), the timed training steps (deepseek, SSM, hybrid) and
-   launcher runs (a) and (c), on the serving path alone, per training step
-   and per launcher step), the card line, and last the result
+   runs and the qwen2-vl and musicgen runs; a captured launch counted once
+   per replay; each of the last nine also alone), the timed training
+   steps (deepseek, SSM, hybrid) and launcher runs (a) and (c), on the
+   serving path alone, per training step and per launcher step), the card
+   line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
 
@@ -257,6 +277,15 @@ KV_MAX_LEN, KV_REL_L2 = 1024, 0.08
 #: memory a cut in depth is reckoned against (80 GB less room for the step-1
 #: comparison's two gradient sets and the activations)
 TRAIN_BYTES_PER_PARAM, TRAIN_BUDGET_GB = 27.5, 72
+#: the frontend phases, through the model entry points (the engine, as JAX's,
+#: serves tokens only): qwen2-vl-72b with a ReLU gate at full width cut from
+#: 80 to VL_LAYERS layers (80 layers of bf16 weights are ~143 GB; 24 make
+#: 44.62 GB), and musicgen-large whole (4.87 GB); each prefills SLOTS
+#: sequences of seeded embeddings, VL_TEXT text positions, an image of 1 x
+#: VL_GRID patches and VL_TEXT text positions (qwen2-vl's positions are
+#: Qwen2-VL's rope index), then decodes FRONTEND_NEW eager steps
+VL_ARCH, VL_LAYERS, MG_ARCH = "qwen2-vl-72b", 24, "musicgen-large"
+VL_TEXT, VL_GRID, FRONTEND_NEW = 32, (12, 16), 16
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -596,10 +625,11 @@ def kernel_phase(bw: float):
 
     # -- the LM heads side B at the runtime's fitted weight-side block (the
     #    largest divisors of the vocab <= 128 and of d_model <= 512: 120 x 512
-    #    for mamba2's 50280 x 1536, 128 x 512 for zamba2's and starcoder2's,
-    #    128 x 384 for gemma2's 256000 x 2304), dense and with 40% of the
-    #    head's blocks zeroed, so the kernel skips them
-    for arch in (SSM_ARCH, HYBRID_ARCH, STARCODER_ARCH, GEMMA_ARCH):
+    #    for mamba2's 50280 x 1536, 128 x 512 for zamba2's, starcoder2's and
+    #    qwen2-vl's (152064 x 8192: 1188 block rows), 128 x 384 for gemma2's
+    #    256000 x 2304), dense and with 40% of the head's blocks zeroed, so
+    #    the kernel skips them
+    for arch in (SSM_ARCH, HYBRID_ARCH, STARCODER_ARCH, GEMMA_ARCH, VL_ARCH):
         c = get_config(arch)
         d, v = c.d_model, c.vocab_size
         fit = rtm.Runtime(backend="cuda", device="cuda").fit((SLOTS, d), (d, v))
@@ -617,34 +647,43 @@ def kernel_phase(bw: float):
             del lm_head, a_t
         del w
 
-    # -- gemma2-2b with a ReLU gate at decode: the gate [4,2304]@[2304,9216]
-    #    on the all-effectual plan at the fitted bk 384, its w_down
-    #    [4,9216]@[9216,2304] on the gate's emitted mask coarsened from 128 to
-    #    bk = 512 columns
-    c = get_config(GEMMA_ARCH)
-    d, f = c.d_model, c.d_ff
-    bk = rtm.Runtime(backend="cuda", device="cuda").fit((SLOTS, d), (d, f)).bk
-    xg = torch.randn(SLOTS, d, generator=gen).to(dev, bf16)
-    w_gate = (torch.randn(d, f, generator=gdev, device=dev) / d**0.5).to(bf16)
-    w_up = (torch.randn(d, f, generator=gdev, device=dev) / d**0.5).to(bf16)
-    gplan = T.dense_plan_csr(1, d // bk, dev)
-    run_case(f"gemma2 gate bk={bk} (fused relu)", "tensordash_matmul_fused", bf16, xg, w_gate, SLOTS, bk, 128,
-             gplan, stage="gemma2 decode")
-    g, gmask = T.tensordash_matmul_fused(*gplan[:2], xg, w_gate, activation="relu", bm=SLOTS, bk=bk, bn=128,
-                                         workqueue=gplan[2:])
-    h = g * (xg @ w_up)
-    del w_gate, w_up
-    w_down = (torch.randn(f, d, generator=gdev, device=dev) / f**0.5).to(bf16)
-    run_case("gemma2 w_down (emitted-mask plan)", "tensordash_matmul_planned", bf16, h, w_down, SLOTS, 512, 128,
-             T.plan_from_mask_csr(gmask, coarsen=512 // 128), stage="gemma2 decode")
-    del w_down
+    # -- the dense ReLU gates at decode: gemma2-2b's [4,2304]@[2304,9216] on
+    #    the all-effectual plan at the fitted bk 384, qwen2-vl-72b's
+    #    [4,8192]@[8192,29568] at bk 512; each w_down on the gate's emitted
+    #    mask as the runtime plans it (plan_for_fused_output: coarsened from
+    #    128 to the fitted bk where that is a multiple of 128 dividing d_ff:
+    #    gemma2's 512; qwen2-vl's fitted bk 462 is not, so its plan stays at 128)
+    for arch in (GEMMA_ARCH, VL_ARCH):
+        c = get_config(arch)
+        d, f = c.d_model, c.d_ff
+        rt = rtm.Runtime(backend="cuda", device="cuda")
+        bk = rt.fit((SLOTS, d), (d, f)).bk
+        xg = torch.randn(SLOTS, d, generator=gen).to(dev, bf16)
+        w_gate = (torch.randn(d, f, generator=gdev, device=dev) / d**0.5).to(bf16)
+        w_up = (torch.randn(d, f, generator=gdev, device=dev) / d**0.5).to(bf16)
+        gplan = T.dense_plan_csr(1, d // bk, dev)
+        run_case(f"{tag_of(c)} gate bk={bk} (fused relu)", "tensordash_matmul_fused", bf16, xg, w_gate, SLOTS, bk,
+                 128, gplan, stage=f"{tag_of(c)} decode")
+        g, gmask = T.tensordash_matmul_fused(*gplan[:2], xg, w_gate, activation="relu", bm=SLOTS, bk=bk, bn=128,
+                                             workqueue=gplan[2:])
+        h = g * (xg @ w_up)
+        del w_gate, w_up
+        w_down = (torch.randn(f, d, generator=gdev, device=dev) / f**0.5).to(bf16)
+        plan = rt.plan_for_fused_output(gmask, h, w_down)
+        run_case(f"{tag_of(c)} w_down bk={plan.bk} (emitted-mask plan)", "tensordash_matmul_planned", bf16, h,
+                 w_down, SLOTS, plan.bk, 128,
+                 (plan.nnz, plan.idx, plan.row_starts, plan.work_row, plan.work_kblk), stage=f"{tag_of(c)} decode")
+        del w_down
     return rows, count_launches(calls)
 
 
 def tag_of(cfg) -> str:
     """A config's short name in phase tags and row labels: the family for
-    the SSM and hybrid configs, else the name's first part."""
-    return cfg.family if cfg.family in ("ssm", "hybrid") else cfg.name.split("-")[0]
+    the SSM and hybrid configs, a frontend config's name without its size
+    (``qwen2-vl``, ``musicgen``), else the name's first part."""
+    if cfg.family in ("ssm", "hybrid"):
+        return cfg.family
+    return cfg.name.rsplit("-", 1)[0] if cfg.frontend else cfg.name.split("-")[0]
 
 
 def row_dtype(dtype) -> str:
@@ -957,15 +996,18 @@ def path_launches(cfg, calls: int, head_plans: int = 0) -> dict:
     (deepseek-7b: 30 each); per MoE block one planned ``w_down`` and one
     plan by value per expert (qwen3-moe: 128 each); the planned LM head (its
     plan cached).  A non-gated or non-ReLU dense FFN (starcoder2) and an SSM
-    or hybrid model put no FFN on the runtime: the LM head alone."""
+    or hybrid model put no FFN on the runtime: the LM head alone.  The audio
+    frontend's codebook heads are a plain einsum, as JAX computes them:
+    musicgen (non-gated GELU) puts nothing on the runtime."""
     n_moe = cfg.num_layers - cfg.first_dense_layers if cfg.family == "moe" else 0
     fused = cfg.family in ("dense", "moe") and cfg.mlp_gated and cfg.activation == "relu"
     dense = cfg.num_layers - n_moe if fused else 0
     experts = n_moe * cfg.num_experts
+    head = int(cfg.frontend != "audio")
     return {"tensordash_matmul_fused": dense * calls,
-            "tensordash_matmul_planned": (dense + experts + 1) * calls,
+            "tensordash_matmul_planned": (dense + experts + head) * calls,
             "planner[emitted]": dense * calls,
-            "planner[values]": experts * calls + head_plans}
+            "planner[values]": experts * calls + head_plans * head}
 
 
 def check_eager_run(tag: str, cfg, run) -> int:
@@ -1471,14 +1513,15 @@ def decode_bytes(params, caches, cfg) -> dict:
     from repro_torch.optim.adamw import tree_leaves
 
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
-    embed = params["embed"]
+    embed = params.get("embed")  # a frontend config has none
+    gathered = 0 if embed is None else SLOTS * embed.shape[1] * embed.element_size() - nbytes([embed])
     if cfg.family == "ssm":
         ssm, kv = caches, []
     elif cfg.family == "hybrid":
         ssm, kv = [c for g in caches.ssm for c in g], caches.kv
     else:
         ssm, kv = [], [c for stack in caches.values() for c in stack]
-    return {"weights": nbytes(tree_leaves(params)) - nbytes([embed]) + SLOTS * embed.shape[1] * embed.element_size(),
+    return {"weights": nbytes(tree_leaves(params)) + gathered,
             "ssm_caches_read_and_written": 2 * nbytes(tree_leaves(ssm)),
             "kv_caches_read": nbytes(tree_leaves(kv))}
 
@@ -1741,6 +1784,180 @@ def kv_int8_checks(params, cfg8, summary, prompts, rt) -> dict:
     if max(rel) > KV_REL_L2:
         raise AssertionError(f"kv-int8: int8 against bf16 cache relative L2 {max(rel)} > {KV_REL_L2}")
     return {"kv_int8": res}
+
+
+# ---------------------------------------------------------------------------
+# frontend phases: qwen2-vl (M-RoPE, vision embeddings), musicgen (audio)
+# ---------------------------------------------------------------------------
+
+
+def vl_positions(b: int):
+    """Qwen2-VL's rope index ``[b, 3, S]`` of the frontend prompt: text
+    ``i`` at (i, i, i), patch (r, c) of the 1 x VL_GRID image at (VL_TEXT,
+    VL_TEXT + r, VL_TEXT + c), the trailing text from VL_TEXT + max(VL_GRID)."""
+    import numpy as np
+
+    gh, gw = VL_GRID
+    rows = [(i, i, i) for i in range(VL_TEXT)]
+    rows += [(VL_TEXT, VL_TEXT + r, VL_TEXT + c) for r in range(gh) for c in range(gw)]
+    start = VL_TEXT + max(gh, gw)
+    rows += [(start + i,) * 3 for i in range(VL_TEXT)]
+    return np.broadcast_to(np.asarray(rows, np.int32).T, (b, 3, len(rows))).copy()
+
+
+def frontend_inputs(cfg, b: int, device, dtype):
+    """The frontend prompt ``{"inputs_embeds": [b, S, d], "positions": [b,
+    3, S] under M-RoPE}`` and ``FRONTEND_NEW`` one-position step embeddings
+    ``[n, b, 1, d]``, from numpy seed 0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    s = 2 * VL_TEXT + VL_GRID[0] * VL_GRID[1]
+    emb = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+    batch = {"inputs_embeds": emb(b, s, cfg.d_model)}
+    if cfg.mrope_sections is not None:
+        batch["positions"] = torch.from_numpy(vl_positions(b)).to(device)
+    return batch, emb(FRONTEND_NEW, b, 1, cfg.d_model)
+
+
+def frontend_decode(params, cfg, batch, steps, rt):
+    """``M.prefill`` over ``batch``, its caches grown to the prompt plus the
+    steps, then one ``M.decode_step`` per step embedding at the sequence
+    index (M-RoPE: text mode).  Returns each model call's last-position
+    logits ``[b, ...]`` in fp32 (the prefill's first), the caches, the
+    prefill's and each step's seconds (the card synchronized before each
+    clock read)."""
+    import torch
+    from repro_torch.models import model as M
+
+    s = batch["inputs_embeds"].shape[1]
+    with torch.inference_mode(), rt.use():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, caches = M.prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        caches = rt.grow_caches(cfg, caches, steps.shape[1], s + steps.shape[0])
+        logits, step_s = [first[:, -1].float()], []
+        for t, x in enumerate(steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out, caches = M.decode_step(params, cfg, caches, {"inputs_embeds": x}, s + t)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            logits.append(out[:, -1].float())
+    return logits, caches, prefill_s, step_s
+
+
+def teacher_forced(params, cfg, batch, steps, rt):
+    """``M.forward`` over the prompt and the step embeddings (M-RoPE: the
+    steps in text mode at their sequence index, as decode rotates them):
+    the logits at the prompt's last position and each step's, ``[n + 1, b,
+    ...]`` fp32."""
+    import torch
+    from repro_torch.models import model as M
+
+    b, s = batch["inputs_embeds"].shape[:2]
+    n = steps.shape[0]
+    full = {"inputs_embeds": torch.cat([batch["inputs_embeds"], steps[:, :, 0].transpose(0, 1)], dim=1)}
+    if "positions" in batch:
+        text = torch.arange(s, s + n, device=steps.device).expand(b, 3, n)
+        full["positions"] = torch.cat([batch["positions"], text.to(batch["positions"].dtype)], dim=2)
+    with torch.inference_mode(), rt.use():
+        return M.forward(params, cfg, full)[:, s - 1:].float().transpose(0, 1)
+
+
+def frontend_phase(cfg, tag: str) -> dict:
+    """``cfg`` (a frontend config, bf16 weights from seed 0) through the
+    model entry points on ``cuda``: the frontend prompt's prefill, then
+    FRONTEND_NEW eager decode steps.  The wrapper launches of the run (set
+    to 0 just before it) must be the path's (:func:`path_launches` over 1 +
+    FRONTEND_NEW model calls, the head's ``values`` plan built once: for
+    qwen2-vl-ReLU per call a fused gate, an emitted plan and a planned
+    ``w_down`` per layer and the planned head; musicgen none), no plain
+    version may run; prefill logits within ``REF_REL_L2`` of the
+    ``reference`` backend on the card, and the prefill's and every step's
+    logits within ``REF_REL_L2`` of a teacher-forced ``M.forward`` on
+    ``dense`` (per row and position).  Reports prefill ms (after one
+    untimed prefill), decode ms per step (eager, a host clock around each
+    synchronized step) against the bound from the bytes a step moves, peak
+    memory and
+    device launches per step (one more step at the last position, which
+    rewrites the same cache row, profiled)."""
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.models import model as M
+    from repro_torch.runtime import PlanCache
+    from repro_torch.runtime.plan import _fit_block
+
+    params, param_gb = init_whole(cfg, tag)
+    batch, steps = frontend_inputs(cfg, SLOTS, "cuda", torch.bfloat16)
+    s, n = batch["inputs_embeds"].shape[1], steps.shape[0]
+    rt = rtm.Runtime(backend="cuda", device="cuda", plan_cache=PlanCache())
+    with torch.inference_mode(), rt.replace(plan_cache=PlanCache()).use():
+        M.prefill(params, cfg, batch)  # untimed, on another plan cache: the timed prefill runs warm
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_versions(tag):
+        T.reset_launch_counts()
+        logits, caches, prefill_s, step_s = frontend_decode(params, cfg, batch, steps, rt)
+        launches = T.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with torch.inference_mode(), rt.use():
+            last = lambda: M.decode_step(params, cfg, caches, {"inputs_embeds": steps[-1]}, s + n - 1)
+            device = device_launches(last, reps=1)
+    calls = 1 + n
+    want = dict.fromkeys(launches, 0)
+    want.update(path_launches(cfg, calls, head_plans=1))
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches} != path's {want}")
+    plans = rt.plan_cache.plan_stats()
+    block = (_fit_block(128, cfg.vocab_size), _fit_block(512, cfg.d_model))
+    head_plans = [] if cfg.frontend == "audio" else [(block, (cfg.vocab_size, cfg.d_model))]
+    if [(p["block"], p["shape"]) for p in plans] != head_plans:
+        raise AssertionError(f"{tag}: plans {plans}, expected {head_plans}")
+    if not all(bool(torch.isfinite(x).all()) for x in logits):
+        raise AssertionError(f"{tag}: non-finite logits")
+    got = torch.stack(logits)  # [n + 1, b, ...]
+    want_tf = teacher_forced(params, cfg, batch, steps, rtm.Runtime(backend="dense", device="cuda"))
+    rows = lambda x: x.flatten(2).flatten(0, 1)  # [n + 1, b, ...] -> one row per call and sequence
+    tf_rel = row_rel_l2(rows(got), rows(want_tf))
+    with torch.inference_mode(), rtm.Runtime(backend="reference", device="cuda").use():
+        ref = M.prefill(params, cfg, batch)[0][:, -1].float()
+    ref_rel = row_rel_l2(got[0].flatten(1), ref.flatten(1))
+    top1 = int((rows(got).argmax(-1) == rows(want_tf).argmax(-1)).sum())
+    step_bytes = decode_bytes(params, M.init_cache(cfg, SLOTS, s + n, device="meta"), cfg)
+    bound_ms = sum(step_bytes.values()) / mem_bandwidth(torch.cuda.get_device_name(0)) * 1e3
+    ms = sum(step_s) / n * 1e3
+    per_call = {k: v / calls for k, v in by_wrapper(launches).items()}
+    n_device = sum(c for _, c in device)
+    res = {"prefill_positions": s, "batch": SLOTS, "decode_steps": n, "prefill_ms": prefill_s * 1e3,
+           "ms_per_decode_step": ms, "decode_step_ms": [t * 1e3 for t in step_s], "decode_bound_ms": bound_ms,
+           "decode_bytes": step_bytes, "peak_mem_gb": peak, "param_gb": param_gb, "launches": launches,
+           "launches_per_model_call": per_call, "device_launches_per_decode_step": n_device,
+           "device_kernels_per_decode_step": dict(device), "plans": plans,
+           "reference_rel_l2": ref_rel, "teacher_forced_rel_l2": tf_rel, "teacher_forced_top1": top1,
+           "logits_shape": list(logits[-1].shape)}
+    prompt = (f"{VL_TEXT} text, 1 x {VL_GRID[0]} x {VL_GRID[1]} image patches, {VL_TEXT} text at M-RoPE "
+              "positions" if "positions" in batch else "frame embeddings")
+    log(f"{tag}: {SLOTS} x {s} positions ({prompt}) then {n} eager decode steps; "
+        f"logits {res['logits_shape']} a step; prefill {res['prefill_ms']:.3f} ms; decode {ms:.3f} ms per step "
+        f"(bound {bound_ms:.4f} ms from the bytes a step moves, GB: "
+        f"{ {k: round(v / 1e9, 3) for k, v in step_bytes.items()} }); peak memory {peak:.2f} GB")
+    log(f"{tag}: kernel launches {launches} == path's over {calls} model calls ({per_call} a call; "
+        f"plans {[(p['block'], p['shape']) for p in plans]}); no plain version ran; {n_device} device launches "
+        f"per decode step (one profiled step)")
+    log(f"{tag}: prefill logits against reference on the card, worst relative L2 {max(ref_rel):.3e}; prefill "
+        f"and decode logits against a teacher-forced forward over {s + n} positions (dense backend): worst "
+        f"{max(tf_rel):.3e} (bound {REF_REL_L2:.3e}) over {len(tf_rel)} rows x positions, top-1 agreement "
+        f"{top1}/{len(tf_rel)}")
+    if max(ref_rel) > REF_REL_L2 or max(tf_rel) > REF_REL_L2:
+        raise AssertionError(f"{tag}: relative L2 against reference {max(ref_rel)} / teacher-forced forward "
+                             f"{max(tf_rel)} > {REF_REL_L2}")
+    del params, caches
+    free()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2161,7 +2378,10 @@ def planner_edge_cases() -> int:
     86 and 800 K blocks, rows and K blocks past one shared-memory stage,
     all-zero rows and masks, dense masks, fp32 and bf16, transposed views and
     views off the 16-byte grid, NaN and -0 in zero blocks, bool and int8
-    masks, coarsen 2, 4 and Nb.  Returns the number of plans checked."""
+    masks, coarsen 2, 4 and Nb, and at qwen2-vl's 231 gate-mask blocks
+    (d_ff 29568) every coarsening that divides them: 1 (what the runtime
+    fits for its ``w_down``, whose bk 462 is no multiple of 128), 3, 7, 11
+    and 231.  Returns the number of plans checked."""
     import torch
     from repro_torch.kernels import block_mask, ref, tensordash_spmm as T
 
@@ -2185,7 +2405,7 @@ def planner_edge_cases() -> int:
         return m
 
     for mb, kb, bm, bk in ((1, 5, 4, 8), (6, 1, 4, 8), (1, 1, 4, 8), (3, 86, 2, 2), (2, 800, 2, 1),
-                           (5000, 8, 2, 16), (9, 7, 4, 8)):
+                           (5000, 8, 2, 16), (9, 7, 4, 8), (1, 231, 4, 2), (8, 231, 2, 2)):
         for kind in ("mixed", "zero_rows", "zero", "dense"):
             mask = mask_of(mb, kb, kind)
             keep = torch.rand(mb * bm, kb * bk, generator=gen) < 0.3
@@ -2201,7 +2421,7 @@ def planner_edge_cases() -> int:
                      (ref.block_any_nonzero(x.T, bk, bm),))
             for dt in (torch.int8, torch.bool):
                 m = mask.to(dev, dt)
-                for c in sorted({1, 2, 4, kb}):
+                for c in sorted({1, 2, 3, 4, 7, 11, kb}):
                     if kb % c == 0:
                         label = f"emitted [{mb},{kb}] {kind} {dt} coarsen {c}"
                         same(label, T.plan_from_mask_csr(m, coarsen=c), ref.plan_from_mask_csr_ref(m, coarsen=c))
@@ -2239,6 +2459,7 @@ def planner_phase(bw: float):
     the profiler's device launches of one chain call; then one device
     launch per planner call."""
     import torch
+    from repro_torch import runtime as rtm
     from repro_torch.configs import get_config
     from repro_torch.kernels import block_mask, ref, tensordash_spmm as T
     from repro_torch.runtime.plan import _fit_block
@@ -2338,10 +2559,11 @@ def planner_phase(bw: float):
         he = torch.clamp_min(torch.randn(cap, 1536, generator=gen, device=dev), 0)
         he[cap - pad:] = 0
         values_case(label, he.to(torch.bfloat16), cap, 512, "moe prefill" if cap > 1 else "moe decode")
-    # the SSM, hybrid, starcoder2 and gemma2 LM heads at their fitted blocks
-    # (120 x 512 for mamba2's vocab 50280, 128 x 384 for gemma2's d_model
-    # 2304), the mamba2 head also with 40% of its blocks zero
-    for arch in (SSM_ARCH, HYBRID_ARCH, STARCODER_ARCH, GEMMA_ARCH):
+    # the SSM, hybrid, starcoder2, gemma2 and qwen2-vl LM heads at their
+    # fitted blocks (120 x 512 for mamba2's vocab 50280, 128 x 384 for
+    # gemma2's d_model 2304, 128 x 512 and 1188 block rows for qwen2-vl's
+    # 152064 x 8192), the mamba2 head also with 40% of its blocks zero
+    for arch in (SSM_ARCH, HYBRID_ARCH, STARCODER_ARCH, GEMMA_ARCH, VL_ARCH):
         c = get_config(arch)
         hv, hd = c.vocab_size, c.d_model
         bm, bk = _fit_block(128, hv), _fit_block(512, hd)
@@ -2357,6 +2579,14 @@ def planner_phase(bw: float):
     c = get_config(GEMMA_ARCH)
     emitted_case("gemma2 gate mask, coarsen 4", (torch.rand(1, c.d_ff // 128, generator=gen, device=dev) < 0.4)
                  .to(torch.int8), 4, "gemma2 decode")
+    # qwen2-vl-ReLU's decode gate mask (231 blocks of 128) at the coarsening
+    # the runtime fits for w_down (1: the fitted bk 462 is no multiple of 128)
+    c = get_config(VL_ARCH)
+    vmask = (torch.rand(1, c.d_ff // 128, generator=gen, device=dev) < 0.4).to(torch.int8)
+    h, w = (torch.empty(shape, dtype=torch.bfloat16, device="meta") for shape in ((SLOTS, c.d_ff),
+                                                                                   (c.d_ff, c.d_model)))
+    coarsen = rtm.Runtime(backend="cuda", device="cuda").plan_for_fused_output(vmask, h, w).bk // 128
+    emitted_case(f"qwen2-vl gate mask, coarsen {coarsen}", vmask, coarsen, "qwen2-vl decode")
     # the weight-gradient products' transposed forward plans
     transpose_case("gate db (dense gate plan)", *T.dense_plan(t // 128, d // 512, dev), "train")
     transpose_case("w_down db (gate mask plan)", *T.plan_from_mask(gmask), "train")
@@ -3124,6 +3354,12 @@ def main() -> int:
     log(f"kv-int8 serve: deepseek-7b relu with the int8 KV cache, {KV_MAX_LEN} rows a slot")
     kv8 = whole_serve_phase(dataclasses.replace(get_config("deepseek-7b"), activation="relu", kv_cache_quant=True),
                             "kv-int8 serve", max_len=KV_MAX_LEN, then=kv_int8_checks)
+    log(f"qwen2-vl run: {VL_ARCH} relu at full width, {VL_LAYERS} layers, M-RoPE over an image prompt, "
+        "through prefill and decode_step")
+    vl = frontend_phase(dataclasses.replace(get_config(VL_ARCH), activation="relu", num_layers=VL_LAYERS),
+                        "qwen2-vl run")
+    log(f"musicgen run: {MG_ARCH} as registered, whole, one head per codebook, through prefill and decode_step")
+    mg = frontend_phase(get_config(MG_ARCH), "musicgen run")
     log("launch serve: repro_torch.launch.serve.main at full width with a poisoned slot")
     launch_serve = launch_serve_phase()
     log(f"train kernels: the backward products at {TRAIN_TOKENS} tokens, fp32 operands, bf16 output")
@@ -3151,19 +3387,22 @@ def main() -> int:
         return out
 
     # the serving path's runs: eager, through the graph (clean and the two
-    # fault replays; a capture's launches once per replay), the launcher and
-    # the MoE and MLA serve runs (eager and graph)
+    # fault replays; a capture's launches once per replay), the launcher, the
+    # MoE, MLA, SSM, hybrid, starcoder2, gemma2 and int8-cache serve runs
+    # (eager and graph) and the frontend runs (prefill and eager decode)
     moe_runs = grouped({k: moe["launches"][k] + moe["graph"]["device_launches"][k] for k in moe["launches"]})
     dsv2_runs = grouped({k: dsv2["launches"][k] + dsv2["graph"]["device_launches"][k] for k in dsv2["launches"]})
     whole_runs = {tag: grouped({k: r["launches"][k] + r["graph"]["device_launches"][k] for k in r["launches"]})
                   for tag, r in (("ssm", ssm), ("hybrid", hybrid), ("starcoder2", starcoder), ("gemma2", gemma),
                                  ("kv_int8", kv8))}
+    frontend_runs = {tag: grouped(r["launches"]) for tag, r in (("qwen2vl", vl), ("musicgen", mg))}
     serve_counts = dict(serve["launches"])
     for extra in (serve["graph"]["device_launches"], *(f["device_launches"] for f in serve["faults"]),
                   launch_serve["launches"], moe["launches"], moe["graph"]["device_launches"],
                   dsv2["launches"], dsv2["graph"]["device_launches"],
                   *(c for r in (ssm, hybrid, starcoder, gemma, kv8) for c in (r["launches"],
-                                                                              r["graph"]["device_launches"]))):
+                                                                              r["graph"]["device_launches"])),
+                  vl["launches"], mg["launches"]):
         for k, v in extra.items():
             serve_counts[k] += v
     serve_runs = grouped(serve_counts)
@@ -3190,6 +3429,7 @@ def main() -> int:
             "launches_serve": serve_runs[kname], "launches_moe_serve": moe_runs[kname],
             "launches_dsv2_serve": dsv2_runs[kname],
             **{f"launches_{tag}_serve": runs[kname] for tag, runs in whole_runs.items()},
+            **{f"launches_{tag}_run": runs[kname] for tag, runs in frontend_runs.items()},
             "launches_per_train_step": per_train_step[kname],
             "launches_per_ssm_train_step": grouped(ssm_train["launches_per_step"])[kname],
             "launches_per_hybrid_train_step": grouped(hybrid_train["launches_per_step"])[kname],
@@ -3206,6 +3446,7 @@ def main() -> int:
          "planner_launch_check": planner_launch, "train": train, "launch_train": launch,
          "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2, "ssm_serve": ssm,
          "hybrid_serve": hybrid, "starcoder2_serve": starcoder, "gemma2_serve": gemma, "kv_int8_serve": kv8,
+         "qwen2vl_run": vl, "musicgen_run": mg,
          "ssm_train": ssm_train, "hybrid_train": hybrid_train,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")

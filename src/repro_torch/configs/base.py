@@ -80,10 +80,14 @@ class ModelConfig:
         hybrid families that formula takes ``3·d·d_inner + 2·d·N + d_inner·d``
         a Mamba2 layer, about ``d·d_inner`` more than its tensors hold (they
         have ``in_z``, ``in_x`` and ``out_proj``, plus the small ``in_dt``),
-        and is kept so that the counts agree; tensor bytes are read from the
-        tensors, never from this count."""
+        and is kept so that the counts agree.  Likewise a frontend config
+        (``frontend`` set) has no embedding table, yet the formula counts
+        ``v·d`` for one; its head term is ``num_codebooks·v·d`` under the
+        audio frontend (one ``[d, v]`` head per codebook).  Tensor bytes are
+        read from the tensors, never from this count."""
         d, l, v = self.d_model, self.num_layers, self.vocab_size
-        n = 2 * v * d  # embed + head
+        n = v * d  # embed (counted for a frontend config too, as JAX does)
+        n += v * d * (self.num_codebooks if self.frontend == "audio" else 1)  # head
         if self.family in ("ssm", "hybrid"):
             di = self.ssm_expand * d
             n += l * (3 * d * di + 2 * d * self.ssm_state + di * d)

@@ -51,11 +51,13 @@ def params_from_jax(tree, cfg: ModelConfig, *, device="cpu") -> dict:
     ``[n_groups, attn_every, ...]``, becomes a list of ``n_groups`` lists
     of ``attn_every`` layer dicts; its ``shared`` block is taken as it is.
     Every leaf keeps its dtype (the MoE router its fp32); expert weights
-    stay ``[E, ...]``."""
+    stay ``[E, ...]``.  A frontend config's tree has no ``embed`` and the
+    audio frontend's ``lm_head`` is ``[num_codebooks, d, v]``, kept as it
+    is."""
     if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported")
     convert = lambda t: _map(lambda x: tensor_from_numpy(x, device), t)
-    out = {"embed": tensor_from_numpy(tree["embed"], device)}
+    out = {} if cfg.frontend is not None else {"embed": tensor_from_numpy(tree["embed"], device)}
     if cfg.family == "hybrid":
         n_groups = cfg.num_layers // cfg.attn_every
         out["groups"] = [_unstack(g, cfg.attn_every, "layers in a group")

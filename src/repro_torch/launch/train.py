@@ -125,6 +125,10 @@ def main(argv=None) -> None:
             "--multi-pod: the port has no mesh until distributed execution "
             "(ROADMAP queue 1, item 14)")
     cfg = get_config(args.arch)
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"--arch {cfg.name}: SyntheticLM makes token batches and a {cfg.frontend} frontend "
+            "takes inputs_embeds; train it through make_train_step with such batches")
     if args.smoke:
         cfg = reduce_config(cfg)
     cfg = dataclasses.replace(cfg, remat=not args.smoke)

@@ -12,7 +12,16 @@ A local layer (``is_global=False`` under a ``sliding_window``) masks the
 keys at or before ``q_pos - window``; a global layer takes no window.  The
 port's layers run in a Python loop, so the flag is a per-layer Python bool,
 where JAX scans it as data (``window = 2**30`` on global layers): the two
-give the same mask.  M-RoPE is not ported yet.
+give the same mask.
+
+Under M-RoPE (``mrope_sections``, Qwen2-VL) the rotary tables come from
+positions ``[B, 3, S]`` (t/h/w streams, :func:`~repro_torch.models.common.
+mrope_tables`) and the causal mask from the sequence index ``arange(S)``;
+a decode step rotates in text mode, the step's position in all three
+streams (:func:`decode_positions` with ``mrope=True``), as JAX's decode
+does.  The projections take the input in the dtype JAX promotes it to
+against the weights: a frontend's bf16 embeddings meet an fp32 model's
+first block in fp32.
 """
 from __future__ import annotations
 
@@ -21,7 +30,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.common import Spec, apply_rope, causal_mask, rms_norm, rotary_embedding, softcap
+from repro_torch.models.common import (
+    Spec, apply_rope, causal_mask, mrope_tables, rms_norm, rotary_embedding, softcap,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +45,7 @@ class AttnConfig:
     qk_norm: bool = False
     attn_softcap: float | None = None
     sliding_window: int | None = None
+    mrope_sections: tuple | None = None  # Qwen2-VL M-RoPE: t/h/w frequency slots
     q_chunk: int = 1024
     kv_quant: bool = False  # int8 KV cache with per-(token, head) fp32 scales
 
@@ -72,9 +84,11 @@ def _kv_dequant(q, s, dtype=torch.bfloat16):
 
 
 def rope_tables(cfg: AttnConfig, positions):
-    """RoPE ``(cos, sin)`` for positions ``[S]`` or ``[B, S]``, broadcast
-    over heads.  The layers share them: callers build them once per call of
-    the model, not once per layer."""
+    """RoPE ``(cos, sin)`` for positions ``[S]`` or ``[B, S]`` (M-RoPE:
+    ``[B, 3, S]``), broadcast over heads.  The layers share them: callers
+    build them once per call of the model, not once per layer."""
+    if cfg.mrope_sections is not None:
+        return mrope_tables(positions, cfg.head_dim, cfg.mrope_sections, cfg.rope_theta)
     cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
     return cos[..., None, :], sin[..., None, :]
 
@@ -82,9 +96,12 @@ def rope_tables(cfg: AttnConfig, positions):
 def _project_qkv(params, cfg: AttnConfig, x, rope):
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kh, hd)
-    v = (x @ params["wv"]).reshape(b, s, kh, hd)
+    # JAX promotes each mixed product on its own, so its backward rounds
+    # each product's input cotangent to x's dtype before the three are summed
+    up = lambda x, w: x.to(torch.promote_types(x.dtype, w.dtype)) @ w
+    q = up(x, params["wq"]).reshape(b, s, h, hd)
+    k = up(x, params["wk"]).reshape(b, s, kh, hd)
+    v = up(x, params["wv"]).reshape(b, s, kh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -130,13 +147,16 @@ def _window(cfg: AttnConfig, is_global: bool):
 
 def attention_fwd(params, cfg: AttnConfig, x, positions, rope, *, is_global: bool = True,
                   return_cache: bool = False):
-    """Training / prefill self-attention over positions ``[S]``;
-    ``rope = rope_tables(cfg, positions)``.  With ``kv_quant`` the returned
-    cache is int8 with fp32 scales."""
+    """Training / prefill self-attention over positions ``[S]`` (M-RoPE:
+    ``[B, 3, S]``, masked causally by ``arange(S)``); ``rope =
+    rope_tables(cfg, positions)``.  With ``kv_quant`` the returned cache is
+    int8 with fp32 scales."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, rope)
+    if positions.ndim != 1:
+        positions = torch.arange(s, device=x.device)
     out = attend_chunked(cfg, q, k, v, positions, positions, _window(cfg, is_global))
-    y = out.reshape(b, s, -1).to(x.dtype) @ params["wo"]
+    y = out.reshape(b, s, -1).to(q.dtype) @ params["wo"]
     if not return_cache:
         return y
     if cfg.kv_quant:
@@ -158,10 +178,14 @@ def init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return KVCache(k=zeros(shape, dtype), v=zeros(shape, dtype))
 
 
-def decode_positions(pos, b: int, device):
+def decode_positions(pos, b: int, device, *, mrope: bool = False):
     """Query positions of a decode step: ``[B, 1]`` for a per-row ``pos``
-    tensor, ``[1]`` for a scalar."""
+    tensor, ``[1]`` for a scalar.  With ``mrope``, the step's M-RoPE
+    positions ``[B, 3, 1]`` in text mode: its position (each row's, or the
+    scalar for every row) in all three streams, as JAX decodes."""
     pos = torch.as_tensor(pos, device=device)
+    if mrope:
+        return pos.reshape(-1, 1).expand(b, 1)[:, None, :].expand(b, 3, 1)
     return pos.reshape(b, 1) if pos.ndim == 1 else pos.reshape(1)
 
 
@@ -172,7 +196,8 @@ def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope, *, i
     dequantized to ``x``'s dtype for the step, as JAX does).  ``pos`` is a
     scalar (every row at one position) or an int ``[B]`` tensor (each batch
     slot at its own position); ``rope = rope_tables(cfg,
-    decode_positions(pos, B, device))``.  Returns ``(y, cache)``."""
+    decode_positions(pos, B, device, mrope=cfg.mrope_sections is not None))``.
+    Returns ``(y, cache)``."""
     b = x.shape[0]
     s_max = cache.k.shape[1]
     pos = torch.as_tensor(pos, device=x.device)

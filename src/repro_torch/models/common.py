@@ -120,6 +120,24 @@ def rotary_embedding(positions, dim: int, theta: float = 1e4):
     return torch.cos(angles), torch.sin(angles)
 
 
+def mrope_tables(positions, dim: int, sections, theta: float = 1e6):
+    """Qwen2-VL M-RoPE: positions ``[B, 3, S]`` (t/h/w), ``sections`` sum to
+    ``dim/2``.  Returns cos/sin ``[B, S, 1, dim/2]``: frequency slot ``j``
+    turns with the stream ``sections`` assigns it (the first ``sections[0]``
+    slots with t, the next ``sections[1]`` with h, the rest with w)."""
+    if positions.ndim != 3 or positions.shape[1] != 3:
+        raise ValueError(f"M-RoPE positions must be [B, 3, S], got {tuple(positions.shape)}")
+    if sum(sections) != dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to dim/2 = {dim // 2}")
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    freqs = 1.0 / (theta ** exponent)
+    stream = torch.cat([torch.full((n,), i, dtype=torch.long, device=positions.device)
+                        for i, n in enumerate(sections)])  # made on the device: no host copy
+    pos = positions.float()[:, stream].transpose(1, 2)  # [B, S, dim/2]: slot j's stream
+    angles = pos * freqs
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
 def apply_rope(x, cos, sin):
     """x [..., S, H, D]; cos/sin broadcastable to [..., S, 1, D/2]."""
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

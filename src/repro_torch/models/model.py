@@ -18,6 +18,12 @@ absorbed form; an SSM config's are one
 :class:`~repro_torch.models.hybrid.HybridCache`.  ``probes``/``taps`` (the
 training instrumentation) reach only the transformer backbone: the JAX
 package's SSM and hybrid forwards ignore them too.
+
+A frontend config (``inputs_embeds`` in the batch, and ``positions`` under
+M-RoPE) runs on the dense family only; its logits are ``[B, S, K, V]``
+under the audio frontend, and :func:`loss_fn` then takes labels ``[B, S,
+K]``.  The SSM and hybrid families take no frontend here: no registered
+config has one.
 """
 from __future__ import annotations
 
@@ -38,6 +44,10 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid")
 def _supported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not one of {FAMILIES}")
+    if cfg.frontend is not None and cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: a {cfg.frontend} frontend on the {cfg.family} family is not ported "
+            "(no registered config has one)")
 
 
 def _ssm_backbone_specs(cfg: ModelConfig) -> dict:
@@ -85,7 +95,7 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
     _supported(cfg)
     if cfg.family in ("dense", "moe"):
         return tfm.forward(params, cfg, batch, probes=probes, taps=taps)
-    h = tfm._embed_in(params, cfg, batch["tokens"])
+    h = tfm._embed_in(params, cfg, batch)
     if cfg.family == "ssm":
         h = _ssm_layers(params, cfg, h)
     else:
@@ -95,7 +105,9 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
 
 def loss_fn(params, cfg: ModelConfig, batch, probes=None, taps=None):
     """Mean next-token cross-entropy over ``batch["labels"]`` (fp32
-    log-softmax).  ``probes``/``taps`` are the training instrumentation of
+    log-softmax; labels ``[B, S, K]`` against the audio frontend's ``[B, S,
+    K, V]`` logits, the mean over every codebook's).  ``probes``/``taps``
+    are the training instrumentation of
     :func:`repro_torch.models.transformer.forward`."""
     logits = forward(params, cfg, batch, probes=probes, taps=taps).float()
     logp = torch.log_softmax(logits, dim=-1)
@@ -110,7 +122,7 @@ def prefill(params, cfg: ModelConfig, batch):
     _supported(cfg)
     if cfg.family in ("dense", "moe"):
         return tfm.prefill(params, cfg, batch)
-    h = tfm._embed_in(params, cfg, batch["tokens"])
+    h = tfm._embed_in(params, cfg, batch)
     if cfg.family == "ssm":
         scfg = hyb.ssm_config(cfg)
         caches = []
@@ -127,7 +139,7 @@ def decode_step(params, cfg: ModelConfig, caches, batch, pos):
     _supported(cfg)
     if cfg.family in ("dense", "moe"):
         return tfm.decode_step(params, cfg, caches, batch, pos)
-    h = tfm._embed_in(params, cfg, batch["tokens"])
+    h = tfm._embed_in(params, cfg, batch)
     if cfg.family == "ssm":
         scfg = hyb.ssm_config(cfg)
         for p, c in zip(params["layers"], caches):

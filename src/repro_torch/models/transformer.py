@@ -32,6 +32,15 @@ normalizes the attention and FFN outputs again before each residual add
 the odd layers of each stack are global and the even ones attend within
 ``sliding_window``.  ``kv_cache_quant`` keeps the KV cache in int8 with
 fp32 scales (:mod:`repro_torch.models.attention`).
+
+A frontend config (``frontend``: ``"vision"`` or ``"audio"``, the JAX
+package's stubs) has no embedding table: its batch carries precomputed
+``inputs_embeds [B, S, d]``, cast to bf16 as JAX casts them.  Under
+``mrope_sections`` (qwen2-vl) the batch also carries the t/h/w positions
+``[B, 3, S]``; a decode step rotates in text mode.  The audio frontend's
+head is one ``[d, v]`` projection per codebook, ``lm_head [K, d, v]``,
+giving logits ``[B, S, K, v]``; JAX computes it with a plain einsum outside
+its kernels, and so does the port.
 """
 from __future__ import annotations
 
@@ -62,17 +71,10 @@ __all__ = [
     "init_layer_caches",
 ]
 
-#: ModelConfig features of the JAX package's dense family that the port
-#: does not run yet; a config using one is refused, never run approximately
-_UNPORTED = ("mrope_sections", "frontend")
-
 
 def check_supported(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense and moe only)")
-    used = [f for f in _UNPORTED if getattr(cfg, f)]
-    if used:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(used)} not ported yet")
 
 
 def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
@@ -85,6 +87,7 @@ def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
         qk_norm=cfg.qk_norm,
         attn_softcap=cfg.attn_softcap,
         sliding_window=cfg.sliding_window,
+        mrope_sections=cfg.mrope_sections,
         q_chunk=cfg.q_chunk,
         kv_quant=cfg.kv_cache_quant,
     )
@@ -140,17 +143,19 @@ def block_specs(cfg: ModelConfig, *, moe: bool = False) -> dict:
 
 def backbone_specs(cfg: ModelConfig) -> dict:
     """The spec tree; a MoE config's first ``first_dense_layers`` blocks go
-    to ``"dense_layers"``, ahead of ``"layers"`` in the forward."""
+    to ``"dense_layers"``, ahead of ``"layers"`` in the forward.  A frontend
+    config has no ``"embed"``; the audio frontend's ``"lm_head"`` is
+    ``[num_codebooks, d, v]``."""
     check_supported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     is_moe = cfg.family == "moe"
     n = cfg.num_layers - cfg.first_dense_layers if is_moe else cfg.num_layers
-    specs = {"embed": Spec((v, d), init="embed")}
+    specs = {} if cfg.frontend is not None else {"embed": Spec((v, d), init="embed")}
     specs["layers"] = [block_specs(cfg, moe=is_moe) for _ in range(n)]
     if is_moe and cfg.first_dense_layers:
         specs["dense_layers"] = [block_specs(cfg) for _ in range(cfg.first_dense_layers)]
     specs["final_norm"] = Spec((d,), init="ones")
-    specs["lm_head"] = Spec((d, v))
+    specs["lm_head"] = Spec((cfg.num_codebooks, d, v)) if cfg.frontend == "audio" else Spec((d, v))
     return specs
 
 
@@ -198,10 +203,15 @@ def head_matmul(cfg: ModelConfig, h, lm_head):
     return h @ lm_head
 
 
-def _embed_in(params, cfg: ModelConfig, tokens):
-    """Token embedding by gather (equal to the JAX decode path's one-hot
-    matmul: one nonzero term per row)."""
-    h = params["embed"][tokens.long()]
+def _embed_in(params, cfg: ModelConfig, batch):
+    """The first hidden state: a frontend's ``inputs_embeds`` cast to bf16
+    (as JAX casts them, whatever the model's dtype), else the token
+    embedding by gather (equal to the JAX decode path's one-hot matmul: one
+    nonzero term per row)."""
+    if cfg.frontend is not None:
+        h = batch["inputs_embeds"].to(torch.bfloat16)
+    else:
+        h = params["embed"][batch["tokens"].long()]
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype)
     return h
@@ -232,6 +242,17 @@ def _rope(cfg: ModelConfig, positions):
     """The RoPE tables of one model call, shared by its layers."""
     acfg, tables, _, _ = _attention(cfg)
     return tables(acfg, positions)
+
+
+def _positions(cfg: ModelConfig, batch, s: int, device):
+    """A full-sequence call's positions: the batch's ``[B, 3, S]`` t/h/w
+    streams under M-RoPE (required: JAX's M-RoPE prefill fails without
+    them too), else ``arange(S)``."""
+    if cfg.mrope_sections is None:
+        return torch.arange(s, device=device)
+    if "positions" not in batch:
+        raise ValueError(f"{cfg.name}: M-RoPE needs the batch's positions [B, 3, S] (t/h/w streams)")
+    return batch["positions"].to(device)
 
 
 def _layer_kw(cfg: ModelConfig, i: int) -> dict:
@@ -267,12 +288,20 @@ def _block_fwd(p, cfg: ModelConfig, h, positions, rope, i: int, *, return_cache:
 
 
 def _head(params, cfg: ModelConfig, h):
+    """Final norm and LM head: logits ``[B, S, v]``, or ``[B, S, K, v]``
+    from the audio frontend's ``K`` codebook heads (a plain einsum, as JAX
+    computes them)."""
     h = rms_norm(h, params["final_norm"], zero_centered=cfg.post_norms)
-    return softcap(head_matmul(cfg, h, params["lm_head"]), cfg.final_softcap)
+    if cfg.frontend == "audio":
+        logits = torch.einsum("bsd,kdv->bskv", h, params["lm_head"])
+    else:
+        logits = head_matmul(cfg, h, params["lm_head"])
+    return softcap(logits, cfg.final_softcap)
 
 
 def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
-    """Full-sequence forward -> logits ``[B, S, V]`` (training and eval).
+    """Full-sequence forward -> logits ``[B, S, V]`` (``[B, S, K, V]``
+    under the audio frontend) (training and eval).
 
     ``probes`` maps stack names (``"layers"``, and a MoE config's
     ``"dense_layers"``) to zero ``[n_layers, B, S, D]`` tensors added at
@@ -285,8 +314,8 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
     runtime."""
     check_supported(cfg)
     rt = rtm.resolve()
-    h = _embed_in(params, cfg, batch["tokens"])
-    positions = torch.arange(h.shape[1], device=h.device)
+    h = _embed_in(params, cfg, batch)
+    positions = _positions(cfg, batch, h.shape[1], h.device)
     rope = _rope(cfg, positions)
     for stack in _stacks(params):
         stack_probes = (probes or {}).get(stack)
@@ -327,9 +356,9 @@ def decode_step(params, cfg: ModelConfig, caches, batch, pos):
     """One-token decode against pre-filled caches; returns ``(logits,
     caches)`` with the caches updated in place."""
     check_supported(cfg)
-    h = _embed_in(params, cfg, batch["tokens"])
+    h = _embed_in(params, cfg, batch)
     acfg, tables, _, decode = _attention(cfg)
-    rope = tables(acfg, attn.decode_positions(pos, h.shape[0], h.device))
+    rope = tables(acfg, attn.decode_positions(pos, h.shape[0], h.device, mrope=cfg.mrope_sections is not None))
     zc = cfg.post_norms
     for stack in _stacks(params):
         for i, (p, cache) in enumerate(zip(params[stack], caches[stack])):
@@ -347,8 +376,8 @@ def prefill(params, cfg: ModelConfig, batch):
     dtype, or int8 with fp32 scales under ``kv_cache_quant``:
     ``Runtime.grow_caches`` casts them to the decode caches' dtypes)."""
     check_supported(cfg)
-    h = _embed_in(params, cfg, batch["tokens"])
-    positions = torch.arange(h.shape[1], device=h.device)
+    h = _embed_in(params, cfg, batch)
+    positions = _positions(cfg, batch, h.shape[1], h.device)
     rope = _rope(cfg, positions)
     caches: dict[str, Any] = {}
     for stack in _stacks(params):

@@ -282,7 +282,9 @@ class ServeEngine:
     plan cache (the runtime's).  ``chunk`` decode steps run per
     :meth:`step` between admissions.  ``cuda_graph`` (``None``: on a CUDA
     device under greedy decoding) runs the chunk as one CUDA graph;
-    ``True`` where that cannot hold raises ``ValueError``.
+    ``True`` where that cannot hold raises ``ValueError``.  A frontend
+    config (``inputs_embeds`` in place of tokens) is refused at
+    construction: the engine, as JAX's, serves token prompts only.
     """
 
     #: admission retries before a transient-alloc-failed request is failed
@@ -297,6 +299,10 @@ class ServeEngine:
                  fault_plan: "rfaults.FaultPlan | None" = None,
                  log: "rlog.ResilienceLog | None" = None,
                  cuda_graph: bool | None = None):
+        if cfg.frontend is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves token prompts; a {cfg.frontend} frontend takes "
+                "inputs_embeds, and JAX's ServeEngine serves tokens only")
         self.params = params
         self.cfg = cfg
         self.rt = rtm.resolve(rt)

@@ -118,7 +118,7 @@ def accumulate_grads(loss_fn, cfg: ModelConfig, params, batch, *, microbatches: 
         p.requires_grad_(True)
     if microbatches == 1:
         return _grads_of(loss_fn, cfg, params, leaves, batch, sparsity_taps)
-    rows = batch["tokens"].shape[0]
+    rows = next(iter(batch.values())).shape[0]
     if rows % microbatches:
         raise ValueError(f"global batch {rows} is not divisible by {microbatches} microbatches")
     per = rows // microbatches

@@ -11,7 +11,10 @@ and hybrid configs (mamba2-780m, zamba2-2.7b: JAX's count, which takes
 Reduced mamba2-780m and zamba2-2.7b give JAX's logits too, and so do reduced
 starcoder2-3b (a non-gated tanh-GELU FFN, GQA over 2 KV heads) and reduced
 gemma2-2b (sliding-window attention on alternate layers, sandwich norms,
-logit softcaps; 16 tokens run past its window of 8).  Reduced
+logit softcaps; 16 tokens run past its window of 8), reduced qwen2-vl-72b
+(M-RoPE over a 2 x 3 image's positions, embeddings in place of tokens) and
+reduced musicgen-large (two codebook heads), whose ``param_count``, as
+JAX's, takes an embedding table the tree does not hold.  Reduced
 qwen3-4b (2 layers, d_model 64, 4 query heads over 2 KV heads, qk-norm) and
 reduced qwen3-moe (the same attention, 8 experts top-2) give the same
 ``forward`` and ``prefill`` logits as JAX's within
@@ -19,6 +22,7 @@ reduced qwen3-moe (the same attention, 8 experts top-2) give the same
 atol 0.1), parameters carried across by ``params_from_jax``.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -47,13 +51,13 @@ def _few_threads():
     torch.set_num_threads(prev)
 
 
-PORTED = ["deepseek-7b", "deepseek-v2-236b", "gemma2-2b", "mamba2-780m", "qwen3-4b", "qwen3-moe-235b-a22b",
-          "starcoder2-3b", "zamba2-2.7b"]
+PORTED = ["deepseek-7b", "deepseek-v2-236b", "gemma2-2b", "mamba2-780m", "musicgen-large", "qwen2-vl-72b",
+          "qwen3-4b", "qwen3-moe-235b-a22b", "starcoder2-3b", "zamba2-2.7b"]
 
 
 def test_the_port_registers_deepseek_and_qwen3():
-    assert tconfigs.ALL_ARCHS == PORTED
-    assert sorted(set(jconfigs.ALL_ARCHS) - set(PORTED)) == ["musicgen-large", "qwen2-vl-72b"]
+    """Every config of the JAX package, the two frontend configs included."""
+    assert tconfigs.ALL_ARCHS == PORTED == sorted(jconfigs.ALL_ARCHS)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -94,15 +98,29 @@ def _reduced_logits_match_jax(arch, backend, dtype_name, seq=12):
     tcfg = tconfigs.reduce_config(tconfigs.get_config(arch))
     if tcfg.family in ("dense", "moe"):
         assert tcfg.num_kv_heads < tcfg.num_heads
+    if tcfg.frontend is not None:
+        # JAX's layer scan cannot carry the bf16 embeddings into fp32 blocks:
+        # its unrolled loop runs them (tests/test_torch_frontends.py)
+        jcfg, tcfg = (dataclasses.replace(c, unroll=True) for c in (jcfg, tcfg))
     jp = jinit_params(JM.param_specs(jcfg), jax.random.PRNGKey(2), dtype=getattr(jnp, dtype_name))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
-    toks = np.random.default_rng(3).integers(0, jcfg.vocab_size, size=(2, seq)).astype(np.int32)
+    rng = np.random.default_rng(3)
+    if tcfg.frontend is None:
+        batch = {"tokens": rng.integers(0, jcfg.vocab_size, size=(2, seq)).astype(np.int32)}
+    else:
+        batch = {"inputs_embeds": rng.standard_normal((2, seq, tcfg.d_model)).astype(np.float32)}
+    if tcfg.mrope_sections is not None:  # a 2 x 3 image after 3 text tokens
+        streams = [(i, i, i) for i in range(3)] + [(3, 3 + r, 3 + c) for r in range(2) for c in range(3)]
+        streams += [(6 + i,) * 3 for i in range(seq - len(streams))]
+        batch["positions"] = np.broadcast_to(np.asarray(streams, np.int32).T, (2, 3, seq)).copy()
     with jrt.use(jrt.Runtime(backend=backend, **GEOM)):
-        jl = JM.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
-        jpl, _ = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)})
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        jl = JM.forward(jp, jcfg, jb)
+        jpl, _ = JM.prefill(jp, jcfg, jb)
     with trt.Runtime(backend=backend, device="cpu", **GEOM).use():
-        tl = TM.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
-        tpl, _ = TM.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        tl = TM.forward(tp, tcfg, tb)
+        tpl, _ = TM.prefill(tp, tcfg, tb)
     for t, j in ((tl, jl), (tpl, jpl)):
         assert tuple(t.shape) == tuple(j.shape)
         np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), **TOL[dtype_name])
@@ -158,3 +176,43 @@ def test_gemma2_reduced_logits_match_jax(backend, dtype_name):
     cfg = tconfigs.reduce_config(tconfigs.get_config("gemma2-2b"))
     assert cfg.sliding_window == 8 and cfg.local_global_alternate and cfg.post_norms and cfg.embed_scale
     _reduced_logits_match_jax("gemma2-2b", backend, dtype_name, seq=16)
+
+
+@pytest.mark.parametrize("arch,reduced,count", [("musicgen-large", False, 2_436_890_624),
+                                                ("qwen2-vl-72b", False, 72_704_065_536),
+                                                ("musicgen-large", True, 106_496),
+                                                ("qwen2-vl-72b", True, 106_496)])
+def test_frontend_param_counts_equal_jax(arch, reduced, count):
+    """JAX's count: ``v·d`` for an embedding table a frontend config does
+    not have, and ``num_codebooks·v·d`` for the audio frontend's heads;
+    the norm gains are not counted."""
+    t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
+    if reduced:
+        t, j = tconfigs.reduce_config(t), jconfigs.reduce_config(j)
+    assert t.param_count() == j.param_count() == count == t.active_param_count()
+    matrices = sum(math.prod(s.shape) for s in _spec_leaves(TM.param_specs(t)) if len(s.shape) > 1)
+    assert count - matrices == t.vocab_size * t.d_model  # the table the count takes and the tree lacks
+
+
+def _spec_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _spec_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _spec_leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_qwen2_vl_reduced_logits_match_jax(backend, dtype_name):
+    cfg = tconfigs.reduce_config(tconfigs.get_config("qwen2-vl-72b"))
+    assert cfg.mrope_sections == (4, 2, 2) and cfg.frontend == "vision" and cfg.rope_theta == 1e6
+    _reduced_logits_match_jax("qwen2-vl-72b", backend, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["dense", "reference"])
+def test_musicgen_reduced_logits_match_jax(backend, dtype_name):
+    cfg = tconfigs.reduce_config(tconfigs.get_config("musicgen-large"))
+    assert cfg.frontend == "audio" and cfg.num_codebooks == 2 and not cfg.mlp_gated
+    _reduced_logits_match_jax("musicgen-large", backend, dtype_name)
