@@ -171,7 +171,22 @@ from the root of a checkout, on a machine with one H100.
    forward plan at every refresh, with blocks skipped, and every edited plan
    bit-equal to the planner's fresh plan of its mask; each step's launches
    held to the path's, no plain version run;
-13. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
+13. runs the sharded SpMM of ``repro_torch.parallel.spmm`` one rank after
+   another on the card (NCCL refuses two ranks on one card, so no run
+   across cards is made): each rank's local step of M (the LM head side B,
+   40% of its blocks zero with a power-law skew, 4 shards dealt serpentine
+   and contiguous), N (``w_down``, 4 shards; the fused gate at ``bn`` 128,
+   2 shards), K (``w_down``, 2 shards, fp32 partials of bf16 operands) and
+   of the train ``w_down``'s backward (``da`` M, ``db`` N, 4 shards), put
+   together as the collective would: M and N bit-equal to the unsharded
+   kernel, K within the kernel tolerance; each shard's kernel ms, work and
+   the imbalance, the fp32 store's ms beside the bf16 store's; the
+   expert-parallel decode branch of one full-width qwen3-moe MoE layer over
+   4 ranks summed against the unsharded layer, with each rank's launches;
+   the int8 rows of the all-to-all's payload against numpy's; then an NCCL
+   group of world size 1: ``ef_compress_grads``, an int8 all-to-all and the
+   quantized all-to-all against the local computation;
+14. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode; each with its
    launches over the serve runs (eager, graph, fault replays, the serve
@@ -179,7 +194,8 @@ from the root of a checkout, on a machine with one H100.
    runs and the qwen2-vl and musicgen runs; a captured launch counted once
    per replay; each of the last nine also alone), the timed training
    steps (deepseek, SSM, hybrid) and launcher runs (a) and (c), on the
-   serving path alone, per training step and per launcher step), the card
+   serving path alone, per training step and per launcher step, and the
+   sharded phase's local steps alone), the card
    line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
@@ -286,6 +302,9 @@ TRAIN_BYTES_PER_PARAM, TRAIN_BUDGET_GB = 27.5, 72
 #: Qwen2-VL's rope index), then decodes FRONTEND_NEW eager steps
 VL_ARCH, VL_LAYERS, MG_ARCH = "qwen2-vl-72b", 24, "musicgen-large"
 VL_TEXT, VL_GRID, FRONTEND_NEW = 32, (12, 16), 16
+#: the sharded phase: the share of the LM head's blocks zero (a power-law
+#: skew over its block rows) for the M-sharded local steps
+SHARD_LM_ZERO = 0.4
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -372,11 +391,12 @@ PLAIN = ("tensordash_matmul_ref", "tensordash_matmul_fused_ref", "plan_blocks_cs
 
 
 @contextlib.contextmanager
-def no_plain_versions(what: str):
-    """Fail ``what`` if it calls any of :data:`PLAIN`."""
+def no_plain_versions(what: str, allow: tuple = ()):
+    """Fail ``what`` if it calls any of :data:`PLAIN` not named in
+    ``allow``."""
     from repro_torch.kernels import ref
 
-    calls, orig = [], {name: getattr(ref, name) for name in PLAIN}
+    calls, orig = [], {name: getattr(ref, name) for name in PLAIN if name not in allow}
 
     def guard(name, fn):
         def wrapped(*args, **kw):
@@ -3291,6 +3311,324 @@ def launch_train_phase():
                                   "c step 1": c["steps"][0]["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# the sharded phase: each rank's local step of the sharded SpMM on the card
+# ---------------------------------------------------------------------------
+
+
+def powerlaw_keep(mb: int, kb: int, zero_share: float, seed: int):
+    """bool ``[mb, kb]`` block mask: block row ``r`` keeps ``round(d_r *
+    kb)`` blocks (at least one) at random, ``d_r`` falling as ``(r + 1) **
+    -0.5`` and scaled so that ``zero_share`` of all blocks are zero on
+    average; the densest rows first, the worst case for a contiguous split."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fall = np.arange(1, mb + 1, dtype=np.float64) ** -0.5
+    lo, hi = 0.0, float(mb)
+    for _ in range(100):  # the scale whose clipped mean density is 1 - zero_share
+        c = (lo + hi) / 2
+        lo, hi = (c, hi) if np.clip(c * fall, 1 / kb, 1).mean() < 1 - zero_share else (lo, c)
+    nnz = np.clip(np.round(np.clip(c * fall, 1 / kb, 1) * kb), 1, kb).astype(int)
+    keep = np.zeros((mb, kb), bool)
+    for r in range(mb):
+        keep[r, rng.permutation(kb)[: nnz[r]]] = True
+    return keep
+
+
+def sharded_phase(bw: float) -> dict:
+    """Each rank's local step of the sharded planned SpMM, for every rank in
+    turn on the one card (a process group of several ranks needs several
+    cards; NCCL refuses two ranks on one), put together as the collective
+    would by ``parallel.spmm.assemble``:
+
+    * M: the deepseek-7b LM head side B ``[102400,4096]@[4096,4]`` at 128 x
+      512, :data:`SHARD_LM_ZERO` of its blocks zero with a power-law skew
+      over the vocab's block rows, 4 shards, dealt serpentine and
+      contiguous: bit-equal to the unsharded kernel, the shards' work and
+      its imbalance (max over mean) each way;
+    * N: the decode ``w_down`` ``[4,11008]@[11008,4096]`` on its emitted
+      mask, 4 shards, and the fused ReLU gate ``[4,4096]@[4096,11008]`` at
+      ``bn`` 128 (86 column blocks), 2 shards, out and mask: bit-equal;
+    * K: ``w_down``'s 86 K blocks at ``bk`` 128 over 2 shards, bf16 operands
+      and fp32 partials (the kernel's bf16-in, fp32-out store), summed in
+      fp32 and cast: within the kernel tolerance of the unsharded kernel;
+    * the backward of the train ``w_down`` at TRAIN_TOKENS tokens, fp32
+      operands, bf16 output, 4 shards: ``ShardedVJP``'s ``da`` (M over the
+      cotangent's rows) and ``db`` (N over its columns) bit-equal to the
+      unsharded products;
+    * the expert-parallel decode branch of one qwen3-moe-235b-a22b-ReLU MoE
+      layer at full width (128 experts, about 4.8 GB of bf16 experts), 4
+      tokens, expert-parallel size 4: each rank's ``decode_local_step``
+      runs its 32 experts; the sum of the four against the unsharded
+      ``moe_ffn`` within :data:`REF_REL_L2`, the planner and SpMM launches
+      per rank; the int8 rows of the all-to-all's dispatch payload ``[E, C,
+      d]`` against numpy's;
+    * an NCCL group of world size 1 on the card: ``ef_compress_grads``, an
+      int8 ``all_to_all_single`` and the quantized all-to-all, each equal to
+      the local computation.
+
+    Every local step runs once with the launch counts reset just before and
+    read just after (no shard falls back to one); then the checks, and each
+    shard's kernel timed beside the unsharded kernel, its plain version, one
+    ``torch.matmul`` and its bound."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import runtime as rtm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref, tensordash_spmm as T
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import moe_config
+    from repro_torch.optim import compress
+    from repro_torch.parallel import spmm
+    from repro_torch.runtime.autodiff import _cot_plan, _lhs_t_plan
+    from repro_torch.runtime.backends import KernelRequest, get_backend
+
+    dev = torch.device("cuda")
+    gdev = torch.Generator(device=dev).manual_seed(11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    be = get_backend("cuda")
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gdev, device=dev) * scale
+
+    def request(plan, a, b, bm, bk, bn, **kw):
+        nnz, idx, rs, wr, wk = plan
+        return KernelRequest(nnz=nnz, idx=idx, a=a, b=b, bm=bm, bk=bk, bn=bn, workqueue=(rs, wr, wk), **kw)
+
+    # -- the cases: (label, axis, shards, deal, request, fused, stage) ---------
+    cases = []
+    keep = torch.from_numpy(powerlaw_keep(102400 // 128, 4096 // 512, SHARD_LM_ZERO, seed=3)).to(dev)
+    w = rand(102400, 4096, scale=4096**-0.5).reshape(800, 128, 8, 512) * keep[:, None, :, None]
+    lm_head = w.reshape(102400, 4096).to(bf16).T.contiguous()  # [d, V], as the model holds it
+    del w
+    a_t, b_t = lm_head.T, rand(SLOTS, 4096).to(bf16).T  # strided views, as Runtime.matmul(side="B")
+    lm_req = request(T.plan_blocks_csr(a_t, 128, 512), a_t, b_t, 128, 512, SLOTS)
+    for balance in (True, False):
+        cases.append(("LM head side B", "M", 4, balance, lm_req, False, "decode"))
+    hmask = (torch.rand(1, 86, generator=gdev, device=dev) < 0.4).to(torch.int8)
+    h = (rand(SLOTS, 11008) * hmask.repeat_interleave(128, 1)).to(bf16)
+    w_down = rand(11008, 4096, scale=11008**-0.5).to(bf16)
+    down_req = request(T.plan_from_mask_csr(hmask), h, w_down, SLOTS, 128, 128)
+    cases.append(("decode w_down", "N", 4, True, down_req, False, "decode"))
+    x = rand(SLOTS, 4096).to(bf16)
+    w_gate = rand(4096, 11008, scale=4096**-0.5).to(bf16)
+    gate_req = request(T.dense_plan_csr(1, 8, dev), x, w_gate, SLOTS, 512, 128, activation="relu")
+    cases.append(("decode gate (fused relu) bn 128", "N", 2, True, gate_req, True, "decode"))
+    cases.append(("decode w_down bk 128", "K", 2, True, down_req, False, "decode"))
+    # the train w_down backward: g [T, d] planned by value, h [T, d_ff] behind
+    # the gate's mask, through ShardedVJP's plans as its backward builds them
+    t = TRAIN_TOKENS
+    gkeep = (torch.rand(t // 128, 4096 // 128, generator=gdev, device=dev) < 0.4).to(f32)
+    g32 = (rand(t, 4096).reshape(t // 128, 128, 32, 128) * gkeep[:, None, :, None]).reshape(t, 4096)
+    hkeep = (torch.rand(t // 128, 86, generator=gdev, device=dev) < 0.4).to(torch.int8)
+    ht = (rand(t, 11008).reshape(t // 128, 128, 86, 128) * hkeep[:, None, :, None]).reshape(t, 11008).to(bf16)
+    ctx = spmm.ShardedVJP(backend="cuda", bm=128, bk=128, bn=128)
+    pg = _cot_plan(ctx, g32)
+    hnnz, hidx = T.plan_from_mask(hkeep)
+    pt = _lhs_t_plan(ctx, hnnz, hidx, ht)
+    da_req = KernelRequest(nnz=pg.nnz, idx=pg.idx, a=g32, b=w_down.float().T, bm=128, bk=128, bn=128,
+                           out_dtype=bf16, workqueue=pg.workqueue())
+    db_req = KernelRequest(nnz=pt.nnz, idx=pt.idx, a=ht.float().T, b=g32, bm=128, bk=128, bn=128,
+                           out_dtype=bf16, workqueue=pt.workqueue())
+    cases.append((f"train w_down da = g @ w_down.T ({t} tokens)", "M", 4, True, da_req, False, "train"))
+    cases.append((f"train w_down db = h.T @ g ({t} tokens)", "N", 4, True, db_req, False, "train"))
+
+    def run_whole(req, fused):
+        return be.execute_fused(req) if fused else be.execute_planned(req)
+
+    wholes = [run_whole(req, fused) for _, _, _, _, req, fused, _ in cases]
+
+    # -- the main path: every rank's local step, once, counted ---------------
+    torch.cuda.synchronize()
+    T.reset_launch_counts()
+    pieces = []
+    with no_plain_versions("the sharded local steps", allow=("workqueue_ref",)):
+        for label, axis, n, balance, req, fused, _ in cases:
+            if not spmm._divides(req, axis, n):
+                raise AssertionError(f"sharded {label}: {axis} does not divide into {n} shards (would run unsharded)")
+            pieces.append([spmm.local_step("cuda", req, axis, s, n, balance=balance, fused=fused)
+                           for s in range(n)])
+    torch.cuda.synchronize()
+    launches = T.launch_counts()
+
+    # -- checks and times -----------------------------------------------------
+    rows, summary = [], []
+    for (label, axis, n, balance, req, fused, stage), whole, parts in zip(cases, wholes, pieces):
+        order = spmm.shard_order(req, n, balance) if axis == "M" else None
+        got = spmm.assemble(axis, parts, req, order=order, fused=fused)
+        deal = "" if axis != "M" else (" balanced" if balance else " contiguous")
+        tag = f"sharded {axis}{deal} x{n} {label}"
+        if axis == "K":
+            err = check_close(tag, got, whole)
+        else:
+            same = (torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])) if fused \
+                else torch.equal(got, whole)
+            if not same:
+                raise AssertionError(f"{tag}: not bit-equal to the unsharded kernel")
+            err = 0.0
+        m, k, nn = req.a.shape[0], req.a.shape[1], req.b.shape[1]
+        esz, out_esz = req.a.element_size(), torch.empty((), dtype=req.out_dtype or req.a.dtype).element_size()
+        whole_ms = cuda_ms(lambda: run_whole(req, fused), iters=10)
+        shard_ms, work, shard_rows = [], [], []
+        for s in range(n):
+            req_l = spmm.local_request(req, axis, s, n, order=order)
+            call = lambda: run_whole(req_l, fused)
+            plain_fn = ref.tensordash_matmul_fused_ref if fused else ref.tensordash_matmul_ref
+            plain = lambda: plain_fn(req_l.nnz, req_l.idx, req_l.a, req_l.b, bm=req_l.bm, bk=req_l.bk, bn=req_l.bn,
+                                     out_dtype=req_l.out_dtype, **({"activation": "relu"} if fused else {}))
+            out_l, want_l = call(), plain()
+            shard_err = check_close(f"{tag} shard {s}", out_l[0] if fused else out_l, want_l[0] if fused else want_l,
+                                    *((out_l[1], want_l[1]) if fused else ()))
+            ms = cuda_ms(call, iters=10)
+            ml, kl, nl = req_l.a.shape[0], req_l.a.shape[1], req_l.b.shape[1]
+            nbytes, flops = plan_bytes_flops(req_l.nnz, req_l.idx, req_l.a, req_l.b, req_l.bm, req_l.bk,
+                                             out_elems=ml * nl, out_esz=4 if axis == "K" else out_esz,
+                                             extra_bytes=(ml // req_l.bm) * (nl // req_l.bn) if fused else 0)
+            t_bytes = nbytes / bw * 1e3
+            t_ops = flops / PEAK_FLOPS[str(req_l.a.dtype)] * 1e3
+            row = {
+                "case": f"{tag} shard {s}", "kernel": "tensordash_matmul_fused" if fused else "tensordash_matmul_planned",
+                "dtype": f"{str(req_l.a.dtype)[6:]}->{str(req_l.out_dtype or req_l.a.dtype)[6:]}",
+                "shape": f"[{ml},{kl}]@[{kl},{nl}]", "block": (req_l.bm, req_l.bk, req_l.bn),
+                "max_abs_err": shard_err, "ms": ms, "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                "library_ms": cuda_ms(lambda: torch.matmul(req_l.a, req_l.b), iters=10),
+                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "main_path": False, "stage": f"sharded {stage}",
+                "work": int(torch.clamp_min(torch.as_tensor(req_l.nnz), 1).sum()),
+                "splits": T.launch_splits(*(req_l.split_shape or (ml, kl, nl)), req_l.bm, req_l.bk, req_l.bn, dev,
+                                          req_l.a.dtype),
+            }
+            if axis == "K":  # the same shard stored in bf16, for the fp32 store's cost
+                bf = dataclasses.replace(req_l, out_dtype=req.a.dtype)
+                row["bf16_store_ms"] = cuda_ms(lambda: be.execute_planned(bf), iters=10)
+            rows.append(row)
+            shard_rows.append(row)
+            shard_ms.append(ms)
+            work.append(row["work"])
+        imbalance = max(work) / (sum(work) / len(work))
+        entry = {"case": tag, "axis": axis, "shards": n, "balance": balance, "max_abs_err": err,
+                 "shard_ms": shard_ms, "sum_shard_ms": sum(shard_ms), "whole_ms": whole_ms, "work": work,
+                 "imbalance": imbalance, "whole_shape": f"[{m},{k}]@[{k},{nn}]",
+                 "whole_splits": T.launch_splits(m, k, nn, req.bm, req.bk, req.bn, dev, req.a.dtype),
+                 "shard_splits": [r["splits"] for r in shard_rows]}
+        if axis == "K":
+            entry["bf16_store_ms"] = [r["bf16_store_ms"] for r in shard_rows]
+        summary.append(entry)
+        log(f"  {tag:<62} {entry['whole_shape']:<24} shards {[f'{x:.4f}' for x in shard_ms]} ms "
+            f"(sum {entry['sum_shard_ms']:.4f}) vs unsharded {whole_ms:.4f} ms; work {work}, imbalance "
+            f"{imbalance:.3f}; splits {entry['shard_splits']} (unsharded {entry['whole_splits']})"
+            + (f"; fp32 store {[f'{x:.4f}' for x in shard_ms]} vs bf16 store "
+               f"{[f'{x:.4f}' for x in entry['bf16_store_ms']]} ms" if axis == "K" else "")
+            + ("; bit-equal" if axis != "K" else f"; max abs err {err:.3e} (kernel tolerance)"))
+    lm = [e for e in summary if e["case"].startswith("sharded M") and "LM head" in e["case"]]
+    log(f"sharded: LM head imbalance, serpentine {lm[0]['imbalance']:.3f} vs contiguous {lm[1]['imbalance']:.3f}")
+    del lm_head, a_t, b_t, w_down, w_gate, g32, ht, pieces, wholes, cases, lm_req, down_req, gate_req, da_req, db_req
+    free()
+
+    # -- the expert-parallel decode branch of one full-width MoE layer -------
+    cfg = dataclasses.replace(get_config(MOE_ARCH), activation="relu")
+    mcfg = moe_config(cfg)
+    ep = 4
+    layer = init_params(moe_mod.moe_specs(mcfg), seed=0, dtype=bf16, device="cuda")
+    expert_gb = sum(layer[k].numel() * 2 for k in ("w_gate", "w_up", "w_down")) / 1e9
+    x = rand(SLOTS, 1, mcfg.d_model).to(bf16)
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+    with torch.inference_mode():
+        whole = moe_mod.moe_ffn(layer, mcfg, x, rt=rt)
+        e_local = mcfg.num_experts // ep
+        bodies, per_rank = [], []
+        with no_plain_versions("the expert-parallel decode local steps"):
+            for s in range(ep):
+                mine = {"router": layer["router"],
+                        **{k: layer[k][s * e_local:(s + 1) * e_local] for k in ("w_gate", "w_up", "w_down")}}
+                T.reset_launch_counts()
+                bodies.append(moe_mod.decode_local_step(mcfg, s, ep, mine, x.reshape(-1, mcfg.d_model), rt=rt))
+                torch.cuda.synchronize()
+                counts = T.launch_counts()
+                per_rank.append({k: v for k, v in counts.items() if v})
+                for kname, v in counts.items():
+                    launches[kname] += v
+        total = torch.stack([b.float() for b in bodies]).sum(0)
+        rel = float(torch.linalg.vector_norm(total - whole.reshape(total.shape).float())
+                    / torch.linalg.vector_norm(whole.float()))
+        body_ms = [cuda_ms(lambda s=s: moe_mod.decode_local_step(
+            mcfg, s, ep, {"router": layer["router"], **{k: layer[k][s * e_local:(s + 1) * e_local]
+                                                      for k in ("w_gate", "w_up", "w_down")}},
+            x.reshape(-1, mcfg.d_model), rt=rt), iters=3, warmup=1) for s in range(ep)]
+        whole_ms = cuda_ms(lambda: moe_mod.moe_ffn(layer, mcfg, x, rt=rt), iters=3, warmup=1)
+        # the int8 rows of the seq branch's dispatch payload [E, C, d]: a
+        # 4 x 32-token prefill group's bucketing
+        x2 = rand(SLOTS * 32, mcfg.d_model).to(bf16)
+        cap = moe_mod.expert_capacity(mcfg, x2.shape[0])
+        _, top_e, _ = moe_mod._route(mcfg, x2, layer["router"])
+        table, _, _ = moe_mod._bucket(mcfg, top_e, mcfg.num_experts, cap, x2.shape[0])
+        xe = torch.cat([x2, x2.new_zeros((1, x2.shape[1]))])[torch.clamp_max(table // mcfg.top_k, x2.shape[0])]
+        q, scale = moe_mod._quantize_rows(xe)
+        deq = moe_mod._dequantize_rows(q, scale, xe.dtype)
+        xn = xe.float().cpu().numpy()
+        s_np = np.maximum(np.abs(xn).max(-1, keepdims=True) / np.float32(127.0), np.float32(1e-12)).astype(np.float32)
+        q_np = np.clip(np.rint(xn / s_np), -127, 127).astype(np.int8)
+        deq_np = (q_np.astype(np.float32) * s_np).astype(np.float32)
+    if not (np.array_equal(q.cpu().numpy(), q_np) and np.array_equal(scale.cpu().numpy(), s_np)
+            and torch.equal(deq, torch.from_numpy(deq_np).to(dev, bf16))):
+        raise AssertionError("sharded: the int8 rows of the dispatch payload differ from numpy's")
+    if not bool(torch.isfinite(total).all()) or rel > REF_REL_L2:
+        raise AssertionError(f"sharded: the {ep} expert-parallel decode bodies sum to relative L2 {rel} of the "
+                             f"unsharded layer (bound {REF_REL_L2})")
+    want = {"planner[values]": e_local, "tensordash_matmul_planned": e_local}
+    if any(r != want for r in per_rank):
+        raise AssertionError(f"sharded: per-rank launches {per_rank}, expected {want} (one plan and one planned "
+                             "product per local expert)")
+    moe = {"experts_gb": expert_gb, "rel_l2": rel, "launches_per_rank": per_rank, "body_ms": body_ms,
+           "whole_ms": whole_ms, "payload": list(xe.shape), "payload_bytes_int8": q.numel() + scale.numel() * 4,
+           "payload_bytes_bf16": xe.numel() * 2}
+    log(f"sharded moe: {MOE_ARCH} relu, one MoE layer at full width ({mcfg.num_experts} experts, d_model "
+        f"{mcfg.d_model}, d_ff {mcfg.d_ff}, {expert_gb:.2f} GB bf16 experts), {SLOTS} tokens, expert-parallel "
+        f"size {ep}: the {ep} decode bodies sum to relative L2 {rel:.3e} of the unsharded layer (bound "
+        f"{REF_REL_L2:.3e}); launches per rank {per_rank}; body ms {[round(v, 4) for v in body_ms]} vs the "
+        f"unsharded layer {whole_ms:.4f} ms; dispatch payload {list(xe.shape)} int8 rows equal numpy's "
+        f"({moe['payload_bytes_int8']} B with scales vs {moe['payload_bytes_bf16']} B bf16)")
+    del layer, x, whole, bodies, total, xe, q, deq
+    free()
+
+    # -- an NCCL group of world size 1 on the card ----------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            grads = {"w": rand(1024, 1024), "b": rand(4096)}
+            res = {k: rand(*v.shape, scale=1e-3) for k, v in grads.items()}
+            red, new = compress.ef_compress_grads(grads, res, group=dist.group.WORLD)
+            for kname, g in grads.items():
+                gq = g + res[kname]
+                local = compress.dequantize(*compress.quantize(gq))
+                if not (torch.equal(red[kname], local) and torch.equal(new[kname], gq - local)):
+                    raise AssertionError(f"sharded nccl: ef_compress_grads[{kname}] differs from the local sum")
+            payload = torch.randint(-127, 128, (mcfg.num_experts, 4, 256), generator=gdev, device=dev,
+                                    dtype=torch.int8)
+            out = torch.empty_like(payload)
+            dist.all_to_all_single(out, payload)
+            xq = rand(mcfg.num_experts, 4, 256).to(bf16)
+            qa2a = moe_mod._quantized_all_to_all(xq, 0, 1, dist.group.WORLD)
+            torch.cuda.synchronize()
+            if not torch.equal(out, payload):
+                raise AssertionError("sharded nccl: the int8 all_to_all_single is not the identity on one rank")
+            if not torch.equal(qa2a, moe_mod._dequantize_rows(*moe_mod._quantize_rows(xq), bf16)):
+                raise AssertionError("sharded nccl: the quantized all-to-all differs from the local round trip")
+            nccl = {"backend": dist.get_backend(), "world_size": dist.get_world_size(), "nccl": list(torch.cuda.nccl.version())}
+        finally:
+            dist.destroy_process_group()
+    log(f"sharded nccl: a group of world size 1 (NCCL {nccl['nccl']}): ef_compress_grads, an int8 "
+        "all_to_all_single and the quantized all-to-all equal the local computation; no run across cards was "
+        "made (the machine has one card)")
+    return {"cases": summary, "rows": rows, "launches": launches, "moe": moe, "nccl": nccl}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository (src/repro_torch missing)",
@@ -3374,6 +3712,9 @@ def main() -> int:
     log(f"launch: repro_torch.launch.train.main on qwen3-4b cut to {LAUNCH_LAYERS} layers: checkpoint, "
         "resume, dynamic sparse training")
     launch = launch_train_phase()
+    log("sharded: each rank's local step of the sharded SpMM on the card, the expert-parallel decode branch, "
+        "an NCCL group of world size 1")
+    sharded = sharded_phase(bw)
 
     def grouped(counts):
         """Launches per entry of the kernels line: v2 and v1 together, and
@@ -3415,14 +3756,15 @@ def main() -> int:
     launch_runs = grouped({k: launch["a"]["launches"][k] + launch["c"]["launches"][k]
                            for k in launch["a"]["launches"]})
     per_launch_step = {tag: grouped(w) for tag, w in launch["launches_per_step"].items()}
+    sharded_runs = grouped(sharded["launches"])
     kernels = []
     for kname in REPLACES:
-        mine = [r for r in rows + grid_rows + train_rows + planner_rows if r["kernel"] == kname]
+        mine = [r for r in rows + grid_rows + train_rows + planner_rows + sharded["rows"] if r["kernel"] == kname]
         head = next(r for r in mine if r["main_path"])  # the first main-path shape
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE if kname in SPMM else PLANNER_SOURCE,
             "replaces": REPLACES[kname],
-            "launches": serve_runs[kname] + train_runs[kname] + launch_runs[kname],
+            "launches": serve_runs[kname] + train_runs[kname] + launch_runs[kname] + sharded_runs[kname],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
@@ -3435,6 +3777,7 @@ def main() -> int:
             "launches_per_hybrid_train_step": grouped(hybrid_train["launches_per_step"])[kname],
             "launches_launch_train": launch_runs[kname],
             "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
+            "launches_sharded_local_steps": sharded_runs[kname],
         })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3447,7 +3790,7 @@ def main() -> int:
          "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2, "ssm_serve": ssm,
          "hybrid_serve": hybrid, "starcoder2_serve": starcoder, "gemma2_serve": gemma, "kv_int8_serve": kv8,
          "qwen2vl_run": vl, "musicgen_run": mg,
-         "ssm_train": ssm_train, "hybrid_train": hybrid_train,
+         "ssm_train": ssm_train, "hybrid_train": hybrid_train, "sharded": sharded,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

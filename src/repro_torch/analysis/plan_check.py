@@ -23,8 +23,9 @@ effectual MAC appears in the queue exactly once, so proving the metadata
 proves the schedule without issuing a grid.
 
 The metadata is copied to the host once per array (a plan on the card
-costs one device-to-host copy each).  The shard and transpose checks wait
-for the slices that port sharding and the backward pass.
+costs one device-to-host copy each).  The shard checks (``verify_shards``,
+``check_sharded``) and the transpose check wait for plan validation
+(ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
 

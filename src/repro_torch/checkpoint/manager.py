@@ -16,8 +16,8 @@
   named tuples (the optimizer's ``OptState``); leaves are tensors and
   Python scalars (``OptState.step``).  :func:`restore` places
   each tensor on the device and in the dtype of the ``like`` tree's leaf.
-  Resharding on load (``shardings=``) waits for distributed execution
-  (ROADMAP queue 1, item 14).
+  Resharding on load (``shardings=``) waits for the sharded train step
+  (ROADMAP queue 1, item 14b).
 * Preemption: :class:`PreemptionGuard` installs a SIGTERM handler; the
   train loop polls ``should_save`` and checkpoints before exit.
 """
@@ -153,7 +153,7 @@ def restore(directory: str, step: int, like, *, shardings=None):
     if shardings is not None:
         raise NotImplementedError(
             "restore(shardings=): resharding on load waits for distributed execution "
-            "(ROADMAP queue 1, item 14)")
+            "(ROADMAP queue 1, item 14b)")
     base = os.path.join(os.fspath(directory), f"step_{step:012d}")
     with open(os.path.join(base, "meta.json")) as f:
         meta = json.load(f)

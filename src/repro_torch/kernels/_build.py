@@ -43,7 +43,7 @@ class SpmmArgs(ctypes.Structure):
         *((name, _I) for name in (
             "kdim", "M", "K", "N", "bm", "bk", "bn", "rows", "TN", "KC", "S", "stages",
             "swap", "wp", "wq", "mt", "nt", "a_kmaj", "a_vec", "b_kmaj", "b_vec",
-            "activation", "out_bf16")),
+            "activation", "out_type")),
     ]
 
 

@@ -94,12 +94,14 @@
 // The epilogue uses __fadd_rn/__fmul_rn so nvcc cannot contract
 // square-then-add into one FMA: the plain executor rounds twice.
 //
-// Output type.  C is stored in the operands' type, or, for fp32 operands
-// with out_bf16 set, in bf16: the training backward runs both gradient
-// products on fp32 operands and writes them in a bf16 model's dtype.  The
-// fp32 accumulator (after the split-K sum and the epilogue, the mask taken
-// on the fp32 value) is rounded once to nearest even, as the plain
-// executor's cast does, in the same launch.
+// Output type (out_type).  C is stored in the operands' type (0); for fp32
+// operands in bf16 (1): the training backward runs both gradient products
+// on fp32 operands and writes them in a bf16 model's dtype, the fp32
+// accumulator (after the split-K sum and the epilogue, the mask taken on the
+// fp32 value) rounded once to nearest even, as the plain executor's cast
+// does, in the same launch; for bf16 operands in fp32 (2): the accumulator
+// itself, as the K-sharded product's partials need it (each shard's fp32
+// partial meets the others' in an fp32 sum before any rounding).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -112,7 +114,7 @@
 struct TdSpmmArgs {
   const void* a; long long sam, sak;  // A [M, K] with strides (rows, cols)
   const void* b; long long sbk, sbn;  // B [K, N] with strides (rows, cols)
-  void* out;                          // C [M, N], contiguous, in T or bf16 (out_bf16)
+  void* out;                          // C [M, N], contiguous, in T or the out_type's type
   float* partial;                     // split partials (S > 1) or null
   int* counters;                      // [tiles] split arrivals, [Mb * N / bn] mask arrivals
   const int* nnz;                     // [Mb]
@@ -130,7 +132,7 @@ struct TdSpmmArgs {
   int wp, wq, mt, nt;                 // warps along MMA rows / columns; m16 / n8 tiles a warp
   int a_kmaj, a_vec, b_kmaj, b_vec;   // staged K-contiguous; 16-byte cp.async
   int activation;                     // 0 none, 1 relu, 2 squared_relu
-  int out_bf16;                       // C in bf16 (fp32 operands only), else in T
+  int out_type;                       // 0: C in T; 1: bf16 (fp32 T only); 2: fp32 (bf16 T only)
 };
 
 namespace {
@@ -382,8 +384,10 @@ __device__ __forceinline__ int finish(const Args& p, long long o, int col, float
     if (p.residual) v = __fadd_rn(v, to_f32(static_cast<const T*>(p.residual)[o]));
     nz = (v != 0.f);
   }
-  if (sizeof(T) == 4 && p.out_bf16)  // one round-to-nearest-even of the fp32 value
+  if (sizeof(T) == 4 && p.out_type == 1)  // one round-to-nearest-even of the fp32 value
     static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(v);
+  else if (sizeof(T) == 2 && p.out_type == 2)  // the fp32 accumulator, unrounded
+    static_cast<float*>(p.out)[o] = v;
   else
     static_cast<T*>(p.out)[o] = from_f32<T>(v);
   return nz;
@@ -597,7 +601,7 @@ int launch_t(const Args& p, cudaStream_t s) {
       p.rows < 1 || p.bm % p.rows || p.S < 1 || p.S > 65535 || p.TN < 1 || p.bn % p.TN ||
       (long long)(p.bn / p.TN) * (p.bm / p.rows) >= 0x8000 ||
       p.M / p.bm > 65535 || (p.S > 1 && (!p.partial || !p.counters)) ||
-      (p.out_bf16 != 0 && (sizeof(T) != 4 || p.out_bf16 != 1)))
+      (p.out_type != 0 && p.out_type != (sizeof(T) == 4 ? 1 : 2)))
     return (int)cudaErrorInvalidValue;
   const size_t stage = (size_t)(align128(tile_elems(p_pad, p.KC, V) * (long long)sizeof(T)) +
                                 align128(tile_elems(q_pad, p.KC, V) * (long long)sizeof(T)));

@@ -108,7 +108,10 @@ def _planned_acc(nnz, idx, a, b, bm: int, bk: int) -> torch.Tensor:
 
 def tensordash_matmul_ref(nnz, idx, a, b, *, bm: int, bk: int, bn: int, out_dtype=None):
     """Plan-driven block-sparse ``a @ b``: per block row, accumulate the
-    planned K blocks in plan order into an fp32 accumulator, then cast."""
+    planned K blocks in plan order into an fp32 accumulator, then cast to
+    ``out_dtype`` (the operands' dtype by default; bf16 from fp32 operands
+    rounds once, fp32 from bf16 operands keeps the accumulator, as the
+    kernel's three store types do)."""
     _check_blocks(a, b, bm, bk, bn)
     return _planned_acc(nnz, idx, a, b, bm, bk).to(out_dtype or a.dtype)
 

@@ -23,8 +23,8 @@ The two wrappers run the CUDA kernels of ``csrc/tensordash_spmm.cu``:
 ``"ragged"`` walks the plan's CSR work queue; ``"v2"``/``"v1"`` read
 ``idx[m, k]`` directly over a K bound of ``max(max(nnz), 1)`` (reduced on
 the card, never read on the host) or ``Kb``.  The three families give
-bit-identical results.  The output is written in the operands' dtype, or in
-bfloat16 from float32 operands.  On a CPU tensor a wrapper runs the plain executor
+bit-identical results.  The output is written in the operands' dtype, in
+bfloat16 from float32 operands, or in float32 from bfloat16 operands.  On a CPU tensor a wrapper runs the plain executor
 of :mod:`.ref`; on a CUDA tensor it makes exactly one kernel launch (split-K
 reduced in the same launch; :func:`kernel_tile` and :func:`kernel_splits`
 give its tile and split count from the shapes) or raises.
@@ -198,6 +198,11 @@ def dense_plan_csr(mb: int, kb: int, device="cpu"):
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: (operand dtype, output dtype) -> the kernel's ``out_type``: the operands'
+#: type, bf16 from fp32 operands (the training backward's products), fp32
+#: from bf16 operands (the K-sharded product's partials)
+_OUT_TYPE = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 0,
+             (torch.float32, torch.bfloat16): 1, (torch.bfloat16, torch.float32): 2}
 _ACT_CODE = {"none": 0, "relu": 1, "squared_relu": 2}
 # must match csrc/tensordash_spmm.cu
 _THREADS, _WARPS = 256, 8
@@ -448,9 +453,11 @@ def _arrivals(device: torch.device, stream: int, count: int) -> torch.Tensor:
 
 
 def _launch(wrapper, nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue, *,
-            bias=None, residual=None, activation="none"):
+            bias=None, residual=None, activation="none", split_shape=None):
     """Validate and run one CUDA launch of ``wrapper`` (``"planned"`` or
-    ``"fused"``); returns ``(out, mask)`` (``mask`` None when planned)."""
+    ``"fused"``); returns ``(out, mask)`` (``mask`` None when planned).
+    ``split_shape`` ``(m, k, n)``: cut K into the shares a launch of that
+    shape would (see :func:`tensordash_matmul_planned`)."""
     from repro_torch.kernels import _build
 
     m, k, n = ref._check_blocks(a, b, bm, bk, bn)
@@ -465,12 +472,12 @@ def _launch(wrapper, nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue, *,
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise TypeError(f"CUDA kernel takes float32 or bfloat16 operands of one dtype, got {a.dtype}, {b.dtype}")
     out_dtype = out_dtype or a.dtype
-    if out_dtype != a.dtype and (a.dtype, out_dtype) != (torch.float32, torch.bfloat16):
-        raise TypeError(f"CUDA kernel writes {a.dtype} operands as {a.dtype} (or float32 as bfloat16), "
-                        f"not as {out_dtype}")
+    if (a.dtype, out_dtype) not in _OUT_TYPE:
+        raise TypeError(f"CUDA kernel writes {a.dtype} operands as {a.dtype} (float32 also as bfloat16, "
+                        f"bfloat16 also as float32), not as {out_dtype}")
     dev = a.device
     args = _build.SpmmArgs(kdim=0, M=m, K=k, N=n, bm=bm, bk=bk, bn=bn,
-                           activation=_ACT_CODE[activation], out_bf16=int(out_dtype != a.dtype))
+                           activation=_ACT_CODE[activation], out_type=_OUT_TYPE[a.dtype, out_dtype])
     keep = []  # the tensors behind the pointers, held until the launch is queued
     if grid == "ragged":
         if workqueue is None:
@@ -488,7 +495,7 @@ def _launch(wrapper, nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue, *,
     args.nnz = nnz_t.data_ptr()
     tile = kernel_tile(bm, bk, bn, a.element_size())
     tiles = (n // tile.tn) * tile.slices * (m // bm)
-    splits = launch_splits(m, k, n, bm, bk, bn, dev, a.dtype)
+    splits = launch_splits(*(split_shape or (m, k, n)), bm, bk, bn, dev, a.dtype)
     sam, sak = a.stride()
     sbk, sbn = b.stride()
     args.a, args.sam, args.sak = a.data_ptr(), sam, sak
@@ -537,22 +544,31 @@ def _launch(wrapper, nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue, *,
 
 def tensordash_matmul_planned(nnz, idx, a: torch.Tensor, b: torch.Tensor, *,
                               bm: int = 128, bk: int = 512, bn: int = 128,
-                              out_dtype=None, compact_grid="ragged", workqueue=None):
+                              out_dtype=None, compact_grid="ragged", workqueue=None, split_shape=None):
     """Block-sparse ``a @ b`` given a precomputed block plan.  ``a`` and ``b``
     may be strided views (the side-B LM head passes ``lm_head.T``); the
-    output is contiguous, in ``out_dtype``: the operands' dtype, or
-    bfloat16 for float32 operands (the training backward's products), one
-    rounding of the fp32 accumulator in the same launch.  ``workqueue``
+    output is contiguous, in ``out_dtype``: the operands' dtype, bfloat16
+    for float32 operands (the training backward's products, one rounding
+    of the fp32 accumulator in the same launch) or float32 for bfloat16
+    operands (the K-sharded product's partials: the accumulator itself).  ``workqueue``
     optionally supplies the plan's ``(row_starts, work_row, work_kblk)``
     (ragged only; v1/v2 read ``idx``).  The output has no ``grad_fn``: on
     the card an operand that requires grad raises while grad mode is on
-    (:mod:`repro_torch.runtime.autodiff` differentiates it)."""
+    (:mod:`repro_torch.runtime.autodiff` differentiates it).
+
+    ``split_shape`` ``(m, k, n)`` names the whole product this launch is a
+    row or column shard of: the kernel then cuts each row's K list into the
+    shares that product's launch would (the split count follows from the
+    shapes), and sums them in the same order, so the shard's output equals
+    those rows or columns of the whole product bit for bit
+    (:mod:`repro_torch.parallel.spmm`).  The CPU path has no split."""
     grid = _check_compact_grid(compact_grid)
     if a.device.type == "cpu":  # every family runs the same schedule
         return ref.tensordash_matmul_ref(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
-    return _launch("planned", nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue)[0]
+    return _launch("planned", nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue,
+                   split_shape=split_shape)[0]
 
 
 def tensordash_matmul_fused(nnz, idx, a: torch.Tensor, b: torch.Tensor,
@@ -560,7 +576,7 @@ def tensordash_matmul_fused(nnz, idx, a: torch.Tensor, b: torch.Tensor,
                             residual: torch.Tensor | None = None, *,
                             activation: str = "none", bm: int = 128, bk: int = 512,
                             bn: int = 128, out_dtype=None, compact_grid="ragged",
-                            workqueue=None):
+                            workqueue=None, split_shape=None):
     """Planned ``act(a @ b + bias) + residual`` with the epilogue applied to
     the fp32 accumulator, plus the emitted output mask.  Returns ``(out
     [M, N], mask int8 [M/bm, N/bn])``."""
@@ -575,7 +591,7 @@ def tensordash_matmul_fused(nnz, idx, a: torch.Tensor, b: torch.Tensor,
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
     return _launch("fused", nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue,
-                   bias=bias, residual=residual, activation=activation)
+                   bias=bias, residual=residual, activation=activation, split_shape=split_shape)
 
 
 def launch_counts() -> dict[str, int]:

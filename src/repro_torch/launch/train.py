@@ -19,9 +19,9 @@ degradation — skip-step, straggler abort, preemption save, corrupt-
 checkpoint skip — is surfaced in the :class:`repro_torch.resilience.
 ResilienceLog` summary.
 
-The port runs on one device: there is no mesh, ``--multi-pod`` raises and
-the per-plan ``imbalance`` column waits for sharded plans (ROADMAP queue 1,
-item 14).  ``--device`` is the one flag the JAX launcher lacks.
+The launcher runs on one device: ``--multi-pod`` raises, and the per-plan
+``imbalance`` column (``PlanCache.plan_stats(shards=)``) waits for the
+sharded train step (ROADMAP queue 1, item 14b).  ``--device`` is the one flag the JAX launcher lacks.
 """
 from __future__ import annotations
 
@@ -122,8 +122,8 @@ def main(argv=None) -> None:
 
     if args.multi_pod:
         raise NotImplementedError(
-            "--multi-pod: the port has no mesh until distributed execution "
-            "(ROADMAP queue 1, item 14)")
+            "--multi-pod: the launcher trains on one device until the sharded train step "
+            "(ROADMAP queue 1, item 14b)")
     cfg = get_config(args.arch)
     if cfg.frontend is not None:
         raise NotImplementedError(

@@ -53,10 +53,10 @@ class AttnConfig:
 def attention_specs(cfg: AttnConfig) -> dict:
     d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
-        "wq": Spec((d, h * hd)),
-        "wk": Spec((d, kh * hd)),
-        "wv": Spec((d, kh * hd)),
-        "wo": Spec((h * hd, d)),
+        "wq": Spec((d, h * hd), axes=("embed", "heads")),
+        "wk": Spec((d, kh * hd), axes=("embed", "kv_heads")),
+        "wv": Spec((d, kh * hd), axes=("embed", "kv_heads")),
+        "wo": Spec((h * hd, d), axes=("heads", "embed")),
     }
     if cfg.qk_norm:
         specs["q_norm"] = Spec((hd,), init="ones")

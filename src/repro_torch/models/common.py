@@ -23,12 +23,20 @@ DEFAULT_DTYPE = torch.bfloat16
 class Spec:
     """Declaration of one parameter tensor (shape + initializer).  ``scale``
     overrides the initializer's std; ``dtype`` (a torch dtype) overrides the
-    tree's dtype for this leaf, as the MoE router stays fp32."""
+    tree's dtype for this leaf, as the MoE router stays fp32.  ``axes``
+    names each dim's logical axis (or ``None``), the JAX package's names,
+    which :func:`repro_torch.parallel.sharding.param_pspecs` maps onto a
+    mesh; ``None`` for the whole tuple leaves every dim unnamed."""
 
     shape: tuple
     init: str = "normal"  # normal | ones | zeros | embed | scaled
     scale: float | None = None
     dtype: Any = None
+    axes: tuple | None = None
+
+    def __post_init__(self):
+        if self.axes is not None and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not name the {len(self.shape)} dims of {self.shape}")
 
 
 def _fan_in(shape: tuple) -> int:

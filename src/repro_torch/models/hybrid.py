@@ -78,13 +78,13 @@ def hybrid_specs(cfg: ModelConfig) -> dict:
 
     shared = {
         "norm_in": Spec((2 * d,), init="ones"),
-        "w_in": Spec((2 * d, d)),
+        "w_in": Spec((2 * d, d), axes=(None, "embed")),
         "attn": attn.attention_specs(shared_attn_config(cfg)),
         "norm_mlp": Spec((d,), init="ones"),
         "mlp": {
-            "w_gate": Spec((d, cfg.shared_d_ff)),
-            "w_up": Spec((d, cfg.shared_d_ff)),
-            "w_down": Spec((cfg.shared_d_ff, d)),
+            "w_gate": Spec((d, cfg.shared_d_ff), axes=("embed", "mlp")),
+            "w_up": Spec((d, cfg.shared_d_ff), axes=("embed", "mlp")),
+            "w_down": Spec((cfg.shared_d_ff, d), axes=("mlp", "embed")),
         },
     }
     return {"groups": [[layer() for _ in range(cfg.attn_every)] for _ in range(lead[0])], "shared": shared}

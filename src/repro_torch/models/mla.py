@@ -47,13 +47,13 @@ class MLAConfig:
 def mla_specs(cfg: MLAConfig) -> dict:
     d, h = cfg.d_model, cfg.num_heads
     return {
-        "wq_a": Spec((d, cfg.q_lora_rank)),
+        "wq_a": Spec((d, cfg.q_lora_rank), axes=("embed", None)),
         "q_norm": Spec((cfg.q_lora_rank,), init="ones"),
-        "wq_b": Spec((cfg.q_lora_rank, h * cfg.qk_head_dim)),
-        "wkv_a": Spec((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim)),
+        "wq_b": Spec((cfg.q_lora_rank, h * cfg.qk_head_dim), axes=(None, "heads")),
+        "wkv_a": Spec((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim), axes=("embed", None)),
         "kv_norm": Spec((cfg.kv_lora_rank,), init="ones"),
-        "wkv_b": Spec((cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim))),
-        "wo": Spec((h * cfg.v_head_dim, d)),
+        "wkv_b": Spec((cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)), axes=(None, "heads")),
+        "wo": Spec((h * cfg.v_head_dim, d), axes=("heads", "embed")),
     }
 
 

@@ -54,16 +54,17 @@ def _ssm_backbone_specs(cfg: ModelConfig) -> dict:
     d, v = cfg.d_model, cfg.vocab_size
     layer = lambda: {"ln": Spec((d,), init="ones"), "ssm": ssm_mod.ssm_specs(hyb.ssm_config(cfg))}
     return {
-        "embed": Spec((v, d), init="embed"),
+        "embed": Spec((v, d), init="embed", axes=("vocab", "embed")),
         "layers": [layer() for _ in range(cfg.num_layers)],
         "final_norm": Spec((d,), init="ones"),
-        "lm_head": Spec((d, v)),
+        "lm_head": Spec((d, v), axes=("embed", "vocab")),
     }
 
 
 def _hybrid_backbone_specs(cfg: ModelConfig) -> dict:
     d, v = cfg.d_model, cfg.vocab_size
-    specs = {"embed": Spec((v, d), init="embed"), "final_norm": Spec((d,), init="ones"), "lm_head": Spec((d, v))}
+    specs = {"embed": Spec((v, d), init="embed", axes=("vocab", "embed")), "final_norm": Spec((d,), init="ones"),
+             "lm_head": Spec((d, v), axes=("embed", "vocab"))}
     specs.update(hyb.hybrid_specs(cfg))
     return specs
 

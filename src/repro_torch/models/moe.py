@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN with TensorDash-style structured sparsity (port of
-the single-device path of ``repro/models/moe.py``).
+"""Expert-parallel Mixture-of-Experts with TensorDash-style structured
+sparsity (port of ``repro/models/moe.py``).
 
 The router's top-k one-hot is the paper's Z-vector at expert granularity:
 most (expert, token) pairs are ineffectual, and capacity bucketing advances
@@ -9,21 +9,39 @@ all-zero pad row, so under a sparse runtime and a ReLU gate each expert's
 
 Dispatch is gather-based and stays on the device: no ``.item()`` and no
 host read, so the decode chunk that runs it can be captured as one CUDA
-graph.  The expert-parallel path (``_moe_sharded``, the int8 all-to-all)
-needs a process group and waits for the distributed slice (ROADMAP queue 1,
-item 14); ``a2a_quant`` is carried and unused, as the JAX package's
-mesh-less path leaves it.
+graph.
+
+On a mesh (``moe_ffn(mesh=...)``, or the ambient runtime's), the layer runs
+expert-parallel over ``torch.distributed``, as the JAX package runs it under
+``shard_map``:
+
+* experts are split over the ``model`` axis, and each expert's FFN dim is
+  FSDP-split over ``data`` and all-gathered per call;
+* training and prefill split the tokens over every axis (the sequence over
+  ``model``) and send them to their experts' rank with a tiled all-to-all,
+  an int8 payload with per-row fp32 scales when ``a2a_quant``
+  (:func:`_quantized_all_to_all`, whose gradient is the mirrored quantized
+  all-to-all);
+* decode (a token count the sequence cannot split) keeps the tokens on
+  every ``model`` rank; each rank runs its local experts
+  (:func:`decode_local_step`, which needs no process group) and an
+  ``all_reduce`` sums the ranks' outputs, so the weights never move.
+
+Capacity is counted per shard, as in the JAX package, so a shard can drop
+other tokens than one device does: the sharded layer equals the unsharded
+one only where no expert overflows (a large ``capacity_factor``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import runtime as rtm
 from repro_torch.models.common import ACTIVATIONS, Spec
 
-__all__ = ["MoEConfig", "moe_specs", "moe_ffn", "expert_capacity"]
+__all__ = ["MoEConfig", "moe_specs", "moe_ffn", "expert_capacity", "decode_local_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,20 +54,84 @@ class MoEConfig:
     capacity_factor: float = 1.25
     activation: str = "silu"
     router_scale: bool = True  # normalize top-k weights to sum to 1
-    a2a_quant: bool = True  # int8 dispatch payloads of the sharded path (not ported)
+    a2a_quant: bool = True  # int8 dispatch/combine payloads of the expert-parallel all-to-all
+
+
+def _quantize_rows(x):
+    """Per-row symmetric int8 of ``x`` (rows along the last dim): ``(q
+    int8, scale fp32 [..., 1])``.  The divisor 127 is a tensor: PyTorch's
+    CUDA kernels multiply by the reciprocal of a Python-number divisor,
+    one ulp off the true quotient that JAX and the CPU take."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax / amax.new_tensor(127.0), 1e-12)
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
+
+
+def _dequantize_rows(q, scale, dtype):
+    return (q.float() * scale).to(dtype)
+
+
+def _a2a_tiled(x, split_axis: int, concat_axis: int, group):
+    """Tiled all-to-all over ``group``: ``x`` cut into as many equal chunks
+    along ``split_axis`` as the group has ranks, chunk ``i`` sent to rank
+    ``i``, the received chunks concatenated along ``concat_axis`` in rank
+    order (``jax.lax.all_to_all(..., tiled=True)``)."""
+    n = dist.get_world_size(group)
+    send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+def _qa2a(x, split_axis: int, concat_axis: int, group):
+    q, scale = _quantize_rows(x)
+    q = _a2a_tiled(q, split_axis, concat_axis, group)
+    scale = _a2a_tiled(scale, split_axis, concat_axis, group)
+    return _dequantize_rows(q, scale, x.dtype)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all, with an int8 payload and per-row fp32 scales
+    when ``quant`` (about half the bytes of bf16; the DeepSeek-V3
+    fp8-dispatch recipe).  Its gradient is the mirrored all-to-all (the
+    transpose of a tiled all-to-all swaps its axes), quantized the same
+    way, as the JAX package's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group, quant):
+        ctx.args = (concat_axis, split_axis, group)
+        ctx.run = _qa2a if quant else _a2a_tiled
+        return ctx.run(x, split_axis, concat_axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.run(g.contiguous(), *ctx.args), None, None, None, None
+
+
+def _quantized_all_to_all(x, split_axis: int, concat_axis: int, group):
+    return _AllToAll.apply(x, split_axis, concat_axis, group, True)
+
+
+def _a2a(cfg: MoEConfig, x, split_axis: int, concat_axis: int, group):
+    return _AllToAll.apply(x, split_axis, concat_axis, group, cfg.a2a_quant)
 
 
 def moe_specs(cfg: MoEConfig) -> dict:
     d, e, f = cfg.d_model, cfg.num_experts, cfg.d_ff
     specs = {
-        "router": Spec((d, e), init="scaled", scale=0.02, dtype=torch.float32),
-        "w_gate": Spec((e, d, f)),
-        "w_up": Spec((e, d, f)),
-        "w_down": Spec((e, f, d)),
+        "router": Spec((d, e), init="scaled", scale=0.02, dtype=torch.float32, axes=("embed", None)),
+        "w_gate": Spec((e, d, f), axes=("experts", "expert_embed", "expert_mlp")),
+        "w_up": Spec((e, d, f), axes=("experts", "expert_embed", "expert_mlp")),
+        "w_down": Spec((e, f, d), axes=("experts", "expert_mlp", "expert_embed")),
     }
     if cfg.num_shared_experts:
         fs = cfg.num_shared_experts * cfg.d_ff
-        specs["shared"] = {"w_gate": Spec((d, fs)), "w_up": Spec((d, fs)), "w_down": Spec((fs, d))}
+        specs["shared"] = {
+            "w_gate": Spec((d, fs), axes=("embed", "mlp")),
+            "w_up": Spec((d, fs), axes=("embed", "mlp")),
+            "w_down": Spec((fs, d), axes=("mlp", "embed")),
+        }
     return specs
 
 
@@ -121,15 +203,117 @@ def _moe_local(cfg: MoEConfig, params, x2, rt=None):
     token_of = torch.clamp_max(table // cfg.top_k, t)  # sentinel -> pad row
     xe = x_pad[token_of]  # [E, C, d]
     ye = _expert_ffn(cfg, xe, params["w_gate"], params["w_up"], params["w_down"], rt=rt)
-    ye_flat = torch.cat([ye.reshape(e * cap, -1), ye.new_zeros((1, ye.shape[-1]))], 0)
     slot = torch.where(fits, top_e * cap + pos, e * cap)  # [T, k]
+    return _combine(cfg, ye, slot, top_p, e * cap)
+
+
+def _combine(cfg: MoEConfig, ye, slot, top_p, n_slots: int):
+    """``y [T, d]``: each token's expert outputs weighted by its router
+    probabilities; ``slot`` ``n_slots`` is the all-zero row of a dropped
+    assignment."""
+    ye_flat = torch.cat([ye.reshape(n_slots, -1), ye.new_zeros((1, ye.shape[-1]))], 0)
     return torch.einsum("tkd,tk->td", ye_flat[slot], top_p.to(ye.dtype))
 
 
-def moe_ffn(params, cfg: MoEConfig, x, rt=None):
-    """MoE FFN, mesh-less.  x [B, S, d] -> [B, S, d]; ``rt`` as in
-    :func:`repro_torch.models.transformer.mlp_fwd`."""
+def decode_local_step(cfg: MoEConfig, shard: int, ep_size: int, params, x2, rt=None):
+    """Expert shard ``shard``'s share of the decode output, before the sum
+    over ``model``: the tokens ``x2 [T, d]`` (every rank holds all of them)
+    routed over all experts, and only the assignments to this shard's
+    ``E / ep_size`` experts (``params``' ``w_gate``/``w_up``/``w_down``,
+    whole along the FFN dim) bucketed and run; the others contribute zero.
+    Each slot list holds ``4x`` the per-expert capacity (at most ``T *
+    top_k``).  Needs no process group."""
+    t = x2.shape[0]
+    e_local = cfg.num_experts // ep_size
+    top_p, top_e, _ = _route(cfg, x2, params["router"])
+    my = shard * e_local
+    cap = min(max(1, int(t * cfg.top_k / cfg.num_experts * cfg.capacity_factor) * 4), t * cfg.top_k)
+    local = (top_e >= my) & (top_e < my + e_local)
+    loc_e = torch.where(local, top_e - my, e_local)  # e_local: the drop bucket
+    table, pos, fits = _bucket(cfg, loc_e, e_local + 1, cap, t)
+    x_pad = torch.cat([x2, x2.new_zeros((1, x2.shape[1]))], 0)
+    xe = x_pad[torch.clamp_max(table[:e_local] // cfg.top_k, t)]
+    ye = _expert_ffn(cfg, xe, params["w_gate"], params["w_up"], params["w_down"], rt=rt)
+    slot = torch.where(fits & local, loc_e * cap + pos, e_local * cap)
+    return _combine(cfg, ye, slot, top_p, e_local * cap)
+
+
+def _moe_sharded(cfg: MoEConfig, ep_size: int, seq_sharded: bool, params, x2, *, data_group,
+                 model_group, rt=None):
+    """One rank's expert-parallel layer.  ``x2 [t_local, d]``; expert
+    weights ``[E / ep_size, d, f / data]`` (``w_down`` ``[E / ep_size, f /
+    data, d]``)."""
+    from repro_torch.parallel.sharding import all_gather_cat  # local: parallel imports runtime
+
+    e = cfg.num_experts
+    t = x2.shape[0]
+    # FSDP: gather the expert FFN shard over the data axis
+    experts = {
+        "router": params["router"],
+        "w_gate": all_gather_cat(params["w_gate"], data_group, 2),
+        "w_up": all_gather_cat(params["w_up"], data_group, 2),
+        "w_down": all_gather_cat(params["w_down"], data_group, 1),
+    }
+    if not seq_sharded:
+        y = decode_local_step(cfg, dist.get_rank(model_group), ep_size, experts, x2, rt=rt)
+        dist.all_reduce(y, group=model_group)
+        return y
+    top_p, top_e, _ = _route(cfg, x2, experts["router"])
+    cap = expert_capacity(cfg, t)
+    table, pos, fits = _bucket(cfg, top_e, e, cap, t)
+    x_pad = torch.cat([x2, x2.new_zeros((1, x2.shape[1]))], 0)
+    xe = x_pad[torch.clamp_max(table // cfg.top_k, t)]  # [E, C, d]
+    xe = _a2a(cfg, xe, 0, 1, model_group)  # dispatch: tokens travel to their experts' rank
+    ye = _expert_ffn(cfg, xe, experts["w_gate"], experts["w_up"], experts["w_down"], rt=rt)
+    ye = _a2a(cfg, ye, 1, 0, model_group)  # [E, C, d]: back to the tokens' rank
+    slot = torch.where(fits, top_e * cap + pos, e * cap)
+    return _combine(cfg, ye, slot, top_p, e * cap)
+
+
+def _moe_expert_parallel(cfg: MoEConfig, params, x, mesh, seq_sharded: bool, rt=None):
+    """The layer on ``mesh`` (named axes ``data`` and ``model``, ``pod``
+    optional): every rank passes the global ``x`` and expert weights and
+    gets the global output, computing on its own slices."""
+    from repro_torch.parallel import sharding as S  # local: parallel imports runtime
+    from repro_torch.runtime.backends import needs_grad
+
+    if needs_grad(x, *params.values()):
+        raise NotImplementedError(
+            "differentiating the expert-parallel MoE needs the sharded train step (ROADMAP queue 1, "
+            "item 14b); its all-to-alls differentiate (_quantized_all_to_all)")
+    sizes = S.axis_sizes(mesh)
+    if "model" not in sizes or "data" not in sizes:
+        raise ValueError(f"the expert-parallel MoE needs mesh axes 'data' and 'model', got {tuple(sizes)}")
+    s, d = x.shape[1], x.shape[2]
+    ep = sizes["model"]
+    seq_ax = "model" if (seq_sharded and s % ep == 0 and s > 1) else None
+    x_spec = (S.data_axes(mesh), seq_ax, None)
+    w_specs = {
+        "router": (None, None),
+        "w_gate": ("model", None, "data"),
+        "w_up": ("model", None, "data"),
+        "w_down": ("model", "data", None),
+    }
+    policy = S.ShardingPolicy(mesh=mesh)
+    xl = S.local_shard(x, x_spec, policy)
+    local = {k: S.local_shard(params[k], spec, policy) for k, spec in w_specs.items()}
+    y = _moe_sharded(cfg, ep, seq_ax is not None, local, xl.reshape(-1, d),
+                     data_group=S.axis_group(mesh, ("data",))[0],
+                     model_group=S.axis_group(mesh, ("model",))[0], rt=rt)
+    return S.gather_shard(y.reshape(xl.shape), x_spec, policy)
+
+
+def moe_ffn(params, cfg: MoEConfig, x, rt=None, *, mesh=None, seq_sharded: bool = True):
+    """MoE FFN.  x [B, S, d] -> [B, S, d]; ``rt`` as in
+    :func:`repro_torch.models.transformer.mlp_fwd`.  With a mesh (given, or
+    the runtime's ``sharding``), expert-parallel over it (see the module
+    docstring; ``seq_sharded=False`` takes the decode branch); without one,
+    all experts on this device."""
     b, s, d = x.shape
     shared = _shared_ffn(cfg, params["shared"], x) if cfg.num_shared_experts else 0.0
-    y = _moe_local(cfg, {k: v for k, v in params.items() if k != "shared"}, x.reshape(-1, d), rt=rt)
+    experts = {k: v for k, v in params.items() if k != "shared"}
+    mesh = mesh if mesh is not None else rtm.resolve(rt).mesh
+    if mesh is not None:
+        return _moe_expert_parallel(cfg, experts, x, mesh, seq_sharded, rt=rt) + shared
+    y = _moe_local(cfg, experts, x.reshape(-1, d), rt=rt)
     return y.reshape(b, s, d) + shared

@@ -52,22 +52,22 @@ def ssm_specs(cfg: SSMConfig) -> dict:
     gn = cfg.n_groups * cfg.d_state
     w = cfg.conv_width
     return {
-        "in_z": Spec((d, di)),
-        "in_x": Spec((d, di)),
-        "in_b": Spec((d, gn)),
-        "in_c": Spec((d, gn)),
-        "in_dt": Spec((d, h)),
-        "conv_x_w": Spec((w, di)),
-        "conv_x_b": Spec((di,), init="zeros"),
+        "in_z": Spec((d, di), axes=("embed", "heads")),
+        "in_x": Spec((d, di), axes=("embed", "heads")),
+        "in_b": Spec((d, gn), axes=("embed", None)),
+        "in_c": Spec((d, gn), axes=("embed", None)),
+        "in_dt": Spec((d, h), axes=("embed", "heads")),
+        "conv_x_w": Spec((w, di), axes=(None, "heads")),
+        "conv_x_b": Spec((di,), init="zeros", axes=("heads",)),
         "conv_b_w": Spec((w, gn)),
         "conv_b_b": Spec((gn,), init="zeros"),
         "conv_c_w": Spec((w, gn)),
         "conv_c_b": Spec((gn,), init="zeros"),
-        "dt_bias": Spec((h,), init="zeros"),
-        "a_log": Spec((h,), init="ones"),
-        "d_skip": Spec((h,), init="ones"),
-        "norm_w": Spec((di,), init="ones"),
-        "out_proj": Spec((di, d)),
+        "dt_bias": Spec((h,), init="zeros", axes=("heads",)),
+        "a_log": Spec((h,), init="ones", axes=("heads",)),
+        "d_skip": Spec((h,), init="ones", axes=("heads",)),
+        "norm_w": Spec((di,), init="ones", axes=("heads",)),
+        "out_proj": Spec((di, d), axes=("heads", "embed")),
     }
 
 

@@ -123,8 +123,9 @@ def moe_config(cfg: ModelConfig) -> moe_mod.MoEConfig:
 def mlp_specs(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_gated:
-        return {"w_gate": Spec((d, f)), "w_up": Spec((d, f)), "w_down": Spec((f, d))}
-    return {"w_up": Spec((d, f)), "w_down": Spec((f, d))}
+        return {"w_gate": Spec((d, f), axes=("embed", "mlp")), "w_up": Spec((d, f), axes=("embed", "mlp")),
+                "w_down": Spec((f, d), axes=("mlp", "embed"))}
+    return {"w_up": Spec((d, f), axes=("embed", "mlp")), "w_down": Spec((f, d), axes=("mlp", "embed"))}
 
 
 def block_specs(cfg: ModelConfig, *, moe: bool = False) -> dict:
@@ -150,12 +151,13 @@ def backbone_specs(cfg: ModelConfig) -> dict:
     d, v = cfg.d_model, cfg.vocab_size
     is_moe = cfg.family == "moe"
     n = cfg.num_layers - cfg.first_dense_layers if is_moe else cfg.num_layers
-    specs = {} if cfg.frontend is not None else {"embed": Spec((v, d), init="embed")}
+    specs = {} if cfg.frontend is not None else {"embed": Spec((v, d), init="embed", axes=("vocab", "embed"))}
     specs["layers"] = [block_specs(cfg, moe=is_moe) for _ in range(n)]
     if is_moe and cfg.first_dense_layers:
         specs["dense_layers"] = [block_specs(cfg) for _ in range(cfg.first_dense_layers)]
     specs["final_norm"] = Spec((d,), init="ones")
-    specs["lm_head"] = Spec((cfg.num_codebooks, d, v)) if cfg.frontend == "audio" else Spec((d, v))
+    specs["lm_head"] = (Spec((cfg.num_codebooks, d, v), axes=(None, "embed", "vocab")) if cfg.frontend == "audio"
+                       else Spec((d, v), axes=("embed", "vocab")))
     return specs
 
 

@@ -17,14 +17,20 @@ from repro_torch.runtime.backends import (
 )
 from repro_torch.runtime.plan import (
     PlanCache,
+    PlanShards,
     SparsityPlan,
+    balanced_row_order,
     dense_operand_plan,
     plan_from_emitted_mask,
     plan_operand,
+    shard_plan,
+    unshard_plan,
 )
 from repro_torch.runtime.runtime import (
     GEOMETRIES,
     Runtime,
+    active_mesh,
+    active_policy,
     cache_batch_axes,
     current,
     default_runtime,
@@ -40,6 +46,8 @@ __all__ = [
     "current",
     "resolve",
     "default_runtime",
+    "active_mesh",
+    "active_policy",
     "cache_batch_axes",
     "tree_map",
     "KernelBackend",
@@ -53,4 +61,8 @@ __all__ = [
     "plan_operand",
     "plan_from_emitted_mask",
     "dense_operand_plan",
+    "PlanShards",
+    "balanced_row_order",
+    "shard_plan",
+    "unshard_plan",
 ]

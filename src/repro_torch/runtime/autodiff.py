@@ -19,6 +19,12 @@ gradient products through the same backend registry on fp32 operands,
 writing each in its operand's dtype.  The gradients are those of the math
 function ``a @ b``: a plan only elides all-zero blocks.
 
+Every product runs through the context's ``_execute``/``_execute_fused``,
+which :class:`repro_torch.parallel.spmm.ShardedVJP` overrides to run it on
+per-shard queues; the ``axis`` each backward product names (``da`` over
+the cotangent's rows, ``db`` over its columns) is where that context
+shards it.
+
 Everything is eager, so there is no ``traced`` counter: with a plan cache
 riding along, the transposed-operand plan is cached and validated against
 the forward plan's ``idx`` (a static weight's plan, or the memoized dense
@@ -73,14 +79,25 @@ class PlannedVJP:
     def __post_init__(self):
         object.__setattr__(self, "compact_grid", _check_compact_grid(self.compact_grid))
 
-    def _execute(self, nnz, idx, a, b, *, bm, bk, bn, out_dtype, workqueue=None, compact_grid=None):
+    def _execute(self, nnz, idx, a, b, *, bm, bk, bn, out_dtype, workqueue=None, compact_grid=None,
+                 axis=None):
+        """One planned product on :attr:`backend`.  ``axis`` names the dim a
+        sharded context splits it along (``None``: the context's own);
+        this one runs it whole."""
         from repro_torch.runtime.backends import KernelRequest, get_backend  # local: import cycle
 
+        del axis
         return get_backend(self.backend).execute_planned(KernelRequest(
             nnz=nnz, idx=idx, a=a, b=b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype,
             compact_grid=self.compact_grid if compact_grid is None else compact_grid,
             workqueue=workqueue,
         ))
+
+    def _execute_fused(self, req):
+        """One fused product on :attr:`backend`: ``(out, mask)``."""
+        from repro_torch.runtime.backends import get_backend  # local: import cycle
+
+        return get_backend(self.backend).execute_fused(req)
 
     def _plan_workqueue(self, plan: SparsityPlan, mode=None):
         """The plan's CSR triple when the ragged grid consumes it, else
@@ -139,14 +156,14 @@ def _grads_from(ctx: PlannedVJP, pg: SparsityPlan, nnz, idx, a, b, g_pre):
                                    bn=ctx.bk)
     da = ctx._execute(
         pg.nnz, pg.idx, g_pre, b.float().T, bm=ctx.bm, bk=ctx.bn, bn=bn_da,
-        out_dtype=a.dtype, workqueue=ctx._plan_workqueue(pg, cg_da), compact_grid=cg_da,
+        out_dtype=a.dtype, workqueue=ctx._plan_workqueue(pg, cg_da), compact_grid=cg_da, axis="M",
     )
     pt = _lhs_t_plan(ctx, nnz, idx, a)
     bn_db, cg_db = ctx._bwd_policy("matmul_db", a.shape[1], a.shape[0], g_pre.shape[1], b.dtype,
                                    bn=ctx.bn)
     db = ctx._execute(
         pt.nnz, pt.idx, a.float().T, g_pre, bm=ctx.bk, bk=ctx.bm, bn=bn_db,
-        out_dtype=b.dtype, workqueue=ctx._plan_workqueue(pt, cg_db), compact_grid=cg_db,
+        out_dtype=b.dtype, workqueue=ctx._plan_workqueue(pt, cg_db), compact_grid=cg_db, axis="N",
     )
     return da, db
 
@@ -236,9 +253,9 @@ def _mask_plan(ctx: FusedVJP, mask) -> SparsityPlan:
 class _FusedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(fctx, ctx: FusedVJP, nnz, idx, a, b, bias, residual, workqueue):
-        from repro_torch.runtime.backends import KernelRequest, get_backend  # local: import cycle
+        from repro_torch.runtime.backends import KernelRequest  # local: import cycle
 
-        out, mask = get_backend(ctx.backend).execute_fused(KernelRequest(
+        out, mask = ctx._execute_fused(KernelRequest(
             nnz=nnz, idx=idx, a=a, b=b, bias=bias, residual=residual, bm=ctx.bm, bk=ctx.bk,
             bn=ctx.bn, activation=ctx.activation, out_dtype=ctx.out_dtype,
             compact_grid=ctx.compact_grid, workqueue=workqueue,

@@ -74,6 +74,9 @@ class KernelRequest:
     out_dtype: Any = None
     compact_grid: Any = "ragged"
     workqueue: Any = None
+    #: ``(m, k, n)`` of the whole product a sharded request is a row or
+    #: column shard of: the kernel cuts K as that product's launch would
+    split_shape: Any = None
 
     def __post_init__(self):
         object.__setattr__(self, "compact_grid", _check_compact_grid(self.compact_grid))
@@ -253,7 +256,7 @@ class CudaBackend(KernelBackend):
         return tensordash_matmul_planned(
             req.nnz, req.idx, req.a, req.b, bm=req.bm, bk=req.bk, bn=req.bn,
             out_dtype=req.out_dtype, compact_grid=req.compact_grid,
-            workqueue=req.workqueue,
+            workqueue=req.workqueue, split_shape=req.split_shape,
         )
 
     def execute_fused(self, req):
@@ -262,7 +265,7 @@ class CudaBackend(KernelBackend):
             req.nnz, req.idx, req.a, req.b, req.bias, req.residual,
             activation=req.activation, bm=req.bm, bk=req.bk, bn=req.bn,
             out_dtype=req.out_dtype, compact_grid=req.compact_grid,
-            workqueue=req.workqueue,
+            workqueue=req.workqueue, split_shape=req.split_shape,
         )
 
 

@@ -1,5 +1,5 @@
-"""Block-sparsity plans and a keyed plan cache (port of the single-device
-part of ``repro/runtime/plan.py``).
+"""Block-sparsity plans, their per-shard split and a keyed plan cache (port
+of ``repro/runtime/plan.py``).
 
 A :class:`SparsityPlan` carries the compacted schedule ``(nnz, idx)`` of one
 2-D operand, its CSR work queue, its block geometry and the operand's
@@ -7,13 +7,19 @@ shape/dtype.  :class:`PlanCache` replays a plan computed once (the LM head's
 weight plan at the first prefill) on every later call; a hit requires the
 queried operand to *be* the cached source tensor, unmodified since (its
 ``_version``), so a replay is exact.
-Sharding the plan waits for the distributed slice (ROADMAP queue 1, item 14).
+
+:func:`shard_plan` splits a plan into per-shard ragged work queues along M,
+N or K (host-side numpy, as in the JAX package), :func:`unshard_plan`
+inverts it, and :func:`balanced_row_order` is the serpentine deal of block
+rows by descending work that the M-sharded executors of
+:mod:`repro_torch.parallel.spmm` use on the device.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.tensordash_spmm import (
@@ -26,10 +32,14 @@ from repro_torch.kernels.tensordash_spmm import (
 
 __all__ = [
     "SparsityPlan",
+    "PlanShards",
     "PlanCache",
     "plan_operand",
     "plan_from_emitted_mask",
     "dense_operand_plan",
+    "balanced_row_order",
+    "shard_plan",
+    "unshard_plan",
 ]
 
 
@@ -131,6 +141,15 @@ class SparsityPlan:
             "density": self.density(),
         }
 
+    def shard(self, n_shards: int, *, axis: str = "M", balance: bool = True) -> "PlanShards":
+        """This plan split into ``n_shards`` per-shard work queues
+        (:func:`shard_plan`), memoized host-side per ``(n_shards, axis,
+        balance)``."""
+        key = ("shards", n_shards, axis, balance)
+        if key not in self._host:
+            self._host[key] = shard_plan(self, n_shards, axis=axis, balance=balance)
+        return self._host[key]
+
 
 def plan_operand(a: torch.Tensor, bm: int, bk: int, *, side: str = "A") -> SparsityPlan:
     """Plan a 2-D operand (already transposed for ``side="B"``)."""
@@ -174,6 +193,176 @@ def dense_operand_plan(shape, dtype, *, bm: int, bk: int, side: str = "A",
         nnz=nnz, idx=idx, bm=bm, bk=bk, shape=(m, k), dtype=dtype, side=side,
         row_starts=row_starts, work_row=work_row, work_kblk=work_kblk,
     )
+
+
+# ---------------------------------------------------------------------------
+# plan sharding: per-shard ragged work queues
+# ---------------------------------------------------------------------------
+
+
+def balanced_row_order(nnz, n_shards: int):
+    """Serpentine-balanced block-row order for an M-sharded plan.
+
+    Rows sorted by descending work (``max(nnz, 1)``, ties in row order) are
+    dealt boustrophedon across ``n_shards``: shard ``s`` takes position
+    ``s`` on even rounds and ``n_shards-1-s`` on odd ones, so every shard
+    gets ``Rb / n_shards`` rows with near-equal total work.  Returns the
+    ``[Rb] int32`` order, shard-major (shard ``s`` owns
+    ``order[s*r:(s+1)*r]``), as a numpy array for numpy ``nnz`` and as a
+    tensor on ``nnz``'s device otherwise: the host-side split and the
+    executors' in-place deal are the same assignment.  Reordering block rows
+    moves each row's schedule with it, so execution stays bitwise.
+    """
+    host = isinstance(nnz, np.ndarray)
+    nnz = torch.as_tensor(nnz)
+    (rb,) = nnz.shape
+    if rb % n_shards:
+        raise ValueError(f"{rb} block rows not divisible by {n_shards} shards")
+    work = torch.clamp_min(nnz.to(torch.int32), 1)
+    by_work = torch.argsort(-work, stable=True).to(torch.int32)
+    rounds = rb // n_shards
+    s = torch.arange(n_shards, device=nnz.device)[:, None]
+    r = torch.arange(rounds, device=nnz.device)[None, :]
+    pos = r * n_shards + torch.where(r % 2 == 0, s, n_shards - 1 - s)
+    order = by_work[pos.reshape(-1)]
+    return order.cpu().numpy() if host else order
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanShards:
+    """A :class:`SparsityPlan` split into per-shard ragged work queues.
+
+    ``nnz``/``idx``/``row_starts``/``work_row``/``work_kblk`` are host numpy
+    int32 arrays with a leading shard dim.  Per axis:
+
+    * ``"M"``: block rows are dealt to shards by ``order`` (serpentine when
+      ``balance``, else contiguous); shard ``s`` owns rows
+      ``order[s*r:(s+1)*r]`` with their global K indices;
+    * ``"N"``: the schedule is replicated, every shard walks the full queue
+      against its own output columns;
+    * ``"K"``: each shard replans its K-block slice (indices local to it)
+      from the expanded block mask.
+    """
+
+    plan: SparsityPlan
+    axis: str
+    n_shards: int
+    order: Any  # [Rb] int32 block-row assignment (shard-major; M only)
+    nnz: Any  # [S, rows]
+    idx: Any  # [S, rows, Kb_local]
+    row_starts: Any  # [S, rows+1]
+    work_row: Any  # [S, rows*Kb_local]
+    work_kblk: Any
+
+    def shard_work(self) -> np.ndarray:
+        """Per-shard ragged-grid steps per N block: ``sum(max(nnz, 1))``."""
+        return np.maximum(np.asarray(self.nnz), 1).sum(axis=1)
+
+    def imbalance(self) -> float:
+        """Max over mean of :meth:`shard_work` (1.0 is a perfect balance)."""
+        w = self.shard_work()
+        return float(w.max() / w.mean())
+
+    def stats(self) -> dict:
+        w = self.shard_work()
+        return {
+            "axis": self.axis,
+            "n_shards": self.n_shards,
+            "shard_work": [int(x) for x in w],
+            "imbalance": self.imbalance(),
+            "total_work": int(w.sum()),
+        }
+
+
+def _plan_block_mask_np(nnz: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Expand compacted ``(nnz, idx)`` back to the bool ``[Rb, Kb]`` block
+    mask (the tail's repeated indices are excluded by the ``nnz`` bound)."""
+    rb, kb = idx.shape
+    valid = np.arange(kb, dtype=np.int64)[None, :] < nnz[:, None]
+    rows = np.broadcast_to(np.arange(rb, dtype=np.int64)[:, None], idx.shape)
+    mask = np.zeros((rb, kb), bool)
+    mask[rows[valid], idx[valid]] = True
+    return mask
+
+
+def _host_plan(plan: SparsityPlan):
+    """``(nnz, idx)`` of ``plan`` as host int32 arrays."""
+    nnz = plan.host_nnz().numpy().astype(np.int32)
+    idx = np.asarray(torch.as_tensor(plan.idx).cpu(), dtype=np.int32)
+    return nnz, idx
+
+
+def shard_plan(plan: SparsityPlan, n_shards: int, *, axis: str = "M",
+               balance: bool = True) -> PlanShards:
+    """Split ``plan`` into ``n_shards`` per-shard work queues, host-side.
+
+    Each shard's CSR queue is rebuilt from its own rows or columns, so
+    ``row_starts[s][-1]`` is exactly that shard's ragged-grid steps per N
+    block.  ``balance`` (M axis) deals rows serpentine by descending work
+    (:func:`balanced_row_order`); ``False`` keeps the contiguous split, the
+    imbalance baseline."""
+    from repro_torch.sparse_train.plan_edit import _mask_to_plan_np, _workqueue_np  # local: import cycle
+
+    if axis not in ("M", "N", "K"):
+        raise ValueError(f"shard axis {axis!r} not in ('M', 'N', 'K')")
+    nnz, idx = _host_plan(plan)
+    rb, kb = idx.shape
+    order = np.arange(rb, dtype=np.int32)
+    if axis == "M":
+        if rb % n_shards:
+            raise ValueError(f"{rb} block rows not divisible by {n_shards} shards")
+        if balance:
+            order = balanced_row_order(nnz, n_shards)
+        rows = rb // n_shards
+        nnz_s = nnz[order].reshape(n_shards, rows)
+        idx_s = idx[order].reshape(n_shards, rows, kb)
+    elif axis == "N":
+        nnz_s = np.broadcast_to(nnz, (n_shards, rb)).copy()
+        idx_s = np.broadcast_to(idx, (n_shards, rb, kb)).copy()
+    else:
+        if kb % n_shards:
+            raise ValueError(f"{kb} K blocks not divisible by {n_shards} shards")
+        kbl = kb // n_shards
+        mask = _plan_block_mask_np(nnz, idx)
+        parts = [_mask_to_plan_np(mask[:, s * kbl:(s + 1) * kbl]) for s in range(n_shards)]
+        nnz_s = np.stack([p[0] for p in parts])
+        idx_s = np.stack([p[1] for p in parts])
+    queues = [_workqueue_np(nnz_s[s], idx_s[s]) for s in range(n_shards)]
+    return PlanShards(
+        plan=plan, axis=axis, n_shards=n_shards, order=order, nnz=nnz_s, idx=idx_s,
+        row_starts=np.stack([q[0] for q in queues]),
+        work_row=np.stack([q[1] for q in queues]),
+        work_kblk=np.stack([q[2] for q in queues]),
+    )
+
+
+def unshard_plan(shards: PlanShards) -> SparsityPlan:
+    """Reassemble the global plan from its shards, the exact inverse of
+    :func:`shard_plan`; the queue is rebuilt from the merged schedule.  The
+    plan's metadata lies on the device of the plan that was split."""
+    from repro_torch.sparse_train.plan_edit import (  # local: import cycle
+        _device_of, _make_plan, _mask_to_plan_np, _workqueue_np,
+    )
+
+    src = shards.plan
+    if shards.axis == "N":
+        nnz, idx = np.asarray(shards.nnz[0]), np.asarray(shards.idx[0])
+    elif shards.axis == "M":
+        rb = shards.order.shape[0]
+        kb = shards.idx.shape[-1]
+        nnz = np.empty((rb,), np.int32)
+        idx = np.empty((rb, kb), np.int32)
+        nnz[shards.order] = shards.nnz.reshape(rb)
+        idx[shards.order] = shards.idx.reshape(rb, kb)
+    else:
+        s_, rb, kbl = shards.idx.shape
+        mask = np.zeros((rb, s_ * kbl), bool)
+        for s in range(s_):
+            mask[:, s * kbl:(s + 1) * kbl] = _plan_block_mask_np(
+                np.asarray(shards.nnz[s]), np.asarray(shards.idx[s]))
+        nnz, idx = _mask_to_plan_np(mask)
+    return _make_plan(nnz, idx, *_workqueue_np(nnz, idx), bm=src.bm, bk=src.bk, shape=src.shape,
+                      dtype=src.dtype, side=src.side, device=_device_of(src))
 
 
 def _version(a) -> int | None:
@@ -234,10 +423,18 @@ class PlanCache:
     def stats(self) -> dict:
         return {"entries": len(self._entries), "hits": self.hits, "misses": self.misses}
 
-    def plan_stats(self) -> list[dict]:
-        """Per-plan work summary for every live entry, coldest first."""
-        return [
-            {
+    def plan_stats(self, shards: int | None = None) -> list[dict]:
+        """Per-plan work summary for every live entry, coldest first.
+
+        With ``shards`` (a device count), every plan whose block rows divide
+        it also reports its M-sharded split under the serpentine deal:
+        per-shard ``total_work`` (``shard_work``), the per-shard skipped
+        fractions and ``imbalance`` (max over mean).  A plan whose rows do
+        not divide reports its global figures only, as the executors run it
+        unsharded."""
+        out = []
+        for (key, side, *_rest), (_, _, plan) in self._entries.items():
+            entry = {
                 "key": key,
                 "side": side,
                 "shape": plan.shape,
@@ -246,5 +443,11 @@ class PlanCache:
                 "total_work": plan.total_work(),
                 "skipped_fraction": plan.skipped_fraction(),
             }
-            for (key, side, *_rest), (_, _, plan) in self._entries.items()
-        ]
+            if shards and shards > 1 and plan.block_rows % shards == 0:
+                ps = plan.shard(shards)
+                blocks_per_shard = plan.total_blocks / shards
+                entry["shard_work"] = [int(w) for w in ps.shard_work()]
+                entry["shard_skipped"] = [1.0 - float(n.sum()) / blocks_per_shard for n in ps.nnz]
+                entry["imbalance"] = ps.imbalance()
+            out.append(entry)
+        return out

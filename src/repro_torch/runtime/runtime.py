@@ -15,7 +15,9 @@ finer granularity instead of falling back to a dense product.  Under
 Every planned product is differentiable: when autograd needs it, the
 backend runs it through :mod:`repro_torch.runtime.autodiff`, and the plan
 cache and tuning DB ride along into the backward, as in the JAX package.
-Sharding, plan validation and ``sparse_ffn`` wait for later slices
+``sharding`` carries a :class:`repro_torch.parallel.sharding.ShardingPolicy`;
+:meth:`Runtime.matmul_sharded` and :meth:`Runtime.matmul_fused_sharded` run
+on its mesh.  Plan validation and ``sparse_ffn`` wait for later slices
 (ROADMAP queue 1).
 """
 from __future__ import annotations
@@ -47,6 +49,8 @@ __all__ = [
     "current",
     "resolve",
     "default_runtime",
+    "active_mesh",
+    "active_policy",
     "cache_batch_axes",
     "tree_map",
 ]
@@ -74,6 +78,10 @@ class Runtime:
     above, and unmeasured cells fall back to them.  With a caller-provided
     plan only the lane width and grid family are tuned, since ``bm/bk`` are
     the plan's own blocking.
+
+    ``sharding`` is a :class:`~repro_torch.parallel.sharding.ShardingPolicy`
+    (mesh, axis roles, spec tables) or ``None``; :attr:`mesh` reads its
+    mesh.
     """
 
     backend: str = "cuda"
@@ -91,6 +99,7 @@ class Runtime:
     # measured-best policy from ``tuning_db`` per call (see repro_torch.tune)
     geometry: str = "explicit"
     tuning_db: Any = dataclasses.field(default=None, compare=False, repr=False)
+    sharding: Any = None  # a repro_torch.parallel.sharding.ShardingPolicy, or None
 
     def __post_init__(self):
         object.__setattr__(self, "compact_grid", _check_compact_grid(self.compact_grid))
@@ -119,6 +128,11 @@ class Runtime:
 
     def replace(self, **kw) -> "Runtime":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def mesh(self):
+        """The mesh of :attr:`sharding` (``None`` without one)."""
+        return self.sharding.mesh if self.sharding is not None else None
 
     @property
     def kernel(self) -> KernelBackend:
@@ -302,6 +316,64 @@ class Runtime:
         )
         return planned_matmul_grads(ctx, plan.nnz, plan.idx, a, b, g)
 
+    def matmul_sharded(self, a, b, *, axis: str = "M", plan: SparsityPlan | None = None, plan_key=None,
+                       balance: bool = True):
+        """Distributed planned ``a @ b`` over :attr:`sharding`'s mesh.
+
+        Every rank passes the global operands and gets the global output;
+        each runs its shard's own ragged work queue
+        (:mod:`repro_torch.parallel.spmm`).  ``axis`` picks the split:
+        ``"M"`` (row-parallel over the data axes, block rows dealt
+        serpentine by work when ``balance``), ``"N"`` (column-parallel over
+        the model axis) or ``"K"`` (contraction-parallel, an fp32 sum of
+        partials).  M and N are bit-identical to :meth:`matmul`, K is
+        allclose.  Differentiable on M and N, both backward products on
+        per-shard queues.  Without a mesh-backed policy it runs
+        :meth:`matmul`; a shape that does not divide runs unsharded."""
+        from repro_torch.parallel import spmm  # local: parallel imports runtime
+
+        policy = self.sharding
+        if policy is None or policy.mesh is None:
+            return self.matmul(a, b, plan=plan, plan_key=plan_key)
+        a, b = self._dtype_prologue(a, b)
+        rt = self._resolved("matmul", a.shape, b.shape, a.dtype, plan=plan)
+        if plan is None:
+            rt.kernel.check_platform()
+            plan = rt.plan(a, key=plan_key)
+        return spmm.sharded_matmul(
+            plan, a, b, bn=rt.lane(b.shape[1]), backend=self.backend, policy=policy, axis=axis,
+            balance=balance, out_dtype=a.dtype, plan_cache=self.plan_cache, plan_key=("A", plan_key),
+            compact_grid=rt.compact_grid, db=self._db,
+        )
+
+    def matmul_fused_sharded(self, a, b, *, bias=None, residual=None, activation: str = "none",
+                             axis: str = "M", plan: SparsityPlan | None = None, plan_key=None,
+                             assume_dense: bool = False, balance: bool = True):
+        """Distributed :meth:`matmul_fused`: ``(out, mask)`` in the global
+        layout on every rank.  ``axis`` as in :meth:`matmul_sharded`
+        (``"K"`` is refused: the epilogue cannot distribute over the sum).
+        Without a mesh-backed policy it runs :meth:`matmul_fused`."""
+        from repro_torch.parallel import spmm  # local: parallel imports runtime
+
+        policy = self.sharding
+        if policy is None or policy.mesh is None:
+            return self.matmul_fused(a, b, bias=bias, residual=residual, activation=activation,
+                                     plan=plan, plan_key=plan_key, assume_dense=assume_dense)
+        a, b = self._dtype_prologue(a, b)
+        rt = self._resolved("matmul_fused", a.shape, b.shape, a.dtype, plan=plan)
+        rt.kernel.check_platform()
+        if plan is None:
+            if assume_dense:
+                plan = dense_operand_plan(a.shape, a.dtype, bm=rt.bm, bk=rt.bk, device=a.device)
+            else:
+                plan = rt.plan(a, key=plan_key)
+        return spmm.sharded_matmul_fused(
+            plan, a, b, bias=bias, residual=residual, activation=activation, bn=rt.lane(b.shape[1]),
+            backend=self.backend, policy=policy, axis=axis, balance=balance, out_dtype=a.dtype,
+            plan_cache=self.plan_cache, plan_key=("A", plan_key), compact_grid=rt.compact_grid,
+            db=self._db,
+        )
+
     # -- serving cache layout ---------------------------------------------
     def slot_caches(self, cfg, slots: int, max_len: int):
         """Packed decode caches with ``slots`` as the batch dimension."""
@@ -405,3 +477,25 @@ def resolve(rt: Runtime | None = None) -> Runtime:
         return rt
     ambient = _ACTIVE.get()
     return ambient if ambient is not None else _DEFAULT
+
+
+def active_mesh(mesh=None):
+    """Explicit mesh if given, else the ambient runtime's mesh (if any)."""
+    if mesh is not None:
+        return mesh
+    ambient = _ACTIVE.get()
+    return ambient.mesh if ambient is not None else None
+
+
+def active_policy(policy=None):
+    """Explicit policy if given, else the ambient runtime's; a mesh-less
+    :class:`~repro_torch.parallel.sharding.ShardingPolicy` when neither
+    exists, so callers can thread one unconditionally."""
+    if policy is not None:
+        return policy
+    ambient = _ACTIVE.get()
+    if ambient is not None and ambient.sharding is not None:
+        return ambient.sharding
+    from repro_torch.parallel.sharding import ShardingPolicy  # local: parallel imports runtime
+
+    return ShardingPolicy()

@@ -310,13 +310,18 @@ def test_cuda_wrapper_refuses_a_grad_requiring_operand():
 
 
 def test_cuda_wrapper_takes_fp32_operands_with_a_bf16_output_only():
+    """The output dtypes the kernel stores: the operands', bf16 from fp32
+    operands (the backward's products) and fp32 from bf16 operands (the
+    K-sharded product's partials); any other raises before a launch."""
     a, b = torch.randn(8, 16), torch.randn(16, 8)
     nnz, idx, *wq = tspmm.dense_plan_csr(2, 2, torch.device("cpu"))
     with pytest.raises(TypeError, match="as torch.float16"):
         tspmm._launch("planned", nnz, idx, a, b, 4, 8, 8, torch.float16, "ragged", tuple(wq))
-    with pytest.raises(TypeError, match="as torch.float32"):
-        tspmm._launch("planned", nnz, idx, a.bfloat16(), b.bfloat16(), 4, 8, 8, torch.float32,
+    with pytest.raises(TypeError, match="as torch.float16"):
+        tspmm._launch("planned", nnz, idx, a.bfloat16(), b.bfloat16(), 4, 8, 8, torch.float16,
                       "ragged", tuple(wq))
+    assert tspmm._OUT_TYPE == {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 0,
+                               (torch.float32, torch.bfloat16): 1, (torch.bfloat16, torch.float32): 2}
 
 
 def test_plan_cache_replans_a_weight_updated_in_place():

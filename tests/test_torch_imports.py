@@ -31,6 +31,8 @@ def test_the_port_has_modules_and_chip_smoke():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
     for module in ("mla.py", "ssm.py", "hybrid.py"):
         assert ROOT / "src" / "repro_torch" / "models" / module in FILES
+    for module in ("parallel/sharding.py", "parallel/spmm.py", "parallel/rehearsal.py", "optim/compress.py"):
+        assert ROOT / "src" / "repro_torch" / module in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
