@@ -33,6 +33,26 @@ from the root of a checkout, on a machine with one H100.
    multiple of 128);
    then counts, with the profiler, the CUDA launches of a few calls of each
    wrapper: exactly one per call;
+   then the core phase: the schedule kernel (``td_schedule_kernel``)
+   bit-equal to its plain loop (``sel``, ``advance``, ``n_cycles``) on 64
+   seeded streams of 4096 rows at each of six densities, one- and
+   two-side, lookahead 1 and 2, ``simulate_macs`` on the card (the plain
+   loop's cycles, the accumulator within 1e-5 of a float64 ``sum(a*b)``
+   relative to ``sum |a*b|``), both timed; then, counted as this slice's
+   main path, ``examples/quickstart.py``'s five steps through the port, the
+   codec on full-width deepseek-7b ``w_down`` [11008, 4096] bf16
+   magnitude-pruned to half (``encode`` on the card, ``decode``, bit-exact;
+   encode and decode seconds, the kernel's ms on its one stream of 2 818 048
+   rows, the plain loop's ms a row at 4096 rows, the compressed bytes), the
+   public ops and ``Runtime.sparse_ffn`` at deepseek-7b's FFN widths at 4
+   and 128 rows in bf16 (each within the kernel tolerance of its plain
+   version, each product one launch, one ``emitted`` plan for ``w_down``),
+   and ``Runtime(validate="full")``: a ``corrupt_cache_entry`` evicted by
+   ``scrub``, a corrupt caller plan warned about and replanned (output
+   bit-equal to the clean plan's), ``check_plan``'s host ms at each level on
+   the LM head's 800-row plan, and deepseek-7b-ReLU cut to 2 layers served
+   through the decode graph under ``validate="boundary"`` (the eager run's
+   tokens, no check while capturing);
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
    weights) through ``ServeEngine`` on the ``cuda`` backend, the decode
    chunk eager, and checks that every FFN gate, ``w_down`` and LM-head
@@ -188,14 +208,16 @@ from the root of a checkout, on a machine with one H100.
    quantized all-to-all against the local computation;
 14. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
-   ``planner[emitted]``, ``planner[transpose]`` for each mode; each with its
+   ``planner[emitted]``, ``planner[transpose]`` for each mode;
+   ``td_schedule_kernel``, its launches the core phase's; each with its
    launches over the serve runs (eager, graph, fault replays, the serve
    launcher, the MoE, MLA, SSM, hybrid, starcoder2, gemma2 and int8-cache
    runs and the qwen2-vl and musicgen runs; a captured launch counted once
    per replay; each of the last nine also alone), the timed training
-   steps (deepseek, SSM, hybrid) and launcher runs (a) and (c), on the
-   serving path alone, per training step and per launcher step, and the
-   sharded phase's local steps alone), the card
+   steps (deepseek, SSM, hybrid) and launcher runs (a) and (c), the core
+   phase's main path, on the serving path alone, per training step and per
+   launcher step, and the sharded phase's local steps and the core phase
+   alone), the card
    line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
@@ -330,6 +352,17 @@ def mem_bandwidth(name: str) -> float:
     return 3.35e12  # H100 SXM
 
 
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock as ``nvidia-smi`` gives it, in Hz (the
+    H100 SXM data sheet's 1980 MHz where it gives none)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    try:
+        return float(out.stdout.strip().splitlines()[0]) * 1e6
+    except ValueError:
+        return 1980e6
+
+
 def ptxas_lines(report: str) -> list[str]:
     """One line per kernel of ``nvcc -Xptxas -v``'s report: registers,
     spill stores and loads, static shared memory (the ring is dynamic
@@ -346,6 +379,8 @@ def ptxas_lines(report: str) -> list[str]:
             if t:
                 args = ",".join(re.findall(r"L[bi](\d+)E", t.group(3)))
                 name = f"{t.group(1)}<{names[t.group(2)]}{',' + args if args else ''}>"
+            elif re.search(r"\d+(td_[a-z_]+_kernel)E", name):  # not a template
+                name = re.search(r"\d+(td_[a-z_]+_kernel)E", name).group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if name and m:
@@ -3629,6 +3664,498 @@ def sharded_phase(bw: float) -> dict:
     return {"cases": summary, "rows": rows, "launches": launches, "moe": moe, "nccl": nccl}
 
 
+# ---------------------------------------------------------------------------
+# core phase: the scheduled-form codec on the schedule kernel, the public
+# ops, plan validation
+# ---------------------------------------------------------------------------
+
+#: the schedule kernel's check: CORE_STREAMS seeded streams of CORE_ROWS rows
+#: at each density, one-side and two-side, lookahead 1 and 2
+CORE_STREAMS, CORE_ROWS = 64, 4096
+CORE_DENSITIES = (0.0, 0.1, 0.34, 0.5, 0.9, 1.0)
+#: lane counts besides 16 held to the plain loop: one that does not divide 32, and 32
+OTHER_LANES = (5, 32)
+#: stream lengths besides CORE_ROWS held to the plain loop: shorter than the
+#: kernel's 256-row stage or no multiple of it (the quickstart's 64 and 96 among them)
+EDGE_ROWS = (1, 2, 3, 64, 96, 255, 257, 1000)
+#: simulate_macs' accumulator against a float64 sum(a*b): relative to the
+#: float64 sum of |a*b|, the scale of any rounding error of the sum (relative
+#: to |sum(a*b)| a sum that cancels to near zero fails at any precision)
+MACS_RTOL = 1e-5
+SCHEDULE_SOURCE = "src/repro_torch/kernels/csrc/schedule.cu"
+#: the JAX scan the schedule kernel replaces (no Pallas kernel: a lax.scan)
+SCHEDULE_REPLACES = "src/repro/core/compress.py:52"
+#: the full-width codec tensor: deepseek-7b's w_down, magnitude-pruned
+W_DOWN_SHAPE, W_DOWN_KEEP = (11008, 4096), 0.5
+#: deepseek-7b's FFN widths for the ops check: (d_model, d_ff), rows
+FFN_WIDTHS, FFN_ROWS = (4096, 11008), (4, 128)
+#: the validate graph check: deepseek-7b-ReLU at full width cut to VALIDATE_LAYERS layers
+VALIDATE_LAYERS = 2
+
+
+def schedule_bytes(s: int, t: int, n: int) -> int:
+    """Least bytes of one schedule launch: z read once (a byte a lane), sel
+    written once (a byte a lane), advance (a byte a row), n_cycles."""
+    return 2 * s * t * n + s * t + 4 * s
+
+
+def schedule_chain_ms(cycles: int, lookahead: int, clock_hz: float) -> float:
+    """Least time of a stream's serial chain: each scheduler cycle needs the
+    window the last one left, and within a cycle each level's picks need
+    the bits the levels before it took, so a stream of ``cycles`` cycles is
+    at least ``cycles x n_levels`` dependent steps of one SM clock each."""
+    from repro_torch.kernels import schedule as S
+
+    return cycles * len(S.schedule_tables(16, lookahead)[2]) / clock_hz * 1e3
+
+
+def schedule_err(got, want, what: str) -> float:
+    """Largest |kernel - plain loop| over ``sel``, ``advance`` and
+    ``n_cycles``; raises unless it is 0 (bit-equal)."""
+    err = 0.0
+    for name, g, w in zip(("sel", "advance", "n_cycles"), got, want):
+        diff = (g.cpu().long() - w.long()).abs()
+        if diff.numel() and int(diff.max()):
+            raise AssertionError(f"{what}: {name} differs from the plain loop in {int((diff > 0).sum())} "
+                                 f"entries (largest {int(diff.max())})")
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+    return err
+
+
+def schedule_check(bw: float, clock_hz: float) -> tuple[list, dict]:
+    """(a): the schedule kernel bit-equal to its plain loop on every stream
+    of ``CORE_DENSITIES`` x one-/two-side x lookahead 1, 2, and
+    ``simulate_macs`` on the card: the plain loop's cycles, the accumulator
+    within ``MACS_RTOL`` of a float64 ``sum(a*b)``.  Times the kernel and
+    the plain loop on each lookahead's batch.  Then the kernel against the
+    plain loop at the ``EDGE_ROWS`` lengths, ``OTHER_LANES`` lane counts and
+    on transposed operands."""
+    import torch
+    from repro_torch.core import compress, decompress, simulate_macs
+    from repro_torch.kernels import schedule as S
+
+    gen = torch.Generator().manual_seed(24)
+    s_all = CORE_STREAMS * len(CORE_DENSITIES)
+    shape = (s_all, CORE_ROWS, 16)
+    dens = torch.tensor(CORE_DENSITIES).repeat_interleave(CORE_STREAMS)[:, None, None]
+    a = torch.randn(shape, generator=gen) * (torch.rand(shape, generator=gen) < dens)
+    b = torch.randn(shape, generator=gen) * (torch.rand(shape, generator=gen) < dens)
+    a_dense = torch.randn(shape, generator=gen)
+    sides = {"one-side": (a_dense, b, b != 0), "two-side": (a, b, (a != 0) & (b != 0))}
+    rows, worst = [], 0.0
+    for la in (1, 2):
+        z = torch.cat([zs for _, _, zs in sides.values()])  # [2 * s_all, T, 16]
+        zc = z.cuda()
+        t0 = time.perf_counter()
+        want = S.schedule_streams_ref(z, lookahead=la)
+        plain_s = time.perf_counter() - t0
+        got = S.schedule_streams(zc, lookahead=la)
+        torch.cuda.synchronize()
+        sched_err = schedule_err(got, want, f"schedule kernel, lookahead {la}")
+        ms = cuda_ms(lambda: S.schedule_streams(zc, lookahead=la), iters=5, warmup=1)
+        half = CORE_DENSITIES.index(0.5) * CORE_STREAMS  # the 64 one-side streams at density 0.5
+        z64 = zc[half:half + CORE_STREAMS]
+        ms64 = cuda_ms(lambda: S.schedule_streams(z64, lookahead=la), iters=5, warmup=1)
+        cycles = want[2].view(2, s_all)
+        for i, (side, (av, bv, _)) in enumerate(sides.items()):
+            acc, cyc = simulate_macs(av.cuda(), bv.cuda(), lookahead=la, two_side=side == "two-side")
+            if not torch.equal(cyc.cpu(), cycles[i]):
+                raise AssertionError(f"simulate_macs {side}, lookahead {la}: cycles differ from the plain loop")
+            prod = av.double() * bv.double()
+            ref, scale = prod.sum(dim=(1, 2)), prod.abs().sum(dim=(1, 2))
+            err = (acc.cpu().double() - ref).abs()
+            if bool((err > MACS_RTOL * scale).any()):
+                raise AssertionError(f"simulate_macs {side}, lookahead {la}: accumulator off the float64 "
+                                     f"sum by {float((err / scale.clamp(min=1e-300)).max()):.3e} relative")
+            worst = max(worst, float((err / scale.clamp(min=1e-300)).max()))
+        n_streams = 2 * s_all
+        bound = schedule_bytes(n_streams, CORE_ROWS, 16) / bw * 1e3
+        chain = schedule_chain_ms(int(want[2].max()), la, clock_hz)
+        rows.append({"case": f"{n_streams} streams x {CORE_ROWS} rows, lookahead {la}",
+                     "kernel": "td_schedule_kernel", "shape": f"[{n_streams},{CORE_ROWS},16]",
+                     "max_abs_err": sched_err, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": None,
+                     "bound_ms": bound, "bound_by": "bytes", "chain_bound_ms": chain, "main_path": la == 2,
+                     "cycles_mean": float(cycles.float().mean()), "ms_64_streams_half_dense": ms64,
+                     "bound_ms_64_streams": schedule_bytes(CORE_STREAMS, CORE_ROWS, 16) / bw * 1e3})
+        log(f"core (a): schedule kernel, lookahead {la}, {n_streams} streams x {CORE_ROWS} rows "
+            f"(densities {CORE_DENSITIES}, one- and two-side): sel, advance, n_cycles bit-equal to the plain "
+            f"loop; kernel {ms:.4f} ms ({CORE_STREAMS} one-side streams at density 0.5 alone {ms64:.4f} ms), "
+            f"plain loop {plain_s * 1e3:.1f} ms, bound {bound:.4f} ms (bytes), serial chain {chain:.4f} ms; "
+            f"simulate_macs cycles equal, accumulator within {worst:.2e} of the float64 sum (relative to "
+            f"sum |a*b|)")
+    for n in OTHER_LANES:  # the kernel's generic rotations (5) and a full word (32)
+        z = torch.rand((32, 1024, n), generator=gen) < 0.5
+        schedule_err(S.schedule_streams(z.cuda(), n_lanes=n), S.schedule_streams_ref(z, n_lanes=n),
+                     f"schedule kernel, {n} lanes")
+    log(f"core (a): schedule kernel at {OTHER_LANES} lanes, 32 streams x 1024 rows: bit-equal to the plain loop")
+    # lengths the 256-row stage does not divide, 8 streams at each density
+    dens = torch.tensor(CORE_DENSITIES).repeat_interleave(8)[:, None, None]
+    for t in EDGE_ROWS:
+        z = torch.rand((dens.shape[0], t, 16), generator=gen) < dens
+        for la in (1, 2):
+            schedule_err(S.schedule_streams(z.cuda(), lookahead=la), S.schedule_streams_ref(z, lookahead=la),
+                         f"schedule kernel, T = {t}, lookahead {la}")
+    # a transposed [16, T] operand: its != 0 keeps the permuted strides
+    t = EDGE_ROWS[-1]
+    x = torch.randn((16, t), generator=gen) * (torch.rand((16, t), generator=gen) < 0.5)
+    xt = x.cuda().T
+    want = S.schedule_streams_ref(x.T.unsqueeze(0))
+    schedule_err(S.schedule_streams(xt.unsqueeze(0)), want, "schedule kernel, transposed operand")
+    enc = compress(xt)
+    schedule_err((enc.sel.unsqueeze(0), enc.advance.unsqueeze(0), enc.n_cycles.reshape(1)), want,
+                 "compress of a transposed operand")
+    if not torch.equal(decompress(enc, t=t).cpu(), x.T):
+        raise AssertionError("compress of a transposed operand does not round-trip")
+    _, cyc = simulate_macs(torch.ones_like(xt), xt, two_side=False)
+    schedule_err((torch.zeros(0), torch.zeros(0), cyc.reshape(1)), (torch.zeros(0), torch.zeros(0), want[2]),
+                 "simulate_macs of a transposed operand")
+    log(f"core (a): schedule kernel at T = {EDGE_ROWS}, {dens.shape[0]} streams each, lookahead 1 and 2, and on a "
+        f"transposed [16, {t}] operand (schedule_streams, compress, simulate_macs): bit-equal to the plain loop")
+    return rows, {"macs_worst_rel": worst}
+
+
+def codec_check() -> dict:
+    """(b): full-width deepseek-7b ``w_down`` [11008, 4096] bf16 from the
+    seed, magnitude-pruned to half: ``encode`` on the card then ``decode``
+    must give it back bit for bit.  The encode's one schedule launch (one
+    stream of 2 818 048 rows) is timed with CUDA events around it; its
+    schedule is kept for :func:`codec_schedule_check`."""
+    import torch
+    from repro_torch.checkpoint import codec
+    from repro_torch.kernels import schedule as S
+
+    gdev = torch.Generator(device="cuda").manual_seed(7)
+    w = (torch.randn(W_DOWN_SHAPE, generator=gdev, device="cuda") * 0.02).to(torch.bfloat16)
+    mag = w.abs().float().flatten()
+    thr = torch.kthvalue(mag.cpu(), int(mag.numel() * (1 - W_DOWN_KEEP))).values.item()
+    w = torch.where(w.abs().float() > thr, w, torch.zeros((), dtype=w.dtype, device=w.device))
+    torch.cuda.synchronize()
+    real, events = S.schedule_streams, []
+
+    def timed_schedule(z, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(z, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    S.schedule_streams = timed_schedule
+    try:
+        t0 = time.perf_counter()
+        d = codec.encode(w)
+        encode_s = time.perf_counter() - t0
+    finally:
+        S.schedule_streams = real
+    if len(events) != 1:
+        raise AssertionError(f"codec: encode made {len(events)} schedule calls, want 1")
+    kernel_ms = events[0][0].elapsed_time(events[0][1])
+    t0 = time.perf_counter()
+    back = codec.decode(d)
+    decode_s = time.perf_counter() - t0
+    if int(d["mode"]) != 1 or not torch.equal(back.view(torch.int16), w.cpu().view(torch.int16)):
+        raise AssertionError("codec: w_down did not round-trip bit for bit")
+    rows = int(d["t"])
+    return {"w": w, "sel": d["sel"], "advance": d["advance"], "rows": rows, "encode_s": encode_s,
+            "decode_s": decode_s, "kernel_ms": kernel_ms, "n_cycles": int(d["values"].shape[0]),
+            "compressed_bytes": codec.compressed_bytes(d), "dense_bytes": w.numel() * w.element_size(),
+            "zero_share": float((w == 0).float().mean())}
+
+
+def codec_schedule_check(codec_run: dict, bw: float, clock_hz: float) -> dict:
+    """The encode's schedule against the plain loop on the stream's first
+    ``CORE_ROWS`` rows (its ms a row timed there; the whole stream would
+    take the host loop some twenty minutes): every cycle whose window lies
+    inside those rows, its pointer at most ``CORE_ROWS - depth``, sees what
+    the plain loop sees and must schedule the same.  Its bounds: bytes, and
+    the stream's serial chain."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import schedule as S
+
+    head = (codec_run["w"][:CORE_ROWS * 16 // W_DOWN_SHAPE[1]] != 0).reshape(1, CORE_ROWS, 16).cpu()
+    t0 = time.perf_counter()
+    want = S.schedule_streams_ref(head)
+    plain_row_ms = (time.perf_counter() - t0) / CORE_ROWS * 1e3
+    adv = codec_run["advance"].astype(np.int64)
+    k = int(((np.cumsum(adv) - adv) <= CORE_ROWS - 3).sum())  # depth 3 at lookahead 2
+    if not 0 < k <= int(want[2][0]):
+        raise AssertionError(f"codec: {k} leading cycles to compare, the plain loop has {int(want[2][0])}")
+    got = (torch.from_numpy(codec_run["sel"][:k])[None], torch.from_numpy(codec_run["advance"][:k])[None],
+           torch.zeros(0))
+    err = schedule_err(got, (want[0][:, :k], want[1][:, :k], torch.zeros(0)), "codec schedule of w_down")
+    rows = codec_run["rows"]
+    return {"kernel_ms": codec_run["kernel_ms"], "plain_ms_per_row": plain_row_ms,
+            "plain_ms_extrapolated": plain_row_ms * rows, "cycles_checked": k, "max_abs_err": err,
+            "bound_ms": schedule_bytes(1, rows, 16) / bw * 1e3,
+            "chain_bound_ms": schedule_chain_ms(codec_run["n_cycles"], 2, clock_hz)}
+
+
+def quickstart_check() -> dict:
+    """(c): ``examples/quickstart.py``'s five steps through the port, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.core import ConvLayer, compress, decompress, simulate_conv, simulate_macs, simulate_stream
+    from repro_torch.kernels import schedule as S
+
+    rng = np.random.default_rng(0)
+    z = rng.random((128, 16)) >= 0.66
+    r = simulate_stream(z)
+    a = (rng.standard_normal((64, 16)) * (rng.random((64, 16)) > 0.5)).astype(np.float32)
+    b = (rng.standard_normal((64, 16)) * (rng.random((64, 16)) > 0.5)).astype(np.float32)
+    acc, cycles = simulate_macs(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
+    mac_err = abs(float(acc) - float(np.sum(a.astype(np.float64) * b)))
+    # both schedules against the plain loop on the same bits (host: no launch)
+    none = torch.zeros(0)
+    want = S.schedule_streams_ref(torch.from_numpy((a != 0) & (b != 0))[None])
+    sched_err = {"simulate_macs": schedule_err((none, none, cycles.reshape(1)), (none, none, want[2]),
+                                               "quickstart simulate_macs")}
+    x = (rng.standard_normal((96, 16)) * (rng.random((96, 16)) > 0.7)).astype(np.float32)
+    enc = compress(torch.from_numpy(x).cuda())
+    sched_err["compress"] = schedule_err((enc.sel[None], enc.advance[None], enc.n_cycles.reshape(1)),
+                                         S.schedule_streams_ref(torch.from_numpy(x != 0)[None]), "quickstart compress")
+    dec = decompress(enc, t=96)
+    exact = bool(torch.equal(dec.cpu(), torch.from_numpy(x)))
+    res = simulate_conv(ConvLayer("resnet_conv", 256, 3, 3, 128, 28, 28), sparsity=0.66, sample_groups=1,
+                        max_t=96)
+    rt = rtm.Runtime(backend="cuda", bm=16, bk=32, bn=16)
+    am = (rng.standard_normal((64, 128)).astype(np.float32)
+          * (rng.random((4, 4)) < 0.5).repeat(16, 0).repeat(32, 1))
+    bm_ = rng.standard_normal((128, 64)).astype(np.float32)
+    at, bt = torch.from_numpy(am).cuda(), torch.from_numpy(bm_).cuda()
+    plan = rt.plan(at, key="demo")
+    y = rt.matmul(at, bt, plan=plan)
+    rt_err = float((y.cpu().double() - torch.from_numpy(am).double() @ torch.from_numpy(bm_).double()).abs().max())
+    with rt.use():
+        ambient = rtm.resolve().backend
+    out = {"pe_dense": int(r.dense), "pe_cycles": int(r.cycles), "mac_err": mac_err, "mac_cycles": int(cycles),
+           "codec_rows": int(enc.n_cycles), "codec_exact": exact, "conv_speedup": res.speedup,
+           "plan_skipped": plan.skipped_fraction(), "runtime_err": rt_err, "ambient": ambient,
+           "plan_cache": rt.plan_cache.stats(), "schedule_err": sched_err}
+    if not (out["pe_cycles"] < out["pe_dense"] and mac_err <= 1e-5 * float(np.abs(a * b).sum())
+            and out["mac_cycles"] <= 64 and exact and res.speedup > 1 and rt_err <= 2e-4 * (1 + float(np.abs(am).max()))
+            and ambient == "cuda"):
+        raise AssertionError(f"quickstart through the port: {out}")
+    log(f"core (c): quickstart on the card: PE {out['pe_dense']} dense -> {out['pe_cycles']} TensorDash cycles "
+        f"({out['pe_dense'] / out['pe_cycles']:.2f}x at 66% sparsity); MAC |acc - ref| = {mac_err:.2e} in "
+        f"{out['mac_cycles']}/64 cycles (the plain loop's); codec 96 rows -> {out['codec_rows']} scheduled rows "
+        f"(sel, advance, n_cycles == the plain loop's), exact {exact}; conv projection {res.speedup:.2f}x; "
+        f"runtime[cuda] plan skips {out['plan_skipped']:.0%}, "
+        f"|err| {rt_err:.1e}; ambient runtime -> {ambient}, plan cache {out['plan_cache']}")
+    return out
+
+
+def ops_check() -> dict:
+    """(d): ``ops.matmul`` / ``matmul_fused`` / ``matmul_grads`` and
+    ``Runtime.sparse_ffn`` on ``cuda`` at deepseek-7b's FFN widths in bf16,
+    each against its plain version within the kernel tolerance (bf16 rtol
+    2**-7 + atol 1e-3 of the max, as PERF.md section 2); each product one
+    launch, one emitted planner launch for the ``w_down`` plan."""
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.kernels import ops, ref, tensordash_spmm as T
+
+    d, f = FFN_WIDTHS
+    gdev = torch.Generator(device="cuda").manual_seed(11)
+    w1 = (torch.randn(d, f, generator=gdev, device="cuda") / d ** 0.5).to(torch.bfloat16)
+    w2 = (torch.randn(f, d, generator=gdev, device="cuda") / f ** 0.5).to(torch.bfloat16)
+    rt = rtm.Runtime(backend="cuda")
+    out = {}
+    for m in FFN_ROWS:
+        x = torch.randn(m, d, generator=gdev, device="cuda").to(torch.bfloat16)
+        h = torch.relu(x.float() @ w1.float()).to(torch.bfloat16)
+        gy = torch.randn(m, d, generator=gdev, device="cuda").to(torch.bfloat16)
+        checks = (
+            ("matmul", lambda: ops.matmul(h, w2, runtime=rt), lambda: ref.matmul_ref(h, w2),
+             {"tensordash_matmul_planned": 1, "planner[values]": 1}),
+            ("matmul_fused", lambda: ops.matmul_fused(x, w1, activation="relu", runtime=rt)[0], lambda: h,
+             {"tensordash_matmul_fused": 1, "planner[values]": 1}),
+            ("matmul_grads", lambda: ops.matmul_grads(h, w2, gy, runtime=rt),
+             lambda: ref.matmul_grads_ref(h, w2, gy), None),
+            ("sparse_ffn", lambda: ops.sparse_ffn(x, w1, w2, runtime=rt), lambda: ref.sparse_ffn_ref(x, w1, w2),
+             {"tensordash_matmul_fused": 1, "planner[emitted]": 1, "tensordash_matmul_planned": 1}),
+        )
+        for name, call, plain, want in checks:
+            before = T.launch_counts()
+            with no_plain_versions(f"ops {name}"):
+                got = call()
+            torch.cuda.synchronize()
+            counts = {k: v - before[k] for k, v in T.launch_counts().items() if v - before[k]}
+            products = sum(v for k, v in counts.items() if k.startswith("tensordash_matmul"))
+            if want is not None and counts != want:
+                raise AssertionError(f"ops {name} M={m}: launches {counts} != {want}")
+            if want is None and products != 2:
+                raise AssertionError(f"ops {name} M={m}: {products} product launches, want 2 (da, db)")
+            wants = plain()
+            pairs = zip(got, wants) if isinstance(got, tuple) else [(got, wants)]
+            err = max(check_close(f"ops {name} M={m}", gg, ww) for gg, ww in pairs)
+            out[f"{name} M={m}"] = {"launches": counts, "max_abs_err": err}
+        log(f"core (d): ops at [{m},{d}]->{f}->{d} bf16 on cuda: " + "; ".join(
+            f"{k.split(' ')[0]} {v['launches']} err {v['max_abs_err']:.2e}" for k, v in out.items()
+            if k.endswith(f"M={m}")))
+    return out
+
+
+def validate_check() -> dict:
+    """(e): ``Runtime(validate="full")`` on the card: a ``corrupt_cache_entry``
+    found and evicted by ``scrub``; a corrupt caller plan (each corruption
+    mode) warns, is logged and replanned, and the output equals the clean
+    plan's bit for bit; the host ms of ``check_plan`` at each level on the
+    LM head's 800-row plan; then deepseek-7b-ReLU cut to
+    ``VALIDATE_LAYERS`` layers served with the decode chunk as a CUDA graph
+    under ``validate="boundary"``: the eager run's greedy tokens, checks at
+    the warm-up, none while capturing."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.analysis import plan_check, verify_plan
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+    from repro_torch.resilience import ResilienceLog, faults
+    from repro_torch.resilience.log import use_log
+    from repro_torch.runtime import runtime as rtmod
+
+    out = {}
+    gdev = torch.Generator(device="cuda").manual_seed(13)
+    rt = rtm.Runtime(backend="cuda", validate="full")
+    ws = [block_sparse(1024, 4096, 128, 512, 0.6, torch.Generator().manual_seed(i)).to("cuda", torch.bfloat16)
+          for i in range(3)]
+    for i, w in enumerate(ws):
+        rt.plan(w, key=f"w{i}")
+    key = faults.corrupt_cache_entry(rt.plan_cache, rng=np.random.default_rng(0))
+    bad = rt.plan_cache.scrub()
+    if [k for k, _ in bad] != [key] or len(rt.plan_cache._entries) != len(ws) - 1:
+        raise AssertionError(f"validate: scrub evicted {[k for k, _ in bad]}, corrupted {key}")
+    i = int(key[0][1:])
+    misses = rt.plan_cache.misses
+    if verify_plan(rt.plan(ws[i], key=key[0])) or rt.plan_cache.misses != misses + 1:
+        raise AssertionError("validate: the scrubbed entry was not replanned clean")
+    out["scrub"] = {"corrupted": str(key[0]), "evicted": [str(k[0]) for k, _ in bad], "error": bad[0][1][:120]}
+
+    d, f = FFN_WIDTHS
+    h = torch.relu(torch.randn(4, f, generator=gdev, device="cuda")).to(torch.bfloat16)
+    w2 = (torch.randn(f, d, generator=gdev, device="cuda") / f ** 0.5).to(torch.bfloat16)
+    clean = rt.fit(h.shape, w2.shape).plan(h)  # the geometry Runtime.matmul fits
+    want = rt.matmul(h, w2, plan=clean)
+    out["recovered"] = {}
+    for mode in faults.PLAN_CORRUPTIONS:
+        log_ = ResilienceLog()
+        with use_log(log_), warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            got = rt.matmul(h, w2, plan=faults.corrupt_plan(clean, rng=np.random.default_rng(1), mode=mode))
+        warned = sum(issubclass(w.category, RuntimeWarning) and "corrupt SparsityPlan" in str(w.message)
+                     for w in seen)
+        if warned != 1 or log_.counts() != {("plan-corrupt", "replan"): 1} or not torch.equal(got, want):
+            raise AssertionError(f"validate: corrupt plan ({mode}): {warned} warnings, log {log_.counts()}, "
+                                 f"output equal {torch.equal(got, want)}")
+        out["recovered"][mode] = "warned, logged, replanned, output equal"
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), activation="relu", num_layers=VALIDATE_LAYERS)
+    params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda")
+    head_plan = rtm.Runtime(backend="cuda").plan(params["lm_head"], side="B")
+    if head_plan.block_rows != 800:
+        raise AssertionError(f"validate: LM head plan has {head_plan.block_rows} block rows, not 800")
+    out["check_plan_host_ms"] = {level: host_ms(lambda: plan_check.check_plan(head_plan, level=level), iters=20)
+                                 for level in ("boundary", "full")}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(s)) for s in rng.integers(16, 33, size=REQUESTS)]
+    out["before_serve"] = T.launch_counts()  # drive_serve counts each run from 0
+    eager = drive_serve(params, cfg, prompts, rtm.Runtime(backend="cuda"))
+    checks, skipped = [], []
+    real_check, real_capturing = plan_check.check_plan, rtmod.capturing
+
+    def counted_check(plan, geometry=None, *, level="full"):
+        checks.append(torch.cuda.is_current_stream_capturing())
+        return real_check(plan, geometry, level=level)
+
+    def counted_capturing():
+        now = real_capturing()
+        if now:
+            skipped.append(True)
+        return now
+
+    plan_check.check_plan, rtmod.capturing = counted_check, counted_capturing
+    try:
+        graph = drive_serve(params, cfg, prompts, rtm.Runtime(backend="cuda", validate="boundary"), cuda_graph=True)
+    finally:
+        plan_check.check_plan, rtmod.capturing = real_check, real_capturing
+    diff = first_difference(graph["out"], eager["out"])
+    st = graph["stats"]
+    if diff is not None or st["decode_graph_captures"] != 1 or not checks or any(checks) or not skipped:
+        raise AssertionError(f"validate: graph under boundary: first token difference {diff}, "
+                             f"{st['decode_graph_captures']} captures, {len(checks)} checks "
+                             f"({sum(checks)} while capturing), {len(skipped)} skipped")
+    out["graph"] = {"checks": len(checks), "skipped_while_capturing": len(skipped),
+                    "captures": st["decode_graph_captures"], "replays": st["decode_graph_replays"],
+                    "tokens_equal_eager": True}
+    # the serve runs' launches (each run counts from 0; a capture's once per replay)
+    out["serve_launches"] = {k: eager["launches"][k] + graph["device_launches"][k] for k in eager["launches"]}
+    log(f"core (e): validate='full' on the card: corrupt_cache_entry({out['scrub']['corrupted']}) evicted by "
+        f"scrub and replanned clean; a corrupt caller plan ({', '.join(faults.PLAN_CORRUPTIONS)}) warned, "
+        f"logged plan-corrupt/replan and replanned, output bit-equal to the clean plan's; check_plan on the LM "
+        f"head's 800-row plan {out['check_plan_host_ms']['boundary']:.3f} ms (boundary) / "
+        f"{out['check_plan_host_ms']['full']:.3f} ms (full) host; deepseek-7b-ReLU cut to {VALIDATE_LAYERS} "
+        f"layers through the decode graph under validate='boundary': {len(checks)} checks outside the capture, "
+        f"{len(skipped)} skipped while capturing, 1 capture, {st['decode_graph_replays']} replays, greedy "
+        f"tokens == eager run's")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def core_phase(bw: float) -> dict:
+    """The paper's core on the card: (a) the schedule kernel against its
+    plain loop (not counted), then the slice's main path, its launches
+    counted from 0: (c) the quickstart's five steps, (b) the codec on
+    full-width ``w_down``, (d) the public ops and ``sparse_ffn``, (e) plan
+    validation; then the codec's schedule against the plain loop."""
+    import torch
+    from repro_torch.kernels import schedule as S, tensordash_spmm as T
+
+    t0 = time.perf_counter()
+    clock_hz = max_sm_clock_hz()
+    rows, macs = schedule_check(bw, clock_hz)
+    S.reset_launch_counts()
+    T.reset_launch_counts()
+    quick = quickstart_check()
+    codec_run = codec_check()
+    ops_run = ops_check()
+    validate = validate_check()  # its serve runs count from 0: their launches come back apart
+    torch.cuda.synchronize()
+    launches = {k: v + validate["serve_launches"][k] for k, v in validate.pop("before_serve").items()}
+    launches.update(S.LAUNCHES)
+    timing = codec_schedule_check(codec_run, bw, clock_hz)
+    cut = {k: v for k, v in codec_run.items() if k not in ("w", "sel", "advance")}
+    for name, shape in (("simulate_macs", "[1,64,16]"), ("compress", "[1,96,16]")):
+        rows.append({"case": f"quickstart {name}", "kernel": "td_schedule_kernel", "shape": shape,
+                     "max_abs_err": quick["schedule_err"][name], "main_path": False})
+    rows.append({"case": f"deepseek-7b w_down {W_DOWN_SHAPE[0]}x{W_DOWN_SHAPE[1]} bf16, half pruned: one stream "
+                         f"of {codec_run['rows']} rows", "kernel": "td_schedule_kernel",
+                 "shape": f"[1,{codec_run['rows']},16]", "max_abs_err": timing["max_abs_err"],
+                 "cycles_checked": timing["cycles_checked"], "ms": timing["kernel_ms"], "plain_ms": None,
+                 "plain_ms_per_row": timing["plain_ms_per_row"], "library_ms": None, "bound_ms": timing["bound_ms"],
+                 "bound_by": "bytes", "chain_bound_ms": timing["chain_bound_ms"], "main_path": False})
+    log(f"core (b): codec on deepseek-7b w_down [{W_DOWN_SHAPE[0]}, {W_DOWN_SHAPE[1]}] bf16, "
+        f"{cut['zero_share']:.1%} zero: encode {cut['encode_s']:.3f} s, decode {cut['decode_s']:.3f} s, round trip "
+        f"bit-exact; {cut['rows']} rows -> {cut['n_cycles']} scheduled rows; the encode's schedule launch "
+        f"{timing['kernel_ms']:.1f} ms (bounds: bytes {timing['bound_ms']:.4f} ms, serial chain "
+        f"{timing['chain_bound_ms']:.4f} ms at {clock_hz / 1e6:.0f} MHz), its first {timing['cycles_checked']} cycles "
+        f"== the plain loop's on the first {CORE_ROWS} rows; plain loop {timing['plain_ms_per_row']:.4f} ms a row "
+        f"there (~{timing['plain_ms_extrapolated'] / 60e3:.1f} min at full size, not run); "
+        f"{cut['compressed_bytes']} compressed bytes vs {cut['dense_bytes']} dense "
+        f"({cut['compressed_bytes'] / cut['dense_bytes']:.3f}x)")
+    log(f"core: main-path launches (c)+(b)+(d)+(e): {launches}; phase {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "macs": macs, "quickstart": quick, "codec": {**cut, **timing}, "ops": ops_run,
+            "validate": validate, "launches": launches, "sm_clock_mhz": clock_hz / 1e6,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository (src/repro_torch missing)",
@@ -3666,6 +4193,9 @@ def main() -> int:
 
     log("kernels: each against its plain PyTorch version on the card")
     rows, launch_check = kernel_phase(bw)
+    log("core: the schedule kernel against its plain loop; the codec, the quickstart, the public ops and plan "
+        "validation on the card")
+    core = core_phase(bw)
     params, cfg, prompts, serve = serve_phase()
     ref_l2, top1 = reference_phase(params, cfg, prompts)
     log("grid kernels: v2/v1 against the ragged kernel and the plain version; block_zero_mask")
@@ -3757,6 +4287,7 @@ def main() -> int:
                            for k in launch["a"]["launches"]})
     per_launch_step = {tag: grouped(w) for tag, w in launch["launches_per_step"].items()}
     sharded_runs = grouped(sharded["launches"])
+    core_runs = grouped({k: v for k, v in core["launches"].items() if k != "td_schedule_kernel"})
     kernels = []
     for kname in REPLACES:
         mine = [r for r in rows + grid_rows + train_rows + planner_rows + sharded["rows"] if r["kernel"] == kname]
@@ -3764,7 +4295,8 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE if kname in SPMM else PLANNER_SOURCE,
             "replaces": REPLACES[kname],
-            "launches": serve_runs[kname] + train_runs[kname] + launch_runs[kname] + sharded_runs[kname],
+            "launches": (serve_runs[kname] + train_runs[kname] + launch_runs[kname] + sharded_runs[kname]
+                         + core_runs[kname]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
@@ -3778,7 +4310,19 @@ def main() -> int:
             "launches_launch_train": launch_runs[kname],
             "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
             "launches_sharded_local_steps": sharded_runs[kname],
+            "launches_core": core_runs[kname],
         })
+    head = next(r for r in core["rows"] if r["main_path"])
+    kernels.append({
+        "name": "td_schedule_kernel", "route": "cuda", "source": SCHEDULE_SOURCE, "replaces": SCHEDULE_REPLACES,
+        "launches": core["launches"]["td_schedule_kernel"], "max_abs_err": max(r["max_abs_err"] for r in core["rows"]),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "shape": head["shape"], "launches_core": core["launches"]["td_schedule_kernel"],
+        "ms_64_streams": head["ms_64_streams_half_dense"], "w_down_ms": core["codec"]["kernel_ms"],
+        "w_down_bound_ms": core["codec"]["bound_ms"], "chain_bound_ms": head["chain_bound_ms"],
+        "w_down_chain_bound_ms": core["codec"]["chain_bound_ms"],
+        "plain_ms_per_row": core["codec"]["plain_ms_per_row"],
+    })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -3790,7 +4334,7 @@ def main() -> int:
          "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2, "ssm_serve": ssm,
          "hybrid_serve": hybrid, "starcoder2_serve": starcoder, "gemma2_serve": gemma, "kv_int8_serve": kv8,
          "qwen2vl_run": vl, "musicgen_run": mg,
-         "ssm_train": ssm_train, "hybrid_train": hybrid_train, "sharded": sharded,
+         "ssm_train": ssm_train, "hybrid_train": hybrid_train, "sharded": sharded, "core": core,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

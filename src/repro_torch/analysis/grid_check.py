@@ -32,6 +32,10 @@ package's:
   accumulated twice (``grid.work-dup``).  The CUDA kernel reads ``idx`` only
   on effectual steps, so a corrupt tail past ``nnz`` is no grid defect here
   (``verify_plan`` reports it).
+
+:func:`check_sharded` audits a
+:class:`~repro_torch.runtime.plan.PlanShards`: each shard's ragged queue,
+then the cross-shard coverage (``grid.shard-coverage``).
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ import numpy as np
 
 from repro_torch.analysis.plan_check import Finding, _host
 
-__all__ = ["check_grid", "check_plan_grid"]
+__all__ = ["check_grid", "check_plan_grid", "check_sharded"]
 
 
 def _shares(cnt: np.ndarray, splits: int):
@@ -192,3 +196,60 @@ def check_plan_grid(plan, *, nb: int = 1, compact_grid="ragged", splits: int = 1
     wq = plan.workqueue() if compact_grid == "ragged" else None
     return check_grid(plan.nnz, plan.idx, nb=nb, compact_grid=compact_grid, workqueue=wq,
                       splits=splits)
+
+
+def check_sharded(shards, *, nb: int = 1) -> list[Finding]:
+    """Audit a :class:`~repro_torch.runtime.plan.PlanShards`: each shard's
+    ragged queue individually, then cross-shard coverage — the union of the
+    per-shard MACs must re-create the global plan's effectual set exactly
+    once (M and K partition it; N replicates it against disjoint output
+    columns)."""
+    f: list[Finding] = []
+    g_nnz = _host(shards.plan.nnz, "nnz").astype(np.int64)
+    g_idx = _host(shards.plan.idx, "idx").astype(np.int64)
+    rb, kb = g_idx.shape
+    for s in range(shards.n_shards):
+        f.extend(check_grid(
+            # per-shard queues are ragged by construction, not a policy pick
+            shards.nnz[s], shards.idx[s], nb=nb, compact_grid="ragged",  # lint: allow-hand-geometry
+            workqueue=(shards.row_starts[s], shards.work_row[s], shards.work_kblk[s]),
+            where=("shard", s),
+        ))
+    if f:
+        return f
+
+    def shard_keys(s: int) -> np.ndarray:
+        nnz_s = np.asarray(shards.nnz[s], dtype=np.int64)
+        idx_s = np.asarray(shards.idx[s], dtype=np.int64)
+        rows_l, kb_l = idx_s.shape
+        valid = np.arange(kb_l, dtype=np.int64)[None, :] < nnz_s[:, None]
+        rows = np.broadcast_to(np.arange(rows_l, dtype=np.int64)[:, None], idx_s.shape)
+        lr, lk = rows[valid], idx_s[valid]
+        if shards.axis == "M":  # local row -> dealt global row
+            order = np.asarray(shards.order, dtype=np.int64)
+            return order[s * (rb // shards.n_shards) + lr] * kb + lk
+        if shards.axis == "K":  # local K block -> global column slice
+            return lr * kb + (s * kb_l + lk)
+        return lr * kb + lk  # N: replicated global schedule
+
+    valid = np.arange(kb, dtype=np.int64)[None, :] < g_nnz[:, None]
+    rows = np.broadcast_to(np.arange(rb, dtype=np.int64)[:, None], g_idx.shape)
+    want = np.sort(rows[valid] * kb + g_idx[valid])
+    if shards.axis == "N":
+        for s in range(shards.n_shards):
+            if not np.array_equal(np.sort(shard_keys(s)), want):
+                f.append(Finding(
+                    "grid.shard-coverage",
+                    "N-sharded schedule is not an exact replica of the global schedule",
+                    ("shard", s),
+                ))
+        return f
+    got = (np.sort(np.concatenate([shard_keys(s) for s in range(shards.n_shards)]))
+           if shards.n_shards else np.empty(0, np.int64))
+    if not np.array_equal(got, want):
+        f.append(Finding(
+            "grid.shard-coverage",
+            f"union of per-shard MACs != global effectual set for axis {shards.axis!r} "
+            f"(every effectual MAC must land exactly once)",
+        ))
+    return f

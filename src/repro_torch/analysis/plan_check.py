@@ -22,10 +22,13 @@ checks mirror the paper's schedule-validity condition (§3.7): every
 effectual MAC appears in the queue exactly once, so proving the metadata
 proves the schedule without issuing a grid.
 
-The metadata is copied to the host once per array (a plan on the card
-costs one device-to-host copy each).  The shard checks (``verify_shards``,
-``check_sharded``) and the transpose check wait for plan validation
-(ROADMAP queue 1, item 16).
+:func:`verify_transpose` checks a transposed plan against its source (the
+backward weight-gradient product's contract) and :func:`verify_shards` a
+:class:`~repro_torch.runtime.plan.PlanShards` (each shard's queue and the
+``unshard_plan`` round trip).  The metadata is copied to the host once per
+array (a plan on the card costs one device-to-host copy each), so the
+runtime skips these checks while a CUDA graph is captured.
+``python -m repro_torch.analysis`` runs :func:`_selfcheck`.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ __all__ = [
     "PlanVerificationError",
     "verify_csr",
     "verify_plan",
+    "verify_transpose",
+    "verify_shards",
     "check_plan",
 ]
 
@@ -250,8 +255,101 @@ def verify_plan(plan, geometry=None, *, level: str = "full") -> list[Finding]:
     return f
 
 
+def _plan_mask(nnz: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    rb, kb = idx.shape
+    valid = np.arange(kb, dtype=np.int64)[None, :] < nnz[:, None]
+    rows = np.broadcast_to(np.arange(rb, dtype=np.int64)[:, None], idx.shape)
+    mask = np.zeros((rb, kb), bool)
+    mask[rows[valid], idx[valid]] = True
+    return mask
+
+
+def verify_transpose(plan, plan_t, *, level: str = "full") -> list[Finding]:
+    """Verify both plans individually, then that ``plan_t``'s block mask is
+    the exact transpose of ``plan``'s: the ``transpose_plan_csr`` contract
+    the backward weight-gradient product relies on (paper Eq. 3)."""
+    f = verify_plan(plan, level=level)
+    f += [Finding(x.code, x.message, ("transpose",) + x.where)
+          for x in verify_plan(plan_t, level=level)]
+    if level == "off" or f:
+        return f
+    mask = _plan_mask(_host(plan.nnz, "nnz"), _host(plan.idx, "idx"))
+    mask_t = _plan_mask(_host(plan_t.nnz, "nnz"), _host(plan_t.idx, "idx"))
+    if mask_t.shape != mask.T.shape or not np.array_equal(mask_t, mask.T):
+        f.append(Finding(
+            "plan.transpose",
+            "transposed plan's block mask is not the exact transpose of the source plan's",
+        ))
+    return f
+
+
+def verify_shards(shards, *, level: str = "full") -> list[Finding]:
+    """Verify a :class:`~repro_torch.runtime.plan.PlanShards`: every
+    per-shard CSR queue individually, plus the ``unshard_plan`` round trip:
+    the reassembled metadata must equal the source plan's bit for bit."""
+    _check_level(level)
+    if level == "off":
+        return []
+    f = verify_plan(shards.plan, level=level)
+    for s in range(shards.n_shards):
+        f.extend(verify_csr(
+            shards.nnz[s], shards.idx[s], shards.row_starts[s],
+            shards.work_row[s], shards.work_kblk[s],
+            level=level, where=("shard", s),
+        ))
+    if shards.axis == "M":
+        order = np.asarray(shards.order)
+        if not np.array_equal(np.sort(order), np.arange(order.shape[0])):
+            f.append(Finding(
+                "plan.shard-roundtrip",
+                "M-shard row order is not a permutation of the block rows",
+            ))
+    if f or level != "full":
+        return f
+    from repro_torch.runtime.plan import unshard_plan  # local: runtime imports analysis
+
+    back = unshard_plan(shards)
+    if not (np.array_equal(_host(back.nnz, "nnz"), _host(shards.plan.nnz, "nnz"))
+            and np.array_equal(_host(back.idx, "idx"), _host(shards.plan.idx, "idx"))):
+        f.append(Finding(
+            "plan.shard-roundtrip",
+            f"unshard_plan(shard_plan(...)) is not the identity on (nnz, idx) for axis "
+            f"{shards.axis!r}",
+        ))
+    return f
+
+
 def check_plan(plan, geometry=None, *, level: str = "full") -> None:
     """Raise :class:`PlanVerificationError` unless ``plan`` verifies clean."""
     findings = verify_plan(plan, geometry, level=level)
     if findings:
         raise PlanVerificationError(findings)
+
+
+def _selfcheck() -> int:
+    """Non-vacuity self-check: a known-good plan verifies clean, and a
+    seeded corruption of each metadata field is caught."""
+    from repro_torch.sparse_train.plan_edit import plan_from_block_mask
+
+    rng = np.random.default_rng(0)
+    mask = rng.random((12, 16)) < 0.3
+    plan = plan_from_block_mask(
+        # fixed self-check fixture, not a tunable call site
+        mask, bm=8, bk=8, shape=(96, 128), dtype=torch.float32  # lint: allow-hand-geometry
+    )
+    ok = not verify_plan(plan)
+    rs = _host(plan.row_starts, "row_starts").copy()
+    rs[3] += 1
+    bad = dataclasses.replace(plan, row_starts=torch.from_numpy(rs), _host={})
+    caught = any(x.code == "plan.row-starts" for x in verify_plan(bad))
+    wk = _host(plan.work_kblk, "work_kblk").copy()
+    wk[0] = (wk[0] + 1) % plan.k_blocks  # always a different k block (Kb > 1)
+    bad_q = dataclasses.replace(plan, work_kblk=torch.from_numpy(wk), _host={})
+    caught_q = bool(verify_plan(bad_q))
+    print(f"plan_check selfcheck: clean={ok} row-starts-corruption-caught={caught} "
+          f"queue-corruption-caught={caught_q}")
+    return 0 if (ok and caught and caught_q) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(_selfcheck())

@@ -1,6 +1,6 @@
 """Checkpoints (port of ``repro.checkpoint``): the atomic keep-k manager
-with its corrupt-step fallback and preemption guard.  ``codec.py`` (the
-scheduled-form codec of paper §3.6) waits for ROADMAP queue 1, item 17."""
+with its corrupt-step fallback and preemption guard, and :mod:`.codec`, the
+scheduled-form codec of paper §3.6 for sparse tensors."""
 from repro_torch.checkpoint.manager import (
     PreemptionGuard,
     all_steps,

@@ -1,21 +1,33 @@
-"""TensorDash core: the paper's scheduler, PE and accelerator performance
-model (port of ``repro.core``, the parts ``tune`` and the train step's
-taps need), in host numpy; :mod:`.sparsity` measures tensors in torch."""
-from repro_torch.core.pe import dense_cycles, simulate_stream, simulate_tile
+"""TensorDash core: the paper's contribution (port of ``repro.core``): the
+scheduler, PE and accelerator performance model in host numpy, the
+scheduled-form codec on the tensor's device, sparsity measurement in torch,
+and the energy and power-gating models in pure Python."""
+from repro_torch.core.compress import Scheduled, compress, decompress, simulate_macs
+from repro_torch.core.energy import BF16, FP32, EnergyBreakdown, EnergyModel
+from repro_torch.core.pe import dense_cycles, effectual_mask, simulate_stream, simulate_tile
 from repro_torch.core.perf_model import (
     BWD_INPUT,
     BWD_WEIGHT,
     FWD,
+    AcceleratorConfig,
     ConvLayer,
     ConvResult,
     TileConfig,
-    ffn_layers_from_config,
     make_clustered_masks,
     model_speedup,
     simulate_conv,
-    speedup_from_densities,
 )
 from repro_torch.core.scheduler import connectivity, drain_count, levels, make_schedule_step
+from repro_torch.core.sparsity import (
+    SparsityStats,
+    apply_probes,
+    block_density,
+    block_mask,
+    grad_sparsity,
+    lane_streams,
+    measure,
+    merge_stats,
+)
 
 __all__ = [
     "connectivity",
@@ -24,16 +36,32 @@ __all__ = [
     "drain_count",
     "simulate_stream",
     "simulate_tile",
+    "effectual_mask",
     "dense_cycles",
+    "Scheduled",
+    "compress",
+    "decompress",
+    "simulate_macs",
     "TileConfig",
+    "AcceleratorConfig",
     "ConvLayer",
     "ConvResult",
-    "make_clustered_masks",
     "simulate_conv",
     "model_speedup",
-    "ffn_layers_from_config",
-    "speedup_from_densities",
+    "make_clustered_masks",
     "FWD",
     "BWD_INPUT",
     "BWD_WEIGHT",
+    "SparsityStats",
+    "measure",
+    "merge_stats",
+    "block_mask",
+    "block_density",
+    "lane_streams",
+    "apply_probes",
+    "grad_sparsity",
+    "EnergyModel",
+    "EnergyBreakdown",
+    "FP32",
+    "BF16",
 ]

@@ -21,7 +21,17 @@ import numpy as np
 
 from repro_torch.core.scheduler import make_schedule_step
 
-__all__ = ["simulate_stream", "simulate_tile", "dense_cycles"]
+__all__ = ["effectual_mask", "simulate_stream", "simulate_tile", "dense_cycles"]
+
+
+def effectual_mask(b_nonzero, a_nonzero=None):
+    """Z vector stream: a pair is effectual iff the extracted side(s) are
+    nonzero.  One-side extraction (the paper's training configuration)
+    passes only ``b_nonzero``; two-side extraction ANDs both masks.  Works
+    on numpy arrays and torch tensors alike."""
+    if a_nonzero is None:
+        return b_nonzero
+    return b_nonzero & a_nonzero
 
 
 def dense_cycles(t: int) -> int:

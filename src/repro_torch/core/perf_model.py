@@ -1,5 +1,5 @@
 """TensorDash accelerator performance model (port of
-``repro/core/perf_model.py``: the layer and tile types, the clustered-mask
+``repro/core/perf_model.py``: the accelerator, layer and tile types, the clustered-mask
 generator, :func:`simulate_conv`, :func:`model_speedup` and the training
 taps' :func:`ffn_layers_from_config` / :func:`speedup_from_densities`, in
 numpy).
@@ -30,6 +30,7 @@ from repro_torch.core.pe import simulate_tile
 
 __all__ = [
     "TileConfig",
+    "AcceleratorConfig",
     "ConvLayer",
     "make_clustered_masks",
     "simulate_conv",
@@ -53,6 +54,20 @@ class TileConfig:
     cols: int = 4
     n_lanes: int = 16
     lookahead: int = 2  # 3-deep staging buffers
+
+
+@dataclasses.dataclass(frozen=True)
+class AcceleratorConfig:
+    """Paper Table 2 defaults."""
+
+    n_tiles: int = 16
+    tile: TileConfig = dataclasses.field(default_factory=TileConfig)
+    frequency_hz: float = 500e6
+
+    @property
+    def macs_per_cycle(self) -> int:
+        t = self.tile
+        return self.n_tiles * t.rows * t.cols * t.n_lanes
 
 
 @dataclasses.dataclass(frozen=True)

@@ -59,12 +59,24 @@ class PlanArgs(ctypes.Structure):
     ]
 
 
+class ScheduleArgs(ctypes.Structure):
+    """The launch arguments of ``td_schedule`` (``TdScheduleArgs`` in
+    ``csrc/schedule.cu``; keep the two in step)."""
+
+    _fields_ = [
+        ("z", _P), ("sel", _P), ("advance", _P), ("n_cycles", _P), ("T", _LL),
+        *((name, _I) for name in ("S", "N", "depth", "n_options", "n_levels", "vec")),
+        ("opt_step", _I * 8), ("opt_rot", _I * 8), ("level_mask", ctypes.c_uint * 16),
+    ]
+
+
 #: argtypes of the C entry points
 SIGNATURES = {
     # dtype fused grid args stream
     "td_spmm": [_I, _I, _I, ctypes.POINTER(SpmmArgs), _P],
     # args stream
     "td_plan": [ctypes.POINTER(PlanArgs), _P],
+    "td_schedule": [ctypes.POINTER(ScheduleArgs), _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -31,6 +31,7 @@ __all__ = [
     "tensordash_matmul_ref",
     "tensordash_matmul_fused_ref",
     "matmul_grads_ref",
+    "sparse_ffn_ref",
 ]
 
 
@@ -239,3 +240,16 @@ def matmul_grads_ref(a, b, g):
     da = (g32 @ b.float().T).to(a.dtype)
     db = (a.float().T @ g32).to(b.dtype)
     return da, db
+
+
+def sparse_ffn_ref(x, w1, w2, activation="relu"):
+    """Dense FFN oracle ``act(x @ w1) @ w2`` (fp32 products, the
+    intermediate cast to ``x``'s dtype); ``relu`` or ``squared_relu``."""
+    h = x.float() @ w1.float()
+    if activation == "relu":
+        h = torch.relu(h)
+    elif activation == "squared_relu":
+        h = torch.square(torch.relu(h))
+    else:
+        raise ValueError(activation)
+    return (h.to(x.dtype).float() @ w2.float()).to(x.dtype)

@@ -20,6 +20,9 @@ The two wrappers run the CUDA kernels of ``csrc/tensordash_spmm.cu``:
   block-nonzero mask (replaces ``_ragged_fused_kernel`` and
   ``_fused_kernel``).
 
+:func:`tensordash_matmul` plans ``a`` at run time (one planner launch) and
+runs the planned wrapper on that plan.
+
 ``"ragged"`` walks the plan's CSR work queue; ``"v2"``/``"v1"`` read
 ``idx[m, k]`` directly over a K bound of ``max(max(nnz), 1)`` (reduced on
 the card, never read on the host) or ``Kb``.  The three families give
@@ -57,6 +60,7 @@ __all__ = [
     "dense_plan",
     "dense_plan_csr",
     "planned_grid_steps",
+    "tensordash_matmul",
     "tensordash_matmul_planned",
     "tensordash_matmul_fused",
     "launch_counts",
@@ -161,6 +165,7 @@ def planned_grid_steps(nnz, kb: int, mb: int, nb: int, *, compact_grid="ragged")
     sum(max(nnz, 1))``.  A report helper: it reads ``nnz`` on the host (one
     copy); use ``SparsityPlan.grid_steps`` for a plan's cached count."""
     compact_grid = _check_compact_grid(compact_grid)
+    # lint: allow-host-sync allow-np-on-device: a report helper, one copy of nnz
     nnz_h = np.asarray(torch.as_tensor(nnz).cpu())
     if compact_grid == "ragged":
         return nb * int(np.maximum(nnz_h, 1).sum())
@@ -592,6 +597,18 @@ def tensordash_matmul_fused(nnz, idx, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"no kernel for device {a.device}")
     return _launch("fused", nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue,
                    bias=bias, residual=residual, activation=activation, split_shape=split_shape)
+
+
+def tensordash_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 512,
+                      bn: int = 128, out_dtype=None, compact_grid="ragged"):
+    """Dynamic block-sparse ``a @ b``: plan at run time (one planner launch
+    in ``values`` mode on the card), then execute over that plan's work
+    queue."""
+    nnz, idx, row_starts, work_row, work_kblk = plan_blocks_csr(a, bm, bk)
+    return tensordash_matmul_planned(
+        nnz, idx, a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype, compact_grid=compact_grid,
+        workqueue=(row_starts, work_row, work_kblk),
+    )
 
 
 def launch_counts() -> dict[str, int]:

@@ -76,7 +76,8 @@ from repro_torch.runtime.autodiff import (
     planned_matmul_grads,
 )
 from repro_torch.runtime.backends import KernelRequest, get_backend, needs_grad
-from repro_torch.runtime.plan import SparsityPlan, balanced_row_order
+from repro_torch.runtime.plan import SparsityPlan, balanced_row_order, capturing
+from repro_torch.runtime.runtime import resolve
 
 __all__ = [
     "ShardedVJP",
@@ -332,12 +333,26 @@ class ShardedFusedVJP(ShardedVJP, FusedVJP):
 sharded_matmul_grads = planned_matmul_grads
 
 
+def _validate_launch(plan: SparsityPlan, validate: str | None) -> None:
+    """Gated static verification of a plan at the distributed launch
+    boundary (``Runtime(validate=...)``, the ambient runtime's when not
+    passed); skipped while a CUDA graph is captured."""
+    if validate is None:
+        validate = resolve().validate
+    if validate != "off" and not capturing():
+        from repro_torch.analysis.plan_check import check_plan  # local: keep import light
+
+        check_plan(plan, level=validate)
+
+
 def sharded_matmul(plan: SparsityPlan, a, b, *, bn: int, backend: str, policy: ShardingPolicy,
                    axis: str = "M", balance: bool = True, out_dtype=None, plan_cache=None,
-                   plan_key=None, compact_grid="ragged", db=None):
+                   plan_key=None, compact_grid="ragged", validate: str | None = None, db=None):
     """Sharded planned ``a @ b`` with the distributed sparsity-aware
     backward: the sharded twin of ``KernelBackend.matmul_planned`` (one
-    executor call when autograd needs no gradient)."""
+    executor call when autograd needs no gradient).  ``validate`` (default:
+    the ambient runtime's level) verifies the plan first."""
+    _validate_launch(plan, validate)
     compact_grid = _check_compact_grid(compact_grid)
     hold(plan)
     wq = plan.workqueue() if compact_grid == "ragged" else None
@@ -354,9 +369,11 @@ def sharded_matmul(plan: SparsityPlan, a, b, *, bn: int, backend: str, policy: S
 def sharded_matmul_fused(plan: SparsityPlan, a, b, *, bias=None, residual=None,
                          activation: str = "none", bn: int, backend: str, policy: ShardingPolicy,
                          axis: str = "M", balance: bool = True, out_dtype=None, plan_cache=None,
-                         plan_key=None, compact_grid="ragged", db=None):
+                         plan_key=None, compact_grid="ragged", validate: str | None = None, db=None):
     """Sharded fused matmul with the distributed backward, the sharded twin
-    of ``KernelBackend.matmul_fused``; returns ``(out, mask)``."""
+    of ``KernelBackend.matmul_fused``; returns ``(out, mask)``.  ``validate``
+    as in :func:`sharded_matmul`."""
+    _validate_launch(plan, validate)
     compact_grid = _check_compact_grid(compact_grid)
     hold(plan)
     wq = plan.workqueue() if compact_grid == "ragged" else None

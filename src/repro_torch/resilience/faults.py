@@ -220,6 +220,7 @@ PLAN_CORRUPTIONS = ("nnz-range", "idx-oob", "row-starts", "queue-entry")
 
 def _host(x) -> np.ndarray:
     """A writable int32 host copy of plan metadata (a tensor on any device)."""
+    # lint: allow-host-sync: the fault injector edits a host copy, off the hot path
     return torch.as_tensor(x).cpu().numpy().astype(np.int32, copy=True)
 
 
@@ -266,8 +267,9 @@ def corrupt_cache_entry(cache, *, rng=None, mode: str = ""):
 
     Returns the cache key that was corrupted (None when the cache is
     empty).  Models a poisoned/bit-flipped cached schedule.  The entry keeps
-    its source tensor and version, so a lookup still hits the corrupt plan
-    (``PlanCache.scrub`` waits for ROADMAP queue 1, item 16).
+    its source tensor and version, so a lookup still hits the corrupt plan;
+    recovery is ``PlanCache.scrub()`` (which evicts it, so the next lookup
+    replans) or the store-time verifier on the replacement.
     """
     rng = np.random.default_rng(0) if rng is None else rng
     keys = sorted(cache._entries.keys(), key=repr)

@@ -8,6 +8,13 @@ weight plan at the first prefill) on every later call; a hit requires the
 queried operand to *be* the cached source tensor, unmodified since (its
 ``_version``), so a replay is exact.
 
+``PlanCache(validate=...)`` (normally set by ``Runtime(validate=...)``)
+verifies every plan it stores (:mod:`repro_torch.analysis.plan_check`), and
+:meth:`PlanCache.scrub` re-verifies the live entries and evicts the corrupt
+ones.  Verification copies plan metadata to the host, so it is skipped while
+the current CUDA stream captures a graph (:func:`capturing`), as the JAX
+package skips traced plans; it runs at the eager warm-up instead.
+
 :func:`shard_plan` splits a plan into per-shard ragged work queues along M,
 N or K (host-side numpy, as in the JAX package), :func:`unshard_plan`
 inverts it, and :func:`balanced_row_order` is the serpentine deal of block
@@ -40,7 +47,18 @@ __all__ = [
     "balanced_row_order",
     "shard_plan",
     "unshard_plan",
+    "capturing",
 ]
+
+
+def capturing() -> bool:
+    """True while the current CUDA stream captures a graph: then nothing may
+    read the device from the host, and plan verification is skipped.  A
+    build of torch without CUDA never captures."""
+    try:
+        return torch.cuda.is_current_stream_capturing()
+    except RuntimeError:  # torch built without CUDA
+        return False
 
 
 def _fit_block(block: int, dim: int) -> int:
@@ -99,6 +117,7 @@ class SparsityPlan:
     def host_nnz(self):
         """``nnz`` as a cached host-side tensor (copied once)."""
         if "nnz" not in self._host:
+            # lint: allow-host-sync: the one cached copy behind every host-side count
             self._host["nnz"] = torch.as_tensor(self.nnz).cpu()
         return self._host["nnz"]
 
@@ -107,7 +126,7 @@ class SparsityPlan:
 
     def total_work(self) -> int:
         """Ragged-grid work items: ``sum(max(nnz, 1))``."""
-        return int(torch.clamp_min(self.host_nnz(), 1).sum())
+        return int(torch.clamp_min(self.host_nnz(), 1).sum())  # lint: allow-host-sync: a host copy
 
     def max_nnz(self) -> int:
         """The v2 grid's per-row K bound, ``max(nnz, 1)``."""
@@ -225,7 +244,7 @@ def balanced_row_order(nnz, n_shards: int):
     r = torch.arange(rounds, device=nnz.device)[None, :]
     pos = r * n_shards + torch.where(r % 2 == 0, s, n_shards - 1 - s)
     order = by_work[pos.reshape(-1)]
-    return order.cpu().numpy() if host else order
+    return order.cpu().numpy() if host else order  # lint: allow-host-sync: host=True asks for it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,6 +307,7 @@ def _plan_block_mask_np(nnz: np.ndarray, idx: np.ndarray) -> np.ndarray:
 def _host_plan(plan: SparsityPlan):
     """``(nnz, idx)`` of ``plan`` as host int32 arrays."""
     nnz = plan.host_nnz().numpy().astype(np.int32)
+    # lint: allow-host-sync allow-np-on-device: shard_plan works on the host, as JAX's does
     idx = np.asarray(torch.as_tensor(plan.idx).cpu(), dtype=np.int32)
     return nnz, idx
 
@@ -383,13 +403,22 @@ class PlanCache:
     ``.data``, ``.T`` or ``.to()`` view misses).  A miss under a live key
     replaces its entry, so a weight updated in place is replanned under the
     same key and the stale plan is dropped.
+
+    ``validate`` (normally propagated from ``Runtime(validate=...)``) gates
+    the static verifier at every insertion: ``"boundary"`` runs the O(Rb)
+    structural checks, ``"full"`` the O(entries) content checks.  Hits are
+    never re-verified; :meth:`scrub` re-verifies the live entries.
     """
 
-    def __init__(self, capacity: int | None = None):
+    def __init__(self, capacity: int | None = None, validate: str = "off"):
         self._entries: dict[tuple, tuple[Any, int | None, SparsityPlan]] = {}
         self.capacity = capacity
+        self.validate = validate
         self.hits = 0
         self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
 
     def _key(self, key, a, bm: int, bk: int, side: str) -> tuple:
         return (key, side, tuple(a.shape), str(a.dtype), bm, bk)
@@ -405,6 +434,10 @@ class PlanCache:
 
     def store(self, key, a, plan: SparsityPlan) -> SparsityPlan:
         self.misses += 1
+        if self.validate != "off" and not capturing():
+            from repro_torch.analysis.plan_check import check_plan  # local: keep import light
+
+            check_plan(plan, level=self.validate)
         k = self._key(key, a, plan.bm, plan.bk, plan.side)
         if k in self._entries:
             self._entries.pop(k)
@@ -451,3 +484,28 @@ class PlanCache:
                 entry["imbalance"] = ps.imbalance()
             out.append(entry)
         return out
+
+    def scrub(self, *, level: str | None = None) -> list[tuple]:
+        """Re-verify every live entry and evict the corrupt ones.
+
+        Store-time validation proves an entry was good when it went in;
+        ``scrub`` is for when something mutated it afterwards (a fault
+        injector here; a bad in-place edit in the wild).  Returns ``[(key,
+        error), ...]`` for the evicted entries; an evicted plan is rebuilt
+        from its operand at the next miss.  ``level`` defaults to ``"full"``:
+        a scrub is an explicit sweep, so it pays for the content checks
+        that catch what the boundary tier cannot."""
+        from repro_torch.analysis.plan_check import (  # local: keep import light
+            PlanVerificationError,
+            check_plan,
+        )
+
+        level = level or "full"
+        bad = []
+        for k, (_, _, plan) in list(self._entries.items()):
+            try:
+                check_plan(plan, level=level)
+            except PlanVerificationError as e:
+                bad.append((k, str(e)))
+                del self._entries[k]
+        return bad

@@ -17,8 +17,12 @@ backend runs it through :mod:`repro_torch.runtime.autodiff`, and the plan
 cache and tuning DB ride along into the backward, as in the JAX package.
 ``sharding`` carries a :class:`repro_torch.parallel.sharding.ShardingPolicy`;
 :meth:`Runtime.matmul_sharded` and :meth:`Runtime.matmul_fused_sharded` run
-on its mesh.  Plan validation and ``sparse_ffn`` wait for later slices
-(ROADMAP queue 1).
+on its mesh.  ``validate`` gates the static plan verifier
+(:mod:`repro_torch.analysis.plan_check`) at every plan-cache store and, for
+a plan the caller passes, at the ``matmul``/``matmul_fused`` boundary,
+where a corrupt plan is replanned from the operand with a warning
+(:meth:`Runtime._recovered_plan`).  :meth:`Runtime.sparse_ffn` is the FFN
+whose second product runs on the plan the first one's epilogue emitted.
 """
 from __future__ import annotations
 
@@ -26,17 +30,21 @@ import contextlib
 import contextvars
 import dataclasses
 import functools
+import warnings
 from typing import Any
 
 import torch
 
+from repro_torch.analysis import plan_check
 from repro_torch.kernels.ref import _epilogue_ref, block_any_nonzero
 from repro_torch.kernels.tensordash_spmm import _check_compact_grid
-from repro_torch.runtime.backends import KernelBackend, get_backend
+from repro_torch.runtime.backends import BackendCapabilityError, KernelBackend, get_backend
+from repro_torch.resilience.log import record
 from repro_torch.runtime.plan import (
     PlanCache,
     SparsityPlan,
     _fit_block,
+    capturing,
     dense_operand_plan,
     plan_from_emitted_mask,
     plan_operand,
@@ -82,6 +90,14 @@ class Runtime:
     ``sharding`` is a :class:`~repro_torch.parallel.sharding.ShardingPolicy`
     (mesh, axis roles, spec tables) or ``None``; :attr:`mesh` reads its
     mesh.
+
+    ``validate`` gates the static plan verifier: ``"off"`` (default)
+    trusts the planners; ``"boundary"`` runs the O(Rb) structural checks
+    at every ``PlanCache`` store, ``edit_plan`` and caller-provided plan;
+    ``"full"`` adds the O(entries) content checks.  A check copies the
+    plan's metadata to the host, so none runs while the current CUDA stream
+    captures a graph (the JAX package skips traced plans likewise); they
+    run at the eager warm-up.
     """
 
     backend: str = "cuda"
@@ -95,6 +111,8 @@ class Runtime:
     compute_dtype: Any = None  # None: keep operand dtype
     accum_dtype: Any = torch.float32
     device: Any = "cuda"
+    # static plan verification level ("off" | "boundary" | "full")
+    validate: str = "off"
     # "explicit" uses bm/bk/bn/compact_grid as given; "auto" overlays the
     # measured-best policy from ``tuning_db`` per call (see repro_torch.tune)
     geometry: str = "explicit"
@@ -105,12 +123,17 @@ class Runtime:
         object.__setattr__(self, "compact_grid", _check_compact_grid(self.compact_grid))
         object.__setattr__(self, "device", torch.device(self.device))
         get_backend(self.backend)  # unknown names fail at construction
+        if self.validate not in plan_check.LEVELS:
+            raise ValueError(f"validate={self.validate!r} not one of {plan_check.LEVELS}")
         if self.geometry not in GEOMETRIES:
             raise ValueError(f"geometry={self.geometry!r} not one of {GEOMETRIES}")
         if self.geometry == "auto" and self.tuning_db is None:
             from repro_torch.tune import default_db, platform_of  # local: tune imports runtime
 
             object.__setattr__(self, "tuning_db", default_db(platform_of(self.device)))
+        # the cache is carried by handle; keep its gate in step with the
+        # policy that owns it (replace() re-runs this on the same handle)
+        self.plan_cache.validate = self.validate
 
     @classmethod
     def tuned(cls, db=None, *, path=None, **kw) -> "Runtime":
@@ -209,6 +232,45 @@ class Runtime:
                 rt = rt.replace(bn=pol.bn, compact_grid=pol.compact_grid)
         return rt if plan is not None else rt.fit(a_shape, b_shape)
 
+    def supports_matmul(self, a_shape, b_shape, *, side: str = "A") -> bool:
+        """Can the backend run ``a @ b`` block-sparse here?  Geometry always
+        fits (it clamps, see :meth:`fit`); only the platform can say no
+        (``cuda`` off the card)."""
+        del a_shape, b_shape, side
+        try:
+            self.kernel.check_platform()
+        except BackendCapabilityError:
+            return False
+        return True
+
+    def _recovered_plan(self, plan: SparsityPlan, operand) -> SparsityPlan:
+        """Boundary recovery for a caller-provided plan (``validate`` not
+        ``"off"``; skipped while a graph is captured): verify its metadata
+        and, when it is corrupt, degrade loudly (a ``RuntimeWarning``, a
+        ``plan-corrupt``/``replan`` event in the ambient resilience log) and
+        replan from the operand's values, instead of running a schedule that
+        would drop or double-count blocks.  ``operand`` is already transposed
+        for ``side="B"`` (``b.T``).  The plan's own blocking is kept where it
+        still divides the operand."""
+        if self.validate == "off" or capturing():
+            return plan
+        try:
+            plan_check.check_plan(plan, level=self.validate)
+            return plan
+        except plan_check.PlanVerificationError as e:
+            warnings.warn(
+                f"corrupt SparsityPlan at Runtime.matmul boundary (side={plan.side!r}, "
+                f"shape={plan.shape}): {e}; replanning from operand values",
+                RuntimeWarning, stacklevel=3,
+            )
+            record("plan-corrupt", "runtime.matmul", "replan", side=plan.side, shape=plan.shape,
+                   error=str(e))
+            bm = (plan.bm if plan.bm > 0 and operand.shape[0] % plan.bm == 0
+                  else _fit_block(self.bm, operand.shape[0]))
+            bk = (plan.bk if plan.bk > 0 and operand.shape[1] % plan.bk == 0
+                  else _fit_block(self.bk, operand.shape[1]))
+            return plan_operand(operand, bm, bk, side=plan.side)
+
     def _dtype_prologue(self, a, b):
         """Enforce the fp32 accumulator and apply the compute-dtype cast."""
         if self.accum_dtype != torch.float32:
@@ -240,6 +302,8 @@ class Runtime:
         if side == "B":
             if plan is None:
                 plan = rt.plan(b, key=plan_key, side="B")
+            else:
+                plan = self._recovered_plan(plan, b.T)
             out_t = kernel.matmul_planned(
                 plan, b.T, a.T, bn=rt.lane(a.shape[0], rt.bm), out_dtype=a.dtype,
                 plan_cache=self.plan_cache, plan_key=("B", plan_key),
@@ -252,6 +316,8 @@ class Runtime:
                 plan = rt.plan(a)
             else:
                 plan = rt.plan(a, key=plan_key)
+        else:
+            plan = self._recovered_plan(plan, a)
         return kernel.matmul_planned(
             plan, a, b, bn=rt.lane(b.shape[1]), out_dtype=a.dtype,
             plan_cache=self.plan_cache, plan_key=("A", plan_key),
@@ -282,6 +348,8 @@ class Runtime:
                 plan = dense_operand_plan(a.shape, a.dtype, bm=rt.bm, bk=rt.bk, device=a.device)
             else:
                 plan = rt.plan(a, key=plan_key)
+        else:
+            plan = self._recovered_plan(plan, a)
         return kernel.matmul_fused(
             plan, a, b, bias=bias, residual=residual, activation=activation,
             bn=rt.lane(b.shape[1]), out_dtype=a.dtype,
@@ -343,7 +411,7 @@ class Runtime:
         return spmm.sharded_matmul(
             plan, a, b, bn=rt.lane(b.shape[1]), backend=self.backend, policy=policy, axis=axis,
             balance=balance, out_dtype=a.dtype, plan_cache=self.plan_cache, plan_key=("A", plan_key),
-            compact_grid=rt.compact_grid, db=self._db,
+            compact_grid=rt.compact_grid, validate=self.validate, db=self._db,
         )
 
     def matmul_fused_sharded(self, a, b, *, bias=None, residual=None, activation: str = "none",
@@ -371,8 +439,41 @@ class Runtime:
             plan, a, b, bias=bias, residual=residual, activation=activation, bn=rt.lane(b.shape[1]),
             backend=self.backend, policy=policy, axis=axis, balance=balance, out_dtype=a.dtype,
             plan_cache=self.plan_cache, plan_key=("A", plan_key), compact_grid=rt.compact_grid,
-            db=self._db,
+            validate=self.validate, db=self._db,
         )
+
+    def sparse_ffn(self, x, w1, w2, *, activation: str = "relu"):
+        """FFN whose second product exploits the activation sparsity the
+        first one produced (the framework's main kernel consumer).
+
+        Sparse backends default to the fused path: the first product applies
+        the activation in its store step and emits the intermediate's block
+        mask, from which the second product's plan is built as a metadata
+        transform (:meth:`plan_for_fused_output`).  Under
+        ``geometry="auto"`` a measured ``"ffn"`` policy with ``fuse=False``
+        selects the unfused chain instead (the intermediate planned by
+        value; fusion moves where the activation rounds, so the two agree
+        within rounding, not bit for bit).  Dense backends run two plain
+        products.  Token dimensions of ``x`` are flattened to rows."""
+        if activation not in ("relu", "squared_relu"):
+            raise ValueError(activation)
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+
+        def act(h32):
+            h32 = torch.relu(h32)
+            return (torch.square(h32) if activation == "squared_relu" else h32).to(x.dtype)
+
+        if not self.wants_sparse:
+            out = self.matmul(act(x2.float() @ w1.float()), w2)
+            return out.reshape(*lead, w2.shape[-1])
+        pol = self._policy("ffn", x2.shape, w1.shape, x.dtype)
+        if pol is not None and not pol.fuse:
+            out = self.matmul(act(self.matmul(x2, w1).float()), w2, op="ffn")
+            return out.reshape(*lead, w2.shape[-1])
+        h, mask = self.matmul_fused(x2, w1, activation=activation, assume_dense=True)
+        out = self.matmul(h, w2, plan=self.plan_for_fused_output(mask, h, w2), op="ffn")
+        return out.reshape(*lead, w2.shape[-1])
 
     # -- serving cache layout ---------------------------------------------
     def slot_caches(self, cfg, slots: int, max_len: int):

@@ -373,6 +373,7 @@ class ServeEngine:
         Raises :class:`QueueFull` when the bounded pending queue is at
         capacity; under a work budget the engine may instead admit the
         submit and shed the cheapest-to-drop request (``"shed"``)."""
+        # lint: allow-host-sync: prompts arrive from the host; a no-op for a host prompt
         prompt = torch.as_tensor(prompt, dtype=torch.int64).cpu()
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be rank-1, got {tuple(prompt.shape)}")
@@ -588,6 +589,7 @@ class ServeEngine:
             else:
                 good = active
             live_rids = rids if self.temperature == 0.0 else [
+                # lint: allow-traced-stats: sampled decoding only, whose chunk runs eagerly
                 rid if g else None for rid, g in zip(rids, good.tolist())
             ]
             nxt = torch.where(good, self._sample(row, live_rids), self.pad_id)

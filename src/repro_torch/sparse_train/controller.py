@@ -101,12 +101,6 @@ class _Unit:
         return self.mask.shape[0]
 
 
-#: structural check of every edited plan (``"off"``, ``"boundary"``,
-#: ``"full"``); the JAX package reads it from ``Runtime.validate``, which the
-#: port's ``Runtime`` lacks until ROADMAP queue 1, item 16
-VALIDATE = "off"
-
-
 class DynamicSparsityController:
     """Holds every layer's mask as live CSR metadata; prune/regrow steps are
     delta edits to the cached work queues (see module docstring).
@@ -235,11 +229,11 @@ class DynamicSparsityController:
                 regrown += len(delta.regrow)
                 # weight-oriented delta edits the backward plan directly and
                 # the forward (transposed-operand) plan swapped — one
-                # selection, both schedules spliced (and, under
-                # VALIDATE, structurally verified)
+                # selection, both schedules spliced (and, under the
+                # runtime's validate policy, structurally verified)
                 try:
-                    u.bwd[l] = edit_plan(u.bwd[l], delta, validate=VALIDATE)
-                    u.fwd[l] = edit_plan(u.fwd[l], delta.swapped(), validate=VALIDATE)
+                    u.bwd[l] = edit_plan(u.bwd[l], delta, validate=self.rt.validate)
+                    u.fwd[l] = edit_plan(u.fwd[l], delta.swapped(), validate=self.rt.validate)
                 except ValueError as e:
                     # (PlanVerificationError is a ValueError.)  When the
                     # delta is consistent with the mask — the controller's
@@ -375,6 +369,7 @@ def _host_trees(*trees):
     if not flat:
         return out
     dev = flat[0][2].device
+    # lint: allow-host-sync: one bulk fetch of every score tree a refresh
     host = torch.cat([x.detach().reshape(-1).to(dev, torch.float32) for *_, x in flat]).cpu().numpy()
     at = 0
     for i, p, x in flat:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.plan import SparsityPlan
+from repro_torch.runtime.runtime import resolve
 
 __all__ = ["PlanDelta", "apply_delta", "edit_plan", "plan_from_block_mask"]
 
@@ -119,6 +120,7 @@ def _host_arrays(plan: SparsityPlan):
     the copies an edited plan keeps, or one device-to-host copy each."""
     arrays = plan._host.get("arrays")
     if arrays is None:
+        # lint: allow-host-sync: plan edits run on the host, one copy per array, cached
         arrays = tuple(torch.as_tensor(x).cpu().numpy()
                        for x in (plan.nnz, plan.idx, *plan.workqueue()))
     return arrays
@@ -315,13 +317,11 @@ def edit_plan(plan: SparsityPlan, delta: PlanDelta, *,
     additionally runs the shared *structural* verifier
     (:func:`repro_torch.analysis.plan_check.check_plan`) on the edited
     result, proving the spliced queue is still exactly the CSR schedule of
-    the edited ``(nnz, idx)``.  ``None`` means ``"off"``: the JAX package
-    takes the ambient runtime's level there, whose default is ``"off"``,
-    and the port's ``Runtime`` has no validation level yet (ROADMAP queue
-    1, item 16).
+    the edited ``(nnz, idx)``.  ``None`` takes the ambient runtime's level
+    (``Runtime.validate``).
     """
     if validate is None:
-        validate = "off"
+        validate = resolve().validate
     if delta.size == 0:
         return plan
     nnz, idx, *_ = _host_arrays(plan)

@@ -177,7 +177,7 @@ def _held_blocks(params, masks: dict, spec: dict) -> list:
             views.append((blocks, off & (blocks != 0).flatten(-2).any(-1)))
     if not views:
         return []
-    hit = torch.stack([off.any() for _, off in views]).tolist()
+    hit = torch.stack([off.any() for _, off in views]).tolist()  # lint: allow-host-sync: the one sync
     return [(blocks, off, blocks[off]) for (blocks, off), h in zip(views, hit) if h]
 
 

@@ -240,7 +240,7 @@ def kernel_tolerance(dtype, ref: torch.Tensor) -> tuple[float, float]:
     another order and the bf16 rounding of the result may flip a step."""
     if dtype == torch.float32:
         return 2e-4, 2e-4
-    return 2**-7, 1e-3 * float(ref.float().abs().max())
+    return 2**-7, 1e-3 * float(ref.float().abs().max())  # lint: allow-host-sync: offline tuner
 
 
 class CandidateRejected(RuntimeError):

@@ -33,6 +33,9 @@ def test_the_port_has_modules_and_chip_smoke():
         assert ROOT / "src" / "repro_torch" / "models" / module in FILES
     for module in ("parallel/sharding.py", "parallel/spmm.py", "parallel/rehearsal.py", "optim/compress.py"):
         assert ROOT / "src" / "repro_torch" / module in FILES
+    for module in ("core/compress.py", "core/energy.py", "core/powergate.py", "checkpoint/codec.py",
+                   "kernels/ops.py", "kernels/schedule.py", "analysis/lint.py", "analysis/__main__.py"):
+        assert ROOT / "src" / "repro_torch" / module in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

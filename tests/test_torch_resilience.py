@@ -287,11 +287,11 @@ def test_restore_latest_empty_and_all_corrupt(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _make_controller():
+def _make_controller(validate: str = "off"):
     from repro_torch.sparse_train import DynamicSparsityConfig, DynamicSparsityController
 
     rng = np.random.default_rng(12)
-    rt = Runtime(backend="dense", device="cpu", bm=8, bk=16, bn=16)
+    rt = Runtime(backend="dense", device="cpu", bm=8, bk=16, bn=16, validate=validate)
     params = {"w": torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32))}
     cfg = DynamicSparsityConfig(target=0.75, begin=0, end=6, update_every=1, min_size=256)
     ctrl = DynamicSparsityController(cfg, params, rt=rt)
@@ -302,9 +302,8 @@ def test_controller_degrades_to_from_scratch_replan(monkeypatch):
     import repro_torch.sparse_train.controller as ctrl_mod
     from repro_torch.sparse_train import apply_block_masks, block_scores, plan_from_block_mask
 
-    monkeypatch.setattr(ctrl_mod, "VALIDATE", "boundary")
-    clean_ctrl, params, rng = _make_controller()
-    bad_ctrl, _, _ = _make_controller()
+    clean_ctrl, params, rng = _make_controller("boundary")
+    bad_ctrl, _, _ = _make_controller("boundary")
     (path,) = clean_ctrl.units
     spec = clean_ctrl.spec()
     scores = block_scores(apply_block_masks({"w": params["w"].clone()}, clean_ctrl.masks(), spec), spec)
@@ -336,14 +335,12 @@ def test_controller_degrades_to_from_scratch_replan(monkeypatch):
     bad_ctrl.update(2, scores2, gs)  # the recovered controller keeps ramping
 
 
-def test_controller_replans_a_corrupted_live_plan(monkeypatch):
+def test_controller_replans_a_corrupted_live_plan():
     """A corrupt live plan (``corrupt_plan``: a work-queue entry off the
-    schedule) fails the edit's structural check under ``VALIDATE = "full"``
-    and both plans of the layer are replanned from the mask."""
-    import repro_torch.sparse_train.controller as ctrl_mod
-
-    monkeypatch.setattr(ctrl_mod, "VALIDATE", "full")
-    ctrl, params, rng = _make_controller()
+    schedule) fails the edit's structural check under the runtime's
+    ``validate="full"`` and both plans of the layer are replanned from the
+    mask."""
+    ctrl, params, rng = _make_controller("full")
     (path,) = ctrl.units
     u = ctrl.units[path]
     u.fwd[0] = corrupt_plan(u.fwd[0], mode="queue-entry")
