@@ -206,6 +206,20 @@ from the root of a checkout, on a machine with one H100.
    the int8 rows of the all-to-all's payload against numpy's; then an NCCL
    group of world size 1: ``ef_compress_grads``, an int8 all-to-all and the
    quantized all-to-all against the local computation;
+13b. runs the sharded model (``sharded_model_phase``): full-width
+   deepseek-7b-ReLU's block under tensor parallel 4, each rank's attention
+   and FFN body in turn (the FFN's local gate fused on the kernel, its
+   emitted plan, its ``w_down`` rows on the fp32 store; one launch of each
+   per rank and call), summed against the unsharded block at decode and
+   prefill; 4 vocab slices of the LM head on side B bit-equal to the whole
+   head, the vocab-parallel cross entropy against the unsharded loss; the
+   backward of both (each rank's gradient slices put together against the
+   unsharded gradients); on an NCCL group of one rank through
+   ``make_local_mesh()``, the sharded train step and engine of the model cut
+   to 4 layers against the unsharded ones; ``restore(shardings=)`` of the
+   saved block on 4 gloo CPU ranks, bit-equal to ``local_shard``; each
+   body's ms per rank, their sum against the unsharded block, the slowest
+   rank;
 14. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode;
@@ -327,6 +341,15 @@ VL_TEXT, VL_GRID, FRONTEND_NEW = 32, (12, 16), 16
 #: the sharded phase: the share of the LM head's blocks zero (a power-law
 #: skew over its block rows) for the M-sharded local steps
 SHARD_LM_ZERO = 0.4
+#: the sharded model phase: deepseek-7b-ReLU's block and LM head at full
+#: width under tensor parallel SM_TP, the ranks' local steps run in turn on
+#: the one card: SM_ROWS decode rows over SM_PREFIX cached tokens, one
+#: SM_PREFILL-token prefill, the backward at SM_TRAIN_TOKENS tokens; then the
+#: whole sharded train step (SM_LAYERS layers, SM_BATCH x SM_SEQ tokens) and
+#: engine (SM_REQUESTS prompts of SM_PROMPT tokens, SM_NEW new ones) on an
+#: NCCL group of one rank (chunks of SM_CHUNK steps: a warm-up, a capture, replays)
+SM_TP, SM_ROWS, SM_PREFIX, SM_PREFILL, SM_TRAIN_TOKENS = 4, 4, 32, 128, 1024
+SM_LAYERS, SM_BATCH, SM_SEQ, SM_REQUESTS, SM_PROMPT, SM_NEW, SM_CHUNK = 4, 4, 256, 4, 32, 8, 3
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -3664,6 +3687,492 @@ def sharded_phase(bw: float) -> dict:
     return {"cases": summary, "rows": rows, "launches": launches, "moe": moe, "nccl": nccl}
 
 
+def _tp_specs(specs, tp: int):
+    """The spec tuples of a spec tree on a ``(data 1, model tp)`` mesh (a
+    duck-typed one: the spec table needs no process group)."""
+    import types
+
+    from repro_torch.parallel import sharding as S
+
+    return S.param_pspecs(specs, types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 1, "model": tp}))
+
+
+def _rank_slice(x, spec, tp: int, rank: int):
+    """Model rank ``rank``'s ``local_shard`` of ``x`` on a ``(1, tp)`` mesh,
+    cut without a process group (its own storage, as a rank holds it)."""
+    from repro_torch.parallel import sharding as S
+
+    return S.shard_slice(x, spec, lambda e: {"model": (tp, rank), "data": (1, 0)}[e]).contiguous()
+
+
+def restore_rank_task(directory: str) -> dict:
+    """One CPU rank of a ``(1, SM_TP)`` gloo mesh: ``restore(shardings=)``
+    of the saved full-width block onto the tensor-parallel specs, each leaf
+    against this rank's ``local_shard`` of the stored array."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import manager as man
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel.rehearsal import mesh
+    from repro_torch.runtime import Runtime
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), activation="relu")
+    policy = S.ShardingPolicy(mesh=mesh((1, SM_TP), ("data", "model")))
+    specs = policy.param_pspecs(tfm.block_specs(cfg))
+    like = S.map_specs(lambda decl, spec: torch.zeros(
+        S.local_shard(torch.empty(decl.shape, device="meta"), spec, policy).shape, dtype=torch.bfloat16),
+        tfm.block_specs(cfg), specs)
+    with Runtime(backend="reference", device="cpu", sharding=policy).use():
+        got = man.restore(directory, 1, {"block": like}, shardings={"block": specs})["block"]
+    base = Path(directory) / "step_000000000001" / "arrays.npz"
+    same, nbytes = [], 0
+    with np.load(base) as z:
+        for k in ("attn", "mlp"):
+            for n, t in got[k].items():
+                full = torch.from_numpy(z[f"block/{k}/{n}"]).view(torch.bfloat16)
+                same.append(torch.equal(t, S.local_shard(full, specs[k][n], policy)))
+                nbytes += t.numel() * t.element_size()
+    return {"equal": all(same), "leaves": len(same), "bytes": nbytes}
+
+
+def sharded_model_phase(bw: float) -> dict:
+    """The sharded model (tensor parallel over ``model``, FSDP over
+    ``data``) of full-width deepseek-7b-ReLU on the one card, each model
+    rank's local step run in turn (NCCL refuses two ranks on one card):
+
+    (a) the block under tensor parallel SM_TP: each rank's attention body
+        (its 8 heads and kv heads, its ``wo`` rows, fp32 partials) and FFN
+        body (its gate columns fused on the kernel, the plan the planner
+        emits from its own mask, its ``w_down`` rows on the kernel's fp32
+        store), summed, against the unsharded block within ``REF_REL_L2``,
+        at SM_ROWS decode rows over SM_PREFIX cached tokens and at an
+        SM_PREFILL-token prefill; one fused, one emitted plan and one planned
+        launch per rank and FFN call;
+    (b) the vocab-parallel head: SM_TP local ``lm_head`` slices ``[4096,
+        25600]`` on side B, each launch splitting K as the whole head's does
+        (``split_shape``): their concatenation bit-equal to the unsharded
+        head; the vocab-parallel cross entropy from the ranks' max, sums and
+        target logits within ``LOSS_REL`` of the unsharded loss;
+    (c) the backward of (a) and (b) at SM_TRAIN_TOKENS tokens: each rank's
+        weight-gradient slices, put together, against the unsharded
+        gradients within ``GRAD_REL_L2``;
+    (d) an NCCL group of one rank and ``launch.mesh.make_local_mesh()``: the
+        sharded train step of the model cut to SM_LAYERS layers (loss within
+        ``LOSS_REL``, gradients within ``GRAD_REL_L2`` of the unsharded
+        ones) and the sharded engine (greedy tokens equal to the unsharded
+        engine's, its decode chunk through the CUDA graph);
+    (e) the block saved whole and ``restore(shardings=)`` on SM_TP gloo CPU
+        ranks onto the tensor-parallel specs: every slice bit-equal to the
+        rank's ``local_shard``.
+
+    Launches are counted over (a)-(d), reset just before and read just
+    after; then each body is timed (kernel ms per rank, their sum against
+    the unsharded block, the slowest rank)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import runtime as rtm
+    from repro_torch.checkpoint import manager as man
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ref, tensordash_spmm as T
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel.rehearsal import RankPool
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import step as TS
+
+    dev, bf16, tp = torch.device("cuda"), torch.bfloat16, SM_TP
+    t_phase, spent = time.perf_counter(), {}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cfg = dataclasses.replace(get_config("deepseek-7b"), activation="relu")
+    acfg, d, v = tfm.attn_config(cfg), cfg.d_model, cfg.vocab_size
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+    specs = tfm.block_specs(cfg)
+    block = init_params(specs, seed=3, dtype=bf16, device="cuda")
+    pspec = _tp_specs(specs, tp)
+    local_attn = [tfm.attn_local(acfg, tp, r, dev) for r in range(tp)]
+    # each rank's weights as the sharded model holds them: its slices, and
+    # the whole K/V where the kv heads do not divide the model axis
+    ranks = [{k: {n: (w if k == "attn" and n in ("wk", "wv") and local_attn[r][1] is not None
+                      else _rank_slice(w, pspec[k][n], tp, r)) for n, w in block[k].items()}
+              for k in ("attn", "mlp")} for r in range(tp)]
+    lm_head = (torch.randn(d, v, generator=gen, device=dev) * d**-0.5).to(bf16)
+    hspec = _tp_specs({"lm_head": M.param_specs(cfg)["lm_head"]}, tp)["lm_head"]
+    heads = [_rank_slice(lm_head, hspec, tp, r) for r in range(tp)]
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    def grown(cache, max_len):
+        return attn.KVCache(*(torch.cat([c, c.new_zeros((c.shape[0], max_len - c.shape[1], *c.shape[2:]))], 1)
+                              if c is not None else None for c in cache))
+
+    # -- the inputs of the decode and prefill cases -------------------------
+    x_prefix, x_dec, f_dec = rand(SM_ROWS, SM_PREFIX, d), rand(SM_ROWS, 1, d), rand(SM_ROWS, 1, d)
+    x_pre, f_pre = rand(1, SM_PREFILL, d), rand(1, SM_PREFILL, d)
+    pos_prefix, pos_pre = torch.arange(SM_PREFIX, device=dev), torch.arange(SM_PREFILL, device=dev)
+    rope_prefix, rope_pre = attn.rope_tables(acfg, pos_prefix), attn.rope_tables(acfg, pos_pre)
+    # a position a row on the card, as the engine decodes: no index reaches the host
+    pos_dec = torch.full((SM_ROWS,), SM_PREFIX, device=dev)
+    rope_dec = attn.rope_tables(acfg, attn.decode_positions(pos_dec, SM_ROWS, dev))
+    h_dec, h_pre = rand(SM_ROWS, 1, d), rand(1, SM_PREFILL, d)
+    labels = torch.randint(0, v, (SM_PREFILL,), generator=gen, device=dev)
+
+    def attn_whole(case):
+        if case == "decode":
+            return attn.attention_decode(block["attn"], acfg, x_dec, whole_cache, pos_dec, rope_dec)[0]
+        return attn.attention_fwd(block["attn"], acfg, x_pre, pos_pre, rope_pre)
+
+    # each rank's caches of the decode rows' prefix: its own kv heads
+    with torch.no_grad():
+        rank_caches = [grown(attn.attention_fwd(ranks[r]["attn"], local_attn[r][0], x_prefix, pos_prefix,
+                                                rope_prefix, return_cache=True, kv_index=local_attn[r][1],
+                                                partial=True)[1], SM_PREFIX + 8) for r in range(tp)]
+        whole_cache = grown(attn.attention_fwd(block["attn"], acfg, x_prefix, pos_prefix, rope_prefix,
+                                               return_cache=True)[1], SM_PREFIX + 8)
+
+    def attn_body(case, r):
+        lcfg, kv_index = local_attn[r]
+        w = ranks[r]["attn"]
+        if case == "decode":  # writes the step's K/V at the same row on every call
+            return attn.attention_decode(w, lcfg, x_dec, rank_caches[r], pos_dec, rope_dec,
+                                         kv_index=kv_index, partial=True)[0]
+        return attn.attention_fwd(w, lcfg, x_pre, pos_pre, rope_pre, kv_index=kv_index, partial=True)
+
+    def ffn_body(case, r):
+        return tfm.mlp_fwd(ranks[r]["mlp"], cfg, f_dec if case == "decode" else f_pre, rt=rt, partial=True)
+
+    def ffn_whole(case):
+        return tfm.mlp_fwd(block["mlp"], cfg, f_dec if case == "decode" else f_pre, rt=rt)
+
+    def head_body(h, r, w=None):
+        w = heads[r] if w is None else w
+        with rt.use():
+            return tfm.head_matmul(cfg, h, w, key=("lm_head", id(w)), vocab=v)
+
+    # -- (a) and (b): every rank's local step, counted -----------------------
+    torch.cuda.synchronize()
+    T.reset_launch_counts()
+    out, per_rank = {}, []
+    with torch.no_grad(), no_plain_versions("the sharded model's local steps"):
+        for case in ("decode", "prefill"):
+            atts, ffns = [], []
+            for r in range(tp):
+                before = T.launch_counts()
+                atts.append(attn_body(case, r))
+                ffns.append(ffn_body(case, r))
+                torch.cuda.synchronize()
+                per_rank.append({k: n - before[k] for k, n in T.launch_counts().items() if n != before[k]})
+            out[case] = (torch.stack([a.float() for a in atts]).sum(0).to(bf16),
+                         torch.stack(ffns).sum(0).to(bf16))
+        logits = {case: [head_body(h, r) for r in range(tp)] for case, h in (("decode", h_dec), ("prefill", h_pre))}
+    torch.cuda.synchronize()
+    launches_ab = T.launch_counts()
+    want_rank = {"tensordash_matmul_fused": 1, "planner[emitted]": 1, "tensordash_matmul_planned": 1}
+    if any(c != want_rank for c in per_rank):
+        raise AssertionError(f"sharded model (a): launches per rank and FFN call {per_rank}, expected {want_rank}")
+    # each rank's FFN products at their local geometries, held to their plain
+    # versions on the same inputs: the gate (check_close's bf16 tolerance)
+    # and its mask, the emitted plan bit-equal to the plain planner chain,
+    # w_down on the fp32 store (fp32 tolerance)
+    plain_rt = rt.replace(backend="reference")
+    tp_checks = []
+    with torch.no_grad():
+        for case, f in (("decode", f_dec), ("prefill", f_pre)):
+            x2 = f.reshape(-1, d)
+            for r in range(tp):
+                w, tag = ranks[r]["mlp"], f"sharded model (a) {case} rank {r}"
+                g, gmask = rt.matmul_fused(x2, w["w_gate"], activation="relu", assume_dense=True)
+                pg, pmask = plain_rt.matmul_fused(x2, w["w_gate"], activation="relu", assume_dense=True)
+                gate_err = check_close(f"{tag} gate {list(w['w_gate'].shape)}", g, pg, gmask, pmask)
+                h2 = g * (x2 @ w["w_up"])
+                plan = rt.plan_for_fused_output(gmask, h2, w["w_down"])
+                plain_plan = ref.plan_from_mask_csr_ref(gmask, coarsen=plan.bk // (h2.shape[1] // gmask.shape[1]))
+                if not all(torch.equal(a, b) for a, b in zip((plan.nnz, plan.idx, *plan.workqueue()), plain_plan)):
+                    raise AssertionError(f"{tag}: the emitted plan differs from the plain planner chain's")
+                y = rt.matmul(h2, w["w_down"], plan=plan, out_dtype=torch.float32)
+                down_err = check_close(f"{tag} w_down {list(w['w_down'].shape)} bk {plan.bk}", y,
+                                       plain_rt.matmul(h2, w["w_down"], plan=plan, out_dtype=torch.float32))
+                tp_checks.append({"case": case, "rank": r, "gate_shape": [list(x2.shape), list(w["w_gate"].shape)],
+                                  "gate_lanes": rt.lane(w["w_gate"].shape[1]), "gate_max_abs_err": gate_err,
+                                  "w_down_bk": plan.bk, "w_down_max_abs_err": down_err})
+    del g, pg, h2, y, plan, plain_plan
+    kernel_rows = [{"kernel": k, "main_path": False, "max_abs_err": max(c[e] for c in tp_checks)}
+                   for k, e in (("tensordash_matmul_fused", "gate_max_abs_err"),
+                                ("tensordash_matmul_planned", "w_down_max_abs_err"))]
+    kernel_rows.append({"kernel": "planner[emitted]", "main_path": False, "max_abs_err": 0.0})
+    log(f"sharded model (a): each rank's FFN products against their plain versions on the card: "
+        + "; ".join(f"{case} gate {tp_checks[i]['gate_shape']} (bn {tp_checks[i]['gate_lanes']}) max abs err "
+                    f"{[c['gate_max_abs_err'] for c in tp_checks if c['case'] == case]}, mask and emitted plan "
+                    f"bit-equal, w_down (bk {tp_checks[i]['w_down_bk']}, fp32 store) max abs err "
+                    f"{[c['w_down_max_abs_err'] for c in tp_checks if c['case'] == case]}"
+                    for i, case in ((0, "decode"), (tp, "prefill"))))
+    rows = []
+    with torch.no_grad():
+        for case in ("decode", "prefill"):
+            ra, rf = _rel_l2(out[case][0], attn_whole(case)), _rel_l2(out[case][1], ffn_whole(case))
+            if not (ra <= REF_REL_L2 and rf <= REF_REL_L2):
+                raise AssertionError(f"sharded model (a) {case}: attention {ra}, FFN {rf} relative L2 of the "
+                                     f"unsharded block (bound {REF_REL_L2})")
+            rows.append({"case": case, "attn_rel_l2": ra, "ffn_rel_l2": rf})
+        head_eq = {}
+        for case, h in (("decode", h_dec), ("prefill", h_pre)):
+            with rt.use():
+                whole = tfm.head_matmul(cfg, h, lm_head)
+            head_eq[case] = torch.equal(torch.cat(logits[case], -1), whole)
+            if not head_eq[case]:
+                raise AssertionError(f"sharded model (b) {case}: the {tp} head slices are not bit-equal to the "
+                                     "unsharded head")
+        # the vocab-parallel cross entropy from the ranks' pieces
+        pieces = [x.float().reshape(-1, x.shape[-1]) for x in logits["prefill"]]
+        gmax = torch.stack([S.ce_local_max(x) for x in pieces]).amax(0)
+        sums = [S.ce_local_sums(x, labels, r * x.shape[-1], gmax) for r, x in enumerate(pieces)]
+        gsum, tgt = sum(s_ for s_, _ in sums), sum(t_ for _, t_ in sums)
+        ce = float((torch.log(gsum) - tgt).mean())
+        whole_logits = torch.cat(pieces, -1)
+        ce_whole = float(-torch.gather(torch.log_softmax(whole_logits, -1), -1, labels[:, None]).mean())
+    ce_rel = abs(ce - ce_whole) / abs(ce_whole)
+    if ce_rel > LOSS_REL:
+        raise AssertionError(f"sharded model (b): vocab-parallel cross entropy {ce} vs {ce_whole}")
+    del logits, pieces, whole_logits
+    log(f"sharded model (a): deepseek-7b relu block at full width under tensor parallel {tp}: the ranks' "
+        + "; ".join(f"{r['case']} attention relative L2 {r['attn_rel_l2']:.3e}, FFN {r['ffn_rel_l2']:.3e}"
+                    for r in rows)
+        + f" of the unsharded block (bound {REF_REL_L2:.3e}); launches per rank and FFN call {per_rank[0]}")
+    log(f"sharded model (b): {tp} lm_head slices {list(heads[0].shape)} side B: concatenation bit-equal to the "
+        f"unsharded head at {SM_ROWS} and {SM_PREFILL} rows; vocab-parallel cross entropy {ce:.6f} vs {ce_whole:.6f} "
+        f"(relative {ce_rel:.3e}, bound {LOSS_REL:.3e})")
+
+    spent["a_b"] = time.perf_counter() - t_phase
+    # -- (c) the backward of (a) and (b) -------------------------------------
+    t = SM_TRAIN_TOKENS
+    xb, gy = rand(1, t, d), rand(1, t, d) * 0.01
+    posb = torch.arange(t, device=dev)
+    ropeb = attn.rope_tables(acfg, posb)
+    hb, lab = rand(1, t, d), torch.randint(0, v, (t,), generator=gen, device=dev)
+    cat_dim = lambda spec: next(i for i, e in enumerate(spec) if e == "model")
+    grad_rel = {}
+    torch.cuda.synchronize()
+    T.reset_launch_counts()
+    with no_plain_versions("the sharded model's backward"):
+        for part, fwd_whole, fwd_local in (
+                ("attn", lambda w: attn.attention_fwd(w, acfg, xb, posb, ropeb),
+                 lambda w, r: attn.attention_fwd(w, local_attn[r][0], xb, posb, ropeb, kv_index=local_attn[r][1],
+                                                 partial=True)),
+                ("mlp", lambda w: tfm.mlp_fwd(w, cfg, xb, rt=rt),
+                 lambda w, r: tfm.mlp_fwd(w, cfg, xb, rt=rt, partial=True))):
+            names = sorted(block[part])
+            w = {n: block[part][n].detach().requires_grad_() for n in names}
+            whole = dict(zip(names, torch.autograd.grad(fwd_whole(w), [w[n] for n in names], gy)))
+            slices = {n: [] for n in names}
+            for r in range(tp):
+                wr = {n: ranks[r][part][n].detach().requires_grad_() for n in names}
+                for n, g in zip(names, torch.autograd.grad(fwd_local(wr, r), [wr[n] for n in names], gy.float())):
+                    slices[n].append(g)
+            for n in names:  # slices put together; a weight every rank holds whole: its gradients summed
+                got = (sum(g.float() for g in slices[n]) if slices[n][0].shape == whole[n].shape
+                       else torch.cat(slices[n], cat_dim(pspec[part][n])))
+                grad_rel[f"{part}.{n}"] = _rel_l2(got, whole[n])
+            del w, whole, slices
+        # the head: the unsharded loss's gradients, and each rank's from the
+        # global max and sum of exponentials
+        wl = lm_head.detach().requires_grad_()
+        hl = hb.detach().requires_grad_()
+        with rt.use():
+            lw = tfm.head_matmul(cfg, hl, wl).float().reshape(t, v)
+        loss = -torch.gather(torch.log_softmax(lw, -1), -1, lab[:, None]).mean()
+        dw_whole, dh_whole = torch.autograd.grad(loss, [wl, hl])
+        del lw, loss
+        pieces, parts = [], []
+        for r in range(tp):
+            wr = heads[r].detach().requires_grad_()
+            hr = hb.detach().requires_grad_()
+            pieces.append((wr, hr, head_body(hr, r, wr)))
+        with torch.no_grad():
+            flat = [p[2].float().reshape(t, -1) for p in pieces]
+            gmax = torch.stack([S.ce_local_max(x) for x in flat]).amax(0)
+            gsum = sum(S.ce_local_sums(x, lab, r * x.shape[-1], gmax)[0] for r, x in enumerate(flat))
+        for r, ((wr, hr, lr), x) in enumerate(zip(pieces, flat)):
+            dl = S.ce_local_grad(x, lab, r * x.shape[-1], gmax, gsum, torch.full((t,), 1.0 / t, device=dev))
+            parts.append(torch.autograd.grad(lr, [wr, hr], dl.reshape(lr.shape).to(lr.dtype)))
+        grad_rel["lm_head"] = _rel_l2(torch.cat([p[0] for p in parts], 1), dw_whole)
+        grad_rel["head input"] = _rel_l2(sum(p[1].float() for p in parts), dh_whole)
+        del pieces, parts, flat, dw_whole, dh_whole
+    torch.cuda.synchronize()
+    launches_c = T.launch_counts()
+    worst = max(grad_rel, key=grad_rel.get)
+    if grad_rel[worst] > GRAD_REL_L2:
+        raise AssertionError(f"sharded model (c): gradient {worst} relative L2 {grad_rel[worst]} (bound {GRAD_REL_L2})")
+    log(f"sharded model (c): the backward at {t} tokens, each rank's weight-gradient slices put together: worst "
+        f"relative L2 {grad_rel[worst]:.3e} at {worst} over {len(grad_rel)} tensors (bound {GRAD_REL_L2:.3e}); "
+        f"launches {dict((k, n) for k, n in launches_c.items() if n)}")
+    free()
+
+    spent["c"] = time.perf_counter() - t_phase - sum(spent.values())
+    # -- (d) the whole sharded step and engine on an NCCL group of one rank ----
+    cfg_l = dataclasses.replace(cfg, num_layers=SM_LAYERS)
+    params = init_params(M.param_specs(cfg_l), seed=0, dtype=bf16, device="cuda")
+    batch = SyntheticLM(vocab_size=v, seq_len=SM_SEQ, global_batch=SM_BATCH, seed=0).batch_at(0)
+    prompts = torch.randint(0, v, (SM_REQUESTS, SM_PROMPT), generator=gen, device=dev).cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            policy = S.ShardingPolicy(mesh=make_local_mesh())
+            srt = rt.replace(sharding=policy, plan_cache=rtm.PlanCache())
+            local = S.shard_tree(params, policy.param_pspecs(M.param_specs(cfg_l)), policy)
+            torch.cuda.synchronize()
+            T.reset_launch_counts()
+            with srt.use(), no_plain_versions("the sharded train step and engine"):
+                sh = tfm.shards_of(cfg_l)
+                loss_s, grads_s, _ = TS.accumulate_grads(TS.make_loss_fn(cfg_l), cfg_l, local, batch, shards=sh)
+                loss_s = float(loss_s)
+                eng = ServeEngine(local, cfg_l, slots=SM_REQUESTS, max_len=SM_PROMPT + SM_NEW, chunk=SM_CHUNK,
+                                  rt=srt)
+                rids = [eng.submit(p, max_new=SM_NEW) for p in prompts]
+                toks_s = eng.run()
+                graph_s = eng.stats()["decode_graph_captures"]
+                del eng
+                # last, as it updates the shards in place
+                step = TS.make_train_step(cfg_l, OptConfig(lr=1e-4, warmup_steps=1))
+                opt = TS.init_train_state(cfg_l, local)
+                t0 = time.perf_counter()
+                _, _, m = step(local, opt, batch)
+                step_loss = float(m["loss"])
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - t0
+                del opt
+            torch.cuda.synchronize()
+            launches_d = T.launch_counts()
+            mesh_desc = (tuple(policy.mesh.shape), tuple(policy.mesh.mesh_dim_names), dist.get_backend())
+        finally:
+            dist.destroy_process_group()
+    del local
+    free()
+    with rt.use():
+        loss_u, grads_u, _ = TS.accumulate_grads(TS.make_loss_fn(cfg_l), cfg_l, params, batch)
+        loss_u = float(loss_u)
+        eng = ServeEngine(params, cfg_l, slots=SM_REQUESTS, max_len=SM_PROMPT + SM_NEW, chunk=SM_CHUNK,
+                          rt=rt.replace(plan_cache=rtm.PlanCache()))
+        urids = [eng.submit(p, max_new=SM_NEW) for p in prompts]
+        toks_u = eng.run()
+    d_rel = {i: _rel_l2(a, b) for i, (a, b) in enumerate(zip(grads_s, grads_u))}
+    d_worst = max(d_rel, key=d_rel.get)
+    loss_rel = abs(loss_s - loss_u) / abs(loss_u)
+    same_tokens = [toks_s[a] for a in rids] == [toks_u[b] for b in urids]
+    if not (loss_rel <= LOSS_REL and d_rel[d_worst] <= GRAD_REL_L2 and same_tokens and graph_s == 1
+            and abs(step_loss - loss_s) <= 1e-6 * abs(loss_s)):
+        raise AssertionError(f"sharded model (d): loss {loss_s} vs {loss_u}, step loss {step_loss}, worst gradient "
+                             f"{d_rel[d_worst]}, tokens equal {same_tokens}, graph captures {graph_s}")
+    log(f"sharded model (d): NCCL group of one rank, make_local_mesh() {mesh_desc[0]} over {mesh_desc[1]}: "
+        f"deepseek-7b relu cut to {SM_LAYERS} layers, {SM_BATCH} x {SM_SEQ} tokens: sharded loss {loss_s:.6f} vs "
+        f"unsharded {loss_u:.6f} (relative {loss_rel:.3e}, bound {LOSS_REL:.3e}), worst gradient relative L2 "
+        f"{d_rel[d_worst]:.3e} (leaf {d_worst}, bound {GRAD_REL_L2:.3e}); one sharded make_train_step step "
+        f"{step_s:.2f} s, loss {step_loss:.6f}; the sharded engine's greedy tokens equal the unsharded engine's "
+        f"({SM_REQUESTS} requests, {SM_NEW} new tokens, decode graph captured {graph_s}x)")
+    del params, grads_s, grads_u, eng
+    free()
+
+    spent["d"] = time.perf_counter() - t_phase - sum(spent.values())
+    # -- (e) restore(shardings=) onto the tensor-parallel specs ---------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        man.save(tmp, 1, {"block": block})
+        with RankPool(tp, tmp, timeout=120.0) as pool:
+            restored = pool.run(restore_rank_task, tmp, deadline=300.0)
+        restore_s = time.perf_counter() - t0
+    if not all(r["equal"] for r in restored):
+        raise AssertionError(f"sharded model (e): restored slices differ from local_shard: {restored}")
+    log(f"sharded model (e): the block saved whole, restore(shardings=) on {tp} gloo CPU ranks of a (1, {tp}) "
+        f"mesh: every slice bit-equal to local_shard ({restored[0]['leaves']} leaves, "
+        f"{restored[0]['bytes'] / 1e6:.1f} MB a rank) in {restore_s:.1f} s")
+
+    spent["e"] = time.perf_counter() - t_phase - sum(spent.values())
+    # -- times -------------------------------------------------------------
+    card = card_line()
+    times = []
+    with torch.no_grad():
+        for case in ("decode", "prefill"):
+            body = [cuda_ms(lambda r=r: (attn_body(case, r), ffn_body(case, r)), iters=5) for r in range(tp)]
+            ffn = [cuda_ms(lambda r=r: ffn_body(case, r), iters=5) for r in range(tp)]
+            whole = cuda_ms(lambda: (attn_whole(case), ffn_whole(case)), iters=5)
+            ffn_whole_ms = cuda_ms(lambda: ffn_whole(case), iters=5)
+            f = cfg.d_ff // tp
+            bound = 3 * d * f * 2 / bw * 1e3  # the rank's three FFN weights read once
+            times.append({"case": case, "rank_block_ms": body, "rank_ffn_ms": ffn, "sum_ms": sum(body),
+                          "slowest_ms": max(body), "whole_block_ms": whole, "whole_ffn_ms": ffn_whole_ms,
+                          "rank_ffn_bound_ms": bound})
+            log(f"sharded model {case} [{card}]: each rank's block (attention + FFN) {[round(x, 4) for x in body]} ms, "
+                f"FFN alone {[round(x, 4) for x in ffn]} ms (bound {bound:.4f} ms: its weights once at "
+                f"{bw / 1e12:.2f} TB/s); sum over ranks {sum(body):.4f} ms vs the unsharded block {whole:.4f} ms "
+                f"(FFN {ffn_whole_ms:.4f} ms); slowest rank {max(body):.4f} ms")
+        # rank 0's FFN at decode, product by product, beside the whole FFN's:
+        # each product's kernel ms, its plain version (the ``reference``
+        # executors on the card), one torch.matmul and its byte bound
+        parts = {}
+        for tag, w in (("rank 0", ranks[0]["mlp"]), ("unsharded", block["mlp"])):
+            x2 = f_dec.reshape(-1, d)
+            g, gmask = rt.matmul_fused(x2, w["w_gate"], activation="relu", assume_dense=True)
+            h2 = g * (x2 @ w["w_up"])
+            plan = rt.plan_for_fused_output(gmask, h2, w["w_down"])
+            out32 = torch.float32 if tag == "rank 0" else None
+            wg, wd = w["w_gate"], w["w_down"]
+            work = int(torch.clamp_min(torch.as_tensor(plan.nnz), 1).sum())  # effectual (row, K block) items
+            parts[tag] = {
+                "gate_ms": cuda_ms(lambda: rt.matmul_fused(x2, wg, activation="relu", assume_dense=True), iters=10),
+                "gate_plain_ms": cuda_ms(lambda: plain_rt.matmul_fused(x2, wg, activation="relu", assume_dense=True),
+                                         iters=3, warmup=1),
+                "gate_library_ms": cuda_ms(lambda: torch.matmul(x2, wg), iters=10),
+                "gate_bound_ms": (x2.numel() + wg.numel() + x2.shape[0] * wg.shape[1]) * 2 / bw * 1e3,
+                "emitted_plan_ms": cuda_ms(lambda: rt.plan_for_fused_output(gmask, h2, wd), iters=10),
+                "w_down_ms": cuda_ms(lambda: rt.matmul(h2, wd, plan=plan, out_dtype=out32), iters=10),
+                "w_down_plain_ms": cuda_ms(lambda: plain_rt.matmul(h2, wd, plan=plan, out_dtype=out32),
+                                           iters=3, warmup=1),
+                "w_down_library_ms": cuda_ms(lambda: torch.matmul(h2, wd), iters=10),
+                "w_down_bound_ms": (h2.numel() * 2 + work * plan.bk * wd.shape[1] * 2
+                                    + h2.shape[0] * wd.shape[1] * (4 if out32 else 2)) / bw * 1e3,
+                "gate_lanes": rt.lane(wg.shape[1]), "w_down_bk": plan.bk,
+                "w_down_k_blocks": h2.shape[1] // plan.bk, "shapes": [list(wg.shape), list(wd.shape)]}
+        log(f"sharded model decode FFN by product [{card}]: " + "; ".join(
+            f"{tag} {p['shapes']}: gate {p['gate_ms']:.4f} ms (bn {p['gate_lanes']}; plain {p['gate_plain_ms']:.4f}, "
+            f"torch.matmul {p['gate_library_ms']:.4f}, bound {p['gate_bound_ms']:.4f}), emitted plan "
+            f"{p['emitted_plan_ms']:.4f} ms, w_down {p['w_down_ms']:.4f} ms (bk {p['w_down_bk']}, "
+            f"{p['w_down_k_blocks']} K blocks; plain {p['w_down_plain_ms']:.4f}, torch.matmul "
+            f"{p['w_down_library_ms']:.4f}, bound {p['w_down_bound_ms']:.4f})" for tag, p in parts.items()))
+        head_ms = [cuda_ms(lambda r=r: head_body(h_dec, r), iters=10) for r in range(tp)]
+        head_library_ms = cuda_ms(lambda: torch.matmul(h_dec, heads[0]), iters=10)
+        head_bound_ms = (heads[0].numel() + h_dec.numel() + SM_ROWS * heads[0].shape[1]) * 2 / bw * 1e3
+        with rt.use():
+            head_whole_ms = cuda_ms(lambda: tfm.head_matmul(cfg, h_dec, lm_head), iters=10)
+    log(f"sharded model head [{card}]: each rank's vocab slice at {SM_ROWS} rows {[round(x, 4) for x in head_ms]} ms "
+        f"(rank 0's torch.matmul {head_library_ms:.4f} ms, bound {head_bound_ms:.4f} ms), sum {sum(head_ms):.4f} ms vs "
+        f"the unsharded head {head_whole_ms:.4f} ms; no run across cards was made (the machine has one card): "
+        "collectives are not timed")
+    spent["times"] = time.perf_counter() - t_phase - sum(spent.values())
+    log(f"sharded model: the phase {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    launches = {k: launches_ab[k] + launches_c[k] + launches_d[k] for k in launches_ab}
+    del block, ranks, lm_head, heads
+    free()
+    return {"launches": launches, "launches_per_rank_ffn": per_rank[0], "rows": rows, "tp_checks": tp_checks,
+            "kernel_rows": kernel_rows, "head_bit_equal": head_eq,
+            "ce": [ce, ce_whole], "grad_rel_l2": grad_rel, "whole": {"loss": [loss_s, loss_u], "step_loss": step_loss,
+            "grad_worst": d_rel[d_worst], "tokens_equal": same_tokens, "graph_captures": graph_s,
+            "step_s": step_s, "mesh": mesh_desc}, "restore": restored, "times": times,
+            "head_ms": head_ms, "head_whole_ms": head_whole_ms, "head_library_ms": head_library_ms,
+            "head_bound_ms": head_bound_ms, "ffn_parts": parts, "seconds": spent, "card": card}
+
+
 # ---------------------------------------------------------------------------
 # core phase: the scheduled-form codec on the schedule kernel, the public
 # ops, plan validation
@@ -4245,6 +4754,9 @@ def main() -> int:
     log("sharded: each rank's local step of the sharded SpMM on the card, the expert-parallel decode branch, "
         "an NCCL group of world size 1")
     sharded = sharded_phase(bw)
+    log(f"sharded model: deepseek-7b relu at full width under tensor parallel {SM_TP}, the ranks' local steps in "
+        "turn; the sharded train step and engine on an NCCL group of one rank; restore(shardings=)")
+    smodel = sharded_model_phase(bw)
 
     def grouped(counts):
         """Launches per entry of the kernels line: v2 and v1 together, and
@@ -4287,16 +4799,18 @@ def main() -> int:
                            for k in launch["a"]["launches"]})
     per_launch_step = {tag: grouped(w) for tag, w in launch["launches_per_step"].items()}
     sharded_runs = grouped(sharded["launches"])
+    smodel_runs = grouped(smodel["launches"])
     core_runs = grouped({k: v for k, v in core["launches"].items() if k != "td_schedule_kernel"})
     kernels = []
     for kname in REPLACES:
-        mine = [r for r in rows + grid_rows + train_rows + planner_rows + sharded["rows"] if r["kernel"] == kname]
+        mine = [r for r in rows + grid_rows + train_rows + planner_rows + sharded["rows"] + smodel["kernel_rows"]
+                if r["kernel"] == kname]
         head = next(r for r in mine if r["main_path"])  # the first main-path shape
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE if kname in SPMM else PLANNER_SOURCE,
             "replaces": REPLACES[kname],
             "launches": (serve_runs[kname] + train_runs[kname] + launch_runs[kname] + sharded_runs[kname]
-                         + core_runs[kname]),
+                         + core_runs[kname] + smodel_runs[kname]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
@@ -4310,6 +4824,7 @@ def main() -> int:
             "launches_launch_train": launch_runs[kname],
             "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
             "launches_sharded_local_steps": sharded_runs[kname],
+            "launches_sharded_model": smodel_runs[kname],
             "launches_core": core_runs[kname],
         })
     head = next(r for r in core["rows"] if r["main_path"])
@@ -4334,7 +4849,8 @@ def main() -> int:
          "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2, "ssm_serve": ssm,
          "hybrid_serve": hybrid, "starcoder2_serve": starcoder, "gemma2_serve": gemma, "kv_int8_serve": kv8,
          "qwen2vl_run": vl, "musicgen_run": mg,
-         "ssm_train": ssm_train, "hybrid_train": hybrid_train, "sharded": sharded, "core": core,
+         "ssm_train": ssm_train, "hybrid_train": hybrid_train, "sharded": sharded, "sharded_model": smodel,
+         "core": core,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

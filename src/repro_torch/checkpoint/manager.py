@@ -16,8 +16,12 @@
   named tuples (the optimizer's ``OptState``); leaves are tensors and
   Python scalars (``OptState.step``).  :func:`restore` places
   each tensor on the device and in the dtype of the ``like`` tree's leaf.
-  Resharding on load (``shardings=``) waits for the sharded train step
-  (ROADMAP queue 1, item 14b).
+* Sharded trees: ``shardings=`` is the tree of spec tuples of the leaves
+  (``param_pspecs``; ``train.step.state_specs`` for a train state) on the
+  ambient runtime's mesh.  :func:`save` gathers each leaf in turn to the
+  host of the mesh's first rank, which writes the same format (the others
+  wait); :func:`restore` gives each rank its ``local_shard`` of every
+  stored leaf, so a run restarts onto another mesh shape (elastic restart).
 * Preemption: :class:`PreemptionGuard` installs a SIGTERM handler; the
   train loop polls ``should_save`` and checkpoints before exit.
 """
@@ -31,6 +35,9 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel import sharding as S
 
 __all__ = ["save", "restore", "restore_latest", "latest_step", "all_steps", "PreemptionGuard"]
 
@@ -63,6 +70,37 @@ def _flatten(tree, prefix: str = "") -> dict:
     return out
 
 
+def _spec_paths(like, specs, prefix: str = "") -> dict:
+    """``{path: spec tuple}`` of a spec tree laid over ``like`` (paths as
+    :func:`_flatten` names them; ``None`` for a leaf that is no tensor)."""
+    def at(k):
+        return f"{prefix}{_SEP}{k}" if prefix else str(k)
+
+    if isinstance(like, dict):
+        items = ((at(k), like[k], specs[k]) for k in sorted(like))
+    elif isinstance(like, tuple) and hasattr(like, "_fields"):
+        items = ((at(f), v, sp) for f, v, sp in zip(like._fields, like, specs))
+    elif isinstance(like, (list, tuple)):
+        items = ((at(i), v, sp) for i, (v, sp) in enumerate(zip(like, specs)))
+    elif like is None:
+        return {}
+    else:
+        return {prefix: specs}
+    out = {}
+    for k, v, sp in items:
+        out.update(_spec_paths(v, sp, k))
+    return out
+
+
+def _policy():
+    from repro_torch.runtime import runtime as rtm  # local: keep the checkpoint import light
+
+    policy = rtm.active_policy()
+    if policy.mesh is None:
+        raise ValueError("shardings= needs the ambient runtime's sharding policy to have a mesh")
+    return policy
+
+
 def _unflatten(like, leaves: dict, prefix: str = ""):
     """``like``'s structure with each leaf replaced by ``leaves[path]``."""
     def at(k):
@@ -91,23 +129,42 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str | None]:
     return np.asarray(leaf), None
 
 
-def _from_numpy(arr: np.ndarray, name: str | None, like):
+def _from_numpy(arr: np.ndarray, name: str | None, like, cut=None):
     """The stored array as a leaf like ``like``: a tensor on ``like``'s
-    device in its dtype, or a Python scalar of ``like``'s type."""
+    device in its dtype (``cut`` first takes this rank's shard of it), or a
+    Python scalar of ``like``'s type."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if name is not None:
         dtype, view = _BY_NAME[name]
         t = t.view(view).view(dtype)
     if not isinstance(like, torch.Tensor):
         return type(like)(t.item())
+    if cut is not None:
+        t = cut(t).clone()  # its own storage: the whole array is freed
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"stored shape {tuple(t.shape)} != {tuple(like.shape)}")
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def save(directory: str, step: int, tree, *, keep: int = 3) -> str:
-    """Atomically write checkpoint ``step``; prune to ``keep`` newest."""
+def save(directory: str, step: int, tree, *, keep: int = 3, shardings=None) -> str:
+    """Atomically write checkpoint ``step``; prune to ``keep`` newest.
+    With ``shardings`` (the spec tree of ``tree``'s shards on the ambient
+    mesh) each leaf is gathered in turn to the host of the mesh's first
+    rank (:func:`~repro_torch.parallel.sharding.gather_to_first`), which
+    writes; every rank returns once it has."""
     directory = os.fspath(directory)
+    if shardings is None:
+        return _write(directory, step, tree, keep)
+    policy = _policy()
+    whole = S.map_specs(lambda x, sp: S.gather_to_first(x, sp, policy), tree, shardings)
+    group = S.axis_group(policy.mesh, tuple(S.axis_sizes(policy.mesh)))[0]
+    if dist.get_rank() == int(policy.mesh.mesh.reshape(-1)[0]):
+        _write(directory, step, whole, keep)
+    dist.barrier(group=group)
+    return os.path.join(directory, f"step_{step:012d}")
+
+
+def _write(directory: str, step: int, tree, keep: int) -> str:
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp.{step}")
     final = os.path.join(directory, f"step_{step:012d}")
@@ -149,17 +206,22 @@ def latest_step(directory: str) -> int | None:
 def restore(directory: str, step: int, like, *, shardings=None):
     """Load checkpoint ``step`` into the structure of ``like``: each tensor
     on the device and in the dtype of ``like``'s leaf at the same path (a
-    stored shape that differs raises)."""
+    stored shape that differs raises).  With ``shardings`` (the spec tree
+    of ``like``'s leaves on the ambient mesh, the same tree of specs
+    ``param_pspecs`` gives) each rank keeps its ``local_shard`` of every
+    stored leaf, whatever mesh wrote it: an elastic restart onto another
+    mesh shape."""
+    cuts = {}
     if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=): resharding on load waits for distributed execution "
-            "(ROADMAP queue 1, item 14b)")
+        policy = _policy()
+        cuts = {k: (lambda t, sp=sp: S.local_shard(t, sp, policy)) for k, sp in _spec_paths(like, shardings).items()
+                if sp is not None}
     base = os.path.join(os.fspath(directory), f"step_{step:012d}")
     with open(os.path.join(base, "meta.json")) as f:
         meta = json.load(f)
     dtypes = meta.get("dtypes", {})
     with np.load(os.path.join(base, "arrays.npz")) as data:
-        leaves = {k: _from_numpy(data[k], dtypes.get(k), leaf) for k, leaf in _flatten(like).items()}
+        leaves = {k: _from_numpy(data[k], dtypes.get(k), leaf, cuts.get(k)) for k, leaf in _flatten(like).items()}
     return _unflatten(like, leaves)
 
 
@@ -179,8 +241,6 @@ def restore_latest(directory: str, like, *, shardings=None):
     for step in reversed(all_steps(directory)):
         try:
             return step, restore(directory, step, like, shardings=shardings)
-        except NotImplementedError:
-            raise
         except Exception as e:  # np.load/json/KeyError zoo — skip, try older
             warnings.warn(
                 f"checkpoint step {step} in {os.fspath(directory)!r} is unreadable "

@@ -19,31 +19,44 @@ degradation — skip-step, straggler abort, preemption save, corrupt-
 checkpoint skip — is surfaced in the :class:`repro_torch.resilience.
 ResilienceLog` summary.
 
-The launcher runs on one device: ``--multi-pod`` raises, and the per-plan
-``imbalance`` column (``PlanCache.plan_stats(shards=)``) waits for the
-sharded train step (ROADMAP queue 1, item 14b).  ``--device`` is the one flag the JAX launcher lacks.
+Under a process group of more than one rank (``torchrun``, or a group the
+caller made) the launcher trains the sharded model on ``make_local_mesh()``
+(``(1, world)`` over ``("data", "model")``); ``--multi-pod`` builds the
+production mesh ``(2, 16, 16)``, which raises unless the group has its 512
+ranks.  On a mesh each rank draws every weight from seed 0 in turn and keeps
+only its shard of it, so a card holds its shards and one whole weight at a
+time; checkpoints are gathered leaf by leaf to the first rank, which writes
+them in the JAX package's format, and are restored onto this mesh's shards;
+the per-plan lines carry the ``imbalance`` of each plan's work over the
+row-parallel shards (``PlanCache.plan_stats(shards=)``), in the JAX
+launcher's format.  Only rank 0 prints.  ``--device`` is the one flag the
+JAX launcher lacks.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import signal
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import runtime as rtm
 from repro_torch.checkpoint.manager import PreemptionGuard, restore_latest, save
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.models.common import init_params
 from repro_torch.optim.adamw import OptConfig, init_opt_state
+from repro_torch.parallel.sharding import ShardingPolicy
 from repro_torch.resilience import FaultPlan, ResilienceLog, capture_warnings
 from repro_torch.resilience import faults as rfaults
 from repro_torch.resilience import log as rlog
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import make_train_step, state_specs
 
 _DST_INT_KEYS = {"update_every", "begin", "end", "t_end", "min_size"}
 _DST_FLOAT_KEYS = {"target", "alpha"}
@@ -74,11 +87,40 @@ def parse_dynamic_sparsity(spec: str) -> dict:
     return kw
 
 
+def _process_group(device: str) -> int:
+    """The default process group's size, made from ``torchrun``'s
+    environment (``WORLD_SIZE`` > 1) when none exists yet."""
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        dist.init_process_group("nccl" if device.startswith("cuda") else "gloo")
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _agree(seconds: float, preempted: bool, device, world: int) -> tuple[float, bool]:
+    """The step's seconds and the preemption flag as every rank of the group
+    sees them (the slowest rank's time, any rank's signal), so the ranks
+    take the same deadline and checkpoint decisions."""
+    if world == 1:
+        return seconds, preempted
+    buf = torch.tensor([seconds, float(preempted)], dtype=torch.float64, device=device)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX)  # lint: allow-shard-map-axes: every rank of the launch
+    return float(buf[0]), bool(buf[1])  # lint: allow-host-sync: host decisions, once a step
+
+
+def _mesh(args, world: int):
+    """The mesh the launcher trains on: the production mesh with
+    ``--multi-pod`` (raises on another world size), the local mesh under a
+    group of several ranks, none on one."""
+    if args.multi_pod:
+        return make_production_mesh(multi_pod=True)
+    return make_local_mesh() if world > 1 else None
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="train on the production mesh (2, 16, 16): a process group of 512 ranks")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--batch", type=int, default=8)
@@ -120,10 +162,13 @@ def main(argv=None) -> None:
                     help="disable the skip-step guard on non-finite loss/grads")
     args = ap.parse_args(argv)
 
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the launcher trains on one device until the sharded train step "
-            "(ROADMAP queue 1, item 14b)")
+    world = _process_group(args.device)
+    mesh = _mesh(args, world)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    device = args.device
+    if device == "cuda" and world > 1:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', dist.get_rank())) % torch.cuda.device_count()}"
     cfg = get_config(args.arch)
     if cfg.frontend is not None:
         raise NotImplementedError(
@@ -139,8 +184,9 @@ def main(argv=None) -> None:
         # card-sized blocks don't divide smoke shapes (and would clamp a
         # dynamic-sparsity mask to one block per weight — no granularity)
         geom = {"bm": 8, "bk": 16, "bn": 16}
-    rt = rtm.Runtime(backend=args.backend, device=args.device,
-                     geometry=args.geometry, **geom)
+    policy = ShardingPolicy(mesh=mesh) if mesh is not None else None
+    rt = rtm.Runtime(backend=args.backend, device=device,
+                     geometry=args.geometry, sharding=policy, **geom)
     rt.kernel.check_platform()  # fail fast (cuda without a card) vs a silent fallback
 
     log = ResilienceLog()
@@ -149,7 +195,9 @@ def main(argv=None) -> None:
     on_card = rt.device.type == "cuda"
 
     with rt.use(), rlog.use_log(log), rfaults.inject(fp), capture_warnings(log):
-        params = init_params(M.param_specs(cfg), seed=0, device=rt.device)
+        # on a mesh every rank draws the same weights and keeps its shards
+        params = init_params(M.param_specs(cfg), seed=0, device=rt.device, policy=policy)
+        shardings = state_specs(cfg, policy) if policy is not None else None
         opt = init_opt_state(params)
         data = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
         ocfg = OptConfig(total_steps=max(args.steps, 100))
@@ -163,7 +211,7 @@ def main(argv=None) -> None:
             dkw.setdefault("end", args.steps)
             ctrl = DynamicSparsityController(DynamicSparsityConfig(**dkw), params)
             masks = ctrl.masks()
-            print(
+            say(
                 f"dynamic sparsity: {len(ctrl.units)} weight(s), "
                 f"target {ctrl.cfg.target:.0%} by step {ctrl.cfg.end}, "
                 f"refresh every {ctrl.cfg.update_every}"
@@ -178,11 +226,11 @@ def main(argv=None) -> None:
             start = 0
             if args.ckpt_dir:
                 s, state = restore_latest(
-                    args.ckpt_dir, {"params": params, "opt": opt}
+                    args.ckpt_dir, {"params": params, "opt": opt}, shardings=shardings
                 )
                 if s is not None:
                     params, opt, start = state["params"], state["opt"], s
-                    print(f"resumed at step {s}")
+                    say(f"resumed at step {s}")
 
             consecutive_faults = 0
             for i in range(start, args.steps):
@@ -197,22 +245,22 @@ def main(argv=None) -> None:
                                          masks, **kw)
                 if on_card:
                     torch.cuda.synchronize(rt.device)
-                dt = time.time() - t0
+                dt, preempted = _agree(time.time() - t0, guard.should_save, rt.device, world)
                 if guard_nonfinite and int(m.get("nonfinite", 0)):
                     consecutive_faults += 1
                     log.record("nonfinite", "train.step", "skip-step",
                                step=i, consecutive=consecutive_faults)
-                    print(f"step {i}: non-finite loss/grads — update skipped "
+                    say(f"step {i}: non-finite loss/grads — update skipped "
                           f"({consecutive_faults}/{args.max_faults} consecutive)")
                     if consecutive_faults >= args.max_faults:
                         if args.ckpt_dir:
                             save(args.ckpt_dir, i + 1,
-                                 {"params": params, "opt": opt})
+                                 {"params": params, "opt": opt}, shardings=shardings)
                         log.record("nonfinite", "train.loop", "checkpoint-abort",
                                    step=i, consecutive=consecutive_faults)
-                        print(f"{consecutive_faults} consecutive non-finite "
+                        say(f"{consecutive_faults} consecutive non-finite "
                               "steps: checkpointed, aborting")
-                        print(log.summary())
+                        say(log.summary())
                         sys.exit(3)
                     time.sleep(min(
                         args.fault_backoff * 2 ** (consecutive_faults - 1), 30.0
@@ -222,7 +270,7 @@ def main(argv=None) -> None:
                 if ctrl is not None and ctrl.should_update(i):
                     rep = ctrl.update(i, m["dst_w_scores"], m["dst_g_scores"])
                     masks = ctrl.masks()
-                    print(
+                    say(
                         f"dst refresh step {rep['step']:5d} "
                         f"sparsity {rep['sparsity']:.3f} "
                         f"(target {rep['target_sparsity']:.3f}) "
@@ -233,12 +281,12 @@ def main(argv=None) -> None:
                 # launches; a deadline sized for steady-state steps must not
                 # count that against it
                 if dt > args.step_deadline and i != start:
-                    print(f"step {i} exceeded deadline ({dt:.0f}s): checkpoint + abort")
+                    say(f"step {i} exceeded deadline ({dt:.0f}s): checkpoint + abort")
                     log.record("deadline", "train.step", "checkpoint-abort",
                                step=i, seconds=round(dt, 3))
                     if args.ckpt_dir:
-                        save(args.ckpt_dir, i + 1, {"params": params, "opt": opt})
-                    print(log.summary())
+                        save(args.ckpt_dir, i + 1, {"params": params, "opt": opt}, shardings=shardings)
+                    say(log.summary())
                     return
                 if (i + 1) % 5 == 0 or i == start:
                     line = (f"step {i+1:5d} loss {float(m['loss']):.4f} "
@@ -255,24 +303,30 @@ def main(argv=None) -> None:
                             f" ideal={float(m['modeled_speedup']):.2f}x"
                             f" modeled={sim['overall']:.2f}x"
                         )
-                    print(line)
-                if args.ckpt_dir and ((i + 1) % args.ckpt_every == 0 or guard.should_save):
-                    save(args.ckpt_dir, i + 1, {"params": params, "opt": opt})
-                    if guard.should_save:
+                    say(line)
+                if args.ckpt_dir and ((i + 1) % args.ckpt_every == 0 or preempted):
+                    save(args.ckpt_dir, i + 1, {"params": params, "opt": opt}, shardings=shardings)
+                    if preempted:
                         log.record("preempt", "train.loop", "checkpoint-exit",
                                    step=i)
-                        print("preemption: saved, exiting")
-                        print(log.summary())
+                        say("preemption: saved, exiting")
+                        say(log.summary())
                         return
         finally:
             guard.close()
-    for ps in rt.plan_cache.plan_stats():
-        print(f"plan key={ps['key']!r} side={ps['side']} "
-              f"total_work={ps['total_work']}/{ps['blocks']} blocks "
-              f"skipped={ps['skipped_fraction']:.0%}")
+    # per-device balance report: how evenly each cached plan's ragged-grid
+    # work would deal across the policy's row-parallel shards
+    n_shards = policy.spmm_axes("M")[1] if policy is not None else 1
+    for ps in rt.plan_cache.plan_stats(shards=n_shards):
+        line = (f"plan key={ps['key']!r} side={ps['side']} "
+                f"total_work={ps['total_work']}/{ps['blocks']} blocks "
+                f"skipped={ps['skipped_fraction']:.0%}")
+        if "imbalance" in ps:
+            line += f" imbalance={ps['imbalance']:.2f}x over {n_shards} devices"
+        say(line)
     if len(log):
-        print(log.summary())
-    print("done")
+        say(log.summary())
+    say("done")
 
 
 if __name__ == "__main__":

@@ -145,18 +145,40 @@ def _window(cfg: AttnConfig, is_global: bool):
     return None if is_global else cfg.sliding_window
 
 
+def _heads_of(k, v, kv_index):
+    """K/V for the query heads a tensor-parallel rank holds: every kv head
+    of a replicated cache, picked per local query head by ``kv_index``
+    (``None``: the rank holds its own kv heads, grouped as usual)."""
+    if kv_index is None:
+        return k, v
+    return k[:, :, kv_index], v[:, :, kv_index]
+
+
+def _out_proj(out, wo, dtype, partial: bool):
+    """The output projection; ``partial``: a row-parallel rank's fp32
+    partial sum, before the sum over the model axis."""
+    if partial:
+        return out.to(dtype).float() @ wo.float()
+    return out.to(dtype) @ wo
+
+
 def attention_fwd(params, cfg: AttnConfig, x, positions, rope, *, is_global: bool = True,
-                  return_cache: bool = False):
+                  return_cache: bool = False, kv_index=None, partial: bool = False):
     """Training / prefill self-attention over positions ``[S]`` (M-RoPE:
     ``[B, 3, S]``, masked causally by ``arange(S)``); ``rope =
     rope_tables(cfg, positions)``.  With ``kv_quant`` the returned cache is
-    int8 with fp32 scales."""
+    int8 with fp32 scales.
+
+    As a tensor-parallel rank's local step, ``cfg`` counts the rank's heads
+    and ``params`` holds its columns of ``wq`` (and of ``wk``/``wv``, or all
+    of them with ``kv_index`` naming each local query head's kv head) and
+    its rows of ``wo``; ``partial`` returns the fp32 partial output."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, rope)
     if positions.ndim != 1:
         positions = torch.arange(s, device=x.device)
-    out = attend_chunked(cfg, q, k, v, positions, positions, _window(cfg, is_global))
-    y = out.reshape(b, s, -1).to(q.dtype) @ params["wo"]
+    out = attend_chunked(cfg, q, *_heads_of(k, v, kv_index), positions, positions, _window(cfg, is_global))
+    y = _out_proj(out.reshape(b, s, -1), params["wo"], q.dtype, partial)
     if not return_cache:
         return y
     if cfg.kv_quant:
@@ -189,7 +211,8 @@ def decode_positions(pos, b: int, device, *, mrope: bool = False):
     return pos.reshape(b, 1) if pos.ndim == 1 else pos.reshape(1)
 
 
-def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope, *, is_global: bool = True):
+def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope, *, is_global: bool = True,
+                     kv_index=None, partial: bool = False):
     """One-token decode.  ``x [B, 1, d]``; ``cache`` is filled up to ``pos``
     (exclusive) and the new token's K/V is written in place at ``pos``
     (with ``kv_quant``: its int8 rows and scales, then the whole cache is
@@ -197,7 +220,8 @@ def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope, *, i
     scalar (every row at one position) or an int ``[B]`` tensor (each batch
     slot at its own position); ``rope = rope_tables(cfg,
     decode_positions(pos, B, device, mrope=cfg.mrope_sections is not None))``.
-    Returns ``(y, cache)``."""
+    ``kv_index``/``partial`` as in :func:`attention_fwd`.  Returns ``(y,
+    cache)``."""
     b = x.shape[0]
     s_max = cache.k.shape[1]
     pos = torch.as_tensor(pos, device=x.device)
@@ -219,7 +243,7 @@ def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope, *, i
         write(cache.v, v)
         k_all, v_all = cache.k, cache.v
     k_pos = torch.arange(s_max, device=x.device)
-    out = _attend(cfg, q, k_all, v_all, positions, k_pos, _window(cfg, is_global))
+    out = _attend(cfg, q, *_heads_of(k_all, v_all, kv_index), positions, k_pos, _window(cfg, is_global))
     dt = torch.promote_types(out.dtype, params["wo"].dtype)
-    y = out.reshape(b, 1, -1).to(dt) @ params["wo"].to(dt)
+    y = _out_proj(out.reshape(b, 1, -1), params["wo"].to(dt), dt, partial)
     return y, cache

@@ -47,16 +47,21 @@ def _fan_in(shape: tuple) -> int:
     return max(1, math.prod(shape[:-1]) // (shape[0] if len(shape) > 2 else 1))
 
 
-def init_params(specs, *, seed: int = 0, dtype=DEFAULT_DTYPE, device="cuda"):
+def init_params(specs, *, seed: int = 0, dtype=DEFAULT_DTYPE, device="cuda", policy=None):
     """Materialize a spec tree on ``device`` from one seeded generator.
 
     ``normal`` draws N(0, 1/fan_in) (the JAX package's ``_fan_in`` rule),
     ``scaled`` N(0, 0.02^2), both with the spec's ``scale`` as std when it
     has one, and ``embed`` N(0, 1); values are drawn in fp32 and cast to
     the spec's dtype or ``dtype``, one tensor at a time, so the fp32 scratch
-    never exceeds one parameter."""
+    never exceeds one parameter.  With a mesh-backed sharding ``policy``
+    each tensor is drawn whole, as without one, and only this rank's
+    ``local_shard`` of it under ``policy.param_pspecs`` is kept: the device
+    never holds more than the rank's shards and one whole parameter."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    sharded = policy is not None and policy.mesh is not None
+    pspecs = policy.param_pspecs(specs) if sharded else None
 
     def make(spec: Spec):
         dt = spec.dtype or dtype
@@ -75,16 +80,24 @@ def init_params(specs, *, seed: int = 0, dtype=DEFAULT_DTYPE, device="cuda"):
         x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
         return x.mul_(std).to(dt)
 
-    def walk(tree):
+    def keep(x, pspec):
+        if pspec is None:
+            return x
+        from repro_torch.parallel.sharding import local_shard  # local: sharding is above the models
+
+        part = local_shard(x, pspec, policy)
+        return x if part is x else part.clone(memory_format=torch.contiguous_format)
+
+    def walk(tree, ps):
         if isinstance(tree, Spec):
-            return make(tree)
+            return keep(make(tree), ps)
         if isinstance(tree, dict):
-            return {k: walk(v) for k, v in tree.items()}
+            return {k: walk(v, None if ps is None else ps[k]) for k, v in tree.items()}
         if isinstance(tree, list):
-            return [walk(v) for v in tree]
+            return [walk(v, None if ps is None else ps[i]) for i, v in enumerate(tree)]
         raise TypeError(type(tree))
 
-    return walk(specs)
+    return walk(specs, pspecs)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,14 @@ absorbed form; an SSM config's are one
 training instrumentation) reach only the transformer backbone: the JAX
 package's SSM and hybrid forwards ignore them too.
 
+Under a runtime with a mesh (``Runtime(sharding=ShardingPolicy(mesh=...))``)
+the dense and MoE families run sharded
+(:mod:`repro_torch.models.transformer`): ``params`` holds this rank's
+shards, and :func:`loss_fn` takes the vocab-parallel cross entropy of the
+rank's logits and returns the global mean over the batch the data ranks
+hold together.  The SSM and hybrid families (and MLA and the frontends)
+refuse a mesh of more than one rank (ROADMAP queue 1, item 14c).
+
 A frontend config (``inputs_embeds`` in the batch, and ``positions`` under
 M-RoPE) runs on the dense family only; its logits are ``[B, S, K, V]``
 under the audio frontend, and :func:`loss_fn` then takes labels ``[B, S,
@@ -33,8 +41,10 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import ssm as ssm_mod
+from repro_torch import runtime as rtm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import Spec, rms_norm
+from repro_torch.parallel import sharding as S
 
 __all__ = ["param_specs", "forward", "loss_fn", "prefill", "decode_step", "init_cache"]
 
@@ -48,6 +58,10 @@ def _supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: a {cfg.frontend} frontend on the {cfg.family} family is not ported "
             "(no registered config has one)")
+    if cfg.family in ("ssm", "hybrid"):
+        policy = rtm.resolve().sharding
+        if policy is not None and policy.size > 1:
+            tfm.check_shardable(cfg, 1)
 
 
 def _ssm_backbone_specs(cfg: ModelConfig) -> dict:
@@ -110,10 +124,20 @@ def loss_fn(params, cfg: ModelConfig, batch, probes=None, taps=None):
     K, V]`` logits, the mean over every codebook's).  ``probes``/``taps``
     are the training instrumentation of
     :func:`repro_torch.models.transformer.forward`."""
-    logits = forward(params, cfg, batch, probes=probes, taps=taps).float()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
-    return nll.mean()
+    sh = tfm.shards_of(cfg) if cfg.family in ("dense", "moe") else None
+    if sh is None:
+        logits = forward(params, cfg, batch, probes=probes, taps=taps).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+        return nll.mean()
+    # on a mesh: the vocab-parallel cross entropy of this rank's logits; each
+    # data rank's share of the global mean, summed over the data axes (the
+    # sum's backward is the identity: each rank differentiates its share)
+    logits, start = tfm.forward_local(params, cfg, batch, probes=probes, taps=taps)
+    logits = logits.float().reshape(-1, logits.shape[-1])
+    group = sh.model_group if logits.shape[-1] != cfg.vocab_size else None
+    nll = S.vocab_parallel_ce(logits, batch["labels"].reshape(-1), start, group)
+    return S.tp_reduce(nll.sum() / (nll.numel() * sh.n_data), sh.data_group)
 
 
 def prefill(params, cfg: ModelConfig, batch):

@@ -30,6 +30,15 @@ expert-parallel over ``torch.distributed``, as the JAX package runs it under
 Capacity is counted per shard, as in the JAX package, so a shard can drop
 other tokens than one device does: the sharded layer equals the unsharded
 one only where no expert overflows (a large ``capacity_factor``).
+
+The layer differentiates: the all-to-alls are their own transposes, the
+FSDP gather of the expert FFN dim reduce-scatters its gradient over
+``data`` and the decode branch's sum is the identity backward.  Called with
+global tensors (:func:`moe_ffn` with a mesh), each rank's gradients are its
+own shard's contribution, and their sum over the ranks is the gradient of
+the whole layer.  In a whole sharded model (:func:`moe_ffn_sharded`) the
+tensors are the rank's own: the activations its data rows, replicated over
+``model``, and the weights its shards under the model's ``param_pspecs``.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ import torch.distributed as dist
 from repro_torch import runtime as rtm
 from repro_torch.models.common import ACTIVATIONS, Spec
 
-__all__ = ["MoEConfig", "moe_specs", "moe_ffn", "expert_capacity", "decode_local_step"]
+__all__ = ["MoEConfig", "moe_specs", "moe_ffn", "moe_ffn_sharded", "expert_capacity", "decode_local_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +85,10 @@ def _a2a_tiled(x, split_axis: int, concat_axis: int, group):
     """Tiled all-to-all over ``group``: ``x`` cut into as many equal chunks
     along ``split_axis`` as the group has ranks, chunk ``i`` sent to rank
     ``i``, the received chunks concatenated along ``concat_axis`` in rank
-    order (``jax.lax.all_to_all(..., tiled=True)``)."""
+    order (``jax.lax.all_to_all(..., tiled=True)``); ``group=None`` is one
+    rank, whose all-to-all is the identity."""
+    if group is None:
+        return x
     n = dist.get_world_size(group)
     send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
     recv = torch.empty_like(send)
@@ -238,36 +250,53 @@ def decode_local_step(cfg: MoEConfig, shard: int, ep_size: int, params, x2, rt=N
     return _combine(cfg, ye, slot, top_p, e_local * cap)
 
 
-def _moe_sharded(cfg: MoEConfig, ep_size: int, seq_sharded: bool, params, x2, *, data_group,
-                 model_group, rt=None):
-    """One rank's expert-parallel layer.  ``x2 [t_local, d]``; expert
-    weights ``[E / ep_size, d, f / data]`` (``w_down`` ``[E / ep_size, f /
-    data, d]``)."""
-    from repro_torch.parallel.sharding import all_gather_cat  # local: parallel imports runtime
+def _moe_sharded(cfg: MoEConfig, ep_size: int, seq_sharded: bool, params, x2, *, model_group, rt=None):
+    """One rank's expert-parallel layer.  ``x2 [t_local, d]``; ``params``
+    the router and the rank's experts ``[E / ep_size, d, f]`` (``w_down``
+    ``[E / ep_size, f, d]``), already gathered over ``data``.
+    ``model_group`` is ``None`` for an expert-parallel size of 1."""
+    from repro_torch.parallel.sharding import tp_reduce  # local: parallel imports runtime
 
     e = cfg.num_experts
     t = x2.shape[0]
-    # FSDP: gather the expert FFN shard over the data axis
-    experts = {
-        "router": params["router"],
-        "w_gate": all_gather_cat(params["w_gate"], data_group, 2),
-        "w_up": all_gather_cat(params["w_up"], data_group, 2),
-        "w_down": all_gather_cat(params["w_down"], data_group, 1),
-    }
     if not seq_sharded:
-        y = decode_local_step(cfg, dist.get_rank(model_group), ep_size, experts, x2, rt=rt)
-        dist.all_reduce(y, group=model_group)
-        return y
-    top_p, top_e, _ = _route(cfg, x2, experts["router"])
+        shard = dist.get_rank(model_group) if model_group is not None else 0
+        return tp_reduce(decode_local_step(cfg, shard, ep_size, params, x2, rt=rt), model_group)
+    top_p, top_e, _ = _route(cfg, x2, params["router"])
     cap = expert_capacity(cfg, t)
     table, pos, fits = _bucket(cfg, top_e, e, cap, t)
     x_pad = torch.cat([x2, x2.new_zeros((1, x2.shape[1]))], 0)
     xe = x_pad[torch.clamp_max(table // cfg.top_k, t)]  # [E, C, d]
     xe = _a2a(cfg, xe, 0, 1, model_group)  # dispatch: tokens travel to their experts' rank
-    ye = _expert_ffn(cfg, xe, experts["w_gate"], experts["w_up"], experts["w_down"], rt=rt)
+    ye = _expert_ffn(cfg, xe, params["w_gate"], params["w_up"], params["w_down"], rt=rt)
     ye = _a2a(cfg, ye, 1, 0, model_group)  # [E, C, d]: back to the tokens' rank
     slot = torch.where(fits, top_e * cap + pos, e * cap)
     return _combine(cfg, ye, slot, top_p, e * cap)
+
+
+#: the expert-parallel layer's weight specs (JAX's ``shard_map`` in_specs)
+_W_SPECS = {
+    "router": (None, None),
+    "w_gate": ("model", None, "data"),
+    "w_up": ("model", None, "data"),
+    "w_down": ("model", "data", None),
+}
+
+
+def _gather_experts(params, specs, group_of):
+    """The expert weights gathered over ``data`` (FSDP of the expert FFN
+    dim), the gradient reduce-scattered back; ``group_of(entry)`` gives a
+    spec entry's ``(group, size, index)``."""
+    from repro_torch.parallel.sharding import gather_dim  # local: parallel imports runtime
+
+    out = {}
+    for k in ("w_gate", "w_up", "w_down"):
+        w = params[k]
+        for dim, entry in enumerate(specs[k]):
+            if entry == "data":
+                w = gather_dim(w, dim, group_of(entry)[0], grad_sum=True)
+        out[k] = w
+    return out
 
 
 def _moe_expert_parallel(cfg: MoEConfig, params, x, mesh, seq_sharded: bool, rt=None):
@@ -275,12 +304,7 @@ def _moe_expert_parallel(cfg: MoEConfig, params, x, mesh, seq_sharded: bool, rt=
     optional): every rank passes the global ``x`` and expert weights and
     gets the global output, computing on its own slices."""
     from repro_torch.parallel import sharding as S  # local: parallel imports runtime
-    from repro_torch.runtime.backends import needs_grad
 
-    if needs_grad(x, *params.values()):
-        raise NotImplementedError(
-            "differentiating the expert-parallel MoE needs the sharded train step (ROADMAP queue 1, "
-            "item 14b); its all-to-alls differentiate (_quantized_all_to_all)")
     sizes = S.axis_sizes(mesh)
     if "model" not in sizes or "data" not in sizes:
         raise ValueError(f"the expert-parallel MoE needs mesh axes 'data' and 'model', got {tuple(sizes)}")
@@ -288,19 +312,55 @@ def _moe_expert_parallel(cfg: MoEConfig, params, x, mesh, seq_sharded: bool, rt=
     ep = sizes["model"]
     seq_ax = "model" if (seq_sharded and s % ep == 0 and s > 1) else None
     x_spec = (S.data_axes(mesh), seq_ax, None)
-    w_specs = {
-        "router": (None, None),
-        "w_gate": ("model", None, "data"),
-        "w_up": ("model", None, "data"),
-        "w_down": ("model", "data", None),
-    }
     policy = S.ShardingPolicy(mesh=mesh)
+    group_of = S.ModelShards(policy, None).group_of
     xl = S.local_shard(x, x_spec, policy)
-    local = {k: S.local_shard(params[k], spec, policy) for k, spec in w_specs.items()}
-    y = _moe_sharded(cfg, ep, seq_ax is not None, local, xl.reshape(-1, d),
-                     data_group=S.axis_group(mesh, ("data",))[0],
-                     model_group=S.axis_group(mesh, ("model",))[0], rt=rt)
-    return S.gather_shard(y.reshape(xl.shape), x_spec, policy)
+    local = {k: S.local_shard(params[k], spec, policy) for k, spec in _W_SPECS.items()}
+    experts = {"router": local["router"], **_gather_experts(local, _W_SPECS, group_of)}
+    model_group = group_of("model")[0] if ep > 1 else None
+    y = _moe_sharded(cfg, ep, seq_ax is not None, experts, xl.reshape(-1, d), model_group=model_group,
+                     rt=rt).reshape(xl.shape)
+    for dim, entry in enumerate(x_spec):  # the global output; the backward takes this rank's slice
+        if entry:
+            y = S.tp_gather(y, dim, group_of(entry)[0])
+    return y
+
+
+def moe_ffn_sharded(params, specs, cfg: MoEConfig, x, shards, rt=None, *, seq_sharded: bool = True):
+    """The MoE FFN of a whole sharded model: ``x [B / data, S, d]`` this
+    rank's rows (replicated over ``model``), ``params`` its shards under
+    ``specs`` (the model's ``param_pspecs``: experts over ``model``, their
+    FFN dim over ``data``, the router's d_model over ``data``), ``shards`` a
+    :class:`~repro_torch.parallel.sharding.ModelShards`.  Training and
+    prefill split the sequence over ``model`` (``tp_split``), dispatch by
+    all-to-all and gather the sequence back; decode (or a sequence the
+    model axis does not divide) runs every rank's local experts on all
+    tokens and sums.  The router, used on each rank's own tokens or experts,
+    gets its gradient summed over ``model``.  Shared experts run replicated
+    over ``model``.  Returns ``[B / data, S, d]``, replicated over
+    ``model``."""
+    from repro_torch.parallel import sharding as S  # local: parallel imports runtime
+
+    b, s, d = x.shape
+    g, ep = shards.model_group, shards.tp
+    for k in ("w_gate", "w_up", "w_down"):
+        if ep > 1 and not shards.is_model(specs[k][0]):
+            raise ValueError(f"expert weight {k} spec {specs[k]}: the experts must shard over 'model'")
+    shared = 0.0
+    if cfg.num_shared_experts:
+        w = {k: S.gather_model(S.fsdp_gather(v, specs["shared"][k], shards), specs["shared"][k], shards)
+             for k, v in params["shared"].items()}
+        shared = _shared_ffn(cfg, w, x)
+    experts = {"router": S.tp_copy(S.fsdp_gather(params["router"], specs["router"], shards), g),
+               **_gather_experts(params, specs, shards.group_of)}
+    if seq_sharded and s % ep == 0 and s > 1:
+        xl = S.tp_split(x, 1, g)
+        y = _moe_sharded(cfg, ep, True, experts, xl.reshape(-1, d), model_group=g, rt=rt)
+        y = S.tp_gather(y.reshape(xl.shape), 1, g)
+    else:
+        y = _moe_sharded(cfg, ep, False, experts, S.tp_copy(x, g).reshape(-1, d), model_group=g,
+                         rt=rt).reshape(b, s, d)
+    return y + shared
 
 
 def moe_ffn(params, cfg: MoEConfig, x, rt=None, *, mesh=None, seq_sharded: bool = True):

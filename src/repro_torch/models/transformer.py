@@ -33,6 +33,22 @@ the odd layers of each stack are global and the even ones attend within
 ``sliding_window``.  ``kv_cache_quant`` keeps the KV cache in int8 with
 fp32 scales (:mod:`repro_torch.models.attention`).
 
+Under a runtime whose ``sharding`` policy has a mesh the model is sharded
+(:class:`repro_torch.parallel.sharding.ModelShards`): ``params`` holds this
+rank's :func:`~repro_torch.parallel.sharding.local_shard` of every leaf
+under the policy's ``param_pspecs``, and each layer gathers its weights over
+the data axes (FSDP) and runs tensor-parallel over ``model``, a local step
+plus one collective: GQA attention column-parallel in its heads (K/V
+replicated where the kv heads do not divide the model axis) and
+row-parallel in ``wo``; the gated FFN column-parallel in ``w_gate``/``w_up``
+(on the fused ReLU path each rank's gate emits the mask of its own columns,
+which plans its own ``w_down`` rows) and row-parallel in ``w_down``, whose
+fp32 partials are summed; the embedding and the LM head vocab-parallel; the
+MoE expert-parallel (:func:`repro_torch.models.moe.moe_ffn_sharded`).  A
+body whose heads, FFN width or vocab do not divide the model axis runs
+replicated over it.  Sharding MLA, the frontends, SSM and hybrid configs
+over more than one rank is not ported (ROADMAP queue 1, item 14c).
+
 A frontend config (``frontend``: ``"vision"`` or ``"audio"``, the JAX
 package's stubs) has no embedding table: its batch carries precomputed
 ``inputs_embeds [B, S, d]``, cast to bf16 as JAX casts them.  Under
@@ -44,6 +60,8 @@ its kernels, and so does the port.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -56,6 +74,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ACTIVATIONS, Spec, rms_norm, softcap
+from repro_torch.parallel import sharding as S
 
 __all__ = [
     "attn_config",
@@ -66,6 +85,10 @@ __all__ = [
     "mlp_fwd",
     "head_matmul",
     "forward",
+    "forward_local",
+    "shards_of",
+    "attn_local",
+    "local_cache_config",
     "prefill",
     "decode_step",
     "init_layer_caches",
@@ -75,6 +98,58 @@ __all__ = [
 def check_supported(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported (dense and moe only)")
+
+
+def check_shardable(cfg: ModelConfig, tp: int) -> None:
+    """Refuse what this port does not shard over more than one rank."""
+    what = ("multi-head latent attention" if cfg.use_mla else f"the {cfg.frontend} frontend" if cfg.frontend
+            else None if cfg.family in ("dense", "moe") else f"the {cfg.family} family")
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: sharding {what} over a mesh of more than one rank is not ported "
+            "(ROADMAP queue 1, item 14c); run it on a mesh of one rank or without one")
+    if cfg.family == "moe" and cfg.num_experts % tp:
+        raise ValueError(f"{cfg.name}: {cfg.num_experts} experts do not divide the model axis ({tp})")
+
+
+@functools.lru_cache(maxsize=32)
+def _model_shards(cfg: ModelConfig, policy) -> S.ModelShards:
+    sh = S.ModelShards(policy, policy.param_pspecs(backbone_specs(cfg)))
+    if sh.world > 1:
+        check_shardable(cfg, sh.tp)
+    return sh
+
+
+def shards_of(cfg: ModelConfig, rt=None) -> "S.ModelShards | None":
+    """The sharded model's groups and parameter specs under ``rt``'s (or
+    the ambient runtime's) mesh, ``None`` without one."""
+    policy = rtm.resolve(rt).sharding
+    if policy is None or policy.mesh is None:
+        return None
+    return _model_shards(cfg, policy)
+
+
+def attn_local(acfg: attn.AttnConfig, tp: int, rank: int, device=None):
+    """``(config, kv_index)`` of model rank ``rank`` of ``tp`` in
+    head-parallel attention (``num_heads`` divides ``tp``): the rank's
+    ``num_heads / tp`` query heads and its ``num_kv_heads / tp`` kv heads,
+    or, where the kv heads do not divide ``tp``, all of them (replicated, as
+    JAX's divisibility rule replicates them) with ``kv_index`` naming each
+    local query head's kv head."""
+    h, kvh = acfg.num_heads, acfg.num_kv_heads
+    hl = h // tp
+    if kvh % tp == 0:
+        return dataclasses.replace(acfg, num_heads=hl, num_kv_heads=kvh // tp), None
+    kv_index = torch.div(rank * hl + torch.arange(hl, device=device), h // kvh, rounding_mode="floor")
+    return dataclasses.replace(acfg, num_heads=hl), kv_index
+
+
+def local_cache_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The config whose decode caches a model rank of ``tp`` holds: its own
+    kv heads under head-parallel attention, all of them otherwise."""
+    if tp > 1 and not cfg.use_mla and cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0:
+        return dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads // tp)
+    return cfg
 
 
 def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
@@ -166,9 +241,15 @@ def _stacks(params) -> list[str]:
     return [k for k in ("dense_layers", "layers") if k in params]
 
 
-def mlp_fwd(params, cfg: ModelConfig, x, rt=None, taps: dict | None = None):
+def mlp_fwd(params, cfg: ModelConfig, x, rt=None, taps: dict | None = None, *, partial: bool = False):
     """The FFN; ``taps`` (a dict) receives the hidden activation's
-    :class:`~repro_torch.core.sparsity.SparsityStats` as ``"ffn_act"``."""
+    :class:`~repro_torch.core.sparsity.SparsityStats` as ``"ffn_act"``.
+
+    As a tensor-parallel rank's local step (``params`` its columns of
+    ``w_gate``/``w_up`` and rows of ``w_down``), ``partial`` returns the
+    fp32 partial output: on the fused path the planned ``w_down`` product
+    writes fp32 from its operands (the kernel's bf16-in, fp32-out store),
+    planned on the mask the rank's own gate emitted."""
     act = ACTIVATIONS[cfg.activation]
     rt = rtm.resolve(rt)
     if cfg.mlp_gated:
@@ -183,51 +264,111 @@ def mlp_fwd(params, cfg: ModelConfig, x, rt=None, taps: dict | None = None):
             if taps is not None:
                 taps["ffn_act"] = sps.measure(h2.reshape(*lead, -1))
             plan_h = rt.plan_for_fused_output(gmask, h2, params["w_down"])
-            return rt.matmul(h2, params["w_down"], plan=plan_h).reshape(*lead, -1)
+            out = rt.matmul(h2, params["w_down"], plan=plan_h, out_dtype=torch.float32 if partial else None)
+            return out.reshape(*lead, -1)
         h = act(x @ params["w_gate"]) * (x @ params["w_up"])
     else:
         h = act(x @ params["w_up"])
     if taps is not None:
         taps["ffn_act"] = sps.measure(h)
+    if partial:
+        return h.float() @ params["w_down"].float()
     return h @ params["w_down"]
 
 
-def head_matmul(cfg: ModelConfig, h, lm_head):
+def _sum_stats(stats: sps.SparsityStats, sh: S.ModelShards) -> sps.SparsityStats:
+    """Tap counts summed over the mesh (a ratio of them is the global one)."""
+    return sps.SparsityStats(*S.mesh_all_reduce(torch.stack(tuple(stats)), sh).unbind(0))
+
+
+def _gathered(p, spec, sh: S.ModelShards) -> dict:
+    """A layer's weights gathered over the data axes (FSDP), keys as ``p``."""
+    return {k: S.fsdp_gather(v, spec[k], sh) for k, v in p.items()}
+
+
+def _replicated(w, spec, sh: S.ModelShards) -> dict:
+    """Weights gathered over ``model`` too, for a body that runs replicated."""
+    return {k: S.gather_model(v, spec[k], sh) for k, v in w.items()}
+
+
+def _mlp_sharded(p, spec, cfg: ModelConfig, x, sh: S.ModelShards, rt=None, taps: dict | None = None):
+    """The dense FFN on a mesh: tensor-parallel where ``mlp`` shards over
+    ``model`` (the local step is :func:`mlp_fwd` with ``partial``, then one
+    all-reduce of the fp32 partials), else replicated over it."""
+    w = _gathered(p, spec, sh)
+    if sh.tp == 1 or not sh.is_model(spec["w_up"][1]):
+        out = mlp_fwd(_replicated(w, spec, sh), cfg, x, rt=rt, taps=taps)
+    else:
+        part = mlp_fwd(w, cfg, S.tp_copy(x, sh.model_group), rt=rt, taps=taps, partial=True)
+        out = S.tp_reduce(part, sh.model_group).to(torch.promote_types(x.dtype, w["w_down"].dtype))
+    if taps is not None:
+        taps["ffn_act"] = _sum_stats(taps["ffn_act"], sh)
+    return out
+
+
+def head_matmul(cfg: ModelConfig, h, lm_head, *, key=None, vocab: int | None = None):
     """``h @ lm_head`` through the active runtime.  Under a sparse runtime
-    the weight-side plan is keyed by ``id(lm_head)`` and built once; every
-    later call with the same tensor object replays it from the plan cache."""
+    the weight-side plan is keyed by ``key`` (default ``("lm_head",
+    id(lm_head))``) and built once; every later call with the same tensor
+    object replays it from the plan cache.  ``vocab``: ``lm_head`` is a
+    vocab-parallel slice of a head that wide, whose launch the slice's
+    splits K as (its logits bit-equal to the whole head's)."""
     del cfg
     rt = rtm.resolve()
     b, s, d = h.shape
     if rt.wants_sparse:
-        out = rt.matmul(h.reshape(b * s, d), lm_head, plan_key=("lm_head", id(lm_head)), side="B")
+        key = ("lm_head", id(lm_head)) if key is None else key
+        whole = (vocab, d, b * s) if vocab is not None and vocab != lm_head.shape[-1] else None
+        out = rt.matmul(h.reshape(b * s, d), lm_head, plan_key=key, side="B", split_shape=whole)
         return out.reshape(b, s, -1)
     return h @ lm_head
 
 
-def _embed_in(params, cfg: ModelConfig, batch):
+def _embed_in(params, cfg: ModelConfig, batch, sh: "S.ModelShards | None" = None):
     """The first hidden state: a frontend's ``inputs_embeds`` cast to bf16
     (as JAX casts them, whatever the model's dtype), else the token
     embedding by gather (equal to the JAX decode path's one-hot matmul: one
-    nonzero term per row)."""
+    nonzero term per row).  On a mesh the lookup is vocab-parallel: each
+    model rank gathers the ids inside its slice of the table, zero rows for
+    the rest, and one all-reduce sums them."""
     if cfg.frontend is not None:
         h = batch["inputs_embeds"].to(torch.bfloat16)
-    else:
+    elif sh is None:
         h = params["embed"][batch["tokens"].long()]
+    else:
+        spec = sh.specs["embed"]
+        table = S.fsdp_gather(params["embed"], spec, sh)
+        ids = batch["tokens"].long()
+        if sh.tp > 1 and sh.is_model(spec[0]):
+            rows = table.shape[0]
+            local = ids - sh.tp_rank * rows
+            inside = (local >= 0) & (local < rows)
+            h = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+            h = S.tp_reduce(h, sh.model_group)
+        else:
+            h = S.gather_model(table, spec, sh)[ids]
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype)
     return h
 
 
-def _ffn(p, cfg: ModelConfig, x, rt=None, taps: dict | None = None):
+def _ffn(p, cfg: ModelConfig, x, rt=None, taps: dict | None = None, *, sh=None, spec=None,
+         decode: bool = False):
     """The block's FFN: the MoE FFN where its MLP has a router, whose taps
     measure the MoE output (there is no hidden activation to tap inside the
-    expert dispatch), else :func:`mlp_fwd`."""
+    expert dispatch), else :func:`mlp_fwd`; on a mesh (``sh``, with the
+    layer's ``spec``) their sharded forms.  ``decode`` takes the MoE's
+    decode branch."""
     if cfg.num_experts and "router" in p:
-        m = moe_mod.moe_ffn(p, moe_config(cfg), x, rt=rt)
+        if sh is not None:
+            m = moe_mod.moe_ffn_sharded(p, spec, moe_config(cfg), x, sh, rt=rt, seq_sharded=not decode)
+        else:
+            m = moe_mod.moe_ffn(p, moe_config(cfg), x, rt=rt, seq_sharded=not decode)
         if taps is not None:
-            taps["ffn_act"] = sps.measure(m)
+            taps["ffn_act"] = sps.measure(m) if sh is None else _sum_stats(sps.measure(m), sh)
         return m
+    if sh is not None:
+        return _mlp_sharded(p, spec, cfg, x, sh, rt=rt, taps=taps)
     return mlp_fwd(p, cfg, x, rt=rt, taps=taps)
 
 
@@ -271,34 +412,99 @@ def _post_norm(p, name: str, cfg: ModelConfig, x):
     return rms_norm(x, p[name], zero_centered=True) if cfg.post_norms else x
 
 
+def _attn_sharded(p, spec, cfg: ModelConfig, sh: S.ModelShards, device):
+    """``(weights, config, kv_index, tensor_parallel)`` of this rank's
+    attention on a mesh: the layer's weights gathered over the data axes,
+    then head-parallel over ``model`` (:func:`attn_local`; replicated K/V
+    gathered whole, their gradients summed over ``model``; the qk-norm
+    gains, used on local heads only, likewise), or gathered over ``model``
+    too where the heads do not divide it (replicated)."""
+    acfg = attn_config(cfg)
+    w = _gathered(p, spec, sh)
+    if sh.tp == 1 or acfg.num_heads % sh.tp:
+        return _replicated(w, spec, sh), acfg, None, False
+    lcfg, kv_index = attn_local(acfg, sh.tp, sh.tp_rank, device)
+    g = sh.model_group
+    if kv_index is not None:
+        for k in ("wk", "wv"):
+            w[k] = (S.gather_model(w[k], spec[k], sh, grad_sum=True) if sh.is_model(spec[k][1])
+                    else S.tp_copy(w[k], g))
+    for k in ("q_norm", "k_norm"):
+        if k in w:
+            w[k] = S.tp_copy(w[k], g)
+    return w, lcfg, kv_index, True
+
+
+def _attention_call(p, cfg: ModelConfig, x, i: int, *, sh=None, spec=None, decode=None, positions=None,
+                    rope=None, return_cache: bool = False):
+    """Block ``i``'s attention over ``x`` (after its norm): the full-sequence
+    form, or with ``decode = (cache, pos)`` one decode step.  On a mesh the
+    head-parallel local step (:func:`_attn_sharded`) runs between
+    :func:`~repro_torch.parallel.sharding.tp_copy` and one all-reduce of its
+    fp32 partials.  Returns ``(y, cache)``."""
+    acfg, _, fwd, dec = _attention(cfg)
+    kw = _layer_kw(cfg, i)
+    par = False
+    if sh is not None and not cfg.use_mla:  # MLA shards on no mesh of several ranks (check_shardable)
+        p, acfg, kv_index, par = _attn_sharded(p, spec, cfg, sh, x.device)
+        if par:
+            dt = torch.promote_types(x.dtype, p["wq"].dtype)
+            kw.update(kv_index=kv_index, partial=True)
+            x = S.tp_copy(x, sh.model_group)
+    if decode is not None:
+        y, cache = dec(p, acfg, x, *decode, rope, **kw)
+    else:
+        out = fwd(p, acfg, x, positions, rope, return_cache=return_cache, **kw)
+        y, cache = out if return_cache else (out, None)
+    if par:
+        y = S.tp_reduce(y, sh.model_group).to(dt)
+    return y, cache
+
+
 def _block_fwd(p, cfg: ModelConfig, h, positions, rope, i: int, *, return_cache: bool = False,
-               probe=None, taps: dict | None = None, rt=None):
+               probe=None, taps: dict | None = None, rt=None, sh=None, spec=None):
     """Block ``i`` of its stack.  ``probe`` (a zero tensor) is added at the
     MLP output, so its gradient is this layer's G stream; ``taps`` as in
-    :func:`_ffn`."""
-    acfg, _, fwd, _ = _attention(cfg)
+    :func:`_ffn`; ``sh``/``spec`` the mesh's groups and the layer's specs."""
     zc = cfg.post_norms  # gemma-style (1 + w) norms
-    out = fwd(p["attn"], acfg, rms_norm(h, p["ln1"], zero_centered=zc), positions, rope,
-              return_cache=return_cache, **_layer_kw(cfg, i))
-    a, cache = out if return_cache else (out, None)
+    sub = (lambda k: spec[k]) if spec is not None else (lambda k: None)
+    a, cache = _attention_call(p["attn"], cfg, rms_norm(h, p["ln1"], zero_centered=zc), i, sh=sh,
+                               spec=sub("attn"), positions=positions, rope=rope, return_cache=return_cache)
     h = h + _post_norm(p, "post_attn_norm", cfg, a)
-    m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"], zero_centered=zc), rt=rt, taps=taps)
+    m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"], zero_centered=zc), rt=rt, taps=taps, sh=sh, spec=sub("mlp"))
     m = _post_norm(p, "post_mlp_norm", cfg, m)
     if probe is not None:  # cast, so the add never promotes a bf16 activation
         m = m + probe.to(m.dtype)
     return h + m, cache
 
 
-def _head(params, cfg: ModelConfig, h):
+def _head(params, cfg: ModelConfig, h, sh=None, *, local: bool = False):
     """Final norm and LM head: logits ``[B, S, v]``, or ``[B, S, K, v]``
     from the audio frontend's ``K`` codebook heads (a plain einsum, as JAX
-    computes them)."""
+    computes them).  On a mesh the head is vocab-parallel: each model rank
+    multiplies by its own ``lm_head`` columns (side B, its plan keyed by its
+    own shard), and the logits are gathered over ``model`` unless ``local``,
+    which returns ``(this rank's logits, the first vocab id of its
+    slice)``."""
     h = rms_norm(h, params["final_norm"], zero_centered=cfg.post_norms)
+    w, start, vocab_par = params["lm_head"], 0, False
+    if sh is not None:
+        spec = sh.specs["lm_head"]
+        w = S.fsdp_gather(w, spec, sh)
+        vocab_par = sh.tp > 1 and sh.is_model(spec[-1])
+        if vocab_par:
+            h = S.tp_copy(h, sh.model_group)
+            start = sh.tp_rank * w.shape[-1]
+        else:
+            w = S.gather_model(w, spec, sh)
     if cfg.frontend == "audio":
-        logits = torch.einsum("bsd,kdv->bskv", h, params["lm_head"])
+        logits = torch.einsum("bsd,kdv->bskv", h, w)
     else:
-        logits = head_matmul(cfg, h, params["lm_head"])
-    return softcap(logits, cfg.final_softcap)
+        logits = head_matmul(cfg, h, w, key=("lm_head", id(params["lm_head"])), vocab=cfg.vocab_size)
+    logits = softcap(logits, cfg.final_softcap)
+    if local:
+        return logits, start
+    return S.tp_gather(logits, logits.ndim - 1, sh.model_group) if vocab_par else logits
 
 
 def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
@@ -314,9 +520,17 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
     backward; the runtime is resolved here and passed in, since the
     recompute runs on autograd's thread, outside this call's ambient
     runtime."""
+    return forward_local(params, cfg, batch, probes=probes, taps=taps, local=False)
+
+
+def forward_local(params, cfg: ModelConfig, batch, probes=None, taps=None, *, local: bool = True):
+    """:func:`forward`; on a mesh with ``local``, ``(this rank's logits,
+    the first vocab id of its slice)`` (the vocab-parallel cross entropy's
+    input: the logits are never gathered)."""
     check_supported(cfg)
     rt = rtm.resolve()
-    h = _embed_in(params, cfg, batch)
+    sh = shards_of(cfg, rt)
+    h = _embed_in(params, cfg, batch, sh)
     positions = _positions(cfg, batch, h.shape[1], h.device)
     rope = _rope(cfg, positions)
     for stack in _stacks(params):
@@ -325,8 +539,9 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
         for i, p in enumerate(params[stack]):
             t = {} if taps is not None else None
             pr = None if stack_probes is None else stack_probes[i]
-            body = lambda h, pr, p=p, i=i, t=t: _block_fwd(p, cfg, h, positions, rope, i, probe=pr, taps=t,
-                                                           rt=rt)[0]
+            spec = sh.specs[stack][i] if sh is not None else None
+            body = lambda h, pr, p=p, i=i, t=t, spec=spec: _block_fwd(
+                p, cfg, h, positions, rope, i, probe=pr, taps=t, rt=rt, sh=sh, spec=spec)[0]
             if cfg.remat and torch.is_grad_enabled():
                 h = torch.utils.checkpoint.checkpoint(body, h, pr, use_reentrant=False)
             else:
@@ -334,7 +549,10 @@ def forward(params, cfg: ModelConfig, batch, probes=None, taps=None):
             stats.append(t)
         if taps is not None:
             taps[stack] = {"ffn_act": sps.SparsityStats(*map(torch.stack, zip(*(t["ffn_act"] for t in stats))))}
-    return _head(params, cfg, h)
+    if sh is None:
+        out = _head(params, cfg, h)
+        return (out, 0) if local else out
+    return _head(params, cfg, h, sh, local=local)
 
 
 def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
@@ -358,18 +576,21 @@ def decode_step(params, cfg: ModelConfig, caches, batch, pos):
     """One-token decode against pre-filled caches; returns ``(logits,
     caches)`` with the caches updated in place."""
     check_supported(cfg)
-    h = _embed_in(params, cfg, batch)
-    acfg, tables, _, decode = _attention(cfg)
+    sh = shards_of(cfg)
+    h = _embed_in(params, cfg, batch, sh)
+    acfg, tables, _, _ = _attention(cfg)
     rope = tables(acfg, attn.decode_positions(pos, h.shape[0], h.device, mrope=cfg.mrope_sections is not None))
     zc = cfg.post_norms
     for stack in _stacks(params):
         for i, (p, cache) in enumerate(zip(params[stack], caches[stack])):
-            a, _ = decode(p["attn"], acfg, rms_norm(h, p["ln1"], zero_centered=zc), cache, pos, rope,
-                          **_layer_kw(cfg, i))
+            spec = sh.specs[stack][i] if sh is not None else None
+            sub = (lambda k: spec[k]) if spec is not None else (lambda k: None)
+            a, _ = _attention_call(p["attn"], cfg, rms_norm(h, p["ln1"], zero_centered=zc), i, sh=sh,
+                                   spec=sub("attn"), decode=(cache, pos), rope=rope)
             h = h + _post_norm(p, "post_attn_norm", cfg, a)
-            m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"], zero_centered=zc))
+            m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"], zero_centered=zc), sh=sh, spec=sub("mlp"), decode=True)
             h = h + _post_norm(p, "post_mlp_norm", cfg, m)
-    return _head(params, cfg, h), caches
+    return _head(params, cfg, h, sh), caches
 
 
 def prefill(params, cfg: ModelConfig, batch):
@@ -378,13 +599,15 @@ def prefill(params, cfg: ModelConfig, batch):
     dtype, or int8 with fp32 scales under ``kv_cache_quant``:
     ``Runtime.grow_caches`` casts them to the decode caches' dtypes)."""
     check_supported(cfg)
-    h = _embed_in(params, cfg, batch)
+    sh = shards_of(cfg)
+    h = _embed_in(params, cfg, batch, sh)
     positions = _positions(cfg, batch, h.shape[1], h.device)
     rope = _rope(cfg, positions)
     caches: dict[str, Any] = {}
     for stack in _stacks(params):
         caches[stack] = []
         for i, p in enumerate(params[stack]):
-            h, cache = _block_fwd(p, cfg, h, positions, rope, i, return_cache=True)
+            spec = sh.specs[stack][i] if sh is not None else None
+            h, cache = _block_fwd(p, cfg, h, positions, rope, i, return_cache=True, sh=sh, spec=spec)
             caches[stack].append(cache)
-    return _head(params, cfg, h[:, -1:]), caches
+    return _head(params, cfg, h[:, -1:], sh), caches

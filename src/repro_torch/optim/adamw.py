@@ -78,9 +78,23 @@ def init_opt_state(params) -> OptState:
     return OptState(step=0, m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """``sqrt(sum(x^2))`` over every leaf, in fp32, on the leaves' device."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+def global_norm(tree, *, shards=None, specs=None) -> torch.Tensor:
+    """``sqrt(sum(x^2))`` over every leaf, in fp32, on the leaves' device.
+
+    On a mesh (``shards``, a :class:`~repro_torch.parallel.sharding.
+    ModelShards`, with ``specs`` the leaves' spec tuples in
+    :func:`tree_leaves` order) the leaves are this rank's shards: the sum
+    runs over the whole mesh, each replicated slice counted once (by the
+    first rank holding it), so every rank gets the global norm."""
+    leaves = tree_leaves(tree)
+    if shards is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    from repro_torch.parallel import sharding as S  # local: parallel imports runtime
+
+    own = S.owner_mask(specs, shards)
+    total = sum(torch.sum(torch.square(x.float())) for x, mine in zip(leaves, own) if mine)
+    total = total if isinstance(total, torch.Tensor) else torch.zeros((), device=leaves[0].device)
+    return torch.sqrt(S.mesh_all_reduce(total, shards))
 
 
 def lr_at(cfg: OptConfig, step: int) -> float:
@@ -95,12 +109,15 @@ def lr_at(cfg: OptConfig, step: int) -> float:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: OptState, cfg: OptConfig):
+def apply_updates(params, grads, state: OptState, cfg: OptConfig, *, gnorm=None):
     """One AdamW step, in place.  Returns ``(params, state, metrics)``:
     the same ``params`` tree (its tensors updated), the state with the step
     counter advanced (its moment tensors updated), and ``grad_norm`` (a
-    device scalar, before clipping) and ``lr``."""
-    gnorm = global_norm(grads)
+    device scalar, before clipping) and ``lr``.  ``gnorm`` is the gradient
+    norm to clip by (default :func:`global_norm` of ``grads``; a sharded
+    step passes the global norm of its shards, and each rank updates its
+    own shards)."""
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
     step = state.step + 1
     lr = lr_at(cfg, step)

@@ -24,10 +24,33 @@ There is no GSPMD here: a rank holds the slices :func:`local_shard` cuts,
 and the collectives are explicit (``parallel/spmm.py``, ``models/moe.py``,
 ``optim/compress.py``).  Every shard index is the rank's position in the
 process group of its axes, the order the collectives gather in.
+
+Whole dense and MoE models shard on this (:class:`ModelShards`): a rank
+holds the :func:`local_shard` of every parameter under
+:meth:`ShardingPolicy.param_pspecs`, and the model bodies run local
+products on local weights between explicit, differentiable collectives:
+
+* :func:`fsdp_gather` gathers a weight's ``data``-sharded dim before use;
+  its backward reduce-scatters (sums) the gradient over the same group;
+* :func:`tp_copy` (identity, backward all-reduce over ``model``) where a
+  replicated activation or weight enters a tensor-parallel region, and
+  :func:`tp_reduce` (all-reduce, backward identity) where the region's
+  partial sums leave it;
+* :func:`tp_split` / :func:`tp_gather` cut a replicated activation over
+  ``model`` and put it back together (the MoE's sequence split, the served
+  logits);
+* :func:`vocab_parallel_ce`, the cross entropy of vocab-sharded logits:
+  the max, the sum of exponentials and the target logit are all-reduced
+  over ``model``, and the logits are never gathered.
+
+Every helper skips its collective over a group of one rank and returns its
+input as it is (a weight keeps its identity, so a plan keyed by it is found
+again).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -47,6 +70,28 @@ __all__ = [
     "axis_group",
     "axis_sizes",
     "all_gather_cat",
+    "shard_slice",
+    "BatchShape",
+    "ModelShards",
+    "spec_leaves",
+    "map_specs",
+    "shard_tree",
+    "gather_tree",
+    "gather_to_first",
+    "fsdp_gather",
+    "gather_model",
+    "gather_dim",
+    "tp_copy",
+    "tp_reduce",
+    "tp_split",
+    "tp_gather",
+    "vocab_parallel_ce",
+    "ce_local_max",
+    "ce_local_sums",
+    "ce_local_grad",
+    "reduce_replicated_grads",
+    "owner_mask",
+    "mesh_all_reduce",
 ]
 
 
@@ -240,6 +285,25 @@ def _entry_axes(entry) -> tuple:
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
+def shard_slice(x: torch.Tensor, spec: tuple, index_of) -> torch.Tensor:
+    """The slice of ``x`` (a view) that ``spec`` gives the shard whose
+    ``(count, index)`` for each spec entry is ``index_of(entry)``: each dim
+    named by mesh axes is cut into ``count`` equal slices.  Needs no process
+    group, so one card can cut every rank's slice in turn; a dim that does
+    not divide raises, as ``shard_map`` does."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n, i = index_of(entry)
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide into {n} shards ({entry})")
+        step = x.shape[dim] // n
+        x = x.narrow(dim, i * step, step)
+    return x
+
+
 def local_shard(x: torch.Tensor, spec: tuple, policy: "ShardingPolicy") -> torch.Tensor:
     """This rank's slice of ``x`` under ``spec`` (a view): each dim named by
     mesh axes is cut into as many equal slices as the axes have ranks
@@ -248,15 +312,7 @@ def local_shard(x: torch.Tensor, spec: tuple, policy: "ShardingPolicy") -> torch
     ``shard_map`` does; a policy without a mesh returns ``x``."""
     if policy.mesh is None:
         return x
-    for dim, entry in enumerate(spec):
-        _, n, i = axis_group(policy.mesh, _entry_axes(entry))
-        if n == 1:
-            continue
-        if x.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide into {n} shards ({entry})")
-        step = x.shape[dim] // n
-        x = x.narrow(dim, i * step, step)
-    return x
+    return shard_slice(x, spec, lambda e: axis_group(policy.mesh, _entry_axes(e))[1:])
 
 
 def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -311,6 +367,11 @@ class ShardingPolicy:
 
     def replace(self, **kw) -> "ShardingPolicy":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def size(self) -> int:
+        """The mesh's rank count (1 without a mesh)."""
+        return 1 if self.mesh is None else math.prod(axis_sizes(self.mesh).values())
 
     @property
     def rule_table(self) -> dict:
@@ -368,3 +429,356 @@ class _OneDevice:
 
 
 _ONE = _OneDevice()
+
+
+# ---------------------------------------------------------------------------
+# the sharded model: its groups and its differentiable collectives
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShape:
+    """One input cell for :func:`batch_pspecs` / :func:`cache_pspecs`: the
+    global batch, the sequence length and ``kind`` (``"train"`` adds the
+    labels)."""
+
+    global_batch: int
+    seq_len: int
+    kind: str = "train"
+
+
+class ModelShards:
+    """The groups a sharded model body runs over, from a mesh-backed
+    ``policy``, and ``specs``, the spec tuples of the model's parameters
+    (``policy.param_pspecs(param_specs(cfg))``).
+
+    ``data_group`` spans the policy's data axes present in the mesh (the
+    batch's), ``model_group`` the model axis; each is ``None`` over one
+    rank, with ``n_data``/``tp`` its size and ``data_rank``/``tp_rank``
+    this rank's position.  Every rank of the mesh must build it (a group
+    over several axes is made collectively on first use)."""
+
+    def __init__(self, policy: "ShardingPolicy", specs):
+        if policy.mesh is None:
+            raise ValueError("ModelShards needs a mesh-backed policy")
+        self.policy, self.specs = policy, specs
+        self.data_axes, self.n_data, self.data_group = policy.spmm_axes("M")
+        self.model_axes, self.tp, self.model_group = policy.spmm_axes("N")
+        self.data_rank = dist.get_rank(self.data_group) if self.data_group is not None else 0
+        self.tp_rank = dist.get_rank(self.model_group) if self.model_group is not None else 0
+        self.world = policy.size
+
+    def group_of(self, entry) -> tuple:
+        """``(group, size, index)`` of a spec entry (see :func:`axis_group`)."""
+        return axis_group(self.policy.mesh, _entry_axes(entry))
+
+    def is_data(self, entry) -> bool:
+        axes = _entry_axes(entry)
+        return bool(axes) and all(a in self.policy.data_axes for a in axes)
+
+    def is_model(self, entry) -> bool:
+        return _entry_axes(entry) == (self.policy.model_axis,)
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree (nested dicts, lists and named
+    tuples) and its spec tree, whose leaves are spec tuples (``None`` for a
+    leaf that is no tensor, as an optimizer's step)."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, v, sp) for v, sp in zip(tree, specs)))
+    if isinstance(tree, list):
+        return [map_specs(fn, v, sp) for v, sp in zip(tree, specs)]
+    return tree if specs is None else fn(tree, specs)
+
+
+def shard_tree(tree, specs, policy: "ShardingPolicy"):
+    """This rank's shards of a tree of global tensors under a spec tree
+    (each a contiguous copy, so the global tensors can be freed)."""
+    return map_specs(lambda x, sp: local_shard(x, sp, policy).contiguous().clone(), tree, specs)
+
+
+def gather_tree(tree, specs, policy: "ShardingPolicy"):
+    """The global tensors of a tree of this rank's shards (every rank gets
+    them all; :func:`gather_shard` per leaf)."""
+    return map_specs(lambda x, sp: gather_shard(x, sp, policy), tree, specs)
+
+
+def gather_to_first(x: torch.Tensor, spec: tuple, policy: "ShardingPolicy"):
+    """The global tensor of the ranks' slices of ``x`` under ``spec``, on
+    the host of the mesh's first rank, ``None`` on every other rank: each
+    distinct slice is sent once, by the first rank holding it, so no device
+    holds more than its own slice (a checkpoint's gather, leaf by leaf).
+    Slices are placed by the ranks' mesh coordinates, row-major over a
+    spec entry's axes, as :func:`local_shard` cuts them.  Every rank of the
+    mesh must call it."""
+    import itertools
+
+    mesh = policy.mesh
+    names, sizes, ranks = _names(mesh), axis_sizes(mesh), mesh.mesh
+    me, first = dist.get_rank(), int(ranks.reshape(-1)[0])
+    sharded = _leaf_axes(spec)
+    shape = list(x.shape)
+    for dim, entry in enumerate(spec):
+        shape[dim] *= _prod(sizes, _entry_axes(entry))
+    full = torch.empty(shape, dtype=x.dtype) if me == first else None
+
+    def index_of(coord):
+        def at(entry):
+            axes = _entry_axes(entry)
+            i = 0
+            for a in axes:
+                i = i * sizes[a] + coord[names.index(a)]
+            return _prod(sizes, axes), i
+        return at
+
+    for coord in itertools.product(*(range(sizes[a]) if a in sharded else (0,) for a in names)):
+        src = int(ranks[coord])
+        if me == src and src != first:
+            dist.send(x.contiguous(), dst=first)
+        elif me == first:
+            piece = x
+            if src != first:
+                piece = torch.empty_like(x)
+                dist.recv(piece, src=src)
+            shard_slice(full, spec, index_of(coord)).copy_(piece)
+    return full
+
+
+def spec_leaves(specs) -> list:
+    """The spec tuples of a spec tree (nested dicts, keys sorted, and
+    lists), in the order ``optim.adamw.tree_leaves`` walks the parameters."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in spec_leaves(v)]
+    return [specs]
+
+
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A reduced copy of ``x`` over ``group``, summed in fp32 for a
+    lower-precision float (cast back)."""
+    out = x.float().clone() if x.is_floating_point() and x.element_size() < 4 else x.clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out.to(x.dtype)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of ``x``, cut along ``dim`` into as many
+    slices as the group has ranks; this rank's slice (fp32 sums for a
+    lower-precision float)."""
+    n = dist.get_world_size(group)
+    x32 = x.float() if x.element_size() < 4 else x
+    parts = [p.contiguous() for p in x32.chunk(n, dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out.to(x.dtype)
+
+
+def _own_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    step = x.shape[dim] // n
+    return x.narrow(dim, i * step, step).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``; the backward reduce-scatters the gradient
+    (``grad_sum``: every rank used the whole tensor on other data) or takes
+    this rank's slice of it (every rank computed the same thing)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, grad_sum):
+        ctx.dim, ctx.group, ctx.grad_sum = dim, group, grad_sum
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        run = _reduce_scatter if ctx.grad_sum else _own_slice
+        return run(g, ctx.dim, ctx.group), None, None, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity; the backward all-reduces (sums) the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """An all-reduce (sum); the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's slice along ``dim``; the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _own_slice(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a tensor-parallel region (each rank of ``group``
+    computes a different part from it): the identity, whose backward sums
+    the ranks' gradients."""
+    return x if _size(group) == 1 else _Copy.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of the ranks' partials; the backward hands
+    each rank the whole gradient."""
+    return x if _size(group) == 1 else _Reduce.apply(x, group)
+
+
+def tp_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``x``, which every rank of
+    ``group`` holds whole; the backward all-gathers."""
+    return x if _size(group) == 1 else _Split.apply(x, dim, group)
+
+
+def tp_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` of every rank of ``group`` along ``dim`` (the inverse of
+    :func:`tp_split`); the backward takes this rank's slice."""
+    return gather_dim(x, dim, group, grad_sum=False)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group, *, grad_sum: bool) -> torch.Tensor:
+    """``x`` of every rank of ``group`` along ``dim``; the backward
+    reduce-scatters the gradient with ``grad_sum`` (each rank used the
+    whole on its own data) and takes this rank's slice without (each rank
+    computed the same thing)."""
+    return x if _size(group) == 1 else _Gather.apply(x, dim, group, grad_sum)
+
+
+def _gather_dims(w: torch.Tensor, spec: tuple, shards: ModelShards, want, grad_sum: bool) -> torch.Tensor:
+    for dim, entry in enumerate(spec):
+        if entry is not None and want(entry):
+            w = gather_dim(w, dim, shards.group_of(entry)[0], grad_sum=grad_sum)
+    return w
+
+
+def fsdp_gather(w: torch.Tensor, spec: tuple, shards: ModelShards) -> torch.Tensor:
+    """``w`` gathered over the data axes its ``spec`` shards it on (FSDP),
+    still sliced over ``model``.  The backward reduce-scatters the
+    gradient: every data rank used the whole weight on its own rows, so the
+    slice's gradient is their sum."""
+    return _gather_dims(w, spec, shards, shards.is_data, True)
+
+
+def gather_model(w: torch.Tensor, spec: tuple, shards: ModelShards, *, grad_sum: bool = False) -> torch.Tensor:
+    """``w`` gathered over the model axis where its ``spec`` shards it: for
+    a body that runs replicated over ``model`` (its backward takes this
+    rank's slice) or, with ``grad_sum``, one whose ranks each use a
+    different part of the whole (its backward reduce-scatters)."""
+    return _gather_dims(w, spec, shards, shards.is_model, grad_sum)
+
+
+def ce_local_max(logits: torch.Tensor) -> torch.Tensor:
+    """The rows' max over this shard's vocab slice: ``[N, V/tp] -> [N]``."""
+    return logits.max(dim=-1).values
+
+
+def ce_local_sums(logits: torch.Tensor, labels: torch.Tensor, start: int, gmax: torch.Tensor):
+    """This shard's ``(sum of exp(logit - gmax), target logit - gmax)`` per
+    row, the target's term 0 where the label is outside the slice
+    ``[start, start + V/tp)``."""
+    z = logits - gmax[:, None]
+    local = labels.long() - start
+    inside = (local >= 0) & (local < logits.shape[-1])
+    tgt = torch.gather(z, -1, local.clamp(0, logits.shape[-1] - 1)[:, None])[:, 0]
+    return torch.exp(z).sum(dim=-1), torch.where(inside, tgt, torch.zeros_like(tgt))
+
+
+def ce_local_grad(logits, labels, start: int, gmax, gsum, g) -> torch.Tensor:
+    """The gradient of the rows' NLL on this shard's logits: ``(softmax -
+    onehot) * g``, the softmax from the global max and sum."""
+    p = torch.exp(logits - gmax[:, None]) / gsum[:, None]
+    local = labels.long() - start
+    inside = (local >= 0) & (local < logits.shape[-1])
+    onehot = torch.zeros_like(p).scatter_(1, local.clamp(0, p.shape[-1] - 1)[:, None], inside[:, None].to(p.dtype))
+    return (p - onehot) * g[:, None]
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        gmax = ce_local_max(logits)
+        if _size(group) > 1:
+            dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+        sums = torch.stack(ce_local_sums(logits, labels, start, gmax))
+        if _size(group) > 1:
+            dist.all_reduce(sums, group=group)
+        gsum, tgt = sums[0], sums[1]
+        ctx.start = start
+        ctx.save_for_backward(logits, labels, gmax, gsum)
+        return torch.log(gsum) - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, gmax, gsum = ctx.saved_tensors
+        return ce_local_grad(logits, labels, ctx.start, gmax, gsum, g), None, None, None
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, start: int, group) -> torch.Tensor:
+    """Per-row NLL ``[N]`` of fp32 logits ``[N, V/tp]`` sliced over the
+    vocab from ``start`` on each rank of ``group`` (the model axis): the
+    max, the sum of exponentials and the target logit each all-reduced, the
+    logits never gathered; the same on every rank.  ``group=None`` is the
+    unsharded cross entropy."""
+    return _VocabParallelCE.apply(logits, labels, start, group)
+
+
+def _leaf_axes(spec) -> set:
+    return {a for e in spec for a in _entry_axes(e)}
+
+
+def reduce_replicated_grads(grads: list, specs: list, shards: ModelShards) -> list:
+    """Sum, over each data axis a leaf's spec does not shard it on, the
+    gradients of the leaves (the FSDP-sharded ones were reduce-scattered in
+    the backward).  ``grads`` and ``specs`` are parallel lists; returns the
+    list, reduced."""
+    out = []
+    for g, spec in zip(grads, specs):
+        axes = tuple(a for a in shards.data_axes if a not in _leaf_axes(spec))
+        group, n, _ = axis_group(shards.policy.mesh, axes)
+        out.append(_all_reduce(g, group) if n > 1 else g)
+    return out
+
+
+def owner_mask(specs: list, shards: ModelShards) -> list:
+    """Per leaf, whether this rank counts it in a global sum: its
+    coordinate is 0 on every mesh axis the leaf's spec does not shard it on
+    (the first of the ranks holding the same slice), so a replicated leaf is
+    counted once."""
+    names = _names(shards.policy.mesh)
+    coord = dict(zip(names, shards.policy.mesh.get_coordinate()))
+    return [all(coord[a] == 0 for a in names if a not in _leaf_axes(spec)) for spec in specs]
+
+
+def mesh_all_reduce(x: torch.Tensor, shards: ModelShards) -> torch.Tensor:
+    """``x`` summed over every rank of the mesh."""
+    group, n, _ = axis_group(shards.policy.mesh, _names(shards.policy.mesh))
+    return _all_reduce(x, group) if n > 1 else x

@@ -75,12 +75,13 @@ class PlannedVJP:
     key: Any = None
     compact_grid: Any = "ragged"
     db: Any = None
+    split_shape: Any = None  # the primal's KernelRequest.split_shape (a slice of a larger product)
 
     def __post_init__(self):
         object.__setattr__(self, "compact_grid", _check_compact_grid(self.compact_grid))
 
     def _execute(self, nnz, idx, a, b, *, bm, bk, bn, out_dtype, workqueue=None, compact_grid=None,
-                 axis=None):
+                 axis=None, split_shape=None):
         """One planned product on :attr:`backend`.  ``axis`` names the dim a
         sharded context splits it along (``None``: the context's own);
         this one runs it whole."""
@@ -90,7 +91,7 @@ class PlannedVJP:
         return get_backend(self.backend).execute_planned(KernelRequest(
             nnz=nnz, idx=idx, a=a, b=b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype,
             compact_grid=self.compact_grid if compact_grid is None else compact_grid,
-            workqueue=workqueue,
+            workqueue=workqueue, split_shape=split_shape,
         ))
 
     def _execute_fused(self, req):
@@ -181,8 +182,9 @@ class _PlannedMatmul(torch.autograd.Function):
     def forward(fctx, ctx: PlannedVJP, nnz, idx, a, b, workqueue):
         fctx.vjp = ctx
         fctx.save_for_backward(nnz, idx, a, b)
+        whole = {"split_shape": ctx.split_shape} if ctx.split_shape is not None else {}
         return ctx._execute(nnz, idx, a, b, bm=ctx.bm, bk=ctx.bk, bn=ctx.bn, out_dtype=ctx.out_dtype,
-                            workqueue=workqueue)
+                            workqueue=workqueue, **whole)
 
     @staticmethod
     def backward(fctx, g):

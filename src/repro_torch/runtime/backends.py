@@ -115,25 +115,28 @@ class KernelBackend:
 
     def matmul_planned(self, plan: SparsityPlan, a, b, *, bn: int, out_dtype=None,
                        plan_cache=None, plan_key=None,
-                       compact_grid="ragged", db=None):
+                       compact_grid="ragged", db=None, split_shape=None):
         """Planned ``a @ b`` with the sparsity-aware backward.  When autograd
         needs it, the product runs through :func:`planned_matmul`, whose
         backward runs both gradient products (paper Eq. 2-3) through this
         registry; ``plan_cache``/``plan_key`` let it reuse the transposed
         plan across microbatches, ``db`` (a ``repro_torch.tune.TuningDB``)
-        tunes each backward product.  Otherwise one executor call."""
+        tunes each backward product.  Otherwise one executor call.
+        ``split_shape`` names the whole product this one is a slice of (the
+        kernel then splits K as that launch would, so the slice's rows are
+        bit-equal to the whole launch's)."""
         compact_grid = _check_compact_grid(compact_grid)
         hold(plan)  # a CUDA graph captured around this product replays the plan's pointers
         wq = plan.workqueue() if compact_grid == "ragged" else None
         if not needs_grad(a, b):
             return self.execute_planned(KernelRequest(
                 nnz=plan.nnz, idx=plan.idx, a=a, b=b, bm=plan.bm, bk=plan.bk, bn=bn,
-                out_dtype=out_dtype, compact_grid=compact_grid, workqueue=wq,
+                out_dtype=out_dtype, compact_grid=compact_grid, workqueue=wq, split_shape=split_shape,
             ))
         ctx = PlannedVJP(
             backend=self.name, bm=plan.bm, bk=plan.bk, bn=bn, out_dtype=out_dtype,
             cache=plan_cache, key=plan_key,
-            compact_grid=compact_grid, db=db,
+            compact_grid=compact_grid, db=db, split_shape=split_shape,
         )
         return planned_matmul(ctx, plan.nnz, plan.idx, a, b, wq)
 
@@ -193,8 +196,7 @@ class DenseBackend(KernelBackend):
 
     def matmul(self, a, b, *, bm, bk, bn, out_dtype=None):
         del bm, bk, bn
-        out = ref.matmul_ref(a, b)
-        return out.to(out_dtype) if out_dtype else out
+        return (a.float() @ b.float()).to(out_dtype or a.dtype)
 
     def execute_planned(self, req):
         return _ref_planned(req)

@@ -285,7 +285,7 @@ class Runtime:
 
     # -- execution ---------------------------------------------------------
     def matmul(self, a, b, *, plan: SparsityPlan | None = None, plan_key=None,
-               side: str = "A", op: str = "matmul", density=None):
+               side: str = "A", op: str = "matmul", density=None, out_dtype=None, split_shape=None):
         """``a @ b`` on this runtime's backend.
 
         ``side="A"`` exploits dynamic sparsity of ``a``; ``side="B"`` the
@@ -293,11 +293,19 @@ class Runtime:
         ``(b.T @ a.T).T`` with ``b.T`` passed as a strided view.
         ``plan_key`` routes planning through the keyed cache.  ``op`` names
         this call site's tuning key (``geometry="auto"``); ``density``
-        refines it to the operand's density bucket (``None``: ``"any"``)."""
+        refines it to the operand's density bucket (``None``: ``"any"``).
+        ``out_dtype`` (default ``a``'s dtype) is the stored output's dtype:
+        ``torch.float32`` keeps a tensor-parallel rank's partial sum in fp32
+        from bf16 operands.  ``split_shape`` ``(m, k, n)`` names the whole
+        launch this product is a slice of (for ``side="B"``, of the
+        transposed product ``b.T @ a.T``): the kernel splits K as that
+        launch would, so a vocab-parallel head's slice is bit-equal to the
+        whole head's rows."""
         a, b = self._dtype_prologue(a, b)
+        out_dtype = a.dtype if out_dtype is None else out_dtype
         kernel = self.kernel
         if not kernel.sparse and plan is None and plan_key is None:
-            return kernel.matmul(a, b, bm=self.bm, bk=self.bk, bn=self.bn)
+            return kernel.matmul(a, b, bm=self.bm, bk=self.bk, bn=self.bn, out_dtype=out_dtype)
         rt = self._resolved(op, a.shape, b.shape, a.dtype, plan=plan, density=density)
         if side == "B":
             if plan is None:
@@ -305,9 +313,9 @@ class Runtime:
             else:
                 plan = self._recovered_plan(plan, b.T)
             out_t = kernel.matmul_planned(
-                plan, b.T, a.T, bn=rt.lane(a.shape[0], rt.bm), out_dtype=a.dtype,
+                plan, b.T, a.T, bn=rt.lane(a.shape[0], rt.bm), out_dtype=out_dtype,
                 plan_cache=self.plan_cache, plan_key=("B", plan_key),
-                compact_grid=rt.compact_grid, db=self._db,
+                compact_grid=rt.compact_grid, db=self._db, **_whole(split_shape),
             )
             return out_t.T
         if plan is None:
@@ -319,9 +327,9 @@ class Runtime:
         else:
             plan = self._recovered_plan(plan, a)
         return kernel.matmul_planned(
-            plan, a, b, bn=rt.lane(b.shape[1]), out_dtype=a.dtype,
+            plan, a, b, bn=rt.lane(b.shape[1]), out_dtype=out_dtype,
             plan_cache=self.plan_cache, plan_key=("A", plan_key),
-            compact_grid=rt.compact_grid, db=self._db,
+            compact_grid=rt.compact_grid, db=self._db, **_whole(split_shape),
         )
 
     def matmul_fused(self, a, b, *, bias=None, residual=None,
@@ -512,6 +520,12 @@ class Runtime:
             return full
 
         return tree_map(place, caches, part, axes)
+
+
+def _whole(split_shape) -> dict:
+    """``split_shape`` as a keyword only when given (a backend that has no
+    such keyword is never handed one)."""
+    return {} if split_shape is None else {"split_shape": split_shape}
 
 
 def tree_map(fn, tree, *rest):

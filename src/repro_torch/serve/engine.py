@@ -34,6 +34,24 @@ when that request samples.  These streams do not reproduce the JAX engine's
 decoding only.  Sampled decoding runs the chunk eagerly: its per-request
 generators are read on the host each step.
 
+On a mesh (the runtime's ``sharding`` policy, or ``generate(mesh=...)``, as
+JAX's ``generate(mesh=)`` installs a ``ShardingPolicy``) the model is
+sharded (:mod:`repro_torch.models.transformer`): ``params`` holds this
+rank's shards, and every rank runs the same scheduler on the same requests.
+The packed caches are cut by ``cache_pspecs``: the slots over the data axes
+(when they divide; otherwise every data rank holds all of them) and the KV
+heads over ``model`` where head-parallel attention shards them (a cut of
+another dim, or the sequence split of a batch-1 cache, is replicated).  A
+data rank prefills only the admitted prompts of the slots it holds (a rank
+with none of a round's runs one stand-in prompt, so that every rank joins
+the weights' gathers); a decode step runs the tensor-parallel bodies on
+the rank's slots.  The last-position logits rows of both are gathered over
+the data axes, so every rank samples the same tokens.  The
+engine clock is rank 0's (broadcast at every reading) and the shedding cost
+is summed over the mesh, so every rank takes the same decisions.  The
+decode chunk of a mesh of several ranks runs eagerly: ``cuda_graph=True``
+there is refused at construction (capturing the collectives is not ported).
+
 Resilience (:mod:`repro_torch.resilience`), as in the JAX engine: a bounded
 pending queue (``QueueFull``, typed), per-request TTL deadlines, shedding
 against a work budget priced by the cached plans' ``total_work``, slot
@@ -54,12 +72,15 @@ import time
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import runtime as rtm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.tensordash_spmm import holding
 from repro_torch.models import model as M
+from repro_torch.models import transformer as tfm
 from repro_torch.models.moe import expert_capacity
+from repro_torch.parallel import sharding as S
 from repro_torch.resilience import faults as rfaults
 from repro_torch.resilience import log as rlog
 from repro_torch.runtime.plan import _version
@@ -317,8 +338,15 @@ class ServeEngine:
         self.work_budget = work_budget
         self.fault_plan = fault_plan
         self.log = log if log is not None else (rlog.ambient_log() or rlog.ResilienceLog())
-        graphable = self.device.type == "cuda" and self.temperature == 0.0
+        self._sh = self._mesh_shards(cfg)
+        self._multi = self._sh is not None and self._sh.world > 1
+        self._cache_cfg = tfm.local_cache_config(cfg, self._sh.tp) if self._sh is not None else cfg
+        graphable = self.device.type == "cuda" and self.temperature == 0.0 and not self._multi
         if cuda_graph and not graphable:
+            if self._multi:
+                raise ValueError(
+                    f"cuda_graph=True on a mesh of {self._sh.world} ranks: capturing the sharded decode's "
+                    "collectives is not ported; ServeEngine(cuda_graph=False) runs the chunk eagerly")
             raise ValueError(
                 f"cuda_graph=True needs a CUDA device and temperature 0 (device {self.device}, "
                 f"temperature {self.temperature}): sampled decoding reads its generators on the host")
@@ -330,6 +358,8 @@ class ServeEngine:
         with torch.inference_mode():
             # a failed cache allocation degrades to half the slot count
             self.caches, slots = self._alloc_slot_caches(cfg, slots)
+            self._slot0, self._local_slots = self._slot_range(slots)
+            self._split = self._local_slots != slots  # the slots split over the data axes
             zeros = lambda dt: torch.zeros((slots,), dtype=dt, device=self.device)
             self.tok = zeros(torch.int64)
             self.pos = zeros(torch.int64)
@@ -350,16 +380,68 @@ class ServeEngine:
         self.chunks_run = 0
         self.steps_run = 0
 
+    def _mesh_shards(self, cfg):
+        """The sharded model's groups under the runtime's mesh (``None``
+        without one, or for an SSM or hybrid config on a mesh of one
+        rank, which runs unsharded)."""
+        policy = self.rt.sharding
+        if policy is None or policy.mesh is None:
+            return None
+        if cfg.family in ("dense", "moe"):
+            return tfm.shards_of(cfg, self.rt)
+        if policy.size > 1:
+            tfm.check_shardable(cfg, 1)
+        return None
+
+    def _cache_specs(self, slots: int):
+        """``(global caches on the meta device, their spec tuples)``: the
+        ``cache_pspecs`` of the packed caches, keeping the slot split and
+        the model split of the KV heads that head-parallel attention holds
+        (any other entry replicated)."""
+        sh = self._sh
+        glob = M.init_cache(self.cfg, slots, self.max_len, device="meta")
+        specs = sh.policy.cache_pspecs(self.cfg, S.BatchShape(slots, self.max_len, "decode"), glob)
+        kv_split = self._cache_cfg.num_kv_heads != self.cfg.num_kv_heads
+
+        def keep(x, spec):
+            b = next((i for i, d in enumerate(x.shape) if d == slots), None)
+            return tuple(e if b is not None and ((i == b and sh.is_data(e))
+                                                 or (i == b + 2 and kv_split and sh.is_model(e))) else None
+                         for i, e in enumerate(spec))
+
+        return glob, S.map_specs(keep, glob, specs)
+
+    def _slot_range(self, slots: int) -> tuple[int, int]:
+        """``(first, count)`` of the slots whose caches this rank holds: its
+        share of the data axes' split where the slots divide it
+        (``cache_pspecs``' batch rule), else all of them."""
+        sh = self._sh
+        if sh is None or slots % sh.n_data:
+            return 0, slots
+        n = slots // sh.n_data
+        return sh.data_rank * n, n
+
     def _alloc_slot_caches(self, cfg, slots: int):
         """Allocate the packed decode caches, halving ``slots`` (down to 1)
         on allocation failure: serving degrades to reduced concurrency
-        instead of dying at construction."""
+        instead of dying at construction.  On a mesh, this rank's cut of
+        them (:meth:`_cache_specs`), which must be what the sharded model's
+        caches hold; a failed allocation there raises (the ranks would not
+        agree on the halving)."""
         while True:
             try:
                 rfaults.maybe_alloc_failure(self.fault_plan or rfaults.active(), "slot_caches")
-                return self.rt.slot_caches(cfg, slots, self.max_len), slots
+                if self._sh is None:
+                    return self.rt.slot_caches(cfg, slots, self.max_len), slots
+                caches = self.rt.slot_caches(self._cache_cfg, self._slot_range(slots)[1], self.max_len)
+                glob, specs = self._cache_specs(slots)
+                want = S.map_specs(lambda x, sp: tuple(S.local_shard(x, sp, self._sh.policy).shape), glob, specs)
+                got = S.map_specs(lambda x, sp: tuple(x.shape), caches, specs)
+                if want != got:
+                    raise AssertionError(f"the sharded model's caches {got} are not the cut {want}")
+                return caches, slots
             except (rfaults.SimulatedAllocFailure, torch.cuda.OutOfMemoryError, MemoryError) as e:
-                if slots <= 1:
+                if slots <= 1 or self._multi:
                     raise
                 self.log.record("alloc", "serve.slot_caches", "halve-slots", slots=slots, error=str(e))
                 slots //= 2
@@ -399,7 +481,14 @@ class ServeEngine:
         return req.rid
 
     def _now(self) -> float:
-        return time.monotonic() - self._t0
+        t = time.monotonic() - self._t0
+        if not self._multi:
+            return t
+        # rank 0's clock on every rank: the scheduler's decisions must agree
+        group = S.axis_group(self._sh.policy.mesh, tuple(S.axis_sizes(self._sh.policy.mesh)))[0]
+        buf = torch.tensor([t], dtype=torch.float64, device=self.device)
+        dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
+        return float(buf[0])  # lint: allow-host-sync: the engine clock, read on the host
 
     def now(self) -> float:
         """Seconds on the engine clock (origin = engine construction)."""
@@ -411,6 +500,8 @@ class ServeEngine:
         ragged-grid steps a decode step replays), or 1.0 when no plan is
         cached (dense runtime, cold cache)."""
         total = sum(ps["total_work"] for ps in self.rt.plan_cache.plan_stats())
+        if self._multi:  # each rank caches its own shards' plans: their sum, on every rank
+            total = float(S.mesh_all_reduce(torch.tensor(float(total), device=self.device), self._sh))
         return float(total) if total > 0 else 1.0
 
     def _outstanding_work(self) -> float:
@@ -485,21 +576,56 @@ class ServeEngine:
         return out
 
     # -- admission: prefill into slots -------------------------------------
+    def _by_owner(self, placements: list) -> list[list]:
+        """``placements`` by the data rank holding each slot's caches (one
+        list, every rank's, when the slots are not split over the data
+        axes)."""
+        if not self._split:
+            return [placements]
+        return [[p for p in placements if p[0] // self._local_slots == r] for r in range(self._sh.n_data)]
+
+    def _rounds(self, groups: list) -> list[list]:
+        """The prefill calls of one admission: the same-length groups, or,
+        with the slots split over the data axes, rounds that give each data
+        rank at most one same-length group of its own slots' requests (the
+        ranks take as many calls as the rank with the most groups)."""
+        if not self._split:
+            return groups
+        own = [[] for _ in range(self._sh.n_data)]
+        for g in groups:
+            for mine, part in zip(own, self._by_owner(g)):
+                if part:
+                    mine.append(part)
+        return [[p for mine in own if k < len(mine) for p in mine[k]] for k in range(max(map(len, own), default=0))]
+
     def _admit_group(self, placements: list[tuple[int, Request]]) -> None:
-        """Prefill one same-prompt-length group as one batch and write each
-        request's caches into its slot."""
-        g = len(placements)
-        s = placements[0][1].prompt.shape[0]
-        prompts = torch.stack([r.prompt for _, r in placements]).to(self.device)
+        """Prefill one round (:meth:`_rounds`): this rank's same-length
+        group as one batch, each request's caches written into its slot, and
+        every request's first token sampled from the round's last-position
+        logits (gathered over the data axes when the slots are split)."""
+        rnd = self._by_owner(placements)
+        mine = rnd[self._sh.data_rank] if self._split else rnd[0]
+        # a rank with nothing of its own prefills one stand-in prompt: every
+        # rank joins the weights' gathers
+        run = mine or next(g for g in rnd if g)[:1]
+        prompts = torch.stack([r.prompt for _, r in run]).to(self.device)
         with self.rt.use():
             logits, caches = M.prefill(self.params, self.cfg, {"tokens": prompts})
         rfaults.maybe_alloc_failure(self.fault_plan or rfaults.active(), "grow_caches")
-        part = self.rt.grow_caches(self.cfg, caches, g, self.max_len)
-        axes = rtm.cache_batch_axes(self.cfg)
-        for j, (slot, _) in enumerate(placements):
-            row = rtm.tree_map(lambda x, ax: x.narrow(ax, j, 1), part, axes)
-            self.caches = self.rt.write_slot(self.cfg, self.caches, slot, row)
-        firsts = self._sample(logits[:, -1].float(), [r.rid for _, r in placements]).tolist()
+        rows = logits[:, -1].float()
+        if mine:
+            part = self.rt.grow_caches(self._cache_cfg, caches, len(mine), self.max_len)
+            axes = rtm.cache_batch_axes(self._cache_cfg)
+            for j, (slot, _) in enumerate(mine):
+                row = rtm.tree_map(lambda x, ax: x.narrow(ax, j, 1), part, axes)
+                self.caches = self.rt.write_slot(self._cache_cfg, self.caches, slot - self._slot0, row)
+        if self._split:  # every data rank's rows, padded to the longest group
+            m = max(map(len, rnd))
+            rows = torch.cat([rows[:len(mine)], rows.new_zeros((m - len(mine), rows.shape[1]))])
+            every = S.all_gather_cat(rows, self._sh.data_group, 0)
+            rows = torch.cat([every[r * m:r * m + len(g)] for r, g in enumerate(rnd)])
+        placements = [p for g in rnd for p in g]  # the order of the gathered rows
+        firsts = self._sample(rows, [r.rid for _, r in placements]).tolist()
         now = self._now()
         for j, (slot, req) in enumerate(placements):
             first = int(firsts[j])
@@ -509,7 +635,7 @@ class ServeEngine:
             is_eos = self.eos_id is not None and first == self.eos_id
             done = req.max_new <= 1 or is_eos
             self.tok[slot] = first
-            self.pos[slot] = s
+            self.pos[slot] = req.prompt.shape[0]
             self.remaining[slot] = req.max_new - 1
             self.active[slot] = not done
             if done:
@@ -517,13 +643,14 @@ class ServeEngine:
 
     def _admit_all(self) -> None:
         """Admit pending requests into free slots, batching same-length
-        prompts into one prefill each.  A failed allocation during a group's
-        admission sends its requests back to the queue (at most
+        prompts (on a split mesh, of one data rank's slots) into one prefill
+        each.  A failed allocation during a round's admission sends its
+        requests back to the queue (at most
         :attr:`MAX_ADMIT_RETRIES` times, then ``finish_reason="error"``)."""
         by_len: dict[int, list[tuple[int, Request]]] = {}
         for slot, req in self.sched.admit(self._now()):
             by_len.setdefault(req.prompt.shape[0], []).append((slot, req))
-        for group in by_len.values():
+        for group in self._rounds(list(by_len.values())):
             try:
                 self._admit_group(group)
             except (rfaults.SimulatedAllocFailure, torch.cuda.OutOfMemoryError, MemoryError) as e:
@@ -575,9 +702,13 @@ class ServeEngine:
         tok, pos, active, remaining, poison = self.tok, self.pos, self.active, self.remaining, self.poison
         faulted = torch.zeros_like(active)
         toks, emitted = [], []
+        lo, hi = self._slot0, self._slot0 + self._local_slots
         for _ in range(self.chunk):
-            logits, _ = M.decode_step(self.params, self.cfg, self.caches, {"tokens": tok[:, None]}, pos)
+            logits, _ = M.decode_step(self.params, self.cfg, self.caches, {"tokens": tok[lo:hi, None]},
+                                      pos[lo:hi])
             row = logits[:, -1].float()
+            if self._split:  # every data rank's slots: their rows gathered
+                row = S.all_gather_cat(row, self._sh.data_group, 0)
             if self.fault_plan is not None:  # without one the poison buffer stays zero
                 row = row.masked_fill((poison == 1)[:, None], float("nan"))
                 row = row.masked_fill((poison == 2)[:, None], float("inf"))
@@ -686,10 +817,15 @@ class ServeEngine:
 
 def generate(params, cfg: ModelConfig, prompt_tokens, *, max_new: int = 32,
              max_len: int | None = None, temperature: float = 0.0, seed: int = 0,
-             rt: "rtm.Runtime | None" = None) -> torch.Tensor:
+             mesh=None, rt: "rtm.Runtime | None" = None) -> torch.Tensor:
     """Batched generation: every row of ``prompt_tokens [B, S]`` becomes a
     request, slots equal the batch, one chunk covers the whole decode.
+    ``mesh`` installs a :class:`~repro_torch.parallel.sharding.
+    ShardingPolicy` on the runtime (``params`` are then this rank's shards).
     Returns int ``[B, max_new]`` on the host."""
+    if mesh is not None:
+        rt = rtm.resolve(rt)
+        rt = rt.replace(sharding=(rt.sharding or S.ShardingPolicy()).replace(mesh=mesh))
     prompt_tokens = torch.as_tensor(prompt_tokens, dtype=torch.int64)
     b, s = prompt_tokens.shape
     eng = ServeEngine(

@@ -19,6 +19,17 @@ at each layer's MLP output, through zero probes) and a ``modeled_speedup``
 bound; :func:`modeled_speedup` refines the densities through
 :mod:`repro_torch.core.perf_model` on the host (paper Fig. 14).
 
+Under a runtime with a mesh (``Runtime(sharding=ShardingPolicy(mesh=...))``)
+the step is sharded: ``params`` and the optimizer state hold this rank's
+shards (``local_shard`` under the policy's ``param_pspecs``), each
+microbatch of the global batch is cut by ``batch_pspecs``, the loss is the
+global mean, the
+gradients of the leaves replicated over a data axis are summed over it (the
+FSDP-sharded ones were reduce-scattered in the backward), the gradient norm
+is global with each replicated slice counted once, and AdamW updates the
+local shards; every rank takes the same non-finite decision.  Dynamic sparse
+training on a mesh of several ranks is not ported.
+
 ``dynamic_sparsity=`` (a :class:`repro_torch.sparse_train.
 DynamicSparsityController` or its ``spec()``) runs RigL dynamic sparse
 training: the step masks the parameters in place, emits the block scores
@@ -34,8 +45,11 @@ import torch
 from repro_torch import runtime as rtm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models import transformer as tfm
+from repro_torch.parallel import sharding as S
 from repro_torch.optim.adamw import (
     OptConfig,
+    OptState,
     apply_updates,
     global_norm,
     init_opt_state,
@@ -47,7 +61,8 @@ from repro_torch.sparse_train.masks import (
     apply_block_masks, block_scores, mask_density, stacked_leaves,
 )
 
-__all__ = ["make_train_step", "make_loss_fn", "init_train_state", "modeled_speedup", "accumulate_grads"]
+__all__ = ["make_train_step", "make_loss_fn", "init_train_state", "modeled_speedup", "accumulate_grads",
+           "local_batch", "state_specs"]
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -63,6 +78,15 @@ def init_train_state(cfg: ModelConfig, params):
     return init_opt_state(params)
 
 
+def state_specs(cfg: ModelConfig, policy) -> dict:
+    """The spec tuples of a train state ``{"params": ..., "opt": OptState}``
+    under ``policy``: the moments shard as their parameters, the step is a
+    host scalar (``None``).  What ``checkpoint.manager.save``/``restore``
+    take as ``shardings``."""
+    specs = policy.param_pspecs(M.param_specs(cfg))
+    return {"params": specs, "opt": OptState(step=None, m=specs, v=specs)}
+
+
 def _tap_stacks(cfg: ModelConfig) -> dict[str, int]:
     """The probed layer stacks of ``cfg`` (name -> layers) in the order the
     forward runs them: a MoE config's dense blocks ahead of its MoE blocks."""
@@ -72,7 +96,7 @@ def _tap_stacks(cfg: ModelConfig) -> dict[str, int]:
     return {"layers": cfg.num_layers}
 
 
-def _tap_metrics(cfg: ModelConfig, taps: dict, gprobes: dict) -> dict:
+def _tap_metrics(cfg: ModelConfig, taps: dict, gprobes: dict, sh=None) -> dict:
     """Per-layer A/G densities over every stack, concatenated in the order
     of :func:`_tap_stacks`, and the ideal work-skipping bound: each of the
     three training products does the same MACs and TensorDash at best prices
@@ -84,11 +108,13 @@ def _tap_metrics(cfg: ModelConfig, taps: dict, gprobes: dict) -> dict:
         a_parts.append(1.0 - act.zeros / torch.clamp_min(act.total, 1.0))
         g_parts.append(torch.mean((g != 0).float(), dim=tuple(range(1, g.ndim))))
     a_density, g_density = torch.cat(a_parts), torch.cat(g_parts)
+    if sh is not None:  # the mean over the data ranks' rows (the model ranks' probes are equal)
+        g_density = S.mesh_all_reduce(g_density, sh) / sh.world
     ideal = 3.0 / (a_density + g_density + torch.minimum(a_density, g_density))
     return {"A_density": a_density, "G_density": g_density, "modeled_speedup": torch.mean(ideal)}
 
 
-def _grads_of(loss_fn, cfg: ModelConfig, params, leaves, batch, sparsity_taps: bool):
+def _grads_of(loss_fn, cfg: ModelConfig, params, leaves, batch, sparsity_taps: bool, sh=None):
     """``(loss, grads in the leaves' order, tap metrics)`` of one batch;
     with taps, one zero probe ``[n_stack, B, S, D]`` per layer stack."""
     if not sparsity_taps:
@@ -102,22 +128,46 @@ def _grads_of(loss_fn, cfg: ModelConfig, params, leaves, batch, sparsity_taps: b
     loss = loss_fn(params, batch, probes=probes, taps=taps)
     grads = torch.autograd.grad(loss, leaves + list(probes.values()))
     gprobes = dict(zip(probes, grads[len(leaves):]))
-    return loss.detach(), list(grads[:len(leaves)]), _tap_metrics(cfg, taps, gprobes)
+    return loss.detach(), list(grads[:len(leaves)]), _tap_metrics(cfg, taps, gprobes, sh)
+
+
+def local_batch(cfg: ModelConfig, batch: dict, sh) -> dict:
+    """This rank's cut of the global ``batch`` under ``batch_pspecs`` (the
+    batch itself without a mesh)."""
+    if sh is None:
+        return batch
+    b, s = next(iter(batch.values())).shape[:2]
+    specs = sh.policy.batch_pspecs(cfg, S.BatchShape(global_batch=b, seq_len=s, kind="train"))
+    return {k: S.local_shard(v, specs[k], sh.policy) if k in specs else v for k, v in batch.items()}
 
 
 def accumulate_grads(loss_fn, cfg: ModelConfig, params, batch, *, microbatches: int = 1,
-                     sparsity_taps: bool = False):
+                     sparsity_taps: bool = False, shards=None):
     """Loss and gradients of the global ``batch``, split on its leading
     axis into ``microbatches`` whose gradients are summed in fp32 and
     averaged.  Returns ``(loss, grads, tap metrics)``, ``grads`` in the
     order of ``tree_leaves(params)`` (in the parameters' dtype for one
     microbatch, fp32 for several).  Marks every parameter as requiring grad,
-    in place: the tensors stay the same objects."""
+    in place: the tensors stay the same objects.
+
+    On a mesh (``shards``, a :class:`~repro_torch.parallel.sharding.
+    ModelShards`) ``params`` are this rank's shards and each microbatch of
+    the global ``batch`` is cut by ``batch_pspecs`` (replicated over the
+    data axes where its rows do not divide them, as the JAX package's
+    microbatches are); the gradients come back complete for those shards:
+    summed over the data axes each leaf is replicated on."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
+    loss, grads, taps = _accumulate(loss_fn, cfg, params, leaves, batch, microbatches, sparsity_taps, shards)
+    if shards is not None:
+        grads = S.reduce_replicated_grads(grads, S.spec_leaves(shards.specs), shards)
+    return loss, grads, taps
+
+
+def _accumulate(loss_fn, cfg, params, leaves, batch, microbatches: int, sparsity_taps: bool, sh):
     if microbatches == 1:
-        return _grads_of(loss_fn, cfg, params, leaves, batch, sparsity_taps)
+        return _grads_of(loss_fn, cfg, params, leaves, local_batch(cfg, batch, sh), sparsity_taps, sh)
     rows = next(iter(batch.values())).shape[0]
     if rows % microbatches:
         raise ValueError(f"global batch {rows} is not divisible by {microbatches} microbatches")
@@ -127,7 +177,7 @@ def accumulate_grads(loss_fn, cfg: ModelConfig, params, batch, *, microbatches: 
     taps: dict = {}
     for i in range(microbatches):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-        l, g, t = _grads_of(loss_fn, cfg, params, leaves, mb, sparsity_taps)
+        l, g, t = _grads_of(loss_fn, cfg, params, leaves, local_batch(cfg, mb, sh), sparsity_taps, sh)
         for a, x in zip(acc, g):
             a.add_(x.float())
         del g
@@ -246,6 +296,11 @@ def make_train_step(
         warnings.warn(
             "make_train_step under Runtime(geometry='auto') with an empty TuningDB: every cell "
             "resolves cold to the hand-tuned defaults", stacklevel=2)
+    sh = tfm.shards_of(cfg, rt) if cfg.family in ("dense", "moe") else None
+    if sh is not None and sh.world > 1 and dst_spec is not None:
+        raise NotImplementedError("dynamic sparse training on a mesh of several ranks is not ported")
+    specs = S.spec_leaves(sh.specs) if sh is not None else None
+    norm = lambda tree: global_norm(tree, shards=sh, specs=specs)
     loss_fn = make_loss_fn(cfg)
     # the last clean dynamic step's _stamp, taken after its final mask: while
     # it holds, every masked-off block is zero and there is nothing to hold
@@ -261,7 +316,7 @@ def make_train_step(
                 held = _held_blocks(params, masks, dst_spec)
             apply_block_masks(params, masks, dst_spec)
         loss, grads, tapm = accumulate_grads(loss_fn, cfg, params, batch, microbatches=microbatches,
-                                             sparsity_taps=sparsity_taps)
+                                             sparsity_taps=sparsity_taps, shards=sh)
         metrics: dict = {}
         if guard_nonfinite:
             pc = int(poison or 0)
@@ -279,8 +334,9 @@ def make_train_step(
                     "dst_g_scores": block_scores(gtree, dst_spec),
                     "dst_density": mask_density(masks, dst_spec)}
             apply_block_masks(gtree, masks, dst_spec)
+        gnorm = norm(grads)
         if guard_nonfinite:
-            gnorm = global_norm(grads)
+            # the loss and the norm are global: every rank decides the same
             if not bool(torch.isfinite(loss) & torch.isfinite(gnorm)):
                 # skip: a non-finite loss or gradient leaves params and
                 # optimizer state as they were
@@ -288,12 +344,12 @@ def make_train_step(
                     _restore_blocks(held)
                 metrics.update(grad_norm=gnorm, lr=lr_at(opt_cfg, opt_state.step + 1), nonfinite=1)
                 with torch.no_grad():
-                    metrics.update(loss=loss, param_norm=global_norm(params), **tapm, **dstm)
+                    metrics.update(loss=loss, param_norm=norm(params), **tapm, **dstm)
                 return params, opt_state, metrics
             metrics["nonfinite"] = 0
         # grads is a list in tree_leaves(params) order, which is how
         # apply_updates walks the params and moments
-        params, opt_state, upd = apply_updates(params, grads, opt_state, opt_cfg)
+        params, opt_state, upd = apply_updates(params, grads, opt_state, opt_cfg, gnorm=gnorm)
         if dst_spec is not None:
             # stale Adam momentum would drift just-pruned entries off zero;
             # re-mask so stored weights carry exactly-zero blocks (what
@@ -301,7 +357,8 @@ def make_train_step(
             apply_block_masks(params, masks, dst_spec)
             if guard_nonfinite:
                 settled[:] = _stamp(params, masks)
-        metrics.update(upd, loss=loss, param_norm=global_norm(params), **tapm, **dstm)
+        with torch.no_grad():
+            metrics.update(upd, loss=loss, param_norm=norm(params), **tapm, **dstm)
         return params, opt_state, metrics
 
     return train_step

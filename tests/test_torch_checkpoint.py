@@ -212,13 +212,18 @@ def test_ssm_and_hybrid_trees_round_trip_both_ways(tmp_path, arch, writer):
 
 
 def test_restore_casts_to_like_and_refuses_shardings(tmp_path):
+    """Restore casts to the ``like`` leaf; ``shardings=`` needs a mesh (a
+    policy without one is refused; the sharded restore onto a mesh is in
+    ``tests/test_torch_launch_mesh.py``)."""
     tman.save(tmp_path, 2, {"w": torch.arange(6, dtype=torch.float32)})
     got = tman.restore(tmp_path, 2, {"w": torch.zeros(6, dtype=torch.float64)})
     assert got["w"].dtype == torch.float64 and got["w"].tolist() == list(range(6))
     with pytest.raises(ValueError, match="shape"):
         tman.restore(tmp_path, 2, {"w": torch.zeros(7)})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tman.restore(tmp_path, 2, {"w": torch.zeros(6)}, shardings={"w": None})
+    with pytest.raises(ValueError, match="mesh"):
+        tman.restore(tmp_path, 2, {"w": torch.zeros(6)}, shardings={"w": (None,)})
+    with pytest.raises(ValueError, match="mesh"):
+        tman.save(tmp_path, 3, {"w": torch.zeros(6)}, shardings={"w": (None,)})
 
 
 def test_save_is_atomic_over_a_stale_tmp(tmp_path):

@@ -34,7 +34,8 @@ def test_the_port_has_modules_and_chip_smoke():
     for module in ("parallel/sharding.py", "parallel/spmm.py", "parallel/rehearsal.py", "optim/compress.py"):
         assert ROOT / "src" / "repro_torch" / module in FILES
     for module in ("core/compress.py", "core/energy.py", "core/powergate.py", "checkpoint/codec.py",
-                   "kernels/ops.py", "kernels/schedule.py", "analysis/lint.py", "analysis/__main__.py"):
+                   "kernels/ops.py", "kernels/schedule.py", "analysis/lint.py", "analysis/__main__.py",
+                   "launch/mesh.py"):
         assert ROOT / "src" / "repro_torch" / module in FILES
 
 

@@ -159,7 +159,8 @@ def test_resume_continues_the_uninterrupted_run(tmp_path, step_metrics, capsys):
 
 
 def test_launcher_refusals():
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the production mesh needs its 512 ranks (tests/test_torch_launch_mesh.py runs it on 4)
+    with pytest.raises(ValueError, match="needs a process group of 512 ranks; this one has 1"):
         launch_train.main(_CPU + ["--multi-pod"])
     with pytest.raises(SystemExit):  # argparse: an unknown --dynamic-sparsity key
         launch_train.main(_CPU + ["--dynamic-sparsity", "frob=1"])

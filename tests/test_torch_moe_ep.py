@@ -20,7 +20,9 @@ num_experts=8, top_k=2, d_ff=32, activation="relu")``, fp32:
   1.25 the two differ, as they do in the JAX package); the ranks' decode
   local steps summed by hand equal the ``all_reduce``'s result;
 * the quantized and the plain all-to-all and their gradients (the mirrored
-  all-to-all) against JAX's ``custom_vjp`` under ``shard_map``;
+  all-to-all) against JAX's ``custom_vjp`` under ``shard_map``; the layer's
+  gradients (each rank's shard's contribution) summed over the ranks
+  against the unsharded layer's at ``capacity_factor`` 8;
 * ``ef_compress_grads`` over the ``pod`` axis of a ``(pod 2, data 2)`` mesh
   against JAX's under ``shard_map``, sums and residuals.
 
@@ -125,13 +127,16 @@ def task_a2a(x, w, quant):
     return y.detach().numpy(), xl.grad.numpy()
 
 
-def task_refuses_grad(params, x):
-    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
-    try:
-        TMoE.moe_ffn(tp, TMoE.MoEConfig(**CFG), torch.from_numpy(x), rt=_runtime("dense"), mesh=mesh(*MESH))
-    except NotImplementedError as e:
-        return str(e)
-    return None
+def task_grad(cfg_kw, params, x):
+    """The gradients of ``sum(moe_ffn(mesh))`` on this rank, and the
+    unsharded layer's."""
+    cfg = TMoE.MoEConfig(**cfg_kw)
+    out = []
+    for m in (mesh(*MESH), None):
+        tp = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
+        TMoE.moe_ffn(tp, cfg, torch.from_numpy(x), rt=_runtime("dense"), mesh=m).sum().backward()
+        out.append({k: v.grad.numpy() for k, v in tp.items()})
+    return out
 
 
 def task_compress(grads, residuals):
@@ -233,8 +238,18 @@ def test_all_to_all_and_its_gradient_match_jax(pool, quant):
 
 
 def test_expert_parallel_moe_refuses_a_gradient(pool, params):
-    for msg in pool.run(task_refuses_grad, params, _x((4, 8, 16))):
-        assert msg is not None and "item 14b" in msg
+    """The layer refused a gradient until the sharded model; now it
+    differentiates: each rank's gradients are its shard's contribution, an
+    expert's slice reaches only the rank holding it, and their sum is the
+    unsharded layer's gradient where no shard drops a token."""
+    out = pool.run(task_grad, {**CFG, "a2a_quant": False, "capacity_factor": 8.0}, params, _x((4, 8, 16)))
+    for k in params:
+        np.testing.assert_allclose(sum(g[k] for g, _ in out), out[0][1][k], **TOL)
+    for r, (g, _) in enumerate(out):  # rank r = (data r // 2, model r % 2): experts (r % 2), f slice (r // 2)
+        assert np.isfinite(g["w_up"]).all()
+        held = np.zeros_like(g["w_up"], dtype=bool)
+        held[(r % 2) * 4:(r % 2 + 1) * 4, :, (r // 2) * 16:(r // 2 + 1) * 16] = True
+        assert not g["w_up"][~held].any() and g["w_up"][held].any()
 
 
 def test_ef_compress_grads_matches_jax(pool):
