@@ -220,6 +220,23 @@ from the root of a checkout, on a machine with one H100.
    saved block on 4 gloo CPU ranks, bit-equal to ``local_shard``; each
    body's ms per rank, their sum against the unsharded block, the slowest
    rank;
+13c. runs the sharded families (``sharded_family_phase``) under tensor
+   parallel 4 at full width, each rank's local step in turn: deepseek-v2-ReLU's
+   MLA (32 of 128 heads a rank, the latent whole) with its dense FFN (the
+   gate fused on the kernel, the emitted plan, the ``w_down`` rows) and
+   with its MoE (40 of 160 experts a rank, a ``values`` plan and a planned
+   ``w_down`` each); one mamba2-780m layer (12 of 48 heads, the gated
+   norm's statistic summed over the ranks); one zamba2-2.7b group (the
+   shared block's 8 of 32 heads and 2560 of 10240 MLP columns, six Mamba2
+   layers of 20 of 80 heads); one qwen2-vl-72b-ReLU layer over M-RoPE
+   positions (16 of 64 heads, 2 of 8 kv heads); at decode and prefill, the
+   ranks' outputs summed against the unsharded layer, every rank's kernel
+   launches against their plain versions, one launch of each kind per rank
+   and call; each family's 4 LM-head slices bit-equal to the whole head;
+   then on an NCCL group of one rank the sharded engines of deepseek-v2
+   cut to 2 layers, mamba2 and zamba2 against the unsharded ones and
+   mamba2's sharded train step against the unsharded one; each body's ms
+   per rank, their sum, the slowest rank against the unsharded layer;
 14. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode;
@@ -230,8 +247,8 @@ from the root of a checkout, on a machine with one H100.
    per replay; each of the last nine also alone), the timed training
    steps (deepseek, SSM, hybrid) and launcher runs (a) and (c), the core
    phase's main path, on the serving path alone, per training step and per
-   launcher step, and the sharded phase's local steps and the core phase
-   alone), the card
+   launcher step, and the sharded phase's local steps, the core phase, the
+   sharded model phase and the sharded family phase alone), the card
    line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
@@ -350,6 +367,15 @@ SHARD_LM_ZERO = 0.4
 #: NCCL group of one rank (chunks of SM_CHUNK steps: a warm-up, a capture, replays)
 SM_TP, SM_ROWS, SM_PREFIX, SM_PREFILL, SM_TRAIN_TOKENS = 4, 4, 32, 128, 1024
 SM_LAYERS, SM_BATCH, SM_SEQ, SM_REQUESTS, SM_PROMPT, SM_NEW, SM_CHUNK = 4, 4, 256, 4, 32, 8, 3
+#: the sharded family phase: one layer (or group) of deepseek-v2-ReLU,
+#: mamba2-780m, zamba2-2.7b and qwen2-vl-72b-ReLU at full width under tensor
+#: parallel SM_TP at the sharded model phase's decode and prefill shapes,
+#: deepseek-v2's MoE at capacity factor SF_CAPACITY (no assignment dropped
+#: by the unsharded layer or a rank's local step, so their sum is the layer);
+#: on an NCCL group of one rank the engines (deepseek-v2-ReLU cut to
+#: SF_DSV2_LAYERS layers: its dense first block and one MoE block) and
+#: mamba2's train step at SF_BATCH x SF_SEQ tokens
+SF_CAPACITY, SF_DSV2_LAYERS, SF_BATCH, SF_SEQ = 8.0, 2, 4, 256
 #: the full-width decode FFN products tuned in the tune phase: (m, k, n, op)
 TUNE_CELLS = ((SLOTS, 4096, 11008, "matmul_fused"), (SLOTS, 11008, 4096, "matmul"))
 
@@ -3739,6 +3765,60 @@ def restore_rank_task(directory: str) -> dict:
     return {"equal": all(same), "leaves": len(same), "bytes": nbytes}
 
 
+def tp_ffn_check(tag: str, w: dict, x2, rt, plain_rt) -> dict:
+    """One tensor-parallel rank's FFN products at their local geometries,
+    held to their plain versions on the same inputs: the fused ReLU gate
+    (``check_close``'s bf16 tolerance) and its mask exactly, the plan the
+    planner emits from that mask bit-equal to the plain planner chain, the
+    planned ``w_down`` rows on the fp32 store (fp32 tolerance)."""
+    import torch
+    from repro_torch.kernels import ref
+
+    with torch.no_grad():
+        g, gmask = rt.matmul_fused(x2, w["w_gate"], activation="relu", assume_dense=True)
+        pg, pmask = plain_rt.matmul_fused(x2, w["w_gate"], activation="relu", assume_dense=True)
+        gate_err = check_close(f"{tag} gate {list(w['w_gate'].shape)}", g, pg, gmask, pmask)
+        h2 = g * (x2 @ w["w_up"])
+        plan = rt.plan_for_fused_output(gmask, h2, w["w_down"])
+        plain_plan = ref.plan_from_mask_csr_ref(gmask, coarsen=plan.bk // (h2.shape[1] // gmask.shape[1]))
+        if not all(torch.equal(a, b) for a, b in zip((plan.nnz, plan.idx, *plan.workqueue()), plain_plan)):
+            raise AssertionError(f"{tag}: the emitted plan differs from the plain planner chain's")
+        y = rt.matmul(h2, w["w_down"], plan=plan, out_dtype=torch.float32)
+        down_err = check_close(f"{tag} w_down {list(w['w_down'].shape)} bk {plan.bk}", y,
+                               plain_rt.matmul(h2, w["w_down"], plan=plan, out_dtype=torch.float32))
+    return {"gate_shape": [list(x2.shape), list(w["w_gate"].shape)], "gate_lanes": rt.lane(w["w_gate"].shape[1]),
+            "gate_max_abs_err": gate_err, "w_down_bk": plan.bk, "w_down_max_abs_err": down_err}
+
+
+def ffn_product_times(x2, w: dict, rt, plain_rt, bw: float, *, partial: bool) -> dict:
+    """A gated ReLU FFN's products at decode, one by one: each product's
+    kernel ms, its plain version (the ``reference`` executors on the card),
+    one ``torch.matmul`` and its byte bound; ``partial``: a tensor-parallel
+    rank's ``w_down`` rows on the fp32 store."""
+    import torch
+
+    g, gmask = rt.matmul_fused(x2, w["w_gate"], activation="relu", assume_dense=True)
+    h2 = g * (x2 @ w["w_up"])
+    plan = rt.plan_for_fused_output(gmask, h2, w["w_down"])
+    out32 = torch.float32 if partial else None
+    wg, wd = w["w_gate"], w["w_down"]
+    work = int(torch.clamp_min(torch.as_tensor(plan.nnz), 1).sum())  # effectual (row, K block) items
+    return {
+        "gate_ms": cuda_ms(lambda: rt.matmul_fused(x2, wg, activation="relu", assume_dense=True), iters=10),
+        "gate_plain_ms": cuda_ms(lambda: plain_rt.matmul_fused(x2, wg, activation="relu", assume_dense=True),
+                                 iters=3, warmup=1),
+        "gate_library_ms": cuda_ms(lambda: torch.matmul(x2, wg), iters=10),
+        "gate_bound_ms": (x2.numel() + wg.numel() + x2.shape[0] * wg.shape[1]) * 2 / bw * 1e3,
+        "emitted_plan_ms": cuda_ms(lambda: rt.plan_for_fused_output(gmask, h2, wd), iters=10),
+        "w_down_ms": cuda_ms(lambda: rt.matmul(h2, wd, plan=plan, out_dtype=out32), iters=10),
+        "w_down_plain_ms": cuda_ms(lambda: plain_rt.matmul(h2, wd, plan=plan, out_dtype=out32), iters=3, warmup=1),
+        "w_down_library_ms": cuda_ms(lambda: torch.matmul(h2, wd), iters=10),
+        "w_down_bound_ms": (h2.numel() * 2 + work * plan.bk * wd.shape[1] * 2
+                            + h2.shape[0] * wd.shape[1] * (4 if out32 else 2)) / bw * 1e3,
+        "gate_lanes": rt.lane(wg.shape[1]), "w_down_bk": plan.bk,
+        "w_down_k_blocks": h2.shape[1] // plan.bk, "shapes": [list(wg.shape), list(wd.shape)]}
+
+
 def sharded_model_phase(bw: float) -> dict:
     """The sharded model (tensor parallel over ``model``, FSDP over
     ``data``) of full-width deepseek-7b-ReLU on the one card, each model
@@ -3781,7 +3861,7 @@ def sharded_model_phase(bw: float) -> dict:
     from repro_torch.checkpoint import manager as man
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import ref, tensordash_spmm as T
+    from repro_torch.kernels import tensordash_spmm as T
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import attention as attn
     from repro_torch.models import model as M
@@ -3887,27 +3967,9 @@ def sharded_model_phase(bw: float) -> dict:
     # and its mask, the emitted plan bit-equal to the plain planner chain,
     # w_down on the fp32 store (fp32 tolerance)
     plain_rt = rt.replace(backend="reference")
-    tp_checks = []
-    with torch.no_grad():
-        for case, f in (("decode", f_dec), ("prefill", f_pre)):
-            x2 = f.reshape(-1, d)
-            for r in range(tp):
-                w, tag = ranks[r]["mlp"], f"sharded model (a) {case} rank {r}"
-                g, gmask = rt.matmul_fused(x2, w["w_gate"], activation="relu", assume_dense=True)
-                pg, pmask = plain_rt.matmul_fused(x2, w["w_gate"], activation="relu", assume_dense=True)
-                gate_err = check_close(f"{tag} gate {list(w['w_gate'].shape)}", g, pg, gmask, pmask)
-                h2 = g * (x2 @ w["w_up"])
-                plan = rt.plan_for_fused_output(gmask, h2, w["w_down"])
-                plain_plan = ref.plan_from_mask_csr_ref(gmask, coarsen=plan.bk // (h2.shape[1] // gmask.shape[1]))
-                if not all(torch.equal(a, b) for a, b in zip((plan.nnz, plan.idx, *plan.workqueue()), plain_plan)):
-                    raise AssertionError(f"{tag}: the emitted plan differs from the plain planner chain's")
-                y = rt.matmul(h2, w["w_down"], plan=plan, out_dtype=torch.float32)
-                down_err = check_close(f"{tag} w_down {list(w['w_down'].shape)} bk {plan.bk}", y,
-                                       plain_rt.matmul(h2, w["w_down"], plan=plan, out_dtype=torch.float32))
-                tp_checks.append({"case": case, "rank": r, "gate_shape": [list(x2.shape), list(w["w_gate"].shape)],
-                                  "gate_lanes": rt.lane(w["w_gate"].shape[1]), "gate_max_abs_err": gate_err,
-                                  "w_down_bk": plan.bk, "w_down_max_abs_err": down_err})
-    del g, pg, h2, y, plan, plain_plan
+    tp_checks = [{"case": case, "rank": r, **tp_ffn_check(f"sharded model (a) {case} rank {r}", ranks[r]["mlp"],
+                                                          f.reshape(-1, d), rt, plain_rt)}
+                 for case, f in (("decode", f_dec), ("prefill", f_pre)) for r in range(tp)]
     kernel_rows = [{"kernel": k, "main_path": False, "max_abs_err": max(c[e] for c in tp_checks)}
                    for k, e in (("tensordash_matmul_fused", "gate_max_abs_err"),
                                 ("tensordash_matmul_planned", "w_down_max_abs_err"))]
@@ -4119,30 +4181,8 @@ def sharded_model_phase(bw: float) -> dict:
         # rank 0's FFN at decode, product by product, beside the whole FFN's:
         # each product's kernel ms, its plain version (the ``reference``
         # executors on the card), one torch.matmul and its byte bound
-        parts = {}
-        for tag, w in (("rank 0", ranks[0]["mlp"]), ("unsharded", block["mlp"])):
-            x2 = f_dec.reshape(-1, d)
-            g, gmask = rt.matmul_fused(x2, w["w_gate"], activation="relu", assume_dense=True)
-            h2 = g * (x2 @ w["w_up"])
-            plan = rt.plan_for_fused_output(gmask, h2, w["w_down"])
-            out32 = torch.float32 if tag == "rank 0" else None
-            wg, wd = w["w_gate"], w["w_down"]
-            work = int(torch.clamp_min(torch.as_tensor(plan.nnz), 1).sum())  # effectual (row, K block) items
-            parts[tag] = {
-                "gate_ms": cuda_ms(lambda: rt.matmul_fused(x2, wg, activation="relu", assume_dense=True), iters=10),
-                "gate_plain_ms": cuda_ms(lambda: plain_rt.matmul_fused(x2, wg, activation="relu", assume_dense=True),
-                                         iters=3, warmup=1),
-                "gate_library_ms": cuda_ms(lambda: torch.matmul(x2, wg), iters=10),
-                "gate_bound_ms": (x2.numel() + wg.numel() + x2.shape[0] * wg.shape[1]) * 2 / bw * 1e3,
-                "emitted_plan_ms": cuda_ms(lambda: rt.plan_for_fused_output(gmask, h2, wd), iters=10),
-                "w_down_ms": cuda_ms(lambda: rt.matmul(h2, wd, plan=plan, out_dtype=out32), iters=10),
-                "w_down_plain_ms": cuda_ms(lambda: plain_rt.matmul(h2, wd, plan=plan, out_dtype=out32),
-                                           iters=3, warmup=1),
-                "w_down_library_ms": cuda_ms(lambda: torch.matmul(h2, wd), iters=10),
-                "w_down_bound_ms": (h2.numel() * 2 + work * plan.bk * wd.shape[1] * 2
-                                    + h2.shape[0] * wd.shape[1] * (4 if out32 else 2)) / bw * 1e3,
-                "gate_lanes": rt.lane(wg.shape[1]), "w_down_bk": plan.bk,
-                "w_down_k_blocks": h2.shape[1] // plan.bk, "shapes": [list(wg.shape), list(wd.shape)]}
+        parts = {tag: ffn_product_times(f_dec.reshape(-1, d), w, rt, plain_rt, bw, partial=tag == "rank 0")
+                 for tag, w in (("rank 0", ranks[0]["mlp"]), ("unsharded", block["mlp"]))}
         log(f"sharded model decode FFN by product [{card}]: " + "; ".join(
             f"{tag} {p['shapes']}: gate {p['gate_ms']:.4f} ms (bn {p['gate_lanes']}; plain {p['gate_plain_ms']:.4f}, "
             f"torch.matmul {p['gate_library_ms']:.4f}, bound {p['gate_bound_ms']:.4f}), emitted plan "
@@ -4150,12 +4190,16 @@ def sharded_model_phase(bw: float) -> dict:
             f"{p['w_down_k_blocks']} K blocks; plain {p['w_down_plain_ms']:.4f}, torch.matmul "
             f"{p['w_down_library_ms']:.4f}, bound {p['w_down_bound_ms']:.4f})" for tag, p in parts.items()))
         head_ms = [cuda_ms(lambda r=r: head_body(h_dec, r), iters=10) for r in range(tp)]
+        with plain_rt.use():
+            head_plain_ms = cuda_ms(lambda: tfm.head_matmul(cfg, h_dec, heads[0], key=("plain", id(heads[0])),
+                                                            vocab=v), iters=3, warmup=1)
         head_library_ms = cuda_ms(lambda: torch.matmul(h_dec, heads[0]), iters=10)
         head_bound_ms = (heads[0].numel() + h_dec.numel() + SM_ROWS * heads[0].shape[1]) * 2 / bw * 1e3
         with rt.use():
             head_whole_ms = cuda_ms(lambda: tfm.head_matmul(cfg, h_dec, lm_head), iters=10)
     log(f"sharded model head [{card}]: each rank's vocab slice at {SM_ROWS} rows {[round(x, 4) for x in head_ms]} ms "
-        f"(rank 0's torch.matmul {head_library_ms:.4f} ms, bound {head_bound_ms:.4f} ms), sum {sum(head_ms):.4f} ms vs "
+        f"(rank 0's plain version {head_plain_ms:.4f} ms, torch.matmul {head_library_ms:.4f} ms, bound "
+        f"{head_bound_ms:.4f} ms), sum {sum(head_ms):.4f} ms vs "
         f"the unsharded head {head_whole_ms:.4f} ms; no run across cards was made (the machine has one card): "
         "collectives are not timed")
     spent["times"] = time.perf_counter() - t_phase - sum(spent.values())
@@ -4170,7 +4214,531 @@ def sharded_model_phase(bw: float) -> dict:
             "grad_worst": d_rel[d_worst], "tokens_equal": same_tokens, "graph_captures": graph_s,
             "step_s": step_s, "mesh": mesh_desc}, "restore": restored, "times": times,
             "head_ms": head_ms, "head_whole_ms": head_whole_ms, "head_library_ms": head_library_ms,
+            "head_plain_ms": head_plain_ms,
             "head_bound_ms": head_bound_ms, "ffn_parts": parts, "seconds": spent, "card": card}
+
+
+def _grown(cache, rows: int):
+    """A prefill cache (any of the named-tuple caches with a sequence dim
+    1) grown to ``rows`` positions with zeros."""
+    return type(cache)(*(None if c is None else torch_cat_pad(c, rows) for c in cache))
+
+
+def torch_cat_pad(c, rows: int):
+    import torch
+
+    return torch.cat([c, c.new_zeros((c.shape[0], rows - c.shape[1], *c.shape[2:]))], 1)
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The paths of a parameter tree's leaves in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def ssm_rank_steps(ws, lcfg, x, caches=None):
+    """Each model rank's Mamba2 local step (``ws`` the ranks' weights,
+    ``lcfg`` a rank's config) on the one card, their gated-norm statistic
+    summed over the ranks as ``tp_sum`` sums it: a first pass records each
+    rank's fp32 sum of squares (on copies of the decode caches), the second
+    runs every rank on their sum.  Returns the ranks' fp32 partial outputs
+    and, per rank, its local step as a closure on that sum (for timing)."""
+    import torch
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.runtime.runtime import tree_map
+
+    def run(r, cache, norm_sum):
+        if cache is None:
+            return ssm_mod.ssm_fwd(ws[r], lcfg, x, norm_sum=norm_sum, partial=True)
+        return ssm_mod.ssm_decode(ws[r], lcfg, x, cache, norm_sum=norm_sum, partial=True)[0]
+
+    stats = []
+    for r in range(len(ws)):
+        run(r, None if caches is None else tree_map(lambda t: t.clone(), caches[r]),
+            lambda ss: stats.append(ss) or ss)
+    total = torch.stack(stats).sum(0)
+    bodies = [lambda r=r: run(r, None if caches is None else caches[r], lambda ss: total) for r in range(len(ws))]
+    return [b() for b in bodies], bodies
+
+
+def one_rank_step(cfg, policy, rt, counted) -> dict:
+    """``cfg``'s sharded ``accumulate_grads`` and one ``make_train_step``
+    step on ``policy``'s mesh of one rank against the unsharded gradients,
+    at SF_BATCH x SF_SEQ tokens.  fp32 parameters: the two paths differ
+    only in the order of their sums (the vocab-parallel cross entropy's
+    gradient formula is another than ``log_softmax``'s), which bf16
+    roundings through 48 layers would amplify into the noise of bf16
+    training itself; every leaf within GRAD_REL_L2."""
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import OptConfig
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train import step as TS
+
+    params = init_params(M.param_specs(cfg), seed=0, dtype=torch.float32, device="cuda")
+    local = S.shard_tree(params, policy.param_pspecs(M.param_specs(cfg)), policy)
+    srt = rt.replace(sharding=policy, plan_cache=rtm.PlanCache())
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SF_SEQ, global_batch=SF_BATCH, seed=0).batch_at(0)
+    with srt.use(), no_plain_versions(f"sharded family (e) {cfg.name} step"):
+        loss_s, grads_s, _ = counted(f"{cfg.name} grads", 0, lambda: TS.accumulate_grads(
+            TS.make_loss_fn(cfg), cfg, local, batch, shards=tfm.shards_of(cfg)))
+        loss_s = float(loss_s)
+    with rt.replace(plan_cache=rtm.PlanCache()).use():
+        loss_u, grads_u, _ = TS.accumulate_grads(TS.make_loss_fn(cfg), cfg, params, batch)
+        loss_u = float(loss_u)
+    rel = sorted(zip((_rel_l2(a, b) for a, b in zip(grads_s, grads_u)), leaf_paths(params)), reverse=True)
+    del grads_s, grads_u
+    with srt.use():
+        step = TS.make_train_step(cfg, OptConfig(lr=1e-4, warmup_steps=1))
+        t0 = time.perf_counter()
+        _, _, m = counted(f"{cfg.name} step", 0, lambda: step(local, TS.init_train_state(cfg, local), batch))
+        step_loss = float(m["loss"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    loss_rel = abs(loss_s - loss_u) / abs(loss_u)
+    if not (loss_rel <= LOSS_REL and rel[0][0] <= GRAD_REL_L2 and abs(step_loss - loss_s) <= 1e-6 * abs(loss_s)):
+        raise AssertionError(f"sharded family (e) {cfg.name}: loss {loss_s} vs {loss_u}, step loss {step_loss}, "
+                             f"worst gradients {rel[:3]}")
+    del params, local
+    free()
+    return {"loss": [loss_s, loss_u], "loss_rel": loss_rel, "grad_worst_leaves": rel[:3], "step_loss": step_loss,
+            "step_s": step_s}
+
+
+def sharded_family_phase(bw: float) -> dict:
+    """The sharded families at full width on the one card, each model rank's
+    local step run in turn under tensor parallel SM_TP (NCCL refuses two
+    ranks on one card; a collective is a sum of the ranks' outputs here):
+
+    (a) deepseek-v2-ReLU: layer 0 (MLA, the rank's 32 of 128 heads, plus the
+        dense FFN, its gate columns fused on the kernel, the emitted plan,
+        its ``w_down`` rows on the fp32 store) and layer 1 (MLA plus the
+        MoE, 40 of 160 experts a rank, each a ``values`` plan and a planned
+        ``w_down``; the decode branch's local step, every rank on all
+        tokens, at SF_CAPACITY so neither side drops), at SM_ROWS decode
+        rows over SM_PREFIX cached tokens (each rank's latent cache whole)
+        and an SM_PREFILL-token prefill;
+    (b) mamba2-780m: one layer, 12 of 48 heads a rank, the gated norm's
+        statistic summed over the ranks, at decode and prefill;
+    (c) zamba2-2.7b: one group, the shared block (8 of 32 heads, 2560 of
+        10240 MLP columns a rank) then its six Mamba2 layers (20 of 80
+        heads a rank), each sublayer's partials summed before the next;
+    (d) qwen2-vl-72b-ReLU: one layer, 16 of 64 heads and 2 of 8 kv heads a
+        rank, the FFN as in (a), at decode (text mode) and over the image
+        prompt's M-RoPE positions;
+    and for each the vocab-parallel LM head: SM_TP slices on side B, each
+    launch splitting K as the whole head's does, their concatenation
+    bit-equal to the whole head.  The ranks' outputs, summed, are held to
+    the unsharded layer within REF_REL_L2, every rank's kernel launches to
+    their plain versions;
+    (e) on an NCCL group of one rank through ``make_local_mesh()``: the
+        sharded engines of deepseek-v2-ReLU cut to SF_DSV2_LAYERS layers (a
+        plain all-to-all payload: the int8 one rounds on a group of one
+        too; at SF_CAPACITY, as the decode branch's slot lists are 4x the
+        layer's capacity), mamba2 and zamba2 whole against the unsharded ones (greedy
+        tokens equal, one graph capture), and mamba2's sharded
+        ``accumulate_grads`` and train step (:func:`one_rank_step`) against
+        the unsharded ones (zamba2's step, 64.16 GB, does not fit twice; a
+        full-width deepseek-v2 step needs several cards).
+
+    Launches are counted over every local step of (a)-(d) and (e)'s sharded
+    runs, reset just before and read just after; each rank's launches per
+    call are held to the path's.  Then each body is timed: each rank's ms,
+    their sum and the slowest rank against the unsharded layer."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import runtime as rtm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention as attn
+    from repro_torch.models import hybrid as hyb
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import Spec, init_params, rms_norm
+    from repro_torch.parallel import sharding as S
+    from repro_torch.serve.engine import ServeEngine
+
+    dev, bf16, tp = torch.device("cuda"), torch.bfloat16, SM_TP
+    t_phase, spent = time.perf_counter(), {}
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+    plain_rt = rt.replace(backend="reference")
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(bf16)
+    split = lambda tree, specs, r: S.map_specs(lambda w, sp: _rank_slice(w, sp, tp, r), tree, _tp_specs(specs, tp))
+    total = lambda parts: torch.stack([p.float() for p in parts]).sum(0).to(bf16)
+    launches = {k: 0 for k in T.launch_counts()}
+    per_call, checks, kernel_errs, families, heads = [], [], {}, {}, []
+
+    def counted(tag, r, fn):
+        """``fn()`` as rank ``r``'s main-path call, its launches added up."""
+        torch.cuda.synchronize()
+        before = T.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: n - before[k] for k, n in T.launch_counts().items() if n != before[k]}
+        for k, n in got.items():
+            launches[k] += n
+        per_call.append((tag, r, got))
+        return out
+
+    def want_calls(tag, want):
+        got = [(r, c) for t, r, c in per_call if t == tag]
+        if len(got) != tp or any(c != want for _, c in got):
+            raise AssertionError(f"sharded family {tag}: launches per rank {got}, expected {want}")
+
+    def err(kernel, e):
+        kernel_errs[kernel] = max(kernel_errs.get(kernel, 0.0), e)
+
+    def hold(tag, got, want):
+        rel = _rel_l2(got, want)
+        if not (bool(torch.isfinite(got.float()).all()) and rel <= REF_REL_L2):
+            raise AssertionError(f"sharded family {tag}: the ranks' outputs summed are {rel} relative L2 of the "
+                                 f"unsharded layer (bound {REF_REL_L2})")
+        checks.append({"case": tag, "rel_l2": rel})
+        return rel
+
+    def timed(tag, bodies, whole):
+        """Each rank's body ms (its local steps in turn), their sum, the
+        slowest rank and the unsharded layer's ms."""
+        ms = [cuda_ms(lambda b=b: [f() for f in b], iters=3, warmup=1) for b in bodies]
+        whole_ms = cuda_ms(whole, iters=3, warmup=1)
+        families.setdefault("times", []).append({"case": tag, "rank_ms": ms, "sum_ms": sum(ms), "slowest_ms": max(ms),
+                                                 "whole_ms": whole_ms})
+
+    def head_check(fam, cfg, lm_head):
+        """The vocab-parallel head at SM_ROWS decode rows: each rank's slice
+        on side B (a ``values`` plan, a planned launch), held to its plain
+        version; the concatenation bit-equal to the whole head."""
+        h = rand(SM_ROWS, 1, cfg.d_model)
+        hspec = _tp_specs({"lm_head": M.param_specs(cfg)["lm_head"]}, tp)["lm_head"]
+        slices = [_rank_slice(lm_head, hspec, tp, r) for r in range(tp)]
+        tag = f"{fam} head"
+        with rt.use():
+            logits = [counted(tag, r, lambda w=w: tfm.head_matmul(cfg, h, w, key=("lm_head", id(w)),
+                                                                 vocab=cfg.vocab_size))
+                      for r, w in enumerate(slices)]
+            whole = tfm.head_matmul(cfg, h, lm_head)
+        want_calls(tag, {"planner[values]": 1, "tensordash_matmul_planned": 1})
+        with plain_rt.use():
+            for r, (w, got) in enumerate(zip(slices, logits)):
+                err("tensordash_matmul_planned", check_close(
+                    f"{tag} rank {r} {list(w.shape)}", got,
+                    tfm.head_matmul(cfg, h, w, key=("plain", id(w)), vocab=cfg.vocab_size)))
+        if not torch.equal(torch.cat(logits, -1), whole):
+            raise AssertionError(f"sharded family {tag}: the {tp} head slices are not bit-equal to the whole head")
+        with rt.use():
+            ms = [cuda_ms(lambda w=w: tfm.head_matmul(cfg, h, w, key=("lm_head", id(w)), vocab=cfg.vocab_size),
+                          iters=10) for w in slices]
+        with plain_rt.use():
+            plain_ms = cuda_ms(lambda: tfm.head_matmul(cfg, h, slices[0], key=("plain", id(slices[0])),
+                                                       vocab=cfg.vocab_size), iters=3, warmup=1)
+        library_ms = cuda_ms(lambda: torch.matmul(h, slices[0]), iters=10)
+        bound_ms = (slices[0].numel() + h.numel() + SM_ROWS * slices[0].shape[1]) * 2 / bw * 1e3
+        heads.append({"family": fam, "slice": list(slices[0].shape), "block_rows": rt.lane(slices[0].shape[1]),
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms})
+        log(f"sharded family {tag}: {tp} slices {list(slices[0].shape)} side B (lanes "
+            f"{rt.lane(slices[0].shape[1])}) at {SM_ROWS} rows: concatenation bit-equal to the whole head; "
+            f"{[round(x, 4) for x in ms]} ms (plain {plain_ms:.4f}, torch.matmul {library_ms:.4f}, bound "
+            f"{bound_ms:.4f} ms; rank 0 {ms[0] / library_ms:.2f}x torch.matmul, {bound_ms / ms[0]:.0%} of bound)")
+
+    def attn_rank(w, specs, acfg, r):
+        """Rank ``r``'s attention weights as the sharded model holds them:
+        its slices, and the whole K/V where the kv heads do not divide the
+        model axis (``attn_local``'s ``kv_index``)."""
+        mine = split(w, specs, r)
+        if not isinstance(acfg, mla_mod.MLAConfig) and tfm.attn_local(acfg, tp, r, dev)[1] is not None:
+            mine.update(wk=w["wk"], wv=w["wv"])
+        return mine
+
+    def attn_ffn_layer(fam, cfg, block, *, moe=False, mrope=False):
+        """One transformer layer's attention (MLA or GQA) and FFN (dense or
+        MoE) under tensor parallel ``tp``, at decode and prefill."""
+        acfg, tables, fwd, dec = tfm._attention(cfg)
+        specs = tfm.block_specs(cfg, moe=moe)
+        ranks = [attn_rank(block["attn"], specs["attn"], acfg, r) for r in range(tp)]
+        if cfg.use_mla:
+            lacfg = dataclasses.replace(acfg, num_heads=acfg.num_heads // tp)
+            kw = lambda r: {"partial": True}
+        else:
+            lacfg = tfm.attn_local(acfg, tp, 0, dev)[0]
+            kw = lambda r: {"partial": True, "kv_index": tfm.attn_local(acfg, tp, r, dev)[1]}
+        mcfg = tfm.moe_config(cfg)
+        e_local = cfg.num_experts // tp if moe else 0
+        if moe:
+            mine = [{"router": block["mlp"]["router"], **{k: block["mlp"][k][r * e_local:(r + 1) * e_local]
+                                                           for k in ("w_gate", "w_up", "w_down")}} for r in range(tp)]
+        else:
+            mine = [split({"mlp": block["mlp"]}, {"mlp": specs["mlp"]}, r)["mlp"] for r in range(tp)]
+        # the decode rows' prefix (text positions), then one step; the prefill
+        # over arange or, under M-RoPE, the image prompt's positions
+        pos_prefix = torch.arange(SM_PREFIX, device=dev)
+        if mrope:
+            pos_pre = torch.from_numpy(vl_positions(1)).to(dev)
+            pos_prefix = pos_prefix.reshape(1, 1, -1).expand(SM_ROWS, 3, -1)  # text: one position in all streams
+        else:
+            pos_pre = torch.arange(SM_PREFILL, device=dev)
+        s_pre = pos_pre.shape[-1]
+        x_prefix, x_dec = rand(SM_ROWS, SM_PREFIX, cfg.d_model), rand(SM_ROWS, 1, cfg.d_model)
+        x_pre, f_dec, f_pre = rand(1, s_pre, cfg.d_model), rand(SM_ROWS, 1, cfg.d_model), rand(1, s_pre, cfg.d_model)
+        pos_dec = torch.full((SM_ROWS,), SM_PREFIX, device=dev)
+        rope_prefix, rope_pre = tables(acfg, pos_prefix), tables(acfg, pos_pre)
+        rope_dec = tables(acfg, attn.decode_positions(pos_dec, SM_ROWS, dev, mrope=mrope))
+        with torch.no_grad():
+            whole_cache = _grown(fwd(block["attn"], acfg, x_prefix, pos_prefix, rope_prefix, return_cache=True)[1],
+                                 SM_PREFIX + 8)
+            rank_caches = [_grown(fwd(ranks[r], lacfg, x_prefix, pos_prefix, rope_prefix, return_cache=True,
+                                      **kw(r))[1], SM_PREFIX + 8) for r in range(tp)]
+
+        def attn_body(case, r):
+            if case == "decode":
+                return dec(ranks[r], lacfg, x_dec, rank_caches[r], pos_dec, rope_dec, **kw(r))[0]
+            return fwd(ranks[r], lacfg, x_pre, pos_pre, rope_pre, **kw(r))
+
+        def attn_whole(case):
+            if case == "decode":
+                return dec(block["attn"], acfg, x_dec, whole_cache, pos_dec, rope_dec)[0]
+            return fwd(block["attn"], acfg, x_pre, pos_pre, rope_pre)
+
+        def ffn_body(case, r, run_rt=rt):
+            f = f_dec if case == "decode" else f_pre
+            if moe:
+                return moe_mod.decode_local_step(mcfg, r, tp, mine[r], f.reshape(-1, cfg.d_model),
+                                                 rt=run_rt).reshape(f.shape)
+            return tfm.mlp_fwd(mine[r], cfg, f, rt=run_rt, partial=True)
+
+        shared = lambda f: moe_mod._shared_ffn(mcfg, block["mlp"]["shared"], f) if moe and mcfg.num_shared_experts \
+            else 0.0
+
+        def ffn_whole(case):
+            f = f_dec if case == "decode" else f_pre
+            if moe:
+                return moe_mod.moe_ffn(block["mlp"], mcfg, f, rt=rt, seq_sharded=case != "decode")
+            return tfm.mlp_fwd(block["mlp"], cfg, f, rt=rt)
+
+        ffn_want = ({"planner[values]": e_local, "tensordash_matmul_planned": e_local} if moe else
+                    {"tensordash_matmul_fused": 1, "planner[emitted]": 1, "tensordash_matmul_planned": 1})
+        with torch.no_grad(), no_plain_versions(f"sharded family {fam}"):
+            for case in ("decode", "prefill"):
+                atts = [counted(f"{fam} attn {case}", r, lambda r=r: attn_body(case, r)) for r in range(tp)]
+                ffns = [counted(f"{fam} ffn {case}", r, lambda r=r: ffn_body(case, r)) for r in range(tp)]
+                want_calls(f"{fam} ffn {case}", ffn_want)
+                f = f_dec if case == "decode" else f_pre
+                hold(f"{fam} attention {case}", total(atts), attn_whole(case))
+                hold(f"{fam} {'moe' if moe else 'ffn'} {case}", (total(ffns) + shared(f)).to(bf16), ffn_whole(case))
+        with torch.no_grad():  # every rank's launches against their plain versions
+            for case in ("decode", "prefill"):
+                f = f_dec if case == "decode" else f_pre
+                for r in range(tp):
+                    if moe:  # the rank's expert products on the inputs its routing gave them
+                        seen, expert_ffn = [], moe_mod._expert_ffn
+                        moe_mod._expert_ffn = lambda c, xe, *w, rt=None: (seen.append((xe, *w)),
+                                                                          expert_ffn(c, xe, *w, rt=rt))[1]
+                        try:
+                            ffn_body(case, r)
+                        finally:
+                            moe_mod._expert_ffn = expert_ffn
+                        e = check_close(f"{fam} moe {case} rank {r} ({e_local} experts' w_down)",
+                                        expert_ffn(mcfg, *seen[0], rt=rt), expert_ffn(mcfg, *seen[0], rt=plain_rt))
+                        err("planner[values]", 0.0)
+                        err("tensordash_matmul_planned", e)
+                    else:
+                        c = tp_ffn_check(f"{fam} {case} rank {r}", mine[r], f.reshape(-1, cfg.d_model), rt, plain_rt)
+                        err("tensordash_matmul_fused", c["gate_max_abs_err"])
+                        err("tensordash_matmul_planned", c["w_down_max_abs_err"])
+                        err("planner[emitted]", 0.0)
+                        families.setdefault("ffn_shapes", []).append({"family": fam, "case": case, **c})
+            if not moe:  # rank 0's FFN products at decode, one by one
+                families.setdefault("ffn_parts", {})[fam] = ffn_product_times(
+                    f_dec.reshape(-1, cfg.d_model), mine[0], rt, plain_rt, bw, partial=True)
+            for case in ("decode", "prefill"):
+                timed(f"{fam} {'moe' if moe else 'ffn'} layer {case}",
+                      [[lambda r=r: attn_body(case, r), lambda r=r: ffn_body(case, r)] for r in range(tp)],
+                      lambda: (attn_whole(case), ffn_whole(case)))
+
+    # -- (a) deepseek-v2-ReLU: MLA with the dense FFN, MLA with the MoE --------
+    cfg = dataclasses.replace(get_config(DSV2_ARCH), activation="relu", capacity_factor=SF_CAPACITY)
+    block0 = init_params(tfm.block_specs(cfg), seed=5, dtype=bf16, device="cuda")
+    attn_ffn_layer("dsv2 layer 0", cfg, block0)
+    del block0
+    free()
+    block1 = init_params(tfm.block_specs(cfg, moe=True), seed=6, dtype=bf16, device="cuda")
+    expert_gb = sum(block1["mlp"][k].numel() * 2 for k in ("w_gate", "w_up", "w_down")) / 1e9
+    attn_ffn_layer("dsv2 layer 1", cfg, block1, moe=True)
+    del block1
+    free()
+    head_check("dsv2", cfg, (torch.randn(cfg.d_model, cfg.vocab_size, generator=gen, device=dev)
+                             * cfg.d_model**-0.5).to(bf16))
+    free()
+    spent["a"] = time.perf_counter() - t_phase
+
+    # -- (b) and (c): mamba2's layer, zamba2's group -------------------------
+    for fam, arch in (("mamba2", SSM_ARCH), ("zamba2", HYBRID_ARCH)):
+        cfg = get_config(arch)
+        scfg = hyb.ssm_config(cfg)
+        lcfg = dataclasses.replace(scfg, tp=tp)
+        n_layers = 1 if cfg.family == "ssm" else cfg.attn_every
+        lspecs = {"ln": Spec((cfg.d_model,), init="ones"), "ssm": ssm_mod.ssm_specs(scfg)}
+        layers = [init_params(lspecs, seed=7 + i, dtype=bf16, device="cuda") for i in range(n_layers)]
+        lranks = [[split(p["ssm"], lspecs["ssm"], r) for r in range(tp)] for p in layers]
+        x = rand(1, SM_PREFILL, cfg.d_model)
+        bodies = [[] for _ in range(tp)]
+        with torch.no_grad(), no_plain_versions(f"sharded family {fam}"):
+            if cfg.family == "hybrid":
+                sspecs = hyb.hybrid_specs(cfg)["shared"]
+                shared = init_params(sspecs, seed=13, dtype=bf16, device="cuda")
+                acfg = hyb.shared_attn_config(cfg)
+                sranks = [{**split(shared, sspecs, r), "attn": attn_rank(shared["attn"], sspecs["attn"], acfg, r)}
+                          for r in range(tp)]
+                lacfg = tfm.attn_local(acfg, tp, 0, dev)[0]
+                positions = torch.arange(SM_PREFILL, device=dev)
+                rope = attn.rope_tables(acfg, positions)
+                h, h0 = x, x
+                xin = hyb._shared_in(shared, h, h0)
+                for r in range(tp):
+                    bodies[r].append(lambda r=r: attn.attention_fwd(
+                        sranks[r]["attn"], lacfg, xin, positions, rope, partial=True,
+                        kv_index=tfm.attn_local(acfg, tp, r, dev)[1]))
+                a = total([b[0]() for b in bodies])
+                hold(f"{fam} shared attention", a, attn.attention_fwd(shared["attn"], acfg, xin, positions, rope))
+                h = h + a
+                m = rms_norm(h, shared["norm_mlp"])
+                for r in range(tp):
+                    bodies[r].append(lambda r=r, m=m: hyb.shared_mlp_local(sranks[r]["mlp"], cfg, m, partial=True))
+                a = total([b[1]() for b in bodies])
+                hold(f"{fam} shared MLP", a, hyb.shared_mlp_local(shared["mlp"], cfg, m))
+                h = h + a
+                whole = lambda: hyb._group_fwd({"shared": shared}, layers, cfg, x, x, positions, rope)
+            else:
+                h, whole = x, lambda: x + ssm_mod.ssm_fwd(layers[0]["ssm"], scfg, rms_norm(x, layers[0]["ln"]))
+            for i, (p, ws) in enumerate(zip(layers, lranks)):
+                xn = rms_norm(h, p["ln"])
+                outs, steps = ssm_rank_steps(ws, lcfg, xn)
+                for r in range(tp):
+                    bodies[r].append(steps[r])
+                if cfg.family == "hybrid":  # each sublayer on the same input, then the group
+                    hold(f"{fam} Mamba2 layer {i}", total(outs), ssm_mod.ssm_fwd(p["ssm"], scfg, xn))
+                h = h + total(outs)
+            hold(f"{fam} {'group' if cfg.family == 'hybrid' else 'layer'} prefill", h, whole())
+            if cfg.family == "ssm":  # one decode step of SM_ROWS rows after an SM_PREFIX-token prefix
+                xp, xd = rand(SM_ROWS, SM_PREFIX, cfg.d_model), rand(SM_ROWS, 1, cfg.d_model)
+                # each rank's caches of the prefix: its heads' conv_x channels
+                # and states, B and C's tails whole (the norm is after them)
+                caches = [ssm_mod.ssm_fwd(lranks[0][r], lcfg, xp, return_cache=True)[1] for r in range(tp)]
+                whole_cache = ssm_mod.ssm_fwd(layers[0]["ssm"], scfg, xp, return_cache=True)[1]
+                outs, dsteps = ssm_rank_steps(lranks[0], lcfg, xd, caches)
+                hold(f"{fam} layer decode", total(outs),
+                     ssm_mod.ssm_decode(layers[0]["ssm"], scfg, xd, whole_cache)[0])
+                timed(f"{fam} layer decode", [[s] for s in dsteps],
+                      lambda: ssm_mod.ssm_decode(layers[0]["ssm"], scfg, xd, whole_cache))
+            timed(f"{fam} {'group' if cfg.family == 'hybrid' else 'layer'} prefill", bodies, whole)
+        families[fam] = {"heads_per_rank": lcfg.num_heads, "channels_per_rank": lcfg.d_inner}
+        lm_head = (torch.randn(cfg.d_model, cfg.vocab_size, generator=gen, device=dev) * cfg.d_model**-0.5).to(bf16)
+        head_check(fam, cfg, lm_head)
+        del layers, lranks, lm_head, bodies
+        free()
+    spent["b_c"] = time.perf_counter() - t_phase - sum(spent.values())
+
+    # -- (d) qwen2-vl-72b-ReLU: one layer over M-RoPE positions ----------------
+    cfg = dataclasses.replace(get_config(VL_ARCH), activation="relu")
+    block = init_params(tfm.block_specs(cfg), seed=17, dtype=bf16, device="cuda")
+    attn_ffn_layer("qwen2-vl layer", cfg, block, mrope=True)
+    del block
+    free()
+    head_check("qwen2-vl", cfg, (torch.randn(cfg.d_model, cfg.vocab_size, generator=gen, device=dev)
+                                 * cfg.d_model**-0.5).to(bf16))
+    free()
+    spent["d"] = time.perf_counter() - t_phase - sum(spent.values())
+    launches_ad = dict(launches)
+
+    # -- (e) the sharded engines and mamba2's step on an NCCL group of one -----
+    engines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            policy = S.ShardingPolicy(mesh=make_local_mesh())
+            for fam, cfg in (("dsv2", dataclasses.replace(get_config(DSV2_ARCH), activation="relu",
+                                                         num_layers=SF_DSV2_LAYERS, moe_a2a_quant=False,
+                                                         capacity_factor=SF_CAPACITY)),
+                             ("mamba2", get_config(SSM_ARCH)), ("zamba2", get_config(HYBRID_ARCH))):
+                params = init_params(M.param_specs(cfg), seed=0, dtype=bf16, device="cuda")
+                prompts = torch.randint(0, cfg.vocab_size, (SM_REQUESTS, SM_PROMPT), generator=gen, device=dev).cpu()
+                local = S.shard_tree(params, policy.param_pspecs(M.param_specs(cfg)), policy)
+                srt = rt.replace(sharding=policy, plan_cache=rtm.PlanCache())
+
+                def serve(p, run_rt):
+                    eng = ServeEngine(p, cfg, slots=SM_REQUESTS, max_len=SM_PROMPT + SM_NEW, chunk=SM_CHUNK,
+                                      rt=run_rt)
+                    rids = [eng.submit(q, max_new=SM_NEW) for q in prompts]
+                    out = eng.run()
+                    return [out[i] for i in rids], eng.stats()["decode_graph_captures"]
+
+                with srt.use(), torch.no_grad(), no_plain_versions(f"sharded family (e) {fam} engine"):
+                    toks_s, graph_s = counted(f"{fam} engine", 0, lambda: serve(local, srt))
+                toks_u, _ = serve(params, rt.replace(plan_cache=rtm.PlanCache()))
+                if toks_s != toks_u or graph_s != 1:
+                    raise AssertionError(f"sharded family (e) {fam}: tokens equal {toks_s == toks_u}, graph captures "
+                                         f"{graph_s}")
+                engines[fam] = {"tokens_equal": True, "graph_captures": graph_s, "requests": SM_REQUESTS,
+                                "new_tokens": SM_NEW}
+                del params, local
+                free()
+                if fam == "mamba2":
+                    engines["mamba2_step"] = one_rank_step(cfg, policy, rt, counted)
+            mesh_desc = (tuple(policy.mesh.shape), tuple(policy.mesh.mesh_dim_names), dist.get_backend())
+        finally:
+            dist.destroy_process_group()
+    spent["e"] = time.perf_counter() - t_phase - sum(spent.values())
+    card = card_line()
+    for t in families["times"]:
+        log(f"sharded family {t['case']} [{card}]: each rank {[round(x, 4) for x in t['rank_ms']]} ms, sum "
+            f"{t['sum_ms']:.4f} ms, slowest {t['slowest_ms']:.4f} ms vs the unsharded layer {t['whole_ms']:.4f} ms")
+    for fam, q in families["ffn_parts"].items():
+        log(f"sharded family {fam} rank 0 decode FFN by product [{card}]: {q['shapes']}: gate {q['gate_ms']:.4f} ms "
+            f"(lanes {q['gate_lanes']}; plain {q['gate_plain_ms']:.4f}, torch.matmul {q['gate_library_ms']:.4f}, "
+            f"bound {q['gate_bound_ms']:.4f}), emitted plan {q['emitted_plan_ms']:.4f} ms, w_down {q['w_down_ms']:.4f} "
+            f"ms (bk {q['w_down_bk']}, {q['w_down_k_blocks']} K blocks; plain {q['w_down_plain_ms']:.4f}, "
+            f"torch.matmul {q['w_down_library_ms']:.4f}, bound {q['w_down_bound_ms']:.4f})")
+    for c in families.get("ffn_shapes", []):
+        if c["case"] == "decode":
+            log(f"sharded family {c['family']} FFN: each rank's gate {c['gate_shape']} (lanes {c['gate_lanes']}) "
+                f"and w_down (bk {c['w_down_bk']}) against their plain versions: max abs err "
+                f"{c['gate_max_abs_err']:.3e} / {c['w_down_max_abs_err']:.3e}")
+    log("sharded family: every rank's launches against their plain versions, max abs err by kernel "
+        + ", ".join(f"{k} {e:.3e}" for k, e in kernel_errs.items()))
+    log("sharded family: " + "; ".join(f"{c['case']} {c['rel_l2']:.3e}" for c in checks)
+        + f" relative L2 of the unsharded layer (bound {REF_REL_L2:.3e}); deepseek-v2 layer 1's "
+        f"{expert_gb:.2f} GB of experts, 40 a rank; mamba2 {families['mamba2']['heads_per_rank']} and zamba2 "
+        f"{families['zamba2']['heads_per_rank']} Mamba2 heads a rank")
+    log(f"sharded family (e): NCCL group of one rank, make_local_mesh() {mesh_desc[0]} over {mesh_desc[1]}: "
+        + "; ".join(f"{fam} engine tokens equal the unsharded engine's ({e['requests']} requests, "
+                    f"{e['new_tokens']} new tokens, decode graph captured {e['graph_captures']}x)"
+                    for fam, e in engines.items() if fam != "mamba2_step")
+        + f"; mamba2 (fp32) sharded loss {engines['mamba2_step']['loss'][0]:.6f} vs "
+        f"{engines['mamba2_step']['loss'][1]:.6f} (relative {engines['mamba2_step']['loss_rel']:.3e}), worst "
+        f"gradients relative L2 {[(float(f'{r:.3e}'), n) for r, n in engines['mamba2_step']['grad_worst_leaves']]} "
+        f"(bound {GRAD_REL_L2:.3e}), one step "
+        f"{engines['mamba2_step']['step_s']:.2f} s; no run "
+        "across cards was made (the machine has one card): collectives are not timed")
+    log(f"sharded family: launches {dict((k, n) for k, n in launches.items() if n)}; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    kernel_rows = [{"kernel": k, "main_path": False, "max_abs_err": e} for k, e in kernel_errs.items()]
+    return {"launches": launches, "launches_local_steps": launches_ad, "checks": checks, "kernel_rows": kernel_rows,
+            "heads": heads, "families": families, "engines": engines, "mesh": mesh_desc, "seconds": spent,
+            "card": card}
 
 
 # ---------------------------------------------------------------------------
@@ -4757,6 +5325,9 @@ def main() -> int:
     log(f"sharded model: deepseek-7b relu at full width under tensor parallel {SM_TP}, the ranks' local steps in "
         "turn; the sharded train step and engine on an NCCL group of one rank; restore(shardings=)")
     smodel = sharded_model_phase(bw)
+    log(f"sharded family: deepseek-v2 relu, mamba2, zamba2 and qwen2-vl relu at full width under tensor parallel "
+        f"{SM_TP}, the ranks' local steps in turn; the sharded engines and mamba2's step on an NCCL group of one rank")
+    sfamily = sharded_family_phase(bw)
 
     def grouped(counts):
         """Launches per entry of the kernels line: v2 and v1 together, and
@@ -4800,17 +5371,18 @@ def main() -> int:
     per_launch_step = {tag: grouped(w) for tag, w in launch["launches_per_step"].items()}
     sharded_runs = grouped(sharded["launches"])
     smodel_runs = grouped(smodel["launches"])
+    sfamily_runs = grouped(sfamily["launches"])
     core_runs = grouped({k: v for k, v in core["launches"].items() if k != "td_schedule_kernel"})
     kernels = []
     for kname in REPLACES:
         mine = [r for r in rows + grid_rows + train_rows + planner_rows + sharded["rows"] + smodel["kernel_rows"]
-                if r["kernel"] == kname]
+                + sfamily["kernel_rows"] if r["kernel"] == kname]
         head = next(r for r in mine if r["main_path"])  # the first main-path shape
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE if kname in SPMM else PLANNER_SOURCE,
             "replaces": REPLACES[kname],
             "launches": (serve_runs[kname] + train_runs[kname] + launch_runs[kname] + sharded_runs[kname]
-                         + core_runs[kname] + smodel_runs[kname]),
+                         + core_runs[kname] + smodel_runs[kname] + sfamily_runs[kname]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
@@ -4825,6 +5397,7 @@ def main() -> int:
             "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
             "launches_sharded_local_steps": sharded_runs[kname],
             "launches_sharded_model": smodel_runs[kname],
+            "launches_sharded_family": sfamily_runs[kname],
             "launches_core": core_runs[kname],
         })
     head = next(r for r in core["rows"] if r["main_path"])
@@ -4850,6 +5423,7 @@ def main() -> int:
          "hybrid_serve": hybrid, "starcoder2_serve": starcoder, "gemma2_serve": gemma, "kv_int8_serve": kv8,
          "qwen2vl_run": vl, "musicgen_run": mg,
          "ssm_train": ssm_train, "hybrid_train": hybrid_train, "sharded": sharded, "sharded_model": smodel,
+         "sharded_family": sfamily,
          "core": core,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -461,8 +461,9 @@ def _launch(wrapper, nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue, *,
             bias=None, residual=None, activation="none", split_shape=None):
     """Validate and run one CUDA launch of ``wrapper`` (``"planned"`` or
     ``"fused"``); returns ``(out, mask)`` (``mask`` None when planned).
-    ``split_shape`` ``(m, k, n)``: cut K into the shares a launch of that
-    shape would (see :func:`tensordash_matmul_planned`)."""
+    ``split_shape`` ``(m, k, n)``, or ``(m, k, n, bm, bk, bn)``: cut K into
+    the shares a launch of that shape (at those blocks; default this
+    launch's) would (see :func:`tensordash_matmul_planned`)."""
     from repro_torch.kernels import _build
 
     m, k, n = ref._check_blocks(a, b, bm, bk, bn)
@@ -500,7 +501,8 @@ def _launch(wrapper, nnz, idx, a, b, bm, bk, bn, out_dtype, grid, workqueue, *,
     args.nnz = nnz_t.data_ptr()
     tile = kernel_tile(bm, bk, bn, a.element_size())
     tiles = (n // tile.tn) * tile.slices * (m // bm)
-    splits = launch_splits(*(split_shape or (m, k, n)), bm, bk, bn, dev, a.dtype)
+    whole = tuple(split_shape or (m, k, n))
+    splits = launch_splits(*whole[:3], *(whole[3:] or (bm, bk, bn)), dev, a.dtype)
     sam, sak = a.stride()
     sbk, sbn = b.stride()
     args.a, args.sam, args.sak = a.data_ptr(), sam, sak
@@ -564,9 +566,10 @@ def tensordash_matmul_planned(nnz, idx, a: torch.Tensor, b: torch.Tensor, *,
     ``split_shape`` ``(m, k, n)`` names the whole product this launch is a
     row or column shard of: the kernel then cuts each row's K list into the
     shares that product's launch would (the split count follows from the
-    shapes), and sums them in the same order, so the shard's output equals
-    those rows or columns of the whole product bit for bit
-    (:mod:`repro_torch.parallel.spmm`).  The CPU path has no split."""
+    shapes and the blocks: this launch's, or the whole launch's ``(bm, bk,
+    bn)`` appended to the shape), and sums them in the same order, so the
+    shard's output equals those rows or columns of the whole product bit
+    for bit (:mod:`repro_torch.parallel.spmm`).  The CPU path has no split."""
     grid = _check_compact_grid(compact_grid)
     if a.device.type == "cpu":  # every family runs the same schedule
         return ref.tensordash_matmul_ref(nnz, idx, a, b, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)

@@ -15,6 +15,13 @@ the RoPE tables once per model call (:func:`rope_tables`, over
 ``qk_rope_head_dim``) and decode writes the new latent row into the cache
 tensors in place at ``pos``, with no host read of ``pos``, so a decode step
 can be captured in a CUDA graph.
+
+Head-parallel over a mesh's ``model`` axis, a rank's local step takes a
+config counting its ``num_heads / tp`` heads and its whole heads' columns
+of ``wq_b``/``wkv_b`` and rows of ``wo`` (``partial``: the fp32 partial
+output, summed over ``model`` by the caller); the latents come from
+``wq_a``/``wkv_a`` held whole, so every model rank computes, and caches,
+the whole latent.
 """
 from __future__ import annotations
 
@@ -97,12 +104,17 @@ def _softmax_probs(scores, mask, dtype):
     return torch.softmax(scores, dim=-1).to(dtype)
 
 
-def mla_fwd(params, cfg: MLAConfig, x, positions, rope, *, return_cache: bool = False):
+def _out_proj(out, wo, partial: bool):
+    """``out @ wo``; ``partial``: a row-parallel rank's fp32 partial."""
+    return out.float() @ wo.float() if partial else out @ wo
+
+
+def mla_fwd(params, cfg: MLAConfig, x, positions, rope, *, return_cache: bool = False, partial: bool = False):
     """Training / prefill path (naive up-projected attention) over positions
     ``[S]``; ``rope = rope_tables(cfg, positions)``.  Queries run in
     ``q_chunk`` chunks when ``S`` is a multiple of it, as in the JAX
     package.  With ``return_cache`` also returns ``MLACache(c_kv, k_pe)`` in
-    the activation dtype."""
+    the activation dtype; ``partial`` as in the module docstring."""
     b, s, _ = x.shape
     h = cfg.num_heads
     q_nope, q_pe = _queries(params, cfg, x, rope)
@@ -120,7 +132,7 @@ def mla_fwd(params, cfg: MLAConfig, x, positions, rope, *, return_cache: bool = 
         probs = _softmax_probs(scores, causal_mask(pi, positions)[None], x.dtype)
         outs.append(torch.einsum("bhts,bshd->bthd", probs, v))
     out = torch.cat(outs, dim=1).reshape(b, s, h * cfg.v_head_dim)
-    y = out @ params["wo"]
+    y = _out_proj(out, params["wo"], partial)
     if return_cache:
         return y, MLACache(c_kv=c_kv, k_pe=k_pe)
     return y
@@ -134,13 +146,13 @@ def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int, dtype=torch.bfloat1
     )
 
 
-def mla_decode(params, cfg: MLAConfig, x, cache: MLACache, pos, rope):
+def mla_decode(params, cfg: MLAConfig, x, cache: MLACache, pos, rope, *, partial: bool = False):
     """Absorbed one-token decode over the latent cache.  ``x [B, 1, d]``;
     ``cache`` is filled up to ``pos`` (exclusive) and the new token's latent
     row is written in place at ``pos``.  ``pos`` is a scalar or an int
     ``[B]`` tensor (each batch slot at its own position); ``rope =
-    rope_tables(cfg, decode_positions(pos, B, device))``.  Returns ``(y,
-    cache)``."""
+    rope_tables(cfg, decode_positions(pos, B, device))``; ``partial`` as in
+    :func:`mla_fwd`.  Returns ``(y, cache)``."""
     b = x.shape[0]
     h = cfg.num_heads
     pos = torch.as_tensor(pos, device=x.device)
@@ -167,4 +179,4 @@ def mla_decode(params, cfg: MLAConfig, x, cache: MLACache, pos, rope):
     dt = torch.promote_types(probs.dtype, cache.c_kv.dtype)
     ctx_lat = torch.einsum("bhts,bsl->bthl", probs.to(dt), cache.c_kv.to(dt))  # [B,1,H,lora]
     out = torch.einsum("bthl,lhd->bthd", ctx_lat, w_uv.to(dt)).reshape(b, 1, h * cfg.v_head_dim)
-    return out @ params["wo"].to(dt), cache
+    return _out_proj(out, params["wo"].to(dt), partial), cache

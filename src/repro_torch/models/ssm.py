@@ -17,6 +17,18 @@ so the port's are plain torch too, under any runtime.
 returns a new one): the conv tails keep the cache's dtype (bf16) and the
 state stays fp32, so a serving engine's packed caches and a captured decode
 graph see every step's writes.
+
+Tensor parallel over a mesh's ``model`` axis (:func:`ssm_call` with a
+:class:`~repro_torch.parallel.sharding.ModelShards`) splits the heads, the
+layout real Mamba TP uses: each model rank holds its heads' columns of
+``in_z``/``in_x``/``in_dt``, their conv channels, ``dt_bias``/``a_log``/
+``d_skip``/``norm_w`` and its rows of ``out_proj`` (row-parallel: fp32
+partials, one all-reduce); B and C (``ngroups`` 1) are computed whole on
+every rank from replicated ``in_b``/``in_c`` and conv weights, whose
+gradient shares are summed.  The gated RMS norm spans the whole
+``d_inner``: each rank's sum of squares is summed over ``model`` in both
+directions (:func:`~repro_torch.parallel.sharding.tp_sum`).  A layer whose
+heads do not divide the model axis runs replicated over it.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.common import Spec, rms_norm, silu
+from repro_torch.parallel import sharding as S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +50,11 @@ class SSMConfig:
     n_groups: int = 1
     conv_width: int = 4
     chunk: int = 128
+    tp: int = 1  # model ranks the heads are split over: d_inner and num_heads are then one rank's
 
     @property
     def d_inner(self) -> int:
-        return self.expand * self.d_model
+        return self.expand * self.d_model // self.tp
 
     @property
     def num_heads(self) -> int:
@@ -170,12 +184,34 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, *, chunk: int, init_state=None):
     return y.to(x.dtype), carry
 
 
-def ssm_fwd(params, cfg: SSMConfig, x, *, init_state=None, return_cache: bool = False):
+def _gated_norm(y, z, w, norm_sum=None, n: int = 0, eps: float = 1e-6):
+    """``rms_norm(y * silu(z), w)``; with ``norm_sum`` (a tensor-parallel
+    rank's channels) the mean of squares is over all ``n`` channels of the
+    ranks: ``norm_sum`` sums this rank's fp32 sums of squares over them."""
+    g = y * silu(z)
+    if norm_sum is None:
+        return rms_norm(g, w, eps)
+    gf = g.float()
+    ss = norm_sum(gf.square().sum(dim=-1, keepdim=True))
+    return (gf * torch.rsqrt(ss / n + eps) * w.float()).to(g.dtype)
+
+
+def _out_proj(y, w, partial: bool):
+    """``y @ out_proj``; ``partial``: a row-parallel rank's fp32 partial."""
+    return y.float() @ w.float() if partial else y @ w
+
+
+def ssm_fwd(params, cfg: SSMConfig, x, *, init_state=None, return_cache: bool = False, norm_sum=None,
+            partial: bool = False):
     """Full-sequence Mamba2 block.  x [B,S,D] -> [B,S,D].
 
     With ``return_cache`` also returns the :class:`SSMCache` (the conv
     inputs' last ``W-1`` rows in the activation dtype, and the final SSD
-    state) that lets decode continue exactly after this prefix."""
+    state) that lets decode continue exactly after this prefix.  As a
+    tensor-parallel rank's local step (``cfg.tp``, ``params`` its heads'
+    slices), ``norm_sum`` sums the gated norm's statistic over the model
+    ranks (:func:`ssm_call` passes ``tp_sum`` over the model group) and
+    ``partial`` returns the fp32 partial output."""
     bsz, s, _ = x.shape
     h, p = cfg.num_heads, cfg.head_dim
     z = x @ params["in_z"]
@@ -189,19 +225,20 @@ def ssm_fwd(params, cfg: SSMConfig, x, *, init_state=None, return_cache: bool = 
     y, state = ssd_chunked(xs.reshape(bsz, s, h, p), dt, params["a_log"], bs, cs,
                            chunk=cfg.chunk, init_state=init_state)
     y = y + params["d_skip"].to(y.dtype)[:, None] * xs.reshape(bsz, s, h, p)
-    y = rms_norm(y.reshape(bsz, s, -1) * silu(z), params["norm_w"])
-    out = y @ params["out_proj"]
+    y = _gated_norm(y.reshape(bsz, s, -1), z, params["norm_w"], norm_sum, cfg.d_inner * cfg.tp)
+    out = _out_proj(y, params["out_proj"], partial)
     if return_cache:
         w = cfg.conv_width - 1
         return out, SSMCache(conv_x=xin[:, -w:], conv_b=bin_[:, -w:], conv_c=cin[:, -w:], state=state)
     return out
 
 
-def ssm_decode(params, cfg: SSMConfig, x, cache: SSMCache):
+def ssm_decode(params, cfg: SSMConfig, x, cache: SSMCache, *, norm_sum=None, partial: bool = False):
     """One-token recurrent update.  x [B,1,D] -> ``(y [B,1,D], cache)``,
     the cache's conv tails and state overwritten in place with the new ones
     (cast to their dtypes: bf16 tails, fp32 state).  No host read: the call
-    captures into a CUDA graph."""
+    captures into a CUDA graph.  ``norm_sum``/``partial`` as in
+    :func:`ssm_fwd` (the cache then holds the rank's heads)."""
     bsz = x.shape[0]
     h, p = cfg.num_heads, cfg.head_dim
     x1 = x[:, 0]
@@ -218,9 +255,56 @@ def ssm_decode(params, cfg: SSMConfig, x, cache: SSMCache):
     y = torch.einsum("bhpn,bn->bhp", state, cs.float())
     y = y + params["d_skip"].float()[None, :, None] * xh
     y = y.reshape(bsz, -1).to(x.dtype)
-    y = rms_norm(y * silu(z), params["norm_w"])
-    out = (y @ params["out_proj"])[:, None]
+    y = _gated_norm(y, z, params["norm_w"], norm_sum, cfg.d_inner * cfg.tp)
+    out = _out_proj(y, params["out_proj"], partial)[:, None]
     for buf, new in ((cache.conv_x, win_x), (cache.conv_b, win_b), (cache.conv_c, win_c)):
         buf.copy_(new[:, 1:])
     cache.state.copy_(state)
     return out, cache
+
+
+#: the leaves every model rank holds whole: B and C are computed whole on
+#: each rank (``ngroups`` 1), for the heads of all of them
+REPLICATED = ("in_b", "in_c", "conv_b_w", "conv_b_b", "conv_c_w", "conv_c_b")
+
+
+def ssm_local(p, spec, cfg: SSMConfig, sh: "S.ModelShards"):
+    """``(weights, config, group)`` of this rank's Mamba2 layer on a mesh:
+    the weights gathered over the data axes (FSDP), then split by heads
+    over ``model`` (``config.tp``; the :data:`REPLICATED` leaves enter the
+    region through ``tp_copy``, so their gradient shares are summed), or
+    gathered over ``model`` too where the heads do not divide it (``group``
+    ``None``: the layer runs replicated)."""
+    w = {k: S.fsdp_gather(v, spec[k], sh) for k, v in p.items()}
+    if sh.tp == 1 or cfg.num_heads % sh.tp:
+        return {k: S.gather_model(v, spec[k], sh) for k, v in w.items()}, cfg, None
+    g = sh.model_group
+    for k in REPLICATED:
+        w[k] = S.tp_copy(w[k], g)
+    return w, dataclasses.replace(cfg, tp=sh.tp), g
+
+
+def ssm_call(p, cfg: SSMConfig, x, *, sh=None, spec=None, cache: SSMCache | None = None,
+             return_cache: bool = False):
+    """One Mamba2 layer over ``x`` (after its norm): the full-sequence form,
+    or with ``cache`` one decode step.  On a mesh (``sh``, the layer's
+    ``spec``) the head-parallel local step (:func:`ssm_local`) runs between
+    ``tp_copy`` and one all-reduce of its fp32 partials.  Returns ``(y,
+    cache)`` (``None`` for a full sequence without ``return_cache``)."""
+    group = None
+    if sh is not None:
+        p, cfg, group = ssm_local(p, spec, cfg, sh)
+        if group is not None:
+            dt = torch.promote_types(x.dtype, p["out_proj"].dtype)
+            x = S.tp_copy(x, group)
+    kw = {"partial": group is not None,
+          "norm_sum": None if group is None else (lambda ss: S.tp_sum(ss, group))}
+    if cache is not None:
+        y, cache = ssm_decode(p, cfg, x, cache, **kw)
+    elif return_cache:
+        y, cache = ssm_fwd(p, cfg, x, return_cache=True, **kw)
+    else:
+        y = ssm_fwd(p, cfg, x, **kw)
+    if group is not None:
+        y = S.tp_reduce(y, group).to(dt)
+    return y, cache

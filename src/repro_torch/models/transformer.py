@@ -44,10 +44,15 @@ row-parallel in ``wo``; the gated FFN column-parallel in ``w_gate``/``w_up``
 (on the fused ReLU path each rank's gate emits the mask of its own columns,
 which plans its own ``w_down`` rows) and row-parallel in ``w_down``, whose
 fp32 partials are summed; the embedding and the LM head vocab-parallel; the
-MoE expert-parallel (:func:`repro_torch.models.moe.moe_ffn_sharded`).  A
-body whose heads, FFN width or vocab do not divide the model axis runs
-replicated over it.  Sharding MLA, the frontends, SSM and hybrid configs
-over more than one rank is not ported (ROADMAP queue 1, item 14c).
+MoE expert-parallel (:func:`repro_torch.models.moe.moe_ffn_sharded`);
+MLA head-parallel (each rank's heads' columns of ``wq_b``/``wkv_b`` and
+rows of ``wo``; ``wq_a``/``wkv_a`` and their norms whole on every rank,
+which computes and caches the whole latent).  A body whose heads, FFN
+width or vocab do not divide the model axis runs replicated over it.  A
+frontend's ``inputs_embeds`` (and M-RoPE ``positions``, audio labels) are
+cut over the data axes with the batch; the audio head is vocab-parallel on
+its last axis.  The SSM and hybrid families shard through
+:mod:`repro_torch.models.model` on the same groups.
 
 A frontend config (``frontend``: ``"vision"`` or ``"audio"``, the JAX
 package's stubs) has no embedding table: its batch carries precomputed
@@ -88,7 +93,6 @@ __all__ = [
     "forward_local",
     "shards_of",
     "attn_local",
-    "local_cache_config",
     "prefill",
     "decode_step",
     "init_layer_caches",
@@ -101,20 +105,18 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_shardable(cfg: ModelConfig, tp: int) -> None:
-    """Refuse what this port does not shard over more than one rank."""
-    what = ("multi-head latent attention" if cfg.use_mla else f"the {cfg.frontend} frontend" if cfg.frontend
-            else None if cfg.family in ("dense", "moe") else f"the {cfg.family} family")
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sharding {what} over a mesh of more than one rank is not ported "
-            "(ROADMAP queue 1, item 14c); run it on a mesh of one rank or without one")
+    """Refuse what this port does not shard over more than one rank: a MoE
+    whose experts do not divide the model axis (expert parallelism deals
+    whole experts)."""
     if cfg.family == "moe" and cfg.num_experts % tp:
         raise ValueError(f"{cfg.name}: {cfg.num_experts} experts do not divide the model axis ({tp})")
 
 
 @functools.lru_cache(maxsize=32)
 def _model_shards(cfg: ModelConfig, policy) -> S.ModelShards:
-    sh = S.ModelShards(policy, policy.param_pspecs(backbone_specs(cfg)))
+    from repro_torch.models import model as M  # local: model dispatches to this module
+
+    sh = S.ModelShards(policy, policy.param_pspecs(M.param_specs(cfg)))
     if sh.world > 1:
         check_shardable(cfg, sh.tp)
     return sh
@@ -142,14 +144,6 @@ def attn_local(acfg: attn.AttnConfig, tp: int, rank: int, device=None):
         return dataclasses.replace(acfg, num_heads=hl, num_kv_heads=kvh // tp), None
     kv_index = torch.div(rank * hl + torch.arange(hl, device=device), h // kvh, rounding_mode="floor")
     return dataclasses.replace(acfg, num_heads=hl), kv_index
-
-
-def local_cache_config(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """The config whose decode caches a model rank of ``tp`` holds: its own
-    kv heads under head-parallel attention, all of them otherwise."""
-    if tp > 1 and not cfg.use_mla and cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0:
-        return dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads // tp)
-    return cfg
 
 
 def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
@@ -412,19 +406,24 @@ def _post_norm(p, name: str, cfg: ModelConfig, x):
     return rms_norm(x, p[name], zero_centered=True) if cfg.post_norms else x
 
 
-def _attn_sharded(p, spec, cfg: ModelConfig, sh: S.ModelShards, device):
+def _attn_sharded(p, spec, acfg, sh: S.ModelShards, device):
     """``(weights, config, kv_index, tensor_parallel)`` of this rank's
-    attention on a mesh: the layer's weights gathered over the data axes,
-    then head-parallel over ``model`` (:func:`attn_local`; replicated K/V
-    gathered whole, their gradients summed over ``model``; the qk-norm
-    gains, used on local heads only, likewise), or gathered over ``model``
-    too where the heads do not divide it (replicated)."""
-    acfg = attn_config(cfg)
+    attention (``acfg``: GQA or MLA) on a mesh: the layer's weights gathered
+    over the data axes, then head-parallel over ``model`` (GQA:
+    :func:`attn_local`; replicated K/V gathered whole, their gradients
+    summed over ``model``; the qk-norm gains, used on local heads only,
+    likewise; MLA: the local heads' config, the latent projections and
+    their norms entering whole, their gradient shares summed), or gathered
+    over ``model`` too where the heads do not divide it (replicated)."""
     w = _gathered(p, spec, sh)
     if sh.tp == 1 or acfg.num_heads % sh.tp:
         return _replicated(w, spec, sh), acfg, None, False
-    lcfg, kv_index = attn_local(acfg, sh.tp, sh.tp_rank, device)
     g = sh.model_group
+    if isinstance(acfg, mla_mod.MLAConfig):
+        for k in ("wq_a", "q_norm", "wkv_a", "kv_norm"):
+            w[k] = S.tp_copy(w[k], g)
+        return w, dataclasses.replace(acfg, num_heads=acfg.num_heads // sh.tp), None, True
+    lcfg, kv_index = attn_local(acfg, sh.tp, sh.tp_rank, device)
     if kv_index is not None:
         for k in ("wk", "wv"):
             w[k] = (S.gather_model(w[k], spec[k], sh, grad_sum=True) if sh.is_model(spec[k][1])
@@ -436,21 +435,30 @@ def _attn_sharded(p, spec, cfg: ModelConfig, sh: S.ModelShards, device):
 
 
 def _attention_call(p, cfg: ModelConfig, x, i: int, *, sh=None, spec=None, decode=None, positions=None,
-                    rope=None, return_cache: bool = False):
+                    rope=None, return_cache: bool = False, acfg=None):
     """Block ``i``'s attention over ``x`` (after its norm): the full-sequence
-    form, or with ``decode = (cache, pos)`` one decode step.  On a mesh the
-    head-parallel local step (:func:`_attn_sharded`) runs between
+    form, or with ``decode = (cache, pos)`` one decode step.  ``acfg``: a
+    GQA config other than the block's (the hybrid's shared block).  On a
+    mesh the head-parallel local step (:func:`_attn_sharded`) runs between
     :func:`~repro_torch.parallel.sharding.tp_copy` and one all-reduce of its
     fp32 partials.  Returns ``(y, cache)``."""
-    acfg, _, fwd, dec = _attention(cfg)
+    if acfg is None:
+        acfg, _, fwd, dec = _attention(cfg)
+    else:
+        fwd, dec = attn.attention_fwd, attn.attention_decode
     kw = _layer_kw(cfg, i)
     par = False
-    if sh is not None and not cfg.use_mla:  # MLA shards on no mesh of several ranks (check_shardable)
-        p, acfg, kv_index, par = _attn_sharded(p, spec, cfg, sh, x.device)
+    if sh is not None:
+        p, acfg, kv_index, par = _attn_sharded(p, spec, acfg, sh, x.device)
         if par:
-            dt = torch.promote_types(x.dtype, p["wq"].dtype)
-            kw.update(kv_index=kv_index, partial=True)
-            x = S.tp_copy(x, sh.model_group)
+            dt = torch.promote_types(x.dtype, p["wo"].dtype)
+            kw["partial"] = True
+            if kv_index is not None:
+                kw["kv_index"] = kv_index
+            # promoted before the region, as the projections take it: the
+            # ranks' gradient shares are then summed before one rounding
+            # to a frontend's bf16 input, as one rank's are
+            x = S.tp_copy(x.to(dt), sh.model_group)
     if decode is not None:
         y, cache = dec(p, acfg, x, *decode, rope, **kw)
     else:

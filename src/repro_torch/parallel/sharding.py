@@ -36,6 +36,9 @@ products on local weights between explicit, differentiable collectives:
   replicated activation or weight enters a tensor-parallel region, and
   :func:`tp_reduce` (all-reduce, backward identity) where the region's
   partial sums leave it;
+* :func:`tp_sum` (all-reduce, backward all-reduce) for a statistic each
+  rank adds its part to and every rank then uses on its own part (the
+  Mamba2 gated norm's sum of squares over the channels the ranks split);
 * :func:`tp_split` / :func:`tp_gather` cut a replicated activation over
   ``model`` and put it back together (the MoE's sequence split, the served
   logits);
@@ -64,6 +67,7 @@ __all__ = [
     "batch_pspecs",
     "cache_pspecs",
     "logits_pspec",
+    "rank_cache_pspecs",
     "constrain",
     "local_shard",
     "gather_shard",
@@ -85,6 +89,7 @@ __all__ = [
     "tp_reduce",
     "tp_split",
     "tp_gather",
+    "tp_sum",
     "vocab_parallel_ce",
     "ce_local_max",
     "ce_local_sums",
@@ -236,6 +241,46 @@ def cache_pspecs(cfg, shape, mesh, cache_tree):
         return tuple(parts)
 
     return tree_map(leaf_spec, cache_tree)
+
+
+#: a decode-cache field (the port's cache named tuples, batch first) that a
+#: tensor-parallel model rank holds only its part of: ``(what splits it, its
+#: dim)``: a KV cache's kv heads, a Mamba2 layer's ``conv_x`` channels and
+#: state heads.  Every other field (an MLA latent, ``conv_b``/``conv_c``) is
+#: held whole
+CACHE_MODEL_DIMS = {"k": ("kv", 2), "v": ("kv", 2), "k_scale": ("kv", 2), "v_scale": ("kv", 2),
+                    "conv_x": ("ssm", 2), "state": ("ssm", 1)}
+
+
+def rank_cache_pspecs(cache_tree, data_axes: tuple, splits, model: str = "model"):
+    """Spec tuples of a sharded model's decode caches from their layouts:
+    the batch dim (0) over ``data_axes`` (none: the slots whole), and over
+    ``model`` the dim :data:`CACHE_MODEL_DIMS` names for a field whose kind
+    is in ``splits`` (``"kv"``, ``"ssm"``: what the model runs
+    tensor-parallel; ``models.model.cache_splits``).  JAX's
+    :func:`cache_pspecs` matches dims by size instead, and would cut an MLA
+    latent or a conv tail that happens to divide the model axis; here the
+    caches hold what the local steps compute."""
+    data = _entry(tuple(data_axes))
+
+    def leaf(x, field):
+        parts = [None] * x.ndim
+        parts[0] = data
+        kind, dim = CACHE_MODEL_DIMS.get(field, (None, None))
+        if kind in splits:
+            parts[dim] = model
+        return tuple(parts)
+
+    def walk(tree, field=None):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(walk(v, f) for f, v in zip(tree._fields, tree)))
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return None if tree is None else leaf(tree, field)
+
+    return walk(cache_tree)
 
 
 def logits_pspec(cfg, shape, mesh) -> tuple:
@@ -627,6 +672,20 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _Sum(torch.autograd.Function):
+    """An all-reduce (sum) whose backward all-reduces too: each rank's use
+    of the sum reaches only its own part of what depends on it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 class _Split(torch.autograd.Function):
     """This rank's slice along ``dim``; the backward all-gathers."""
 
@@ -651,6 +710,13 @@ def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` of the ranks' partials; the backward hands
     each rank the whole gradient."""
     return x if _size(group) == 1 else _Reduce.apply(x, group)
+
+
+def tp_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of the ranks' parts of a statistic that every
+    rank then uses on the part of the computation it holds; the backward
+    sums the ranks' gradients of it (each holds only its own share)."""
+    return x if _size(group) == 1 else _Sum.apply(x, group)
 
 
 def tp_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -271,6 +271,18 @@ class Runtime:
                   else _fit_block(self.bk, operand.shape[1]))
             return plan_operand(operand, bm, bk, side=plan.side)
 
+    def _whole_launch(self, split_shape, side: str, op: str, dtype, density) -> tuple:
+        """``split_shape`` ``(m, k, n)`` with the block geometry ``(bm, bk,
+        bn)`` of the whole launch: the blocks this runtime fits to the whole
+        product's shapes (``side="B"``: the weight's plan blocks its
+        columns at the fitted ``bn``)."""
+        m, k, n = split_shape[:3]
+        if side == "B":
+            w = self._resolved(op, (n, k), (k, m), dtype, density=density)
+            return m, k, n, w.bn, w.bk, w.lane(n, w.bm)
+        w = self._resolved(op, (m, k), (k, n), dtype, density=density)
+        return m, k, n, w.bm, w.bk, w.lane(n)
+
     def _dtype_prologue(self, a, b):
         """Enforce the fp32 accumulator and apply the compute-dtype cast."""
         if self.accum_dtype != torch.float32:
@@ -299,14 +311,17 @@ class Runtime:
         from bf16 operands.  ``split_shape`` ``(m, k, n)`` names the whole
         launch this product is a slice of (for ``side="B"``, of the
         transposed product ``b.T @ a.T``): the kernel splits K as that
-        launch would, so a vocab-parallel head's slice is bit-equal to the
-        whole head's rows."""
+        launch, at the blocks this runtime fits to it, would, so a
+        vocab-parallel head's slice is bit-equal to the whole head's rows
+        even where the slice's fitted blocks are narrower."""
         a, b = self._dtype_prologue(a, b)
         out_dtype = a.dtype if out_dtype is None else out_dtype
         kernel = self.kernel
         if not kernel.sparse and plan is None and plan_key is None:
             return kernel.matmul(a, b, bm=self.bm, bk=self.bk, bn=self.bn, out_dtype=out_dtype)
         rt = self._resolved(op, a.shape, b.shape, a.dtype, plan=plan, density=density)
+        if split_shape is not None and plan is None:
+            split_shape = self._whole_launch(split_shape, side, op, a.dtype, density)
         if side == "B":
             if plan is None:
                 plan = rt.plan(b, key=plan_key, side="B")

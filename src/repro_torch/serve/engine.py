@@ -38,10 +38,14 @@ On a mesh (the runtime's ``sharding`` policy, or ``generate(mesh=...)``, as
 JAX's ``generate(mesh=)`` installs a ``ShardingPolicy``) the model is
 sharded (:mod:`repro_torch.models.transformer`): ``params`` holds this
 rank's shards, and every rank runs the same scheduler on the same requests.
-The packed caches are cut by ``cache_pspecs``: the slots over the data axes
-(when they divide; otherwise every data rank holds all of them) and the KV
-heads over ``model`` where head-parallel attention shards them (a cut of
-another dim, or the sequence split of a batch-1 cache, is replicated).  A
+The packed caches are cut by their known layouts
+(:func:`~repro_torch.parallel.sharding.rank_cache_pspecs`): the slots over
+the data axes (when they divide; otherwise every data rank holds all of
+them), the KV heads over ``model`` where head-parallel attention shards
+them, and a Mamba2 layer's ``conv_x`` channels and state heads over
+``model`` where its heads divide it; an MLA latent and the Mamba2
+``conv_b``/``conv_c`` tails are held whole on every model rank (each
+computes them whole), and a batch-1 cache's sequence is not split.  A
 data rank prefills only the admitted prompts of the slots it holds (a rank
 with none of a round's runs one stand-in prompt, so that every rank joins
 the weights' gathers); a decode step runs the tensor-parallel bodies on
@@ -338,9 +342,9 @@ class ServeEngine:
         self.work_budget = work_budget
         self.fault_plan = fault_plan
         self.log = log if log is not None else (rlog.ambient_log() or rlog.ResilienceLog())
-        self._sh = self._mesh_shards(cfg)
+        self._sh = tfm.shards_of(cfg, self.rt)  # None without a mesh
         self._multi = self._sh is not None and self._sh.world > 1
-        self._cache_cfg = tfm.local_cache_config(cfg, self._sh.tp) if self._sh is not None else cfg
+        self._cache_cfg = M.local_cache_config(cfg, self._sh.tp) if self._sh is not None else cfg
         graphable = self.device.type == "cuda" and self.temperature == 0.0 and not self._multi
         if cuda_graph and not graphable:
             if self._multi:
@@ -380,36 +384,14 @@ class ServeEngine:
         self.chunks_run = 0
         self.steps_run = 0
 
-    def _mesh_shards(self, cfg):
-        """The sharded model's groups under the runtime's mesh (``None``
-        without one, or for an SSM or hybrid config on a mesh of one
-        rank, which runs unsharded)."""
-        policy = self.rt.sharding
-        if policy is None or policy.mesh is None:
-            return None
-        if cfg.family in ("dense", "moe"):
-            return tfm.shards_of(cfg, self.rt)
-        if policy.size > 1:
-            tfm.check_shardable(cfg, 1)
-        return None
-
     def _cache_specs(self, slots: int):
-        """``(global caches on the meta device, their spec tuples)``: the
-        ``cache_pspecs`` of the packed caches, keeping the slot split and
-        the model split of the KV heads that head-parallel attention holds
-        (any other entry replicated)."""
+        """``(global caches on the meta device, their spec tuples)``: each
+        leaf cut by its layout (:func:`M.cache_splits` of the model), the
+        slots over the data axes where they divide them."""
         sh = self._sh
         glob = M.init_cache(self.cfg, slots, self.max_len, device="meta")
-        specs = sh.policy.cache_pspecs(self.cfg, S.BatchShape(slots, self.max_len, "decode"), glob)
-        kv_split = self._cache_cfg.num_kv_heads != self.cfg.num_kv_heads
-
-        def keep(x, spec):
-            b = next((i for i, d in enumerate(x.shape) if d == slots), None)
-            return tuple(e if b is not None and ((i == b and sh.is_data(e))
-                                                 or (i == b + 2 and kv_split and sh.is_model(e))) else None
-                         for i, e in enumerate(spec))
-
-        return glob, S.map_specs(keep, glob, specs)
+        data_axes = sh.data_axes if slots % sh.n_data == 0 else ()
+        return glob, S.rank_cache_pspecs(glob, data_axes, M.cache_splits(self.cfg, sh.tp))
 
     def _slot_range(self, slots: int) -> tuple[int, int]:
         """``(first, count)`` of the slots whose caches this rank holds: its

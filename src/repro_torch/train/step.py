@@ -20,12 +20,15 @@ bound; :func:`modeled_speedup` refines the densities through
 :mod:`repro_torch.core.perf_model` on the host (paper Fig. 14).
 
 Under a runtime with a mesh (``Runtime(sharding=ShardingPolicy(mesh=...))``)
-the step is sharded: ``params`` and the optimizer state hold this rank's
-shards (``local_shard`` under the policy's ``param_pspecs``), each
-microbatch of the global batch is cut by ``batch_pspecs``, the loss is the
-global mean, the
-gradients of the leaves replicated over a data axis are summed over it (the
-FSDP-sharded ones were reduce-scattered in the backward), the gradient norm
+the step is sharded, for every family: ``params`` and the optimizer state
+hold this rank's shards (``local_shard`` under the policy's
+``param_pspecs``), each microbatch of the global batch (a frontend's
+``inputs_embeds``, ``positions`` and labels too) is cut by
+``batch_pspecs``, the loss is the global mean, the gradients of the leaves
+replicated over a data axis are summed over it (the FSDP-sharded ones were
+reduce-scattered in the backward, and the shares of a leaf every model
+rank holds whole, as MLA's ``wq_a`` or Mamba2's ``in_b``, were summed over
+``model`` by ``tp_copy`` in the backward), the gradient norm
 is global with each replicated slice counted once, and AdamW updates the
 local shards; every rank takes the same non-finite decision.  Dynamic sparse
 training on a mesh of several ranks is not ported.
@@ -296,7 +299,7 @@ def make_train_step(
         warnings.warn(
             "make_train_step under Runtime(geometry='auto') with an empty TuningDB: every cell "
             "resolves cold to the hand-tuned defaults", stacklevel=2)
-    sh = tfm.shards_of(cfg, rt) if cfg.family in ("dense", "moe") else None
+    sh = tfm.shards_of(cfg, rt)
     if sh is not None and sh.world > 1 and dst_spec is not None:
         raise NotImplementedError("dynamic sparse training on a mesh of several ranks is not ported")
     specs = S.spec_leaves(sh.specs) if sh is not None else None

@@ -19,7 +19,13 @@ checkpoint, on 4 CPU ranks.
   which writes the JAX package's format) restores with ``shardings=``
   under ``(1, 4)``: every rank's leaves bit-equal to its ``local_shard`` of
   the stored arrays, and a third step from there within rtol = atol = 1e-5
-  of an uninterrupted run's.
+  of an uninterrupted run's.  The same save and restore, bit-equal, for
+  the trees of reduced deepseek-v2 (MLA heads over ``model``, the experts
+  expert-parallel) and reduced zamba2 (Mamba2 heads over ``model``, the
+  shared block's groups as lists of lists).
+* ``launch.train.main --smoke --arch mamba2-780m`` on 4 ranks over a
+  ``(2, 2)`` mesh: tensor-parallel Mamba2, the same step-1 loss as one
+  process.
 
 The module imports no JAX at its top, so the ranks stay light.
 """
@@ -154,6 +160,33 @@ def task_restore_and_resume(ckpt):
             [x.detach().numpy() for x in tadamw.tree_leaves(full)], float(m["loss"]))
 
 
+def task_family_save(arch, ckpt):
+    """Under (2, 2): ``arch``'s reduced train state after one step, saved."""
+    cfg = reduce_config(get_config(arch))
+    policy = S.ShardingPolicy(mesh=mesh((2, 2), ("data", "model")))
+    specs = tstep.state_specs(cfg, policy)
+    with Runtime(backend="reference", device="cpu", sharding=policy, **GEOM).use():
+        params = init_params(TM.param_specs(cfg), seed=0, dtype=torch.float32, device="cpu", policy=policy)
+        opt = tstep.init_train_state(cfg, params)
+        params, opt, _ = tstep.make_train_step(cfg, tadamw.OptConfig(**OPT))(
+            params, opt, SyntheticLM(cfg.vocab_size, 16, 4).batch_at(0, device="cpu"))
+        tman.save(ckpt, 1, {"params": params, "opt": opt}, shardings=specs)
+
+
+def task_family_restore(arch, ckpt):
+    """Under (1, 4): the saved state restored onto this mesh's shards; the
+    leaves, their specs and this rank."""
+    cfg = reduce_config(get_config(arch))
+    policy = S.ShardingPolicy(mesh=mesh((1, 4), ("data", "model")))
+    specs = tstep.state_specs(cfg, policy)
+    with Runtime(backend="reference", device="cpu", sharding=policy, **GEOM).use():
+        like = init_params(TM.param_specs(cfg), seed=1, dtype=torch.float32, device="cpu", policy=policy)
+        step, state = tman.restore_latest(ckpt, {"params": like, "opt": tstep.init_train_state(cfg, like)},
+                                          shardings=specs)
+    return (step, [x.numpy() for x in tadamw.tree_leaves(state["params"])],
+            [x.numpy() for x in tadamw.tree_leaves(state["opt"].v)], S.spec_leaves(specs["params"]), dist.get_rank())
+
+
 # ---------------------------------------------------------------------------
 # tests
 # ---------------------------------------------------------------------------
@@ -245,3 +278,39 @@ def _paths(specs, prefix="params"):
     if isinstance(specs, list):
         return [p for i, v in enumerate(specs) for p in _paths(v, f"{prefix}/{i}")]
     return [prefix]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-2.7b"])
+def test_family_trees_save_under_2x2_and_restore_under_1x4_bit_equal(pool, tmp_path, arch):
+    ckpt = tmp_path / "ckpt"
+    pool.run(task_family_save, arch, str(ckpt), deadline=DEADLINE)
+    with np.load(ckpt / "step_000000000001" / "arrays.npz") as z:
+        stored = {k: z[k] for k in z.files}
+    cfg = reduce_config(get_config(arch))
+    paths = _paths(TM.param_specs(cfg))
+    assert sorted(paths) == sorted(k for k in stored if k.startswith("params/"))
+    sharded_over_model = 0
+    for step, params, v, specs, rank in pool.run(task_family_restore, arch, str(ckpt), deadline=DEADLINE):
+        assert step == 1
+        index_of = lambda e: {"model": (4, rank), "data": (1, 0)}[e]
+        for path, spec, got, vv in zip(paths, specs, params, v):
+            want = S.shard_slice(torch.from_numpy(stored[path]), spec, index_of).numpy()
+            np.testing.assert_array_equal(got, want)
+            vpath = "opt/v/" + path[len("params/"):]
+            np.testing.assert_array_equal(vv, S.shard_slice(torch.from_numpy(stored[vpath]), spec, index_of).numpy())
+            sharded_over_model += "model" in spec
+    assert sharded_over_model > 0  # MLA heads / Mamba2 heads / vocab cut over model
+
+
+def test_launcher_on_four_ranks_trains_tensor_parallel_mamba2(pool, capsys):
+    argv = SMOKE[:-1] + ["mamba2-780m"]
+    outs = pool.run(task_launch, argv, (2, 2), deadline=DEADLINE)
+    assert all(o == "" for o in outs[1:])  # only rank 0 prints
+    lines = outs[0].splitlines()
+    assert lines[-1] == "done"
+    plans = [ln for ln in lines if ln.startswith("plan key=")]
+    assert plans and all(PLAN_LINE.match(ln) and ln.endswith("over 2 devices") for ln in plans), plans
+    tlaunch.main(argv)  # one process, no mesh: the same step-1 line
+    one = capsys.readouterr().out.splitlines()
+    step1 = lambda ls: next(ln for ln in ls if ln.startswith("step     1 ")).split(" gnorm")[0]
+    assert step1(lines) == step1(one)
