@@ -237,6 +237,20 @@ from the root of a checkout, on a machine with one H100.
    cut to 2 layers, mamba2 and zamba2 against the unsharded ones and
    mamba2's sharded train step against the unsharded one; each body's ms
    per rank, their sum, the slowest rank against the unsharded layer;
+13d. runs dynamic sparse training on a mesh (``sharded_dst_phase``):
+   full-width deepseek-7b-ReLU's layer and LM head in fp32 with a controller
+   refreshed once to 50% at 128-square blocks; under tensor parallel 4 and
+   a (2, 2) data x model cut, each rank's slices in turn: the global shapes
+   from its slices, its slices masked by its slices of the masks put
+   together bit-equal to the masked whole, its partial block scores summed
+   over the ranks within 1e-5 of each block's whole score and selecting the
+   same masks; each rank's side-B ``values`` plans of its masked ``w_down``
+   rows (2752 a rank, cutting through the 128-row mask blocks) and head
+   slice, their skipped share beside the mask's sparsity, and its planned
+   ``w_down`` launch against its plain version; then qwen3-4b-ReLU cut to 8
+   layers, fp32, through ``make_train_step(dynamic_sparsity=)`` on an NCCL
+   group of one rank against the unsharded run: masks and counts equal at
+   every refresh, losses within 2**-7; step and refresh seconds;
 14. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode;
@@ -248,7 +262,8 @@ from the root of a checkout, on a machine with one H100.
    steps (deepseek, SSM, hybrid) and launcher runs (a) and (c), the core
    phase's main path, on the serving path alone, per training step and per
    launcher step, and the sharded phase's local steps, the core phase, the
-   sharded model phase and the sharded family phase alone), the card
+   sharded model phase, the sharded family phase and the sharded dst
+   phase alone), the card
    line, and last the result
    line ``{"ok": true, "device": {...}}``; the full per-case table goes to
    ``chiprun_out/chip_smoke.json`` (git-ignored).
@@ -2691,6 +2706,18 @@ def planner_phase(bw: float):
                                                                                    (c.d_ff, c.d_model)))
     coarsen = rtm.Runtime(backend="cuda", device="cuda").plan_for_fused_output(vmask, h, w).bk // 128
     emitted_case(f"qwen2-vl gate mask, coarsen {coarsen}", vmask, coarsen, "qwen2-vl decode")
+    # a tensor-parallel rank's gate mask (d_ff / SM_TP columns at the lanes
+    # the runtime fits them) at the coarsening its w_down rows take:
+    # deepseek-v2's [1,24] at bk 512, qwen2-vl-ReLU's [1,66] at bk 112
+    for arch in (DSV2_ARCH, VL_ARCH):
+        c = get_config(arch)
+        f_rank = c.d_ff // SM_TP
+        lanes = rtm.Runtime(backend="cuda", device="cuda").lane(f_rank)
+        rmask = (torch.rand(1, f_rank // lanes, generator=gen, device=dev) < 0.4).to(torch.int8)
+        h, w = (torch.empty(shape, dtype=torch.bfloat16, device="meta") for shape in ((SLOTS, f_rank),
+                                                                                       (f_rank, c.d_model)))
+        coarsen = rtm.Runtime(backend="cuda", device="cuda").plan_for_fused_output(rmask, h, w).bk // lanes
+        emitted_case(f"{tag_of(c)} TP rank gate mask, coarsen {coarsen}", rmask, coarsen, "sharded family decode")
     # the weight-gradient products' transposed forward plans
     transpose_case("gate db (dense gate plan)", *T.dense_plan(t // 128, d // 512, dev), "train")
     transpose_case("w_down db (gate mask plan)", *T.plan_from_mask(gmask), "train")
@@ -4742,6 +4769,361 @@ def sharded_family_phase(bw: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# sharded dst phase: dynamic sparse training on a mesh
+# ---------------------------------------------------------------------------
+
+#: the sharded dst phase: (a) deepseek-7b-ReLU's layer (attention and FFN)
+#: and LM head at full width, fp32, under tensor parallel SM_TP and a (2, 2)
+#: data x model cut, each rank's slices in turn, masks at a runtime of
+#: DST_BLOCK-square blocks (``w_down``'s rows 11008 / 4 = 2752 a rank cut
+#: through them; the head's 102400 / 4 = 25600 columns do not), the summed
+#: partial scores held to the whole tensors' within DST_SCORE_REL of each
+#: block; (b) ``make_train_step(dynamic_sparsity=)`` of qwen3-4b-ReLU cut to
+#: LAUNCH_LAYERS layers, DST_BATCH x DST_SEQ tokens, DST_STEPS steps with a
+#: refresh every 2 to 50%, on an NCCL group of one rank against the
+#: unsharded run
+DST_BLOCK, DST_SCORE_REL = 128, 1e-5
+DST_BATCH, DST_SEQ, DST_STEPS = 2, 256, 6
+
+
+def spec_tree_map(fn, tree):
+    """``fn`` over the leaves (``Spec``s) of a spec tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: spec_tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [spec_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def dst_weights(shape, block, gen, dev):
+    """fp32 ``[*lead, K, N]`` whose block L1 masses are apart: one seeded
+    ``[bk, bn]`` tile scaled per block by a permutation of ``0.5 + i /
+    blocks``, so two blocks' masses differ by at least ``1 / blocks`` of
+    the tile's (4e-5 relative for the head's 25600 blocks), far above fp32
+    summation noise: masks selected from two sums of the same blocks agree
+    unless the sums are wrong, not by luck."""
+    import math
+
+    import torch
+
+    *lead, k, n = shape
+    bk, bn = block
+    count = math.prod(lead) * (k // bk) * (n // bn)
+    tile = torch.randn(bk, bn, generator=gen, device=dev)
+    scale = 0.5 + torch.randperm(count, generator=gen, device=dev).float() / count
+    scale = scale.reshape(*lead, k // bk, 1, n // bn, 1)
+    return (tile.reshape(*([1] * len(lead)), 1, bk, 1, bn) * scale).reshape(*lead, k, n)
+
+
+def rank_index_of(sizes: dict, coord: dict):
+    """``index_of`` (spec entry -> ``(count, index)``) of the rank at mesh
+    coordinates ``coord``, row-major over an entry's axes, as
+    ``sharding.local_shard`` cuts: no process group needed."""
+    def at(entry):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        count, index = 1, 0
+        for a in axes:
+            count, index = count * sizes[a], index * sizes[a] + coord[a]
+        return count, index
+    return at
+
+
+def dst_run(cfg, policy, dcfg, ocfg, batches, tag: str) -> dict:
+    """``make_train_step(dynamic_sparsity=)`` on fresh fp32 weights (seed 0)
+    under ``policy`` (``None``: unsharded): per step the loss and seconds,
+    per refresh the report, the masks and the controller's host seconds."""
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch import sparse_train as SP
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+    from repro_torch.train import step as TS
+
+    rt = rtm.Runtime(backend="cuda", device="cuda", sharding=policy)
+    out = {"loss": [], "step_s": [], "refreshes": []}
+    with rt.use(), no_plain_versions(f"{tag}: the dynamic sparse train step"):
+        params = init_params(M.param_specs(cfg), seed=0, dtype=torch.float32, device="cuda", policy=policy)
+        specs = policy.param_pspecs(M.param_specs(cfg)) if policy is not None else None
+        ctrl = SP.DynamicSparsityController(dcfg, params, specs=specs)
+        step = TS.make_train_step(cfg, ocfg, dynamic_sparsity=ctrl, guard_nonfinite=True)
+        opt = TS.init_train_state(cfg, params)
+        masks = ctrl.masks()
+        out["units"] = len(ctrl.units)
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch, masks)
+            out["loss"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            if int(m["nonfinite"]):
+                raise AssertionError(f"{tag}: step {i} was not finite")
+            if ctrl.should_update(i):
+                out["score_numel"] = sum(x.numel() for t in ("dst_w_scores", "dst_g_scores")
+                                         for x in m[t].values())
+                t0 = time.perf_counter()
+                rep = ctrl.update(i, m["dst_w_scores"], m["dst_g_scores"])
+                masks = ctrl.masks()
+                out["refreshes"].append({"step": i, "pruned": rep["pruned"], "regrown": rep["regrown"],
+                                         "sparsity": rep["sparsity"], "edit_ms": rep["edit_ms"],
+                                         "update_s": time.perf_counter() - t0,
+                                         "masks": {p: u.mask.copy() for p, u in ctrl.units.items()}})
+        out["density"] = float(m["dst_density"])
+        del params, opt, m, step, ctrl
+    free()
+    return out
+
+
+def sharded_dst_phase(bw: float) -> dict:
+    """Dynamic sparse training on a mesh, its ranks' work on the one card
+    (NCCL refuses two ranks on one card):
+
+    (a) full-width deepseek-7b-ReLU's attention and FFN weights and its LM
+        head, fp32, seeded with block masses apart (:func:`dst_weights`), and
+        a seeded gradient-shaped tree; a controller at DST_BLOCK-square
+        blocks refreshed once to 50% from the whole tensors' scores.  Under
+        tensor parallel SM_TP and a (2, 2) data x model cut, for each rank
+        in turn: the global shapes from its slices (``leaf_cuts``) equal the
+        units' shapes; its slices masked by its slices of the masks, put
+        together, bit-equal to the masked whole; its partial weight and
+        gradient scores, summed over the ranks holding distinct slices,
+        within DST_SCORE_REL of each block's whole score, and the masks a
+        second controller selects from the sums equal the first's.  Then
+        each rank's side-B ``values`` plans of its masked ``w_down`` rows and
+        LM-head slice at the runtime's fit to the slice (bit-equal to the
+        plain chain), their skipped share beside the slice's mask
+        sparsity, and under tensor parallel its planned ``w_down`` launch at
+        SM_ROWS decode rows against its plain version, with ms,
+        ``torch.matmul`` ms and the byte bound;
+    (b) qwen3-4b-ReLU cut to LAUNCH_LAYERS layers, fp32 (so the two runs'
+        block scores differ by fp32 rounding alone; bf16 rounding would be
+        wider than the smallest gaps at a selection's cut), through
+        ``make_train_step(dynamic_sparsity=)`` under a ``(1, 1)`` mesh on an
+        NCCL group of one rank and unsharded: at every refresh the masks and
+        the counts equal, every loss within ``LOSS_REL``; the step and
+        refresh seconds, and the score all-reduce's ms on the group.
+
+    Launches are counted over (a)'s plans and launches and (b)'s sharded
+    run, reset just before each and read just after."""
+    import dataclasses
+    import types
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import runtime as rtm
+    from repro_torch import sparse_train as SP
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ref, tensordash_spmm as T
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding as S
+    from repro_torch.runtime.plan import _fit_block
+
+    dev = torch.device("cuda")
+    t_phase, spent = time.perf_counter(), {}
+    gen = torch.Generator(device=dev).manual_seed(27)
+    cfg = dataclasses.replace(get_config("deepseek-7b"), activation="relu")
+    rt = rtm.Runtime(backend="cuda", device="cuda", bm=DST_BLOCK, bk=DST_BLOCK, bn=DST_BLOCK)
+    plain_rt = rt.replace(backend="reference")
+    block_of = lambda shape: (_fit_block(DST_BLOCK, shape[-2]), _fit_block(DST_BLOCK, shape[-1]))
+    layer = {k: v for k, v in tfm.block_specs(cfg).items() if k in ("attn", "mlp")}
+    decl = {"layers": [layer], "lm_head": M.param_specs(cfg)["lm_head"]}
+    whole = spec_tree_map(lambda s: dst_weights(s.shape, block_of(s.shape), gen, dev), decl)
+    grads = spec_tree_map(lambda s: torch.randn(s.shape, generator=gen, device=dev) * 1e-3, decl)
+    ctrl = SP.DynamicSparsityController(SP.DynamicSparsityConfig(target=0.5, begin=0, end=1, update_every=1),
+                                        whole, rt=rt)
+    spec = ctrl.spec()
+    ctrl.update(1, SP.block_scores(whole, spec), SP.block_scores(grads, spec))
+    masks = ctrl.masks()
+    masked = SP.apply_block_masks(spec_tree_map(torch.clone, whole), masks, spec)
+    want = {"w0": SP.block_scores(whole, spec), "g0": SP.block_scores(grads, spec),
+            "w1": SP.block_scores(masked, spec)}
+    units = {p: (*u.lead, u.kb * u.block[0], u.nb * u.block[1]) for p, u in ctrl.units.items()}
+    log(f"sharded dst (a): deepseek-7b relu's layer and LM head at full width, fp32: {len(units)} units at "
+        f"{DST_BLOCK} x {DST_BLOCK} blocks, one refresh to sparsity {ctrl.sparsity():.4f}")
+
+    def rel_err(got: dict, ref_: dict) -> float:
+        worst = 0.0
+        for p, w in ref_.items():
+            g = got[p]
+            nz = w != 0
+            if not torch.equal(g[~nz], w[~nz]):
+                raise AssertionError(f"sharded dst (a): {p}: a block whose whole score is 0 sums to nonzero")
+            worst = max(worst, float(((g[nz] - w[nz]).abs() / w[nz]).max()) if nz.any() else 0.0)
+        return worst
+
+    meshes, effects = [], []
+    launches_a = dict.fromkeys(T.launch_counts(), 0)  # (a)'s plans and launches, not their checks
+    for shape in ((1, SM_TP), (2, 2)):
+        sizes = dict(zip(("data", "model"), shape))
+        pspecs = S.param_pspecs(decl, types.SimpleNamespace(axis_names=("data", "model"), shape=sizes))
+        spec_of = SP.stacked_leaves(pspecs)
+        sums = {k: {p: torch.zeros_like(w) for p, w in want["w0"].items()} for k in ("w0", "g0", "w1")}
+        together = S.map_specs(lambda x, _: torch.zeros_like(x), whole, pspecs)
+        for d in range(shape[0]):
+            for m in range(shape[1]):
+                coord = {"data": d, "model": m}
+                index_of = rank_index_of(sizes, coord)
+                cut = lambda tree: S.map_specs(lambda x, sp: S.shard_slice(x, sp, index_of).clone(
+                    memory_format=torch.contiguous_format), tree, pspecs)
+                local, glocal = cut(whole), cut(grads)
+                cuts = {p: c for p, c in SP.leaf_cuts(local, pspecs, index_of).items() if p in spec}
+                if {p: c.shape for p, c in cuts.items()} != units:
+                    raise AssertionError(f"sharded dst (a) {shape} rank {coord}: global shapes from the slices "
+                                         f"{ {p: c.shape for p, c in cuts.items()} } differ from the units'")
+                # a rank counts a leaf's partials where it is the first of the ranks holding its slice
+                named = lambda sp: {a for e in sp if e for a in (e if isinstance(e, tuple) else (e,))}
+                owner = {p: all(coord[a] == 0 for a in sizes if a not in named(spec_of[p].leaves[0]))
+                         for p in spec}
+                parts = {"w0": SP.block_scores(local, spec, cuts), "g0": SP.block_scores(glocal, spec, cuts)}
+                SP.apply_block_masks(local, masks, spec, cuts)
+                parts["w1"] = SP.block_scores(local, spec, cuts)
+                for k, part in parts.items():
+                    for p, x in part.items():
+                        if owner[p]:
+                            sums[k][p] += x
+                for dst, src, sp in zip(tree_leaves(together), tree_leaves(local), S.spec_leaves(pspecs)):
+                    S.shard_slice(dst, sp, index_of).copy_(src)
+                # the TensorDash effect on the rank's masked slices
+                wd, head = local["layers"][0]["mlp"]["w_down"], local["lm_head"]
+                row = {"mesh": list(shape), "rank": dict(coord)}
+                for name, w, path in (("w_down", wd, "['layers']['mlp']['w_down']"), ("lm_head", head, "['lm_head']")):
+                    x = torch.randn(SM_ROWS, w.shape[0], generator=gen, device=dev)
+                    frt = rt.fit(x.shape, w.shape)
+                    before = T.launch_counts()
+                    plan = frt.plan(w, side="B")
+                    y = rt.matmul(x, w, plan=plan, side="B") if name == "w_down" and shape[0] == 1 else None
+                    torch.cuda.synchronize()
+                    for k, n in T.launch_counts().items():
+                        launches_a[k] += n - before[k]
+                    want_plan = ref.plan_blocks_csr_ref(w.T, frt.bn, frt.bk)
+                    if not all(torch.equal(a, b) for a, b in zip((plan.nnz, plan.idx, *plan.workqueue()), want_plan)):
+                        raise AssertionError(f"sharded dst (a) {shape} rank {coord} {name}: the values plan differs "
+                                             "from the plain chain's")
+                    u = ctrl.units[path]
+                    off = cuts[path].offsets[-2:]
+                    emask = SP.shard_block_mask(masks[path].reshape(u.kb, u.nb), u.block, off, tuple(w.shape))
+                    row[name] = {"shape": list(w.shape), "plan_block": [frt.bn, frt.bk],
+                                 "mask_block": list(u.block), "skipped": plan.skipped_fraction(),
+                                 "mask_sparsity": 1.0 - float(emask.float().mean()),
+                                 "cuts_blocks": any(o % b or s % b for o, s, b in zip(off, w.shape, u.block))}
+                    if y is not None:
+                        err = check_close(f"sharded dst (a) rank {coord} w_down slice", y,
+                                          plain_rt.matmul(x, w, plan=plan, side="B"))
+                        eff = int(plan.nnz.sum())
+                        row[name].update(
+                            max_abs_err=err, ms=cuda_ms(lambda: rt.matmul(x, w, plan=plan, side="B")),
+                            plain_ms=cuda_ms(lambda: plain_rt.matmul(x, w, plan=plan, side="B"), iters=3, warmup=1),
+                            library_ms=cuda_ms(lambda: torch.matmul(x, w)),
+                            bound_ms=(x.numel() + eff * frt.bn * frt.bk + SM_ROWS * w.shape[1]) * 4 / bw * 1e3,
+                            bound_by="bytes")
+                effects.append(row)
+                del local, glocal
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(together), tree_leaves(masked)))
+        if not same:
+            raise AssertionError(f"sharded dst (a) {shape}: the ranks' masked slices put together differ from the "
+                                 "masked whole")
+        errs = {k: rel_err(sums[k], want[k]) for k in sums}
+        if max(errs.values()) > DST_SCORE_REL:
+            raise AssertionError(f"sharded dst (a) {shape}: summed partial scores off the whole's by {errs} "
+                                 f"(bound {DST_SCORE_REL})")
+        again = SP.DynamicSparsityController(SP.DynamicSparsityConfig(target=0.5, begin=0, end=1, update_every=1),
+                                             whole, rt=rt)
+        again.update(1, sums["w0"], sums["g0"])
+        diff = [p for p in spec if not (again.units[p].mask == ctrl.units[p].mask).all()]
+        if diff:
+            raise AssertionError(f"sharded dst (a) {shape}: masks from the summed scores differ at {diff}")
+        meshes.append({"mesh": list(shape), "bit_equal": same, "score_rel_err": errs})
+        del together, sums, again
+        free()
+    for m_ in meshes:
+        log(f"sharded dst (a) mesh {tuple(m_['mesh'])}: the ranks' masked slices put together bit-equal to the masked "
+            f"whole; summed partial scores' largest relative error per block: weights before the refresh "
+            f"{m_['score_rel_err']['w0']:.3e}, gradients {m_['score_rel_err']['g0']:.3e}, masked weights "
+            f"{m_['score_rel_err']['w1']:.3e} (bound {DST_SCORE_REL:.0e}); masks selected from the sums equal")
+    for e in effects:
+        log(f"sharded dst (a) mesh {tuple(e['mesh'])} rank {e['rank']}: " + "; ".join(
+            f"{n} {e[n]['shape']} plan blocks {e[n]['plan_block']} (mask {e[n]['mask_block']}"
+            f"{', cut through' if e[n]['cuts_blocks'] else ''}) skipped {e[n]['skipped']:.4f} vs mask sparsity "
+            f"{e[n]['mask_sparsity']:.4f}" for n in ("w_down", "lm_head")))
+    card = card_line()
+    timed = [e["w_down"] for e in effects if "ms" in e["w_down"]]
+    for e in effects:
+        if "ms" in e["w_down"]:
+            w = e["w_down"]
+            log(f"sharded dst (a) [{card}] rank {e['rank']['model']} w_down slice {w['shape']} side B at "
+                f"{SM_ROWS} rows, fp32: kernel {w['ms']:.4f} ms (plain {w['plain_ms']:.4f}, torch.matmul "
+                f"{w['library_ms']:.4f}, bound {w['bound_ms']:.4f} ms bytes), max abs err {w['max_abs_err']:.3e}")
+    del whole, grads, masked
+    free()
+    spent["a"] = time.perf_counter() - t_phase
+
+    # -- (b) the whole step on an NCCL group of one rank, against unsharded -------
+    qcfg = dataclasses.replace(get_config("qwen3-4b"), activation="relu", num_layers=LAUNCH_LAYERS)
+    dcfg = SP.DynamicSparsityConfig(target=0.5, begin=0, end=DST_STEPS, update_every=2)
+    ocfg = OptConfig(total_steps=100)
+    data = SyntheticLM(vocab_size=qcfg.vocab_size, seq_len=DST_SEQ, global_batch=DST_BATCH, seed=0)
+    batches = [data.batch_at(i, device=dev) for i in range(DST_STEPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            policy = S.ShardingPolicy(mesh=make_local_mesh())
+            torch.cuda.synchronize()
+            T.reset_launch_counts()
+            sharded = dst_run(qcfg, policy, dcfg, ocfg, batches, "sharded dst (b) on the mesh")
+            torch.cuda.synchronize()
+            launches_b = T.launch_counts()
+            group = S.axis_group(policy.mesh, ("data", "model"))[0]
+            buf = torch.zeros(sharded["score_numel"], device=dev)
+            allreduce_ms = cuda_ms(lambda: dist.all_reduce(buf, group=group), iters=20)
+            mesh_desc = (tuple(policy.mesh.shape), tuple(policy.mesh.mesh_dim_names), dist.get_backend())
+        finally:
+            dist.destroy_process_group()
+    unsharded = dst_run(qcfg, None, dcfg, ocfg, batches, "sharded dst (b) unsharded")
+    for k in ("tensordash_matmul_planned", "tensordash_matmul_fused", "planner[values]", "planner[emitted]",
+              "planner[transpose]"):
+        if launches_b[k] == 0:
+            raise AssertionError(f"sharded dst (b): the step on the mesh launched no {k}")
+    for r, u in zip(sharded["refreshes"], unsharded["refreshes"], strict=True):
+        counts = [(x["pruned"], x["regrown"], x["sparsity"]) for x in (r, u)]
+        diff = [p for p in u["masks"] if not (r["masks"][p] == u["masks"][p]).all()]
+        if diff or counts[0] != counts[1]:
+            raise AssertionError(f"sharded dst (b) step {r['step']}: masks differ at {diff[:5]}, counts {counts}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sharded["loss"], unsharded["loss"]))
+    if loss_rel > LOSS_REL:
+        raise AssertionError(f"sharded dst (b): losses {sharded['loss']} vs {unsharded['loss']}")
+    spent["b"] = time.perf_counter() - t_phase - spent["a"]
+    log(f"sharded dst (b): qwen3-4b relu cut to {LAUNCH_LAYERS} layers, fp32, {DST_BATCH} x {DST_SEQ} tokens, "
+        f"{sharded['units']} units, NCCL group of one rank, make_local_mesh() {mesh_desc[0]} over {mesh_desc[1]}: "
+        f"{len(sharded['refreshes'])} refreshes, masks and counts equal to the unsharded run's ("
+        + ", ".join(f"step {r['step']} pruned {r['pruned']} regrown {r['regrown']} sparsity {r['sparsity']:.4f}"
+                    for r in sharded["refreshes"])
+        + f"); losses {[round(x, 6) for x in sharded['loss']]} vs {[round(x, 6) for x in unsharded['loss']]} "
+        f"(largest relative difference {loss_rel:.3e}, bound {LOSS_REL:.3e}); final dst_density "
+        f"{sharded['density']:.4f}")
+    log(f"sharded dst (b) [{card}]: step seconds on the mesh {[round(x, 3) for x in sharded['step_s']]}, unsharded "
+        f"{[round(x, 3) for x in unsharded['step_s']]}; refresh plan-edit ms {[round(r['edit_ms'], 1) for r in sharded['refreshes']]} "
+        f"(controller update with the masks' copy {[round(r['update_s'] * 1e3, 1) for r in sharded['refreshes']]} ms); "
+        f"the score all-reduce of {sharded['score_numel']} fp32 on the group of one {allreduce_ms:.4f} ms (a group "
+        "of one moves no bytes and the step skips it; no run across cards was made)")
+    log(f"sharded dst: the phase {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    kernel_rows = [{"kernel": "tensordash_matmul_planned", "main_path": False,
+                    "max_abs_err": max(w["max_abs_err"] for w in timed)},
+                   {"kernel": "planner[values]", "main_path": False, "max_abs_err": 0.0}]
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_b}
+    for r in sharded["refreshes"] + unsharded["refreshes"]:
+        del r["masks"]
+    return {"launches": launches, "launches_a": launches_a, "launches_b": launches_b, "meshes": meshes,
+            "effects": effects, "kernel_rows": kernel_rows, "sharded": sharded, "unsharded": unsharded,
+            "loss_rel": loss_rel, "allreduce_ms": allreduce_ms, "mesh": mesh_desc, "seconds": spent, "card": card}
+
+
+# ---------------------------------------------------------------------------
 # core phase: the scheduled-form codec on the schedule kernel, the public
 # ops, plan validation
 # ---------------------------------------------------------------------------
@@ -5328,6 +5710,10 @@ def main() -> int:
     log(f"sharded family: deepseek-v2 relu, mamba2, zamba2 and qwen2-vl relu at full width under tensor parallel "
         f"{SM_TP}, the ranks' local steps in turn; the sharded engines and mamba2's step on an NCCL group of one rank")
     sfamily = sharded_family_phase(bw)
+    log(f"sharded dst: dynamic sparse training on a mesh: deepseek-7b relu's layer and head at full width under "
+        f"tensor parallel {SM_TP} and (2, 2), the ranks' slices in turn; qwen3-4b relu cut to {LAUNCH_LAYERS} "
+        "layers through the dynamic sparse step on an NCCL group of one rank against the unsharded run")
+    sdst = sharded_dst_phase(bw)
 
     def grouped(counts):
         """Launches per entry of the kernels line: v2 and v1 together, and
@@ -5372,17 +5758,18 @@ def main() -> int:
     sharded_runs = grouped(sharded["launches"])
     smodel_runs = grouped(smodel["launches"])
     sfamily_runs = grouped(sfamily["launches"])
+    sdst_runs = grouped(sdst["launches"])
     core_runs = grouped({k: v for k, v in core["launches"].items() if k != "td_schedule_kernel"})
     kernels = []
     for kname in REPLACES:
         mine = [r for r in rows + grid_rows + train_rows + planner_rows + sharded["rows"] + smodel["kernel_rows"]
-                + sfamily["kernel_rows"] if r["kernel"] == kname]
+                + sfamily["kernel_rows"] + sdst["kernel_rows"] if r["kernel"] == kname]
         head = next(r for r in mine if r["main_path"])  # the first main-path shape
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCE if kname in SPMM else PLANNER_SOURCE,
             "replaces": REPLACES[kname],
             "launches": (serve_runs[kname] + train_runs[kname] + launch_runs[kname] + sharded_runs[kname]
-                         + core_runs[kname] + smodel_runs[kname] + sfamily_runs[kname]),
+                         + core_runs[kname] + smodel_runs[kname] + sfamily_runs[kname] + sdst_runs[kname]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
@@ -5398,6 +5785,7 @@ def main() -> int:
             "launches_sharded_local_steps": sharded_runs[kname],
             "launches_sharded_model": smodel_runs[kname],
             "launches_sharded_family": sfamily_runs[kname],
+            "launches_sharded_dst": sdst_runs[kname],
             "launches_core": core_runs[kname],
         })
     head = next(r for r in core["rows"] if r["main_path"])
@@ -5423,7 +5811,7 @@ def main() -> int:
          "hybrid_serve": hybrid, "starcoder2_serve": starcoder, "gemma2_serve": gemma, "kv_int8_serve": kv8,
          "qwen2vl_run": vl, "musicgen_run": mg,
          "ssm_train": ssm_train, "hybrid_train": hybrid_train, "sharded": sharded, "sharded_model": smodel,
-         "sharded_family": sfamily,
+         "sharded_family": sfamily, "sharded_dst": sdst,
          "core": core,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -29,7 +29,9 @@ time; checkpoints are gathered leaf by leaf to the first rank, which writes
 them in the JAX package's format, and are restored onto this mesh's shards;
 the per-plan lines carry the ``imbalance`` of each plan's work over the
 row-parallel shards (``PlanCache.plan_stats(shards=)``), in the JAX
-launcher's format.  Only rank 0 prints.  ``--device`` is the one flag the
+launcher's format.  ``--dynamic-sparsity`` on a mesh: every rank builds the
+controller from the global shapes and refreshes the same global masks from
+the step's global scores; checkpoints hold no masks.  Only rank 0 prints.  ``--device`` is the one flag the
 JAX launcher lacks.
 """
 from __future__ import annotations
@@ -209,7 +211,9 @@ def main(argv=None) -> None:
 
             dkw = dict(args.dynamic_sparsity)
             dkw.setdefault("end", args.steps)
-            ctrl = DynamicSparsityController(DynamicSparsityConfig(**dkw), params)
+            # on a mesh: the units of the global shapes, the same on every rank
+            ctrl = DynamicSparsityController(DynamicSparsityConfig(**dkw), params,
+                                             specs=shardings["params"] if shardings else None)
             masks = ctrl.masks()
             say(
                 f"dynamic sparsity: {len(ctrl.units)} weight(s), "

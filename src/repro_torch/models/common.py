@@ -130,7 +130,11 @@ def gelu(x):
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-ACTIVATIONS = {"silu": silu, "gelu": gelu, "relu": lambda x: torch.clamp_min(x, 0)}
+#: ``relu`` is ``maximum(x, 0)``, as the JAX package's: at an exact zero its
+#: gradient is 1/2 (ties split), where ``clamp_min`` would pass it whole.
+#: Dynamic sparsity makes such zeros: a pruned norm-gain block feeding the
+#: only weight rows an expert's gate keeps
+ACTIVATIONS = {"silu": silu, "gelu": gelu, "relu": lambda x: torch.maximum(x, x.new_zeros(()))}
 
 
 def rotary_embedding(positions, dim: int, theta: float = 1e4):

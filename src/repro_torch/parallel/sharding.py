@@ -75,6 +75,8 @@ __all__ = [
     "axis_sizes",
     "all_gather_cat",
     "shard_slice",
+    "shard_extent",
+    "rank_index",
     "BatchShape",
     "ModelShards",
     "spec_leaves",
@@ -349,6 +351,27 @@ def shard_slice(x: torch.Tensor, spec: tuple, index_of) -> torch.Tensor:
     return x
 
 
+def shard_extent(shape: tuple, spec: tuple, index_of) -> tuple[tuple, tuple]:
+    """``(global shape, offsets)`` of a shard of ``shape`` cut under
+    ``spec``: the shape of the tensor :func:`shard_slice` cut it from, and
+    the element offset of the shard on each dim, for the shard whose
+    ``(count, index)`` for each spec entry is ``index_of(entry)``.  Needs no
+    process group."""
+    full, offsets = [], []
+    for n, entry in zip(shape, spec):
+        count, i = (1, 0) if entry is None else index_of(entry)
+        full.append(n * count)
+        offsets.append(n * i)
+    return tuple(full), tuple(offsets)
+
+
+def rank_index(policy: "ShardingPolicy"):
+    """``index_of`` of this rank under ``policy``'s mesh: a spec entry ->
+    ``(count, index)`` of the rank over the entry's axes (the argument
+    :func:`shard_slice` and :func:`shard_extent` take)."""
+    return lambda e: axis_group(policy.mesh, _entry_axes(e))[1:]
+
+
 def local_shard(x: torch.Tensor, spec: tuple, policy: "ShardingPolicy") -> torch.Tensor:
     """This rank's slice of ``x`` under ``spec`` (a view): each dim named by
     mesh axes is cut into as many equal slices as the axes have ranks
@@ -357,7 +380,7 @@ def local_shard(x: torch.Tensor, spec: tuple, policy: "ShardingPolicy") -> torch
     ``shard_map`` does; a policy without a mesh returns ``x``."""
     if policy.mesh is None:
         return x
-    return shard_slice(x, spec, lambda e: axis_group(policy.mesh, _entry_axes(e))[1:])
+    return shard_slice(x, spec, rank_index(policy))
 
 
 def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -844,7 +867,9 @@ def owner_mask(specs: list, shards: ModelShards) -> list:
     return [all(coord[a] == 0 for a in names if a not in _leaf_axes(spec)) for spec in specs]
 
 
-def mesh_all_reduce(x: torch.Tensor, shards: ModelShards) -> torch.Tensor:
-    """``x`` summed over every rank of the mesh."""
-    group, n, _ = axis_group(shards.policy.mesh, _names(shards.policy.mesh))
-    return _all_reduce(x, group) if n > 1 else x
+def mesh_all_reduce(x: torch.Tensor, shards, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced (summed by default) over every rank of the mesh of
+    ``shards`` (a :class:`ModelShards` or a :class:`ShardingPolicy`)."""
+    mesh = getattr(shards, "policy", shards).mesh
+    group, n, _ = axis_group(mesh, _names(mesh))
+    return _all_reduce(x, group, op) if n > 1 else x

@@ -11,7 +11,9 @@ Public surface:
 * :func:`apply_block_masks` / :func:`block_abs_sum` /
   :func:`expand_block_mask` — mask utilities over the port's per-layer
   parameter trees, keyed by the JAX package's stacked paths
-  (``repro_torch.sparse_train.masks``).
+  (``repro_torch.sparse_train.masks``); on a mesh :func:`leaf_cuts` places a
+  rank's shards in the global leaves, :func:`shard_block_mask` gives its
+  slice of a global mask and :func:`shard_block_scores` its partial scores.
 
 Wired end-to-end via ``repro_torch.train.step.make_train_step(
 dynamic_sparsity=)`` and ``python -m repro_torch.launch.train
@@ -22,13 +24,17 @@ from repro_torch.sparse_train.controller import (
     DynamicSparsityController,
 )
 from repro_torch.sparse_train.masks import (
+    Cut,
     apply_block_masks,
     block_abs_sum,
     block_scores,
     expand_block_mask,
+    leaf_cuts,
     mask_density,
     mask_paths,
     maskable,
+    shard_block_mask,
+    shard_block_scores,
     stacked_leaves,
 )
 from repro_torch.sparse_train.plan_edit import (
@@ -45,12 +51,16 @@ __all__ = [
     "apply_delta",
     "edit_plan",
     "plan_from_block_mask",
+    "Cut",
     "apply_block_masks",
     "block_abs_sum",
     "block_scores",
     "expand_block_mask",
+    "leaf_cuts",
     "mask_density",
     "mask_paths",
     "maskable",
+    "shard_block_mask",
+    "shard_block_scores",
     "stacked_leaves",
 ]

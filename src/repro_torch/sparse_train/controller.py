@@ -24,17 +24,29 @@ computes the two score trees on the device
 :meth:`DynamicSparsityController.update` fetches both in one
 device-to-host copy.  Units, paths and masks follow the JAX package's
 stacked leaves (:mod:`repro_torch.sparse_train.masks`).
+
+On a mesh (a runtime whose ``sharding`` has a mesh) ``params`` are a rank's
+shards and ``specs`` the spec tuples they were cut under: the units, their
+block geometry and the masks are built from the global shapes, so they are
+the JAX package's on every mesh, and every rank holds the same masks.  The
+train step hands every rank the same global scores, the selection is
+deterministic on them, and after each refresh one all-reduce of a checksum
+of the masks (their kept count and CRC, MIN and MAX over the mesh) raises if
+the ranks' masks differ.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import runtime as rtm
+from repro_torch.parallel import sharding as S
 from repro_torch.runtime.plan import _fit_block
 from repro_torch.sparse_train import masks as mk
 from repro_torch.sparse_train.plan_edit import PlanDelta, edit_plan, plan_from_block_mask
@@ -111,18 +123,26 @@ class DynamicSparsityController:
     layer, "fwd"/"bwd")`` keys — stored with ``PlanCache.store(key,
     plan.idx, plan)``, so the plan's own ``idx`` tensor is the source a
     lookup must pass — and the cache never accumulates stale duplicates.
-    ``params`` is read for shapes and dtypes only.
+    ``params`` is read for shapes and dtypes only.  Under a runtime with a
+    mesh they are this rank's shards and ``specs`` (required there) the
+    spec tuples they were cut under (``policy.param_pspecs(param_specs(
+    cfg))``, the same tree): the units are built from the global shapes.
     """
 
-    def __init__(self, cfg: DynamicSparsityConfig, params, rt=None):
+    def __init__(self, cfg: DynamicSparsityConfig, params, rt=None, *, specs=None):
         self.cfg = cfg
         self.rt = rtm.resolve(rt)
         self.units: dict[str, _Unit] = {}
         self.last_report: dict | None = None
-        for path, leaf in mk.mask_paths(
-            params, min_size=cfg.min_size, exclude=cfg.exclude
-        ).items():
-            shape = leaf.shape
+        mesh = self.rt.mesh
+        if mesh is not None and specs is None:
+            raise ValueError("on a mesh the controller takes specs=: the spec tuples params were cut under")
+        # on a mesh a leaf's Cut carries the global shape, all that is read of it
+        cuts = {} if mesh is None else mk.leaf_cuts(params, specs, S.rank_index(self.rt.sharding))
+        for path, leaf in mk.stacked_leaves(params).items():
+            shape = cuts.get(path, leaf).shape
+            if not mk.maskable(path, cuts.get(path, leaf), min_size=cfg.min_size, exclude=cfg.exclude):
+                continue
             k, n = shape[-2], shape[-1]
             bk = _fit_block(self.rt.bk, k)
             bn = _fit_block(self.rt.bn, n)
@@ -250,6 +270,7 @@ class DynamicSparsityController:
                 if len(delta.regrow):
                     m[delta.regrow[:, 0], delta.regrow[:, 1]] = True
         edit_ms = (time.perf_counter() - t0) * 1e3
+        self._check_ranks_agree(step)
         self._refresh_cache()
         self.last_report = {
             "step": step,
@@ -261,6 +282,24 @@ class DynamicSparsityController:
             "edit_ms": edit_ms,
         }
         return self.last_report
+
+    def _check_ranks_agree(self, step: int) -> None:
+        """On a mesh of several ranks: raise unless every rank holds the
+        same masks (one all-reduce of their kept count and CRC-32, MIN and
+        MAX together)."""
+        policy = self.rt.sharding
+        if policy is None or policy.mesh is None or policy.size == 1:
+            return
+        kept, crc = 0, 0
+        for u in self.units.values():
+            kept += int(u.mask.sum())
+            crc = zlib.crc32(np.packbits(u.mask).tobytes(), crc)
+        mine = torch.tensor([kept, crc, -kept, -crc], dtype=torch.int64, device=self.rt.device)
+        seen = S.mesh_all_reduce(mine, policy, op=dist.ReduceOp.MAX).tolist()  # lint: allow-host-sync: once a refresh
+        if seen != [kept, crc, -kept, -crc]:
+            raise RuntimeError(
+                f"dynamic sparsity step {step}: the ranks' masks differ (kept count and CRC-32 over the mesh: "
+                f"max {seen[:2]}, min {[-seen[2], -seen[3]]}, this rank's {[kept, crc]})")
 
     @staticmethod
     def _delta_consistent(mask, delta: PlanDelta) -> bool:

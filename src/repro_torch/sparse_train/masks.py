@@ -27,18 +27,36 @@ vector such as a norm gain one row of the ``[L, d]`` matrix JAX masks).
 Masking is **in place**: the train step updates parameters in place, and an
 in-place write bumps a tensor's ``_version``, which is how the LM-head plan
 cache notices a re-masked weight and replans it.
+
+**On a mesh** a rank holds slices of the leaves (``parallel/sharding.py``),
+while masks, block geometry and scores stay the global leaves' (the JAX
+package's).  A :class:`Cut` per path says where the rank's tensors sit in
+the global leaf; :func:`apply_block_masks` and :func:`block_scores` take the
+``cuts`` (:func:`leaf_cuts`) and work on the rank's slices: a slice may
+start or end inside a mask block (``d_ff`` 11008 at block 128 over 4 ranks
+gives each 21.5 blocks), so local row ``i`` lies in block ``(offset + i) //
+bk`` and the rank's scores are partial block sums, scattered into a
+global-shaped tensor that sums over the ranks to the global scores.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.parallel.sharding import shard_extent
 
 __all__ = [
     "StackedLeaf",
     "stacked_leaves",
+    "Cut",
+    "leaf_cuts",
+    "shard_block_mask",
+    "shard_block_scores",
     "maskable",
     "expand_block_mask",
+    "local_masks",
     "apply_block_masks",
     "block_abs_sum",
     "block_scores",
@@ -87,6 +105,28 @@ def stacked_leaves(tree) -> dict[str, StackedLeaf]:
     return out
 
 
+class Cut(NamedTuple):
+    """Where a rank's tensors of one path sit in the JAX package's global
+    leaf: the global (stacked) ``shape`` and the element ``offsets`` of the
+    rank's slice on each of its dims (0 on a stacked leaf's layer axis)."""
+
+    shape: tuple
+    offsets: tuple
+
+
+def leaf_cuts(params, specs, index_of) -> dict[str, Cut]:
+    """``{path: Cut}`` of every leaf of a tree of a rank's shards, from the
+    spec tuples ``specs`` it was cut under (the same tree) and ``index_of``
+    (``parallel.sharding.rank_index(policy)``, or any ``entry -> (count,
+    index)``, which needs no process group)."""
+    spec_of = stacked_leaves(specs)
+    out = {}
+    for path, leaf in stacked_leaves(params).items():
+        shape, offsets = shard_extent(tuple(leaf.leaves[0].shape), spec_of[path].leaves[0], index_of)
+        out[path] = Cut((len(leaf.leaves), *shape), (0, *offsets)) if leaf.stacked else Cut(shape, offsets)
+    return out
+
+
 def maskable(path: str, p, *, min_size: int = 256, exclude=()) -> bool:
     """Whether leaf ``p`` (anything with the JAX package's ``shape``) at
     tree path ``path`` participates in dynamic sparsity: a 2-D-or-stacked
@@ -130,22 +170,54 @@ def block_abs_sum(x, block: tuple[int, int]):
     return blocks.sum(dim=(-3, -1))
 
 
-def _leaf_scores(leaf: StackedLeaf, block) -> torch.Tensor:
-    """``block_abs_sum`` of the stacked leaf: layer by layer for stacked
-    matrices (no stacked copy), over the stacked tensor otherwise."""
+@torch.no_grad()
+def shard_block_scores(x, block: tuple[int, int], offsets: tuple, shape: tuple):
+    """A rank's partial block scores: the per-block L1 mass of its slice
+    ``x`` of a global ``[*lead, K, N]`` tensor of ``shape``, the slice
+    starting at element ``offsets``, scattered into a global-shaped
+    ``[*lead, K/bk, N/bn]`` fp32 tensor (zero outside the slice's blocks).
+    Block L1 mass is additive, so the ranks' partials sum to
+    :func:`block_abs_sum` of the global tensor; a block the slice cuts gets
+    the part of its mass the slice holds.  The slice whole returns
+    ``block_abs_sum(x)``."""
+    if tuple(x.shape) == tuple(shape):
+        return block_abs_sum(x, block)
+    bk, bn = block
+    *lead_at, k0, n0 = offsets
+    *lead, k, n = x.shape
+    hk, hn = k0 % bk, n0 % bn
+    kb, nb = -(-(hk + k) // bk), -(-(hn + n) // bn)
+    # pad the slice out to whole blocks: zeros add nothing to a block's mass
+    a = F.pad(torch.abs(x.float()), (hn, nb * bn - hn - n, hk, kb * bk - hk - k))
+    part = block_abs_sum(a, block)
+    out = part.new_zeros((*shape[:-2], shape[-2] // bk, shape[-1] // bn))
+    at = tuple(slice(o, o + s) for o, s in zip(lead_at, lead))
+    out[(*at, slice(k0 // bk, k0 // bk + kb), slice(n0 // bn, n0 // bn + nb))] = part
+    return out
+
+
+def _leaf_scores(leaf: StackedLeaf, block, cut: Cut | None) -> torch.Tensor:
+    """``block_abs_sum`` of the stacked leaf (a rank's partial scores of it
+    under ``cut``): layer by layer for stacked matrices (no stacked copy),
+    over the stacked tensor otherwise."""
+    if cut is None:
+        cut = Cut(leaf.shape, (0,) * len(leaf.shape))
     if leaf.stacked and len(leaf.leaves[0].shape) >= 2:
-        return torch.stack([block_abs_sum(x, block) for x in leaf.leaves])
+        return torch.stack([shard_block_scores(x, block, cut.offsets[1:], cut.shape[1:]) for x in leaf.leaves])
     x = torch.stack(leaf.leaves) if leaf.stacked else leaf.leaves[0]
-    return block_abs_sum(x, block)
+    return shard_block_scores(x, block, cut.offsets, cut.shape)
 
 
 @torch.no_grad()
-def block_scores(tree, spec: dict) -> dict:
+def block_scores(tree, spec: dict, cuts: dict | None = None) -> dict:
     """``{path: block_abs_sum(stacked leaf)}`` for every controlled leaf of
     ``tree`` — applied to masked params it yields the controller's prune
-    scores, to pre-mask grads its regrow scores (RigL's dense gradients)."""
+    scores, to pre-mask grads its regrow scores (RigL's dense gradients).
+    With ``cuts`` (``{path: Cut}``) ``tree`` holds a rank's slices and the
+    scores are its global-shaped partials (:func:`shard_block_scores`)."""
     leaves = stacked_leaves(tree)
-    return {path: _leaf_scores(leaves[path], spec[path]) for path in spec if path in leaves}
+    return {path: _leaf_scores(leaves[path], spec[path], None if cuts is None else cuts[path])
+            for path in spec if path in leaves}
 
 
 @torch.no_grad()
@@ -168,8 +240,56 @@ def _mask_matrix_(x, mask, block) -> None:
         x.mul_(expand_block_mask(m, block))
 
 
+def shard_block_mask(mask, block: tuple[int, int], offsets: tuple, shape: tuple):
+    """A rank's slice of a global block mask ``[*lead, Kb, Nb]`` at element
+    granularity: the ``[*shape]`` boolean mask of the slice of the global
+    ``[*lead, Kb*bk, Nb*bn]`` tensor that starts at element ``offsets``.
+    Local row ``i`` lies in block ``(offset + i) // bk``, so a slice that
+    starts or ends inside a block takes the part of it the slice holds."""
+    bk, bn = block
+    *lead_at, k0, n0 = offsets
+    *lead, k, n = shape
+    m = mask[tuple(slice(o, o + s) for o, s in zip(lead_at, lead))]
+    rows = torch.div(k0 + torch.arange(k, device=mask.device), bk, rounding_mode="floor")
+    cols = torch.div(n0 + torch.arange(n, device=mask.device), bn, rounding_mode="floor")
+    return m.index_select(-2, rows).index_select(-1, cols)
+
+
+def _local_mask(mask, block, offsets: tuple, shape: tuple):
+    """``(mask, granularity)`` of the slice ``[*shape]`` at ``offsets`` of a
+    global ``[*lead, Kb*bk, Nb*bn]`` tensor: its blocks of the global mask
+    where the slice starts and ends on block edges (the whole tensor among
+    them), else its element mask (:func:`shard_block_mask`)."""
+    bk, bn = block
+    *lead_at, k0, n0 = offsets
+    *lead, k, n = shape
+    if (k0 % bk, k % bk, n0 % bn, n % bn) == (0, 0, 0, 0):
+        at = tuple(slice(o, o + s) for o, s in zip(lead_at, lead))
+        return mask[(*at, slice(k0 // bk, (k0 + k) // bk), slice(n0 // bn, (n0 + n) // bn))], block
+    return shard_block_mask(mask, block, offsets, shape), (1, 1)
+
+
+def local_masks(leaf: StackedLeaf, mask, block, cut: Cut | None = None):
+    """``(x, m, granularity)`` for each tensor of a controlled leaf: ``x`` a
+    ``[*, k, n]`` view of the tensor (a per-layer vector as one row) and
+    ``m`` the mask of its ``granularity`` blocks that expands to ``x``'s
+    element mask; under ``cut`` the tensors are a rank's slices."""
+    offsets = (0,) * len(leaf.shape) if cut is None else cut.offsets
+    if not leaf.stacked:
+        x = leaf.leaves[0]
+        yield (x, *_local_mask(mask, block, offsets, tuple(x.shape)))
+    elif leaf.leaves[0].dim() >= 2:
+        for x, m in zip(leaf.leaves, mask):
+            yield (x, *_local_mask(m, block, offsets[1:], tuple(x.shape)))
+    else:  # per-layer vectors: layer l is row l of the [L, d] matrix, in block row l // bk
+        bk, bn = block
+        for l, x in enumerate(leaf.leaves):
+            row = x.view(1, -1)
+            yield (row, *_local_mask(mask[l // bk][None], (1, bn), (0, offsets[1]), tuple(row.shape)))
+
+
 @torch.no_grad()
-def apply_block_masks(params, masks: dict, spec: dict):
+def apply_block_masks(params, masks: dict, spec: dict, cuts: dict | None = None):
     """Zero the masked-off blocks of every controlled weight, in place, and
     return ``params``.
 
@@ -179,18 +299,11 @@ def apply_block_masks(params, masks: dict, spec: dict):
     Uncontrolled leaves are untouched.  Works on gradients too (pass them
     in the parameters' structure) — masking grads before the optimizer is
     what pins pruned weights (and their Adam moments' updates) at zero
-    between refreshes.
+    between refreshes.  With ``cuts`` (``{path: Cut}``) ``params`` holds a
+    rank's slices, each masked by its slice of the global mask.
     """
     leaves = stacked_leaves(params)
     for path, mask in masks.items():
-        leaf = leaves[path]
-        if not leaf.stacked:
-            _mask_matrix_(leaf.leaves[0], mask, spec[path])
-        elif len(leaf.leaves[0].shape) >= 2:
-            for x, m in zip(leaf.leaves, mask):
-                _mask_matrix_(x, m, spec[path])
-        else:  # per-layer vectors: layer l is row l of the [L, d] matrix
-            em = expand_block_mask(mask, spec[path])
-            for x, m in zip(leaf.leaves, em):
-                x.mul_(m.to(device=x.device, dtype=x.dtype))
+        for x, m, blk in local_masks(leaves[path], mask, spec[path], None if cuts is None else cuts[path]):
+            _mask_matrix_(x, m, blk)
     return params

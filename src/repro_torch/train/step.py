@@ -30,8 +30,17 @@ reduce-scattered in the backward, and the shares of a leaf every model
 rank holds whole, as MLA's ``wq_a`` or Mamba2's ``in_b``, were summed over
 ``model`` by ``tp_copy`` in the backward), the gradient norm
 is global with each replicated slice counted once, and AdamW updates the
-local shards; every rank takes the same non-finite decision.  Dynamic sparse
-training on a mesh of several ranks is not ported.
+local shards; every rank takes the same non-finite decision.
+
+Dynamic sparse training runs on a mesh too.  The masks, their block
+geometry and the scores stay the JAX package's global ones, the same on
+every rank; each rank masks its own slices with its slice of each mask
+(``sparse_train.masks.leaf_cuts``: a slice may start or end inside a mask
+block), scores them into global-shaped partial block sums, and one
+all-reduce over the mesh sums every leaf's partials (weights and gradients
+in one flat buffer), each leaf counted once: a rank adds its partials only
+where it is the first of the ranks holding the same slice
+(``sharding.owner_mask``).
 
 ``dynamic_sparsity=`` (a :class:`repro_torch.sparse_train.
 DynamicSparsityController` or its ``spec()``) runs RigL dynamic sparse
@@ -61,7 +70,7 @@ from repro_torch.optim.adamw import (
     tree_unflatten,
 )
 from repro_torch.sparse_train.masks import (
-    apply_block_masks, block_scores, mask_density, stacked_leaves,
+    apply_block_masks, block_scores, leaf_cuts, local_masks, mask_density, stacked_leaves,
 )
 
 __all__ = ["make_train_step", "make_loss_fn", "init_train_state", "modeled_speedup", "accumulate_grads",
@@ -206,24 +215,17 @@ def modeled_speedup(metrics, cfg: ModelConfig, **kw) -> dict[str, float]:
 
 
 @torch.no_grad()
-def _held_blocks(params, masks: dict, spec: dict) -> list:
+def _held_blocks(params, masks: dict, spec: dict, cuts: dict | None = None) -> list:
     """What :func:`apply_block_masks` is about to zero that is not zero yet,
     as ``(blocks view, block mask, values)`` per tensor: the blocks a
     refresh has just pruned (between refreshes every masked-off block is
-    already zero, and the list is empty).  One host sync."""
+    already zero, and the list is empty).  Under ``cuts`` the tensors are a
+    rank's slices, at the granularity of their slice of each mask.  One host
+    sync."""
     leaves = stacked_leaves(params)
     views = []
     for path, mask in masks.items():
-        bk, bn = spec[path]
-        leaf = leaves[path]
-        if not leaf.stacked:
-            pairs = [(leaf.leaves[0], mask)]
-        elif leaf.leaves[0].dim() >= 2:
-            pairs = zip(leaf.leaves, mask)
-        else:  # per-layer vectors: layer l is row l of the [L, d] matrix
-            pairs = [(x.view(1, -1), mask[l // bk]) for l, x in enumerate(leaf.leaves)]
-            bk = 1
-        for x, m in pairs:
+        for x, m, (bk, bn) in local_masks(leaves[path], mask, spec[path], None if cuts is None else cuts[path]):
             *lead, k, n = x.shape
             blocks = x.view(*lead, k // bk, bk, n // bn, bn).movedim(-3, -2)
             off = ~m.to(x.device).reshape(blocks.shape[:-2])
@@ -249,6 +251,24 @@ def _stamp(params, masks: dict) -> list:
 
 def _unchanged(stamp: list, now: list) -> bool:
     return len(stamp) == len(now) and all(a is b and v == w for (a, v), (b, w) in zip(stamp, now))
+
+
+def _mesh_scores(trees: list, owner: dict, sh) -> list:
+    """The global score trees from the ranks' partial ones: one all-reduce
+    (sum) over the mesh of every tree's leaves in one flat fp32 buffer, a
+    rank adding a leaf's partials only where ``owner[path]`` (the first of
+    the ranks holding the same slice), so a replicated slice counts once."""
+    if sh.world == 1:
+        return trees
+    flat = torch.cat([(x if owner[p] else torch.zeros_like(x)).reshape(-1) for t in trees for p, x in t.items()])
+    flat = S.mesh_all_reduce(flat, sh)
+    out, at = [], 0
+    for t in trees:
+        out.append({})
+        for p, x in t.items():
+            out[-1][p] = flat[at:at + x.numel()].view(x.shape)
+            at += x.numel()
+    return out
 
 
 def make_train_step(
@@ -284,7 +304,8 @@ def make_train_step(
     AdamW; mask the parameters again.  A skipped step returns the
     parameters it was given, as JAX's does: the blocks its mask had just
     zeroed get their values back (a later refresh may regrow them); it
-    still reports the scores.
+    still reports the scores.  On a mesh ``masks`` are the global masks and
+    the scores come back global, the same on every rank.
     """
     dst_spec = None
     if dynamic_sparsity is not None:
@@ -300,24 +321,37 @@ def make_train_step(
             "make_train_step under Runtime(geometry='auto') with an empty TuningDB: every cell "
             "resolves cold to the hand-tuned defaults", stacklevel=2)
     sh = tfm.shards_of(cfg, rt)
-    if sh is not None and sh.world > 1 and dst_spec is not None:
-        raise NotImplementedError("dynamic sparse training on a mesh of several ranks is not ported")
     specs = S.spec_leaves(sh.specs) if sh is not None else None
     norm = lambda tree: global_norm(tree, shards=sh, specs=specs)
     loss_fn = make_loss_fn(cfg)
     # the last clean dynamic step's _stamp, taken after its final mask: while
     # it holds, every masked-off block is zero and there is nothing to hold
     settled: list = []
+    # on a mesh: where this rank's slices of each controlled leaf sit in the
+    # global leaf, and whether it counts the leaf's partial scores
+    place: dict = {}
+
+    def cuts_of(params):
+        if sh is None:
+            return None
+        if not place:
+            cuts = leaf_cuts(params, sh.specs, S.rank_index(sh.policy))
+            paths = [p for p in dst_spec if p in cuts]
+            spec_of = stacked_leaves(sh.specs)
+            place["cuts"] = {p: cuts[p] for p in paths}
+            place["owner"] = dict(zip(paths, S.owner_mask([spec_of[p].leaves[0] for p in paths], sh)))
+        return place["cuts"]
 
     def train_step(params, opt_state, batch, masks=None, poison=None):
         if dst_spec is not None:
             if masks is None:
                 raise TypeError("dynamic_sparsity train step takes masks: "
                                 "train_step(params, opt_state, batch, controller.masks())")
+            cuts = cuts_of(params)
             held = []
             if guard_nonfinite and not _unchanged(settled, _stamp(params, masks)):
-                held = _held_blocks(params, masks, dst_spec)
-            apply_block_masks(params, masks, dst_spec)
+                held = _held_blocks(params, masks, dst_spec, cuts)
+            apply_block_masks(params, masks, dst_spec, cuts)
         loss, grads, tapm = accumulate_grads(loss_fn, cfg, params, batch, microbatches=microbatches,
                                              sparsity_taps=sparsity_taps, shards=sh)
         metrics: dict = {}
@@ -333,10 +367,12 @@ def make_train_step(
             # gradient's block mass, prunes on the (masked) weights'.
             # Masking the grads pins pruned weights and their updates at 0
             gtree = tree_unflatten(params, grads)
-            dstm = {"dst_w_scores": block_scores(params, dst_spec),
-                    "dst_g_scores": block_scores(gtree, dst_spec),
+            scores = [block_scores(params, dst_spec, cuts), block_scores(gtree, dst_spec, cuts)]
+            if sh is not None:
+                scores = _mesh_scores(scores, place["owner"], sh)
+            dstm = {"dst_w_scores": scores[0], "dst_g_scores": scores[1],
                     "dst_density": mask_density(masks, dst_spec)}
-            apply_block_masks(gtree, masks, dst_spec)
+            apply_block_masks(gtree, masks, dst_spec, cuts)
         gnorm = norm(grads)
         if guard_nonfinite:
             # the loss and the norm are global: every rank decides the same
@@ -357,7 +393,7 @@ def make_train_step(
             # stale Adam momentum would drift just-pruned entries off zero;
             # re-mask so stored weights carry exactly-zero blocks (what
             # makes value planning recover the mask by construction)
-            apply_block_masks(params, masks, dst_spec)
+            apply_block_masks(params, masks, dst_spec, cuts)
             if guard_nonfinite:
                 settled[:] = _stamp(params, masks)
         with torch.no_grad():

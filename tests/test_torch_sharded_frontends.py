@@ -25,7 +25,8 @@ carry the bf16 embeddings into fp32 blocks), so there are two checks:
   within the bf16 bound of ``tests/test_torch_model.py`` (atol 0.1).
 
 What stays refused on a mesh of several ranks: a frontend in the engine and
-in the train launcher, dynamic sparse training, ``cuda_graph=True``.
+in the train launcher, ``cuda_graph=True``; dynamic sparse training is no
+longer refused (``tests/test_torch_sharded_dst.py``).
 
 The module imports no JAX at its top, so the ranks stay light.
 """
@@ -296,6 +297,5 @@ def test_what_a_mesh_of_several_ranks_still_refuses(pool, models):
     for out in pool.run(task_refusals, models["qwen2-vl-relu"][1], ssm, deadline=DEADLINE):
         assert out["engine frontend"].startswith("NotImplementedError") and "serves token prompts" in out["engine frontend"]
         assert out["launcher frontend"].startswith("NotImplementedError") and "inputs_embeds" in out["launcher frontend"]
-        assert out["dst"] == ("NotImplementedError: dynamic sparse training on a mesh of several ranks is not "
-                              "ported")
+        assert out["dst"] is None  # runs on a mesh of several ranks now
         assert out["cuda graph"].startswith("ValueError") and "mesh of 4 ranks" in out["cuda graph"]
