@@ -251,6 +251,25 @@ from the root of a checkout, on a machine with one H100.
    layers, fp32, through ``make_train_step(dynamic_sparsity=)`` on an NCCL
    group of one rank against the unsharded run: masks and counts equal at
    every refresh, losses within 2**-7; step and refresh seconds;
+13e. runs the dry-run phase (``dry_run_phase``): (a) the port's dry run,
+   ``python -m repro_torch.launch.dryrun --all --mesh both``, started in
+   the background (niced) after the build and collected here: all 64
+   cells (32 a mesh, 16x16 and 2x16x16) ``ok`` with their per-rank bytes,
+   FLOPs, collective bytes and roofline terms at H100 rates, the cells that
+   do not fit 80 GB a rank logged, its wall time; (b) the dry run held to
+   the card: its record of full-width deepseek-7b-ReLU cut to 4 layers,
+   the train phase's batch, on a 1x1 mesh, against a real step on an NCCL
+   group of one rank (argument bytes exactly the real parameters', AdamW
+   moments' and batch's; the peak within 10% of ``max_memory_allocated``
+   on the ``dense`` backend; the FLOPs equal to ``FlopCounterMode``'s; a
+   ``cuda``-backend step against the roofline bound); (c) item 14e at full
+   width: zamba2-2.7b with a 524288-row cache (48.3 GB of KV from a seed),
+   one decode step unsplit and as 16 data ranks' parts in turn combined by
+   ``seq_combine``: with bf16 weights one shared attention within relative
+   L2 2**-7 and the step's argmax equal (its logits' distance beside the
+   model's own bf16 noise), with the weights in fp32 the step's logits
+   within 2**-7; the whole step's and one rank's part's ms, and one
+   shared-attention invocation's, beside their byte bounds;
 14. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode;
@@ -1670,6 +1689,328 @@ def init_whole(cfg, tag: str):
         f"({param_gb:.3f} GB bf16; param_count() says {cfg.param_count() / 1e9:.3f} B) initialised on the card "
         f"in {time.perf_counter() - t0:.1f} s ({before_gb:.2f} GB held before)")
     return params, param_gb
+
+
+#: the dry run's phase: (a) the full pass's result file, (b) the train phase's
+#: cell held to a real step, (c) item 14e at full width
+DRY_RUN_OUT = ROOT / "chiprun_out" / "dryrun_torch.json"
+#: (a)'s processes at once: the card's host has 8 cores, the card phases use one or two
+DRY_RUN_JOBS = 5
+PEAK_REL = 0.10
+SEQ_ROWS, SEQ_RANKS, SEQ_REL_L2 = 524288, 16, 2**-7
+#: (b)'s prediction, made in a process of its own (the fake process group)
+DRY_CELL = """
+import dataclasses, json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.configs import InputShape, get_config
+from repro_torch.launch import dryrun as D
+D.fake_process_group(1)
+cfg = dataclasses.replace(get_config("deepseek-7b"), activation="relu", num_layers={layers})
+shape = InputShape("train_phase", {seq}, {batch}, "train")
+rec = D.record("deepseek-7b", cfg, shape, D.fake_mesh((1, 1), ("data", "model")), microbatches={micro})
+print(json.dumps(rec))
+"""
+
+
+def start_dry_run():
+    """(a): the full dry run in the background, niced, its output logged to
+    ``chiprun_out/dryrun_torch.log``; ``(process, start time)``."""
+    import os
+
+    DRY_RUN_OUT.parent.mkdir(exist_ok=True)
+    logf = open(DRY_RUN_OUT.with_suffix(".log"), "w")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both", "--force",
+           "--jobs", str(DRY_RUN_JOBS), "--out", str(DRY_RUN_OUT)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    try:
+        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT),
+                                preexec_fn=lambda: os.nice(10), start_new_session=True)
+    finally:
+        logf.close()
+    return proc, time.perf_counter()
+
+
+def stop_dry_run(run) -> None:
+    """Kill (a)'s process group if it is still running (a phase failed)."""
+    import os
+    import signal
+
+    proc = run[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def dry_run_collect(run) -> dict:
+    """(a): wait for the dry run; every cell ``ok`` (ROADMAP lists no cell
+    as a limit of the port), each record complete; the cells that do not fit 80 GB a rank, the
+    wall time."""
+    proc, t0 = run
+    rc = proc.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    tail = DRY_RUN_OUT.with_suffix(".log").read_text()[-3000:]
+    if rc:
+        raise AssertionError(f"dry run (a): exit {rc}\n{tail}")
+    res = json.loads(DRY_RUN_OUT.read_text())
+    bad = {k: r.get("error") for k, r in res.items() if not r.get("ok")}
+    if len(res) != 64 or bad:
+        raise AssertionError(f"dry run (a): {len(res)} cells, failed {bad}\n{tail}")
+    need = ("argument_bytes", "peak_bytes")
+    for k, r in res.items():
+        rf = r.get("roofline", {})
+        if not (all(r["mem"].get(n) for n in need) and rf.get("flops") and rf.get("hbm_bytes")
+                and set(r["collectives"]) >= {"all-gather", "all-reduce", "reduce-scatter", "all-to-all"}
+                and all(x in rf for x in ("compute_s", "memory_s", "collective_s")) and "fits_80gb" in r):
+            raise AssertionError(f"dry run (a): record {k} lacks a field: {sorted(r)}")
+    no_fit = sorted(k for k, r in res.items() if r.get("ok") and not r["fits_80gb"])
+    slowest = max(res.values(), key=lambda r: r.get("compile_s", 0))
+    log(f"dry run (a): {sum(r['ok'] for r in res.values())}/{len(res)} cells ok on 16x16 and 2x16x16 in "
+        f"{wall:.1f} s (niced, beside the card phases; slowest cell {slowest['arch']}|{slowest['shape']}|"
+        f"{slowest['mesh']} {slowest['compile_s']} s); {len(no_fit)} do not fit 80 GB a rank: {no_fit}")
+    for k in sorted(res):
+        r = res[k]
+        if r["mesh"] == "16x16":
+            rf = r["roofline"]
+            log(f"dry run (a): {k}: {rf['dominant']} {rf['bound_s'] * 1e3:.3f} ms (compute "
+                f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.3f}, collective "
+                f"{rf['collective_s'] * 1e3:.3f}), peak {r['mem']['peak_bytes'] / 1e9:.2f} GB a rank")
+    return {"cells": len(res), "ok": sum(r["ok"] for r in res.values()), "seconds": wall, "no_fit_80gb": no_fit,
+            "file": str(DRY_RUN_OUT.relative_to(ROOT))}
+
+
+def dry_run_check_phase(bw: float) -> dict:
+    """(b): the dry run's record of the train phase's step (deepseek-7b-ReLU
+    cut to TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ tokens in
+    TRAIN_MICRO microbatches, a 1x1 mesh) against a real step on an NCCL
+    group of one rank: argument bytes exactly, the peak within PEAK_REL of
+    ``max_memory_allocated`` on ``dense``, FLOPs equal to
+    ``FlopCounterMode``'s, and a ``cuda``-backend step's time against the
+    roofline bound."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import runtime as rtm
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), activation="relu", num_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    code = DRY_CELL.format(src=str(SRC), layers=TRAIN_LAYERS, seq=TRAIN_SEQ, batch=TRAIN_BATCH, micro=TRAIN_MICRO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(SRC)))
+    if proc.returncode:
+        raise AssertionError(f"dry run (b): the prediction failed\n{proc.stderr[-3000:]}")
+    pred = json.loads(proc.stdout.strip().splitlines()[-1])
+    t_pred = time.perf_counter() - t0
+    free()
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            policy = S.ShardingPolicy(mesh=make_local_mesh())
+            dense = rtm.Runtime(backend="dense", device="cuda", sharding=policy)
+            base = torch.cuda.memory_allocated()
+            params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda", policy=policy)
+            opt = init_opt_state(params)
+            batch = data.batch_at(0, device="cuda")
+            held = nbytes(tree_leaves(params) + tree_leaves(opt.m) + tree_leaves(opt.v) + list(batch.values()))
+            with dense.use():
+                step = make_train_step(cfg, OptConfig(), microbatches=TRAIN_MICRO)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with dense.use():
+                params, opt, _ = step(params, opt, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            with dense.use(), FlopCounterMode(display=False) as fc:
+                params, opt, _ = step(params, opt, batch)
+            flops = fc.get_total_flops()
+            with rtm.Runtime(backend="cuda", device="cuda", sharding=policy).use():
+                cstep = make_train_step(cfg, OptConfig(), microbatches=TRAIN_MICRO)
+                params, opt, _ = cstep(params, opt, batch)  # the first step plans and warms
+                walls = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    params, opt, _ = cstep(params, opt, batch)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t1)
+        finally:
+            dist.destroy_process_group()
+    del params, opt, batch
+    free()
+    p_args, p_peak = pred["mem"]["argument_bytes"], pred["mem"]["peak_bytes"]
+    p_flops, rf = pred["roofline"]["flops"], pred["roofline"]
+    peak_rel = abs(p_peak - peak) / peak
+    step_s = min(walls)
+    share = rf["bound_s"] / step_s
+    log(f"dry run (b): deepseek-7b relu cut to {TRAIN_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{TRAIN_MICRO} microbatches, 1x1 mesh: argument bytes predicted {p_args} vs real {held}; peak "
+        f"predicted {p_peak / 1e9:.3f} GB vs max_memory_allocated {peak / 1e9:.3f} GB on dense (relative "
+        f"{peak_rel:.4f}, bound {PEAK_REL}); FLOPs predicted {p_flops:.6e} vs FlopCounterMode {flops:.6e}; "
+        f"prediction {t_pred:.1f} s (its run {pred['compile_s']} s)")
+    log(f"dry run (b): a cuda-backend step {step_s * 1e3:.1f} ms (steps {[round(w * 1e3, 1) for w in walls]}) "
+        f"against the roofline bound {rf['bound_s'] * 1e3:.2f} ms ({rf['dominant']}; compute "
+        f"{rf['compute_s'] * 1e3:.2f} ms of {rf['flops_by_dtype']}, memory {rf['memory_s'] * 1e3:.2f} ms of "
+        f"{rf['hbm_bytes'] / 1e9:.2f} GB unfused, collective {rf['collective_s'] * 1e3:.2f} ms): share "
+        f"{share:.3f}; adjusted memory term {pred['memory_adj_s'] * 1e3:.2f} ms")
+    if p_args != held:
+        raise AssertionError(f"dry run (b): argument bytes {p_args} predicted, {held} real")
+    if peak_rel > PEAK_REL:
+        raise AssertionError(f"dry run (b): peak {p_peak} predicted, {peak} real ({peak_rel:.3f})")
+    if p_flops != flops:
+        raise AssertionError(f"dry run (b): FLOPs {p_flops} predicted, {flops} counted on the card")
+    return {"argument_bytes": {"predicted": p_args, "real": held},
+            "peak_bytes": {"predicted": p_peak, "max_memory_allocated": peak, "relative": peak_rel},
+            "flops": {"predicted": p_flops, "flop_counter": flops, "by_dtype": rf["flops_by_dtype"]},
+            "step_ms": step_s * 1e3, "steps_ms": [w * 1e3 for w in walls], "bound_ms": rf["bound_s"] * 1e3,
+            "roofline": rf, "share": share, "memory_adj_ms": pred["memory_adj_s"] * 1e3,
+            "prediction_s": t_pred}
+
+
+def seq_decode_phase(bw: float) -> dict:
+    """(c) item 14e at full width: zamba2-2.7b, batch 1, SEQ_ROWS cache rows
+    of seeded random K/V (and SSM states).  With bf16 weights: one shared
+    attention over the whole cache split as SEQ_RANKS data ranks' parts in
+    turn and combined by ``seq_combine`` (``SeqSplit(parts=SEQ_RANKS)``)
+    against the unsplit attention, within SEQ_REL_L2; the whole decode step
+    both ways: the same argmax, its logits' distance beside the model's own
+    bf16 noise (the unsplit step against the same weights in fp32); the
+    whole step, the last rank's part (its rows, ``SeqSplit(rank=...)``) and
+    one invocation of each timed beside their byte bounds.  With the same
+    weights in fp32: the step's logits split against unsplit within
+    SEQ_REL_L2, the same argmax."""
+    import torch
+
+    from repro_torch import runtime as rtm
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import hybrid as H
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as SM
+    from repro_torch.models.common import init_params
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_config(HYBRID_ARCH)
+    dev = "cuda"
+    free()
+    t0 = time.perf_counter()
+    caches = M.init_cache(cfg, 1, SEQ_ROWS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    chunk = 32768
+    for kv in caches.kv:
+        for t in kv[:2]:
+            for i in range(0, SEQ_ROWS, chunk):
+                t[:, i:i + chunk].copy_(torch.randn(t[:, i:i + chunk].shape, generator=gen, device=dev))
+    for group in caches.ssm:
+        for c in group:
+            for t in c:
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.1)
+    kv_bytes = sum(t.numel() * t.element_size() for kv in caches.kv for t in kv[:2])
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    pos = torch.tensor(SEQ_ROWS - 1, device=dev)
+    tok = {"tokens": torch.randint(0, cfg.vocab_size, (1, 1), generator=gen, device=dev)}
+    x = torch.randn(1, 1, cfg.d_model, generator=gen, device=dev)
+    snap = [[SM.SSMCache(*(t.clone() for t in c)) for c in g] for g in caches.ssm]
+
+    def restore():
+        for g, sg in zip(caches.ssm, snap):
+            for c, sc in zip(g, sg):
+                for t, st in zip(c, sc):
+                    t.copy_(st)
+
+    def both_ways(params):
+        """The step's logits unsplit and split (from the same SSM states)."""
+        restore()
+        want, _ = M.decode_step(params, cfg, caches, tok, pos)
+        restore()
+        got, _ = M.decode_step(params, cfg, caches, tok, pos, seq=A.SeqSplit(parts=SEQ_RANKS))
+        restore()
+        return want, got
+
+    rows = SEQ_ROWS // SEQ_RANKS
+    rank = SEQ_RANKS - 1
+    part = H.HybridCache(ssm=caches.ssm, kv=[A.KVCache(k=kv.k[:, rank * rows:(rank + 1) * rows],
+                                                       v=kv.v[:, rank * rows:(rank + 1) * rows]) for kv in caches.kv])
+    acfg = H.shared_attn_config(cfg)
+    rope = A.rope_tables(acfg, A.decode_positions(pos, 1, dev))
+    argmax = lambda t: t.float().argmax(-1)
+    out = {"rows": SEQ_ROWS, "ranks": SEQ_RANKS, "kv_bytes": kv_bytes, "fill_s": t_fill}
+    with rtm.Runtime(backend="dense", device=dev).use(), torch.no_grad():
+        params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device=dev)
+        w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        attn_p, xb = params["shared"]["attn"], x.to(torch.bfloat16)
+        whole, _ = A.attention_decode(attn_p, acfg, xb, caches.kv[0], pos, rope)
+        split, _ = A.attention_decode(attn_p, acfg, xb, caches.kv[0], pos, rope, seq=A.SeqSplit(parts=SEQ_RANKS))
+        attn_rel = _rel_l2(split, whole)
+        want, got = both_ways(params)
+        step_rel, step_same = _rel_l2(got, want), bool(torch.equal(argmax(got), argmax(want)))
+        out["step_ms"] = cuda_ms(lambda: M.decode_step(params, cfg, caches, tok, pos), iters=5, warmup=1)
+        out["part_ms"] = cuda_ms(lambda: M.decode_step(params, cfg, part, tok, pos, seq=A.SeqSplit(rank=rank)),
+                                 iters=10, warmup=2)
+        out["attn_ms"] = cuda_ms(lambda: A.attention_decode(attn_p, acfg, xb, caches.kv[0], pos, rope), iters=10,
+                                 warmup=2)
+        out["attn_part_ms"] = cuda_ms(lambda: A.attention_decode(attn_p, acfg, xb, part.kv[0], pos, rope,
+                                                                 seq=A.SeqSplit(rank=rank)), iters=20, warmup=3)
+        del params, attn_p
+        free()
+        params32 = init_params(M.param_specs(cfg), seed=0, dtype=torch.float32, device=dev)
+        want32, got32 = both_ways(params32)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    rel32, same32 = _rel_l2(got32, want32), bool(torch.equal(argmax(got32), argmax(want32)))
+    noise = _rel_l2(want, want32)
+    n_inv = len(caches.kv)
+    bounds = {"step": (kv_bytes + w_bytes) / bw * 1e3, "part": (kv_bytes / SEQ_RANKS + w_bytes) / bw * 1e3,
+              "attn": kv_bytes / n_inv / bw * 1e3, "attn_part": kv_bytes / n_inv / SEQ_RANKS / bw * 1e3}
+    del params32, caches, part, snap
+    free()
+    log(f"seq decode (c): {HYBRID_ARCH} whole, batch 1, {SEQ_ROWS} cache rows ({kv_bytes / 1e9:.2f} GB of KV, "
+        f"{w_bytes / 1e9:.2f} GB of bf16 weights, filled in {t_fill:.1f} s; peak {peak / 1e9:.2f} GB), "
+        f"{SEQ_RANKS} ranks' parts combined against unsplit: one shared attention relative L2 {attn_rel:.3e} "
+        f"(bound {SEQ_REL_L2:.3e}); the bf16 step's logits {step_rel:.3e}, argmax {'equal' if step_same else 'DIFFERS'} "
+        f"(the model's own bf16 noise: the unsplit step {noise:.3e} from its fp32 weights); the fp32-weight step's "
+        f"logits {rel32:.3e} (bound {SEQ_REL_L2:.3e}), argmax {'equal' if same32 else 'DIFFERS'}")
+    log(f"seq decode (c): the whole step {out['step_ms']:.3f} ms (bound {bounds['step']:.3f} ms bytes), one rank's "
+        f"part ({rows} rows) {out['part_ms']:.3f} ms (bound {bounds['part']:.3f}); one shared-attention invocation "
+        f"{out['attn_ms']:.3f} ms (bound {bounds['attn']:.3f}), its rank part {out['attn_part_ms']:.3f} ms (bound "
+        f"{bounds['attn_part']:.3f}); {n_inv} invocations a step")
+    if not (attn_rel <= SEQ_REL_L2 and step_same and rel32 <= SEQ_REL_L2 and same32):
+        raise AssertionError(f"seq decode (c): split against unsplit: attention {attn_rel}, bf16 step argmax equal "
+                             f"{step_same}, fp32-weight step {rel32}, argmax equal {same32}")
+    out.update(weight_bytes=w_bytes, attn_rel_l2=attn_rel, rel_l2=step_rel, argmax_equal=step_same,
+               bf16_noise_rel_l2=noise, fp32_rel_l2=rel32, fp32_argmax_equal=same32, bound_ms=bounds,
+               peak_bytes=peak)
+    return out
+
+
+def dry_run_phase(bw: float, run=None) -> dict:
+    """(a)-(c) of the dry-run phase; ``run`` is (a)'s background process
+    (:func:`start_dry_run`), started here when not given."""
+    run = run or start_dry_run()
+    try:
+        log("dry run (b): the dry run's record of the train phase's step against a real step on the card")
+        check = dry_run_check_phase(bw)
+        log(f"seq decode (c): item 14e at full width, {HYBRID_ARCH} with a {SEQ_ROWS}-row cache")
+        seq = seq_decode_phase(bw)
+        log("dry run (a): waiting for the full pass")
+        full = dry_run_collect(run)
+    finally:
+        stop_dry_run(run)
+    return {"full": full, "check": check, "seq_decode": seq}
 
 
 def free() -> None:
@@ -5621,10 +5962,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    import dataclasses
-
     import torch
-    from repro_torch.configs import get_config
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA card visible", file=sys.stderr)
@@ -5649,6 +5987,21 @@ def main() -> int:
     log(f"build: nvcc sm_90a kernels ready in {_build.build_seconds:.1f} s")
     for line in ptxas_lines(_build.ptxas_report):
         log(f"ptxas: {line}")
+    dry = start_dry_run()  # (a) runs on the host's cores beside the card phases
+    try:
+        return _phases(t_start, card, name, bw, dry)
+    finally:
+        stop_dry_run(dry)
+
+
+def _phases(t_start, card, name, bw, dry) -> int:
+    """Every phase after the build, (a) of the dry-run phase running in the
+    background as ``dry``; prints the result lines."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
 
     log("kernels: each against its plain PyTorch version on the card")
     rows, launch_check = kernel_phase(bw)
@@ -5714,6 +6067,8 @@ def main() -> int:
         f"tensor parallel {SM_TP} and (2, 2), the ranks' slices in turn; qwen3-4b relu cut to {LAUNCH_LAYERS} "
         "layers through the dynamic sparse step on an NCCL group of one rank against the unsharded run")
     sdst = sharded_dst_phase(bw)
+    log("dry run: the port's dry run on the production meshes, held to a real step; item 14e at full width")
+    dry_run = dry_run_phase(bw, dry)
 
     def grouped(counts):
         """Launches per entry of the kernels line: v2 and v1 together, and
@@ -5812,7 +6167,7 @@ def main() -> int:
          "qwen2vl_run": vl, "musicgen_run": mg,
          "ssm_train": ssm_train, "hybrid_train": hybrid_train, "sharded": sharded, "sharded_model": smodel,
          "sharded_family": sfamily, "sharded_dst": sdst,
-         "core": core,
+         "core": core, "dry_run": dry_run,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,9 @@ and the two frontend configs, qwen2-vl-72b (M-RoPE over precomputed
 image-and-text embeddings) and musicgen-large (precomputed audio frame
 embeddings, one LM head per codebook).  Every config of the JAX package is
 registered."""
-from repro_torch.configs.base import REGISTRY, ModelConfig, get_config, register
+from repro_torch.configs.base import (
+    REGISTRY, SHAPES, InputShape, ModelConfig, cells, get_config, input_specs, register,
+)
 from repro_torch.configs.smoke import reduce_config
 from repro_torch.configs import (  # noqa: F401
     deepseek_7b, deepseek_v2_236b, gemma2_2b, mamba2_780m, musicgen_large, qwen2_vl_72b, qwen3_4b,
@@ -20,4 +22,5 @@ from repro_torch.configs import (  # noqa: F401
 
 ALL_ARCHS = sorted(REGISTRY)
 
-__all__ = ["REGISTRY", "ModelConfig", "get_config", "register", "reduce_config", "ALL_ARCHS"]
+__all__ = ["REGISTRY", "SHAPES", "InputShape", "ModelConfig", "cells", "get_config", "input_specs", "register",
+           "reduce_config", "ALL_ARCHS"]

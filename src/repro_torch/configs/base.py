@@ -1,11 +1,16 @@
-"""ModelConfig and the config registry (port of ``repro/configs/base.py``).
+"""ModelConfig, the config registry, the input-shape registry and
+``input_specs`` (port of ``repro/configs/base.py``).
 
-The JAX module's dry-run helpers (``input_specs``, the ``InputShape``
-registry) build abstract JAX shapes and are not part of the port.
+``input_specs`` gives the dry run (:mod:`repro_torch.launch.dryrun`) its
+abstract inputs: tensors on the ``meta`` device, which hold no memory, where
+the JAX package returns ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+import torch
 
 REGISTRY: dict[str, "ModelConfig"] = {}
 
@@ -125,6 +130,22 @@ class ModelConfig:
         return self.param_count() - per_expert * self.num_experts + per_expert * self.top_k
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 def register(cfg: ModelConfig) -> ModelConfig:
     REGISTRY[cfg.name] = cfg
     return cfg
@@ -134,3 +155,52 @@ def get_config(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (populate registry)
 
     return REGISTRY[name]
+
+
+def cells(cfg: ModelConfig) -> list[str]:
+    """The (arch x shape) cells this config runs (``long_500k`` only for
+    sub-quadratic archs)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        out.append("long_500k")
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape | str) -> dict[str, Any]:
+    """Meta-tensor stand-ins for every model input of one cell, global
+    shapes, as the JAX package's.
+
+    ``train``   -> tokens/labels (or a frontend's embeddings) for the train step;
+    ``prefill`` -> tokens for ``prefill``;
+    ``decode``  -> one new token, the decode caches of ``seq_len`` rows
+    (:func:`repro_torch.models.model.abstract_cache`) and a 0-d ``pos``."""
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    b, s = shape.global_batch, shape.seq_len
+    bf16, i32 = torch.bfloat16, torch.int32
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "vision":
+            batch = {"inputs_embeds": meta((b, s, cfg.d_model), bf16), "positions": meta((b, 3, s), i32),
+                     "labels": meta((b, s), i32)}
+        elif cfg.frontend == "audio":
+            batch = {"inputs_embeds": meta((b, s, cfg.d_model), bf16),
+                     "labels": meta((b, s, cfg.num_codebooks), i32)}
+        else:
+            batch = {"tokens": meta((b, s), i32), "labels": meta((b, s), i32)}
+        if shape.kind == "prefill":
+            batch.pop("labels")
+        return batch
+
+    from repro_torch.models.model import abstract_cache  # local: the models import this module
+
+    if cfg.frontend in ("vision", "audio"):
+        step = {"inputs_embeds": meta((b, 1, cfg.d_model), bf16)}
+    else:
+        step = {"tokens": meta((b, 1), i32)}
+    step["cache"] = abstract_cache(cfg, b, s)
+    step["pos"] = meta((), i32)
+    return step

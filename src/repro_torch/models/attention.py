@@ -14,6 +14,13 @@ port's layers run in a Python loop, so the flag is a per-layer Python bool,
 where JAX scans it as data (``window = 2**30`` on global layers): the two
 give the same mask.
 
+A decode cache whose sequence rows are split over ranks (item 14e, the
+dry run's batch-1 ``long_500k`` cells: :class:`SeqSplit`) is attended in
+three parts: each rank's scores over its own rows, the max and the sum of
+exponentials all-reduced over the group, and each rank's probabilities,
+normalised by them, against its own V, whose products one all-reduce sums
+(:func:`seq_combine`).
+
 Under M-RoPE (``mrope_sections``, Qwen2-VL) the rotary tables come from
 positions ``[B, 3, S]`` (t/h/w streams, :func:`~repro_torch.models.common.
 mrope_tables`) and the causal mask from the sequence index ``arange(S)``;
@@ -26,7 +33,7 @@ first block in fp32.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -109,25 +116,115 @@ def _project_qkv(params, cfg: AttnConfig, x, rope):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _scores(cfg: AttnConfig, q, k, q_pos, k_pos, window=None):
+    """The fp32 scores of ``q [B,T,H,D]`` against ``k [B,S,KVH,D]`` at key
+    positions ``k_pos [S]``, softcapped and masked (``-1e30``):
+    ``[B, KVH, H/KVH, T, S]``."""
+    b, t, h, hd = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, t, kh, h // kh, hd)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * hd ** -0.5
+    scores = softcap(scores, cfg.attn_softcap)
+    mask = causal_mask(q_pos, k_pos, window)  # [T, S] or [B, T, S]
+    if mask.ndim == 2:
+        mask = mask[None]
+    return torch.where(mask[:, None, None], scores, -1e30)
+
+
 def _attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, window=None):
     """q [B,T,H,D]; k,v [B,S,KVH,D]; q_pos [T] or [B,T]; k_pos [S].
     A 2-D ``q_pos`` gives every batch row its own causal frontier; a
     ``window`` masks keys at or before ``q_pos - window``.
     Returns [B,T,H,D] in the promoted dtype of the probabilities and ``v``."""
     b, t, h, hd = q.shape
-    kh = k.shape[2]
-    g = h // kh
-    qg = q.reshape(b, t, kh, g, hd)
-    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * hd ** -0.5
-    scores = softcap(scores, cfg.attn_softcap)
-    mask = causal_mask(q_pos, k_pos, window)  # [T, S] or [B, T, S]
-    if mask.ndim == 2:
-        mask = mask[None]
-    scores = torch.where(mask[:, None, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(_scores(cfg, q, k, q_pos, k_pos, window), dim=-1).to(q.dtype)
     dt = torch.promote_types(probs.dtype, v.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs.to(dt), v.to(dt))
     return out.reshape(b, t, h, hd)
+
+
+class SeqSplit(NamedTuple):
+    """A decode cache whose sequence rows are split (item 14e): this
+    process holds rows ``[rank * S, (rank + 1) * S)`` of the global cache
+    (``S`` its local rows), the other ranks of ``group`` (a process group,
+    or ``None``: no other rank) the rest.  ``parts`` cuts the local rows
+    into that many equal blocks, each taken as one rank's part and combined
+    in turn (one card standing in for a group's ranks)."""
+
+    group: Any = None
+    rank: int = 0
+    parts: int = 1
+
+
+def _all_reduce(x, op: str, group):
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def seq_combine(scores: list, pv, dtype, group=None):
+    """The softmax over row blocks put together: ``scores`` are the blocks'
+    fp32 masked scores ``[..., S_j]`` (one rank's rows each), ``pv(j,
+    probs)`` block ``j``'s fp32 partial output from its probabilities.  The
+    max and the sum of exponentials are taken over the blocks and
+    all-reduced over ``group``; each block's probabilities are normalised
+    by them and cast to ``dtype`` (the query's, as :func:`_attend` casts
+    them), and the partial outputs are summed, then all-reduced.  Only the
+    order of the value sum differs from one softmax over every row."""
+    gmax = _all_reduce(torch.stack([s.amax(dim=-1, keepdim=True) for s in scores]).amax(dim=0), "max", group)
+    exps = [torch.exp(s - gmax) for s in scores]
+    gsum = _all_reduce(torch.stack([e.sum(dim=-1, keepdim=True) for e in exps]).sum(dim=0), "sum", group)
+    out = torch.stack([pv(j, (e / gsum).to(dtype)) for j, e in enumerate(exps)]).sum(dim=0)
+    return _all_reduce(out, "sum", group)
+
+
+def _blocks(rows: int, parts: int) -> list:
+    if rows % parts:
+        raise ValueError(f"{rows} cache rows do not cut into {parts} equal parts")
+    step = rows // parts
+    return [slice(j * step, (j + 1) * step) for j in range(parts)]
+
+
+def seq_attend(cfg: AttnConfig, q, k, v, q_pos, k_pos, window, seq: SeqSplit):
+    """:func:`_attend` over this rank's rows ``k``/``v`` of a cache split by
+    ``seq`` (``k_pos``: their global positions), combined with the other
+    ranks' by :func:`seq_combine`."""
+    b, t, h, hd = q.shape
+    blocks = _blocks(k.shape[1], seq.parts)
+    scores = [_scores(cfg, q, k[:, r], q_pos, k_pos[r], window) for r in blocks]
+    dt = torch.promote_types(q.dtype, v.dtype)
+    pv = lambda j, p: torch.einsum("bkgts,bskd->btkgd", p.to(dt).float(), v[:, blocks[j]].to(dt).float())
+    return seq_combine(scores, pv, q.dtype, seq.group).to(dt).reshape(b, t, h, hd)
+
+
+def write_rows(full, new, pos) -> None:
+    """Write ``new`` (one row per batch row, ``[B, ...]``) into ``full [B,
+    S, ...]`` at sequence position ``pos``: each row at its own (``pos`` an
+    int ``[B]`` tensor) or every row at one (a 0-d tensor; an index copy,
+    so no host read of ``pos``)."""
+    if pos.ndim == 1:
+        full[torch.arange(full.shape[0], device=full.device), pos] = new.to(full.dtype)
+    else:
+        full.index_copy_(1, pos.reshape(1).long(), new[:, None].to(full.dtype))
+
+
+def owner_write(full, new, pos, offset: int) -> None:
+    """:func:`write_rows` into this rank's rows ``full`` of a sequence-split
+    cache, whose first global row is ``offset``, only where the global
+    ``pos`` falls inside them.  A clamped local index and a blend, no host
+    read: it runs on meta tensors and inside a CUDA graph."""
+    n = full.shape[1]
+    local = pos - offset
+    inside = (local >= 0) & (local < n)
+    idx = local.clamp(0, n - 1)
+    if idx.ndim == 1:
+        old = full[torch.arange(full.shape[0], device=full.device), idx]
+    else:
+        old = full.index_select(1, idx.reshape(1).long())[:, 0]
+    keep = inside.reshape(-1, *([1] * (old.ndim - 1))) if inside.ndim else inside
+    write_rows(full, torch.where(keep, new.to(full.dtype), old), idx)
 
 
 def attend_chunked(cfg: AttnConfig, q, k, v, q_pos, k_pos, window=None):
@@ -212,7 +309,7 @@ def decode_positions(pos, b: int, device, *, mrope: bool = False):
 
 
 def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope, *, is_global: bool = True,
-                     kv_index=None, partial: bool = False):
+                     kv_index=None, partial: bool = False, seq: SeqSplit | None = None):
     """One-token decode.  ``x [B, 1, d]``; ``cache`` is filled up to ``pos``
     (exclusive) and the new token's K/V is written in place at ``pos``
     (with ``kv_quant``: its int8 rows and scales, then the whole cache is
@@ -220,17 +317,23 @@ def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope, *, i
     scalar (every row at one position) or an int ``[B]`` tensor (each batch
     slot at its own position); ``rope = rope_tables(cfg,
     decode_positions(pos, B, device, mrope=cfg.mrope_sections is not None))``.
-    ``kv_index``/``partial`` as in :func:`attention_fwd`.  Returns ``(y,
-    cache)``."""
+    ``kv_index``/``partial`` as in :func:`attention_fwd`.  With ``seq`` the
+    cache holds this rank's rows of a sequence-split cache: the rank that
+    owns ``pos`` writes the new row (:func:`owner_write`), and the scores
+    over the rank's rows are combined with the other ranks'
+    (:func:`seq_attend`).  Returns ``(y, cache)``."""
     b = x.shape[0]
     s_max = cache.k.shape[1]
     pos = torch.as_tensor(pos, device=x.device)
-    rows = torch.arange(b, device=x.device) if pos.ndim == 1 else slice(None)
     positions = decode_positions(pos, b, x.device)
     q, k, v = _project_qkv(params, cfg, x, rope)
+    offset = 0 if seq is None else seq.rank * s_max
 
     def write(full, new):
-        full[rows, pos] = new[:, 0].to(full.dtype)
+        if seq is None:
+            write_rows(full, new[:, 0], pos)
+        else:
+            owner_write(full, new[:, 0], pos, offset)
 
     if cfg.kv_quant:
         (kq, ks), (vq, vs) = _kv_quant_rows(k), _kv_quant_rows(v)
@@ -242,8 +345,12 @@ def attention_decode(params, cfg: AttnConfig, x, cache: KVCache, pos, rope, *, i
         write(cache.k, k)
         write(cache.v, v)
         k_all, v_all = cache.k, cache.v
-    k_pos = torch.arange(s_max, device=x.device)
-    out = _attend(cfg, q, *_heads_of(k_all, v_all, kv_index), positions, k_pos, _window(cfg, is_global))
+    k_pos = torch.arange(offset, offset + s_max, device=x.device)
+    kv = _heads_of(k_all, v_all, kv_index)
+    if seq is None:
+        out = _attend(cfg, q, *kv, positions, k_pos, _window(cfg, is_global))
+    else:
+        out = seq_attend(cfg, q, *kv, positions, k_pos, _window(cfg, is_global), seq)
     dt = torch.promote_types(out.dtype, params["wo"].dtype)
     y = _out_proj(out.reshape(b, 1, -1), params["wo"].to(dt), dt, partial)
     return y, cache

@@ -100,6 +100,35 @@ def init_params(specs, *, seed: int = 0, dtype=DEFAULT_DTYPE, device="cuda", pol
     return walk(specs, pspecs)
 
 
+def abstract_params(specs, *, dtype=DEFAULT_DTYPE, policy=None):
+    """The spec tree as tensors on the ``meta`` device, which hold no
+    memory (the dry run's parameters): each leaf in the spec's dtype or
+    ``dtype``; with a mesh-backed sharding ``policy`` only this rank's
+    ``local_shard`` of it under ``policy.param_pspecs``, by the rule
+    :func:`init_params` keeps.  Draws nothing."""
+    sharded = policy is not None and policy.mesh is not None
+    pspecs = policy.param_pspecs(specs) if sharded else None
+
+    def make(spec: Spec, ps):
+        x = torch.empty(spec.shape, dtype=spec.dtype or dtype, device="meta")
+        if ps is None:
+            return x
+        from repro_torch.parallel.sharding import local_shard  # local: sharding is above the models
+
+        return torch.empty_like(local_shard(x, ps, policy), memory_format=torch.contiguous_format)
+
+    def walk(tree, ps):
+        if isinstance(tree, Spec):
+            return make(tree, ps)
+        if isinstance(tree, dict):
+            return {k: walk(v, None if ps is None else ps[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, None if ps is None else ps[i]) for i, v in enumerate(tree)]
+        raise TypeError(type(tree))
+
+    return walk(specs, pspecs)
+
+
 # ---------------------------------------------------------------------------
 # layer primitives
 # ---------------------------------------------------------------------------

@@ -235,17 +235,19 @@ def init_hybrid_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu") 
     )
 
 
-def hybrid_decode(params, cfg: ModelConfig, h, cache: HybridCache, pos, sh=None):
+def hybrid_decode(params, cfg: ModelConfig, h, cache: HybridCache, pos, sh=None, seq=None):
     """One-token decode.  h [B,1,D]; ``pos`` a scalar or an int ``[B]``
     tensor.  Every cache of ``cache`` is updated in place; returns ``(h,
-    cache)``."""
+    cache)``.  The shared block's KV caches may hold this rank's rows of a
+    sequence-split cache (:func:`repro_torch.models.transformer.seq_split`)."""
     h0 = h
+    seq = tfm.seq_split(sh, seq)
     shared = params["shared"]
     sspec, gspecs = _specs(sh)
     rope = attn.rope_tables(shared_attn_config(cfg), attn.decode_positions(pos, h.shape[0], h.device))
     for gi, (group, kv, ssm_c) in enumerate(zip(params["groups"], cache.kv, cache.ssm)):
         a, _ = _shared_attn(shared, cfg, _shared_in(shared, h, h0, sh, sspec), sh=sh, spec=sspec,
-                            decode=(kv, pos), rope=rope)
+                            decode=(kv, pos), rope=rope, seq=seq)
         h = h + a
         h = h + _shared_mlp(shared, cfg, h, sh, sspec)
         for j, (p, c) in enumerate(zip(group, ssm_c)):

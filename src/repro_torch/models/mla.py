@@ -30,7 +30,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.attention import decode_positions
+from repro_torch.models.attention import (
+    SeqSplit, _blocks, decode_positions, owner_write, seq_combine, write_rows,
+)
 from repro_torch.models.common import Spec, apply_rope, causal_mask, rms_norm, rotary_embedding
 
 
@@ -146,37 +148,56 @@ def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int, dtype=torch.bfloat1
     )
 
 
-def mla_decode(params, cfg: MLAConfig, x, cache: MLACache, pos, rope, *, partial: bool = False):
+def mla_decode(params, cfg: MLAConfig, x, cache: MLACache, pos, rope, *, partial: bool = False,
+               seq: SeqSplit | None = None):
     """Absorbed one-token decode over the latent cache.  ``x [B, 1, d]``;
     ``cache`` is filled up to ``pos`` (exclusive) and the new token's latent
     row is written in place at ``pos``.  ``pos`` is a scalar or an int
     ``[B]`` tensor (each batch slot at its own position); ``rope =
     rope_tables(cfg, decode_positions(pos, B, device))``; ``partial`` as in
-    :func:`mla_fwd`.  Returns ``(y, cache)``."""
+    :func:`mla_fwd`.  With ``seq`` the cache holds this rank's rows of a
+    sequence-split latent: the owner of ``pos`` writes the new row and the
+    ranks' scores are put together by
+    :func:`~repro_torch.models.attention.seq_combine`, as in GQA decode.
+    Returns ``(y, cache)``."""
     b = x.shape[0]
     h = cfg.num_heads
+    s_max = cache.c_kv.shape[1]
     pos = torch.as_tensor(pos, device=x.device)
     positions = decode_positions(pos, b, x.device)
     q_nope, q_pe = _queries(params, cfg, x, rope)  # [B,1,H,*]
     c_new, k_new = _latent_kv(params, cfg, x, rope)
-    if pos.ndim == 1:
-        rows = torch.arange(b, device=x.device)
-        cache.c_kv[rows, pos] = c_new[:, 0].to(cache.c_kv.dtype)
-        cache.k_pe[rows, pos] = k_new[:, 0].to(cache.k_pe.dtype)
-    else:
-        cache.c_kv[:, pos] = c_new[:, 0].to(cache.c_kv.dtype)
-        cache.k_pe[:, pos] = k_new[:, 0].to(cache.k_pe.dtype)
+    offset = 0 if seq is None else seq.rank * s_max
+    for full, new in ((cache.c_kv, c_new), (cache.k_pe, k_new)):
+        if seq is None:
+            write_rows(full, new[:, 0], pos)
+        else:
+            owner_write(full, new[:, 0], pos, offset)
     wkv_b = params["wkv_b"].reshape(cfg.kv_lora_rank, h, cfg.qk_nope_head_dim + cfg.v_head_dim)
     w_uk, w_uv = wkv_b[..., :cfg.qk_nope_head_dim], wkv_b[..., cfg.qk_nope_head_dim:]
     # absorb: the query in latent space, q_lat = q_nope @ W_UK^T per head
     q_lat = torch.einsum("bthd,lhd->bthl", q_nope, w_uk)
     scale = cfg.qk_head_dim ** -0.5
-    scores = (torch.einsum("bthl,bsl->bhts", q_lat.float(), cache.c_kv.float())
-              + torch.einsum("bthd,bsd->bhts", q_pe.float(), cache.k_pe.float())) * scale
-    mask = causal_mask(positions, torch.arange(cache.c_kv.shape[1], device=x.device))
-    probs = _softmax_probs(scores, mask if mask.ndim == 3 else mask[None], x.dtype)
     # a bf16 cache against fp32 probabilities computes in fp32, as JAX promotes
-    dt = torch.promote_types(probs.dtype, cache.c_kv.dtype)
-    ctx_lat = torch.einsum("bhts,bsl->bthl", probs.to(dt), cache.c_kv.to(dt))  # [B,1,H,lora]
+    dt = torch.promote_types(x.dtype, cache.c_kv.dtype)
+
+    def scores_of(c_kv, k_pe, k_pos):
+        scores = (torch.einsum("bthl,bsl->bhts", q_lat.float(), c_kv.float())
+                  + torch.einsum("bthd,bsd->bhts", q_pe.float(), k_pe.float())) * scale
+        mask = causal_mask(positions, k_pos)
+        return scores, mask if mask.ndim == 3 else mask[None]
+
+    k_pos = torch.arange(offset, offset + s_max, device=x.device)
+    if seq is None:
+        probs = _softmax_probs(*scores_of(cache.c_kv, cache.k_pe, k_pos), x.dtype)
+        ctx_lat = torch.einsum("bhts,bsl->bthl", probs.to(dt), cache.c_kv.to(dt))  # [B,1,H,lora]
+    else:
+        blocks = _blocks(s_max, seq.parts)
+        scores = []
+        for r in blocks:
+            sc, mask = scores_of(cache.c_kv[:, r], cache.k_pe[:, r], k_pos[r])
+            scores.append(torch.where(mask[:, None], sc, -1e30))
+        pv = lambda j, p: torch.einsum("bhts,bsl->bthl", p.to(dt).float(), cache.c_kv[:, blocks[j]].to(dt).float())
+        ctx_lat = seq_combine(scores, pv, x.dtype, seq.group).to(dt)
     out = torch.einsum("bthl,lhd->bthd", ctx_lat, w_uv.to(dt)).reshape(b, 1, h * cfg.v_head_dim)
     return _out_proj(out, params["wo"].to(dt), partial), cache

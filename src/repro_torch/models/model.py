@@ -9,6 +9,7 @@ block).
     prefill(params, cfg, batch)                  -> (last logits, caches)
     decode_step(params, cfg, caches, batch, pos) -> (logits, caches)
     init_cache(cfg, batch, max_len, device=...)  -> decode caches
+    abstract_cache(cfg, batch, max_len)          -> the same on ``meta``
 
 ``decode_step``'s ``pos`` is a scalar or an int ``[B]`` tensor (each batch
 slot at its own position); it updates the caches in place.  An MLA config's
@@ -51,7 +52,7 @@ from repro_torch.models.common import Spec
 from repro_torch.parallel import sharding as S
 
 __all__ = ["param_specs", "forward", "forward_local", "loss_fn", "prefill", "decode_step", "init_cache",
-           "cache_splits", "local_cache_config"]
+           "abstract_cache", "cache_splits", "local_cache_config"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
@@ -174,17 +175,21 @@ def prefill(params, cfg: ModelConfig, batch):
     return tfm._head(params, cfg, h[:, -1:], sh), caches
 
 
-def decode_step(params, cfg: ModelConfig, caches, batch, pos):
+def decode_step(params, cfg: ModelConfig, caches, batch, pos, *, seq=None):
+    """One decode step; ``seq`` (a :class:`~repro_torch.models.attention.
+    SeqSplit`, default the mesh's, :func:`repro_torch.models.transformer.
+    seq_split`): the attention caches hold this rank's rows of a
+    sequence-split cache."""
     _supported(cfg)
     if cfg.family in ("dense", "moe"):
-        return tfm.decode_step(params, cfg, caches, batch, pos)
+        return tfm.decode_step(params, cfg, caches, batch, pos, seq=seq)
     sh = tfm.shards_of(cfg)
     h = tfm._embed_in(params, cfg, batch, sh)
     if cfg.family == "ssm":
         for i, (p, c) in enumerate(zip(params["layers"], caches)):
             h, _ = hyb._ssm_layer(p, cfg, h, sh=sh, spec=None if sh is None else sh.specs["layers"][i], cache=c)
     else:
-        h, _ = hyb.hybrid_decode(params, cfg, h, caches, pos, sh)
+        h, _ = hyb.hybrid_decode(params, cfg, h, caches, pos, sh, seq=seq)
     return tfm._head(params, cfg, h, sh), caches
 
 
@@ -233,3 +238,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
     if cfg.family == "hybrid":
         return hyb.init_hybrid_cache(cfg, batch, max_len, device=device)
     return tfm.init_layer_caches(cfg, batch, max_len, device=device)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int):
+    """:func:`init_cache` on the ``meta`` device: the decode caches' shapes
+    and dtypes, no memory (the dry run's)."""
+    return init_cache(cfg, batch, max_len, device="meta")

@@ -113,7 +113,10 @@ def check_shardable(cfg: ModelConfig, tp: int) -> None:
 
 
 @functools.lru_cache(maxsize=32)
-def _model_shards(cfg: ModelConfig, policy) -> S.ModelShards:
+def _model_shards(cfg: ModelConfig, policy, mesh_id: int) -> S.ModelShards:
+    """``mesh_id``: the policy's mesh object's ``id``.  Two meshes of one
+    layout compare equal, but a mesh made over a later process group holds
+    other groups; the entry keeps its mesh alive, so the id is not reused."""
     from repro_torch.models import model as M  # local: model dispatches to this module
 
     sh = S.ModelShards(policy, policy.param_pspecs(M.param_specs(cfg)))
@@ -128,7 +131,7 @@ def shards_of(cfg: ModelConfig, rt=None) -> "S.ModelShards | None":
     policy = rtm.resolve(rt).sharding
     if policy is None or policy.mesh is None:
         return None
-    return _model_shards(cfg, policy)
+    return _model_shards(cfg, policy, id(policy.mesh))
 
 
 def attn_local(acfg: attn.AttnConfig, tp: int, rank: int, device=None):
@@ -435,13 +438,14 @@ def _attn_sharded(p, spec, acfg, sh: S.ModelShards, device):
 
 
 def _attention_call(p, cfg: ModelConfig, x, i: int, *, sh=None, spec=None, decode=None, positions=None,
-                    rope=None, return_cache: bool = False, acfg=None):
+                    rope=None, return_cache: bool = False, acfg=None, seq=None):
     """Block ``i``'s attention over ``x`` (after its norm): the full-sequence
-    form, or with ``decode = (cache, pos)`` one decode step.  ``acfg``: a
-    GQA config other than the block's (the hybrid's shared block).  On a
-    mesh the head-parallel local step (:func:`_attn_sharded`) runs between
-    :func:`~repro_torch.parallel.sharding.tp_copy` and one all-reduce of its
-    fp32 partials.  Returns ``(y, cache)``."""
+    form, or with ``decode = (cache, pos)`` one decode step (``seq``: over a
+    sequence-split cache, :class:`~repro_torch.models.attention.SeqSplit`).
+    ``acfg``: a GQA config other than the block's (the hybrid's shared
+    block).  On a mesh the head-parallel local step (:func:`_attn_sharded`)
+    runs between :func:`~repro_torch.parallel.sharding.tp_copy` and one
+    all-reduce of its fp32 partials.  Returns ``(y, cache)``."""
     if acfg is None:
         acfg, _, fwd, dec = _attention(cfg)
     else:
@@ -460,6 +464,8 @@ def _attention_call(p, cfg: ModelConfig, x, i: int, *, sh=None, spec=None, decod
             # to a frontend's bf16 input, as one rank's are
             x = S.tp_copy(x.to(dt), sh.model_group)
     if decode is not None:
+        if seq is not None:
+            kw["seq"] = seq
         y, cache = dec(p, acfg, x, *decode, rope, **kw)
     else:
         out = fwd(p, acfg, x, positions, rope, return_cache=return_cache, **kw)
@@ -580,11 +586,22 @@ def init_layer_caches(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
     return caches
 
 
-def decode_step(params, cfg: ModelConfig, caches, batch, pos):
+def seq_split(sh: "S.ModelShards | None", seq=None):
+    """The decode caches' sequence split: ``seq`` where given, else the
+    mesh's (its policy's ``seq_axis`` over more than one rank), else
+    ``None``."""
+    if seq is not None or sh is None or sh.n_seq == 1:
+        return seq
+    return attn.SeqSplit(group=sh.seq_group, rank=sh.seq_rank)
+
+
+def decode_step(params, cfg: ModelConfig, caches, batch, pos, *, seq=None):
     """One-token decode against pre-filled caches; returns ``(logits,
-    caches)`` with the caches updated in place."""
+    caches)`` with the caches updated in place.  The caches may hold this
+    rank's rows of a sequence-split cache (:func:`seq_split`)."""
     check_supported(cfg)
     sh = shards_of(cfg)
+    seq = seq_split(sh, seq)
     h = _embed_in(params, cfg, batch, sh)
     acfg, tables, _, _ = _attention(cfg)
     rope = tables(acfg, attn.decode_positions(pos, h.shape[0], h.device, mrope=cfg.mrope_sections is not None))
@@ -594,7 +611,7 @@ def decode_step(params, cfg: ModelConfig, caches, batch, pos):
             spec = sh.specs[stack][i] if sh is not None else None
             sub = (lambda k: spec[k]) if spec is not None else (lambda k: None)
             a, _ = _attention_call(p["attn"], cfg, rms_norm(h, p["ln1"], zero_centered=zc), i, sh=sh,
-                                   spec=sub("attn"), decode=(cache, pos), rope=rope)
+                                   spec=sub("attn"), decode=(cache, pos), rope=rope, seq=seq)
             h = h + _post_norm(p, "post_attn_norm", cfg, a)
             m = _ffn(p["mlp"], cfg, rms_norm(h, p["ln2"], zero_centered=zc), sh=sh, spec=sub("mlp"), decode=True)
             h = h + _post_norm(p, "post_mlp_norm", cfg, m)

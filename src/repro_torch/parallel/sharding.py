@@ -11,7 +11,9 @@ this module maps them onto a mesh with named axes ``pod``, ``data`` and
 * ``data`` (and ``pod``): batch data-parallel, and FSDP of the d_model dim
   of weight matrices and of the per-expert FFN dim;
 * sequence parallelism: long-context (batch 1) decode shards the KV cache's
-  sequence dim over ``data``.
+  sequence dim over ``data`` (:func:`seq_axis`; a policy's ``seq_axis``
+  names it, and the decode attention combines the ranks' rows:
+  :func:`repro_torch.models.attention.seq_combine`).
 
 The spec helpers return one tuple per tensor, the mesh-axis name (a tuple
 of names for several axes, or ``None``) of each dim, where the JAX package
@@ -68,6 +70,7 @@ __all__ = [
     "cache_pspecs",
     "logits_pspec",
     "rank_cache_pspecs",
+    "seq_axis",
     "constrain",
     "local_shard",
     "gather_shard",
@@ -223,7 +226,7 @@ def cache_pspecs(cfg, shape, mesh, cache_tree):
     dp = data_axes(mesh)
     batch_sharded = shape.global_batch % _prod(sizes, dp) == 0
     b_ax = _entry(dp) if batch_sharded else None
-    seq_ax = "data" if not batch_sharded and shape.seq_len % sizes["data"] == 0 else None
+    seq_ax = seq_axis(shape, mesh)
     model_n = sizes["model"]
 
     def leaf_spec(x) -> tuple:
@@ -245,6 +248,23 @@ def cache_pspecs(cfg, shape, mesh, cache_tree):
     return tree_map(leaf_spec, cache_tree)
 
 
+def seq_axis(shape, mesh) -> str | None:
+    """The axis a decode cache's sequence dim splits over for one cell
+    (``shape``: ``global_batch``, ``seq_len``): ``"data"`` where the batch
+    does not divide the data axes (batch-1 long decode) and the sequence
+    divides ``data``, else ``None``.  A ``pod`` axis replicates the split,
+    as in the JAX package."""
+    sizes = axis_sizes(mesh)
+    if shape.global_batch % _prod(sizes, data_axes(mesh)) == 0:
+        return None
+    return "data" if shape.seq_len % sizes["data"] == 0 else None
+
+
+#: a decode-cache field that holds one row per sequence position at dim 1
+#: (the port's cache named tuples, batch first): a KV cache's K/V and
+#: scales, an MLA cache's latent and RoPE key
+CACHE_SEQ_FIELDS = frozenset({"k", "v", "k_scale", "v_scale", "c_kv", "k_pe"})
+
 #: a decode-cache field (the port's cache named tuples, batch first) that a
 #: tensor-parallel model rank holds only its part of: ``(what splits it, its
 #: dim)``: a KV cache's kv heads, a Mamba2 layer's ``conv_x`` channels and
@@ -254,20 +274,24 @@ CACHE_MODEL_DIMS = {"k": ("kv", 2), "v": ("kv", 2), "k_scale": ("kv", 2), "v_sca
                     "conv_x": ("ssm", 2), "state": ("ssm", 1)}
 
 
-def rank_cache_pspecs(cache_tree, data_axes: tuple, splits, model: str = "model"):
+def rank_cache_pspecs(cache_tree, data_axes: tuple, splits, model: str = "model", seq: str | None = None):
     """Spec tuples of a sharded model's decode caches from their layouts:
-    the batch dim (0) over ``data_axes`` (none: the slots whole), and over
+    the batch dim (0) over ``data_axes`` (none: the slots whole), over
     ``model`` the dim :data:`CACHE_MODEL_DIMS` names for a field whose kind
     is in ``splits`` (``"kv"``, ``"ssm"``: what the model runs
-    tensor-parallel; ``models.model.cache_splits``).  JAX's
-    :func:`cache_pspecs` matches dims by size instead, and would cut an MLA
-    latent or a conv tail that happens to divide the model axis; here the
-    caches hold what the local steps compute."""
+    tensor-parallel; ``models.model.cache_splits``), and with ``seq`` (an
+    axis, :func:`seq_axis`) the sequence dim of each
+    :data:`CACHE_SEQ_FIELDS` field over it.  JAX's :func:`cache_pspecs`
+    matches dims by size instead, and would cut an MLA latent or a conv
+    tail that happens to divide the model axis; here the caches hold what
+    the local steps compute."""
     data = _entry(tuple(data_axes))
 
     def leaf(x, field):
         parts = [None] * x.ndim
         parts[0] = data
+        if seq is not None and field in CACHE_SEQ_FIELDS:
+            parts[1] = seq
         kind, dim = CACHE_MODEL_DIMS.get(field, (None, None))
         if kind in splits:
             parts[dim] = model
@@ -417,7 +441,9 @@ class ShardingPolicy:
     ``data_axes`` names the row-parallel (M / batch) axes in mesh order,
     ``model_axis`` the tensor-parallel one (N / K), ``rules`` the
     logical-axis table (default :data:`LOGICAL_RULES`, kept as a sorted
-    tuple so the policy stays hashable).  The sharded SpMM executors
+    tuple so the policy stays hashable), ``seq_axis`` the axis the decode
+    caches' sequence dim is split over (:func:`seq_axis`; ``None``: each
+    rank holds its slots' whole rows).  The sharded SpMM executors
     (:mod:`repro_torch.parallel.spmm`) and ``Runtime.matmul_sharded`` read
     this one object.  ``mesh=None`` is the one-device policy: every helper
     degrades (no shards, every dim replicated)."""
@@ -426,6 +452,7 @@ class ShardingPolicy:
     data_axes: tuple = DP
     model_axis: str = "model"
     rules: Any = None
+    seq_axis: str | None = None
 
     def __post_init__(self):
         if not isinstance(self.data_axes, tuple):
@@ -523,8 +550,12 @@ class ModelShards:
     ``data_group`` spans the policy's data axes present in the mesh (the
     batch's), ``model_group`` the model axis; each is ``None`` over one
     rank, with ``n_data``/``tp`` its size and ``data_rank``/``tp_rank``
-    this rank's position.  Every rank of the mesh must build it (a group
-    over several axes is made collectively on first use)."""
+    this rank's position.  Under a policy's ``seq_axis`` the decode
+    caches' sequence dim is split over that axis: ``seq_group`` (``None``
+    over one rank), ``n_seq`` and ``seq_rank``; :meth:`seq_offset` is the
+    first global row of this rank's rows.  Every rank of the mesh must
+    build it (a group over several axes is made collectively on first
+    use)."""
 
     def __init__(self, policy: "ShardingPolicy", specs):
         if policy.mesh is None:
@@ -535,6 +566,14 @@ class ModelShards:
         self.data_rank = dist.get_rank(self.data_group) if self.data_group is not None else 0
         self.tp_rank = dist.get_rank(self.model_group) if self.model_group is not None else 0
         self.world = policy.size
+        self.seq_group, self.n_seq, self.seq_rank = None, 1, 0
+        if policy.seq_axis is not None:
+            group, self.n_seq, self.seq_rank = axis_group(policy.mesh, (policy.seq_axis,))
+            self.seq_group = group if self.n_seq > 1 else None
+
+    def seq_offset(self, rows: int) -> int:
+        """The first global sequence row of this rank's ``rows`` cache rows."""
+        return self.seq_rank * rows
 
     def group_of(self, entry) -> tuple:
         """``(group, size, index)`` of a spec entry (see :func:`axis_group`)."""
