@@ -38,12 +38,17 @@ from the root of a checkout, on a machine with one H100.
    seeded streams of 4096 rows at each of six densities, one- and
    two-side, lookahead 1 and 2, ``simulate_macs`` on the card (the plain
    loop's cycles, the accumulator within 1e-5 of a float64 ``sum(a*b)``
-   relative to ``sum |a*b|``), both timed; then, counted as this slice's
-   main path, ``examples/quickstart.py``'s five steps through the port, the
-   codec on full-width deepseek-7b ``w_down`` [11008, 4096] bf16
+   relative to ``sum |a*b|``), both timed; the tile kernel
+   (``td_tile_kernel``, the paper's cycle model) equal to its plain loop at
+   PE rows 1 to 100, 16 and 8 lanes, lookahead 1 and 2, and on a ragged
+   batch of 1000 tiles in one launch; then, counted as this slice's
+   main path, ``examples/quickstart.py``'s five steps through the port (its
+   ``simulate_stream`` and ``simulate_conv`` on the card, equal to the
+   host's), the codec on full-width deepseek-7b ``w_down`` [11008, 4096] bf16
    magnitude-pruned to half (``encode`` on the card, ``decode``, bit-exact;
    encode and decode seconds, the kernel's ms on its one stream of 2 818 048
-   rows, the plain loop's ms a row at 4096 rows, the compressed bytes), the
+   rows, split into 2048 segments, the plain loop's ms a row at 4096 rows,
+   the compressed bytes), the
    public ops and ``Runtime.sparse_ffn`` at deepseek-7b's FFN widths at 4
    and 128 rows in bf16 (each within the kernel tolerance of its plain
    version, each product one launch, one ``emitted`` plan for ``w_down``),
@@ -52,7 +57,12 @@ from the root of a checkout, on a machine with one H100.
    bit-equal to the clean plan's), ``check_plan``'s host ms at each level on
    the LM head's 800-row plan, and deepseek-7b-ReLU cut to 2 layers served
    through the decode graph under ``validate="boundary"`` (the eager run's
-   tokens, no check while capturing);
+   tokens, no check while capturing), and the cycle model on the card:
+   ``speedup_from_densities`` over deepseek-7b's 30 FFN layers (one tile
+   launch, the host's dict exactly, both timed), the Fig. 17/18 rows sweep
+   and deepseek-7b's FFN convolution over its whole workload, each equal to
+   the host's; then the whole ``w_down`` stream's split schedule bit-equal
+   to one thread walking it, both timed (the walk gives the clocks a cycle);
 3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
    weights) through ``ServeEngine`` on the ``cuda`` backend, the decode
    chunk eager, and checks that every FFN gate, ``w_down`` and LM-head
@@ -273,7 +283,8 @@ from the root of a checkout, on a machine with one H100.
 14. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode;
-   ``td_schedule_kernel``, its launches the core phase's; each with its
+   ``td_schedule_kernel`` and ``td_tile_kernel``, their launches the core
+   phase's; each with its
    launches over the serve runs (eager, graph, fault replays, the serve
    launcher, the MoE, MLA, SSM, hybrid, starcoder2, gemma2 and int8-cache
    runs and the qwen2-vl and musicgen runs; a captured launch counted once
@@ -464,6 +475,10 @@ def ptxas_lines(report: str) -> list[str]:
                 name = f"{t.group(1)}<{names[t.group(2)]}{',' + args if args else ''}>"
             elif re.search(r"\d+(td_[a-z_]+_kernel)E", name):  # not a template
                 name = re.search(r"\d+(td_[a-z_]+_kernel)E", name).group(1)
+            elif (t := re.search(r"\d+(td_(?:schedule|tile)_kernel)I(.*?)EEv", name)):  # <table[, mode]>
+                tab = re.search(r"(Tab16|TabRt)", t.group(2))
+                args = ",".join(re.findall(r"L[bi](\d+)E", t.group(2)))
+                name = f"{t.group(1)}<{tab.group(1) if tab else '?'},{args}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if name and m:
@@ -5473,8 +5488,9 @@ def sharded_dst_phase(bw: float) -> dict:
 #: at each density, one-side and two-side, lookahead 1 and 2
 CORE_STREAMS, CORE_ROWS = 64, 4096
 CORE_DENSITIES = (0.0, 0.1, 0.34, 0.5, 0.9, 1.0)
-#: lane counts besides 16 held to the plain loop: one that does not divide 32, and 32
-OTHER_LANES = (5, 32)
+#: lane counts besides 16 held to the plain loop: one that does not divide 32, and 32;
+#: at these, also a split (n_segs, seg_rows, overlap) of their 1024-row streams
+OTHER_LANES, SPLIT_SMALL = (5, 32), (8, 128, 64)
 #: stream lengths besides CORE_ROWS held to the plain loop: shorter than the
 #: kernel's 256-row stage or no multiple of it (the quickstart's 64 and 96 among them)
 EDGE_ROWS = (1, 2, 3, 64, 96, 255, 257, 1000)
@@ -5487,6 +5503,9 @@ SCHEDULE_SOURCE = "src/repro_torch/kernels/csrc/schedule.cu"
 SCHEDULE_REPLACES = "src/repro/core/compress.py:52"
 #: the full-width codec tensor: deepseek-7b's w_down, magnitude-pruned
 W_DOWN_SHAPE, W_DOWN_KEEP = (11008, 4096), 0.5
+#: (h) also splits seeded streams of w_down's length at these densities: the
+#: codec's densest (it stores a tensor with less than 30% zeros dense) and 0.9
+SPLIT_DENSITIES = (0.7, 0.9)
 #: deepseek-7b's FFN widths for the ops check: (d_model, d_ff), rows
 FFN_WIDTHS, FFN_ROWS = (4096, 11008), (4, 128)
 #: the validate graph check: deepseek-7b-ReLU at full width cut to VALIDATE_LAYERS layers
@@ -5500,10 +5519,11 @@ def schedule_bytes(s: int, t: int, n: int) -> int:
 
 
 def schedule_chain_ms(cycles: int, lookahead: int, clock_hz: float) -> float:
-    """Least time of a stream's serial chain: each scheduler cycle needs the
-    window the last one left, and within a cycle each level's picks need
-    the bits the levels before it took, so a stream of ``cycles`` cycles is
-    at least ``cycles x n_levels`` dependent steps of one SM clock each."""
+    """Least time of a stream's (or a tile's) serial chain: each scheduler
+    cycle needs the window the last one left, and within a cycle each
+    level's picks need the bits the levels before it took, so a stream of
+    ``cycles`` cycles is at least ``cycles x n_levels`` dependent steps of
+    one SM clock each."""
     from repro_torch.kernels import schedule as S
 
     return cycles * len(S.schedule_tables(16, lookahead)[2]) / clock_hz * 1e3
@@ -5583,11 +5603,14 @@ def schedule_check(bw: float, clock_hz: float) -> tuple[list, dict]:
             f"plain loop {plain_s * 1e3:.1f} ms, bound {bound:.4f} ms (bytes), serial chain {chain:.4f} ms; "
             f"simulate_macs cycles equal, accumulator within {worst:.2e} of the float64 sum (relative to "
             f"sum |a*b|)")
-    for n in OTHER_LANES:  # the kernel's generic rotations (5) and a full word (32)
+    for n in OTHER_LANES:  # the kernel's generic rotations (5) and a full word (32); split too
         z = torch.rand((32, 1024, n), generator=gen) < 0.5
-        schedule_err(S.schedule_streams(z.cuda(), n_lanes=n), S.schedule_streams_ref(z, n_lanes=n),
-                     f"schedule kernel, {n} lanes")
-    log(f"core (a): schedule kernel at {OTHER_LANES} lanes, 32 streams x 1024 rows: bit-equal to the plain loop")
+        want = S.schedule_streams_ref(z, n_lanes=n)
+        schedule_err(S.schedule_streams(z.cuda(), n_lanes=n), want, f"schedule kernel, {n} lanes")
+        schedule_err(S._launch(z.cuda(), n, 2, SPLIT_SMALL), want, f"schedule kernel split {SPLIT_SMALL}, {n} lanes")
+    log(f"core (a): schedule kernel at {OTHER_LANES} lanes, 32 streams x 1024 rows, one thread a stream and split "
+        f"into {SPLIT_SMALL[0]} segments of {SPLIT_SMALL[1]} rows (heads of {SPLIT_SMALL[2]}): bit-equal to the "
+        "plain loop")
     # lengths the 256-row stage does not divide, 8 streams at each density
     dens = torch.tensor(CORE_DENSITIES).repeat_interleave(8)[:, None, None]
     for t in EDGE_ROWS:
@@ -5691,6 +5714,245 @@ def codec_schedule_check(codec_run: dict, bw: float, clock_hz: float) -> dict:
             "chain_bound_ms": schedule_chain_ms(codec_run["n_cycles"], 2, clock_hz)}
 
 
+#: the tile kernel's sweep against its plain loop: PE rows (33 and 100 take
+#: the CTA-wide minimum), lane counts, lookaheads; lengths shorter than the
+#: window, odd, and a 256-row tile; then TILE_RAGGED tiles of one launch
+#: with lengths drawn from TILE_RAGGED_T
+TILE_ROWS_SWEEP = (1, 2, 3, 4, 8, 16, 33, 100)
+TILE_LANES = (16, 8)
+TILE_T = (1, 2, 37, 256)
+TILE_RAGGED, TILE_RAGGED_T = 1000, (1, 2, 3, 17, 64, 256, 688)
+#: the JAX scans the tile kernel replaces (no Pallas kernel: lax.scans)
+TILE_REPLACES = "src/repro/core/pe.py:92"
+#: the Fig. 17/18 rows sweep (benchmarks/fig17_18_tile_geometry.py's layer and settings)
+FIG17_LAYER, FIG17_ROWS = ("resnet_conv", 256, 3, 3, 128, 28, 28), (1, 2, 4, 8, 16)
+#: (g): deepseek-7b's FFN layers through model_speedup at the defaults, per-layer
+#: densities drawn from this seed
+CYCLE_MODEL_SEED = 29
+
+
+def tile_bytes(parts) -> int:
+    """Least bytes of one tile launch: every row's 0/1 bytes read once,
+    the cycles written once."""
+    return sum(z.numel() for z in parts) + 4 * sum(z.shape[0] for z in parts)
+
+
+def _tiles_on(parts, dev):
+    """A ragged batch's one buffer on ``dev`` and its views."""
+    from repro_torch.kernels import schedule as S
+
+    packed = S.pack_tiles(parts).to(dev)
+    return S.tile_views(packed, sum(z.shape[0] for z in parts))
+
+
+def tile_check(bw: float, clock_hz: float) -> list:
+    """(f): the tile kernel (``td_tile_kernel``) bit-equal to its plain
+    loop (``tile_cycles_ref``): PE rows ``TILE_ROWS_SWEEP`` x lanes
+    ``TILE_LANES`` x lookahead 1, 2, each a batch of tiles of lengths
+    ``TILE_T`` (all-zero, all-one and seeded densities), then a ragged batch
+    of ``TILE_RAGGED`` tiles of 4 rows, lengths from ``TILE_RAGGED_T``, in
+    one launch, timed against its plain loop and its bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import schedule as S
+
+    rng = np.random.default_rng(19)
+    n_cases = 0
+    for rows in TILE_ROWS_SWEEP:
+        for n in TILE_LANES:
+            parts = []
+            for t in TILE_T:
+                z = rng.random((4, rows, t, n)) < rng.uniform(0.05, 0.95, size=(4, rows, 1, 1))
+                z[0], z[1] = False, True
+                parts.append(torch.from_numpy(z))
+            for la in (1, 2):
+                want = np.concatenate([S.tile_cycles_ref(z.numpy(), n, la) for z in parts])
+                z, t, off = _tiles_on(parts, "cuda")
+                got = S.tile_cycles(z, t, off, rows=rows, n_lanes=n, lookahead=la)
+                if not np.array_equal(got.cpu().numpy(), want):
+                    raise AssertionError(f"tile kernel, {rows} rows, {n} lanes, lookahead {la}: cycles "
+                                         f"{got.cpu().tolist()} != the plain loop's {want.tolist()}")
+                n_cases += len(want)
+    log(f"core (f): tile kernel at rows {TILE_ROWS_SWEEP} x lanes {TILE_LANES} x lookahead 1, 2, T = {TILE_T} "
+        f"(all-zero, all-one, seeded): {n_cases} tiles, cycles == the plain loop's")
+    order = rng.permutation(TILE_RAGGED)
+    ts = np.array(TILE_RAGGED_T)[np.arange(TILE_RAGGED) % len(TILE_RAGGED_T)][order]
+    parts = [torch.from_numpy(rng.random((1, 4, int(t), 16)) < rng.uniform(0.2, 0.8)) for t in ts]
+    t0 = time.perf_counter()
+    want = S.tile_cycles(*_tiles_on(parts, "cpu"), rows=4).numpy()  # the plain loop, a batch a length
+    plain_s = time.perf_counter() - t0
+    z, t, off = _tiles_on(parts, "cuda")
+    got = S.tile_cycles(z, t, off, rows=4)
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError(f"tile kernel, {TILE_RAGGED} ragged tiles: cycles differ from the plain loop in "
+                             f"{int((got.cpu().numpy() != want).sum())} tiles")
+    ms = cuda_ms(lambda: S.tile_cycles(z, t, off, rows=4), iters=10, warmup=1)
+    row = {"case": f"{TILE_RAGGED} ragged tiles of 4 rows, T in {TILE_RAGGED_T}, lookahead 2",
+           "kernel": "td_tile_kernel", "shape": f"[{TILE_RAGGED},4,T,16]", "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_s * 1e3, "library_ms": None, "bound_ms": tile_bytes(parts) / bw * 1e3,
+           "bound_by": "bytes", "chain_bound_ms": schedule_chain_ms(int(want.max()), 2, clock_hz),
+           "main_path": False}
+    log(f"core (f): tile kernel, {row['case']}, one launch: cycles == the plain loop's; kernel {ms:.4f} ms, "
+        f"plain loop {row['plain_ms']:.1f} ms, bounds: bytes {row['bound_ms']:.6f} ms, chain "
+        f"{row['chain_bound_ms']:.4f} ms ({int(want.max())} cycles)")
+    return [row]
+
+
+def cycle_model_check(bw: float, clock_hz: float) -> dict:
+    """(g): the paper's cycle model on the card, the main path's: the
+    train step's estimator over deepseek-7b's 30 FFN layers
+    (``speedup_from_densities`` into ``model_speedup`` at the defaults, 90
+    convolutions, one tile launch), the Fig. 17/18 rows sweep and
+    deepseek-7b's FFN convolution over its whole workload (all 256 groups,
+    all 688 rows); each equal to the host's (``device="cpu"``), both timed.
+    The kernel alone on the estimator's and the whole workload's batches is
+    timed against its plain loop and its bounds; those launches are not
+    counted."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import perf_model as pm
+    from repro_torch.kernels import schedule as S
+
+    cfg = get_config("deepseek-7b")
+    layers = pm.ffn_layers_from_config(cfg)
+    rng = np.random.default_rng(CYCLE_MODEL_SEED)
+    a, g = rng.uniform(0.2, 0.6, cfg.num_layers), rng.uniform(0.3, 0.9, cfg.num_layers)
+    t0 = time.perf_counter()
+    card = pm.speedup_from_densities(a, g, layers)
+    card_s = time.perf_counter() - t0
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pm.speedup_from_densities(a, g, layers)
+    card_s = min(card_s, (time.perf_counter() - t0) / reps)
+    t0 = time.perf_counter()
+    host = pm.speedup_from_densities(a, g, layers, device="cpu")
+    host_s = time.perf_counter() - t0
+    if card != host:
+        raise AssertionError(f"model_speedup on the card {card} != the host's {host}")
+    # the host path before the tile kernel: a plain loop a convolution
+    spars = [{pm.FWD: 1 - x, pm.BWD_INPUT: 1 - y, pm.BWD_WEIGHT: max(1 - x, 1 - y)} for x, y in zip(a, g)]
+    t0 = time.perf_counter()
+    for i, (layer, sp) in enumerate(zip(layers, spars)):
+        for conv in (pm.FWD, pm.BWD_INPUT, pm.BWD_WEIGHT):
+            pm.simulate_conv(layer, sparsity=sp[conv], max_t=256, seed=7919 * i, device="cpu")
+    per_conv_s = time.perf_counter() - t0
+    fig = []
+    for rows in FIG17_ROWS:
+        kw = dict(sparsity=0.66, tile=pm.TileConfig(rows=rows, cols=4), clustering=0.55, sample_groups=1,
+                  max_t=192)
+        got, want = (pm.simulate_conv(pm.ConvLayer(*FIG17_LAYER), **kw),
+                     pm.simulate_conv(pm.ConvLayer(*FIG17_LAYER), device="cpu", **kw))
+        if (got.td_cycles, got.dense_cycles) != (want.td_cycles, want.dense_cycles):
+            raise AssertionError(f"Fig. 17/18 rows {rows}: card {got} != host {want}")
+        fig.append((rows, got.speedup))
+    whole = dict(sparsity=0.5, sample_groups=256, max_t=688)
+    t0 = time.perf_counter()
+    got = pm.simulate_conv(layers[0], **whole)
+    whole_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = pm.simulate_conv(layers[0], device="cpu", **whole)
+    whole_host_s = time.perf_counter() - t0
+    if (got.td_cycles, got.dense_cycles) != (want.td_cycles, want.dense_cycles):
+        raise AssertionError(f"deepseek-7b FFN conv, whole workload: card {got} != host {want}")
+    counted = dict(S.LAUNCHES)
+    # the kernel alone on the two batches: the estimator's 90 convolutions and the whole workload
+    rows = []
+    est = [torch.from_numpy(pm._conv_masks(layer, s[c], pm.TileConfig(), 0.4, 2, 256, 7919 * i)[0])
+           for i, (layer, s) in enumerate(zip(layers, spars)) for c in (pm.FWD, pm.BWD_INPUT, pm.BWD_WEIGHT)]
+    full = [torch.from_numpy(pm._conv_masks(layers[0], 0.5, pm.TileConfig(), 0.4, 256, 688, 0)[0])]
+    for label, parts, main in (("model_speedup, deepseek-7b's 30 FFN layers x 3 convolutions, 2 groups of "
+                                "4 x 256 rows each", est, True),
+                               ("deepseek-7b FFN conv, whole workload: 256 groups of 4 x 688 rows", full, False)):
+        t0 = time.perf_counter()
+        want = S.tile_cycles(*_tiles_on(parts, "cpu"), rows=4).numpy()
+        plain_s = time.perf_counter() - t0
+        z, t, off = _tiles_on(parts, "cuda")
+        ms = cuda_ms(lambda: S.tile_cycles(z, t, off, rows=4), iters=10, warmup=1)
+        if not np.array_equal(S.tile_cycles(z, t, off, rows=4).cpu().numpy(), want):
+            raise AssertionError(f"tile kernel, {label}: cycles differ from the plain loop")
+        n_tiles = sum(p.shape[0] for p in parts)
+        rows.append({"case": label, "kernel": "td_tile_kernel", "shape": f"[{n_tiles},4,T,16]",
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": None,
+                     "bound_ms": tile_bytes(parts) / bw * 1e3, "bound_by": "bytes",
+                     "chain_bound_ms": schedule_chain_ms(int(want.max()), 2, clock_hz), "main_path": main,
+                     "cycles_max": int(want.max())})
+    S.LAUNCHES.update(counted)  # the timing launches above are not the path's
+    est_row, full_row = rows
+    log(f"core (g): model_speedup over deepseek-7b's {len(layers)} FFN layers (speedup_from_densities, seed "
+        f"{CYCLE_MODEL_SEED}) on the card == on the host: {card}; card {card_s:.3f} s a call (one tile launch), "
+        f"host loop {host_s:.2f} s (a convolution at a time, as before the tile kernel, {per_conv_s:.2f} s); "
+        f"the launch alone {est_row['ms']:.4f} ms (plain loop {est_row['plain_ms']:.0f} "
+        f"ms; bounds: bytes {est_row['bound_ms']:.6f} ms, chain {est_row['chain_bound_ms']:.4f} ms)")
+    log(f"core (g): Fig. 17/18 rows sweep {FIG17_LAYER[0]} at 66% sparsity, card == host: "
+        + ", ".join(f"{r} rows {s:.3f}x" for r, s in fig))
+    log(f"core (g): deepseek-7b FFN conv over its whole workload (256 groups x 688 rows) card == host, "
+        f"{got.speedup:.4f}x: simulate_conv card {whole_card_s:.3f} s, host {whole_host_s:.2f} s; the launch alone "
+        f"{full_row['ms']:.4f} ms (plain loop {full_row['plain_ms']:.0f} ms; bounds: bytes "
+        f"{full_row['bound_ms']:.6f} ms, chain {full_row['chain_bound_ms']:.4f} ms)")
+    return {"rows": rows, "model_speedup": card, "card_s": card_s, "host_s": host_s, "per_conv_host_s": per_conv_s,
+            "fig17_rows": fig,
+            "whole_speedup": got.speedup, "whole_card_s": whole_card_s, "whole_host_s": whole_host_s}
+
+
+def split_check(codec_run: dict, bw: float, clock_hz: float) -> dict:
+    """(h): the whole ``w_down`` stream's split schedule (the codec's path)
+    bit-equal to one thread walking it (the one-thread path, the split's
+    fallback): ``sel``, ``advance`` and ``n_cycles`` over every cycle.  Both
+    timed; the walk's ms gives the clocks a cycle; the split's bounds: the
+    bytes, and the longest segment's chain (its head, its rows and its
+    replay at the stream's cycles a row) plus the stitch's walk over the
+    segments.  The same for seeded streams of that length at
+    ``SPLIT_DENSITIES``, where hand-overs come later.  Not counted: the
+    codec's encode is the path's launch."""
+    import torch
+    from repro_torch.kernels import schedule as S
+
+    zc = (codec_run["w"] != 0).reshape(1, -1, 16)
+    t = zc.shape[1]
+    split = S.split_geometry(1, t)
+    counted = dict(S.LAUNCHES)
+    got = S.schedule_streams(zc)
+    walk = S._launch(zc, 16, 2, None)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("sel", "advance", "n_cycles"), got, walk):
+        if not torch.equal(g, w):
+            raise AssertionError(f"split schedule of w_down: {name} differs from the one-thread walk in "
+                                 f"{int((g != w).sum())} entries")
+    split_ms = cuda_ms(lambda: S.schedule_streams(zc), iters=5, warmup=1)
+    walk_ms = cuda_ms(lambda: S._launch(zc, 16, 2, None), iters=1, warmup=0)
+    dense = {}  # denser streams of the same length: hand-overs come later (or fall back)
+    gdev = torch.Generator(device="cuda").manual_seed(13)
+    for d in SPLIT_DENSITIES:
+        zd = torch.rand(zc.shape, generator=gdev, device="cuda") < d
+        got_d, walk_d = S.schedule_streams(zd), S._launch(zd, 16, 2, None)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("sel", "advance", "n_cycles"), got_d, walk_d):
+            if not torch.equal(g, w):
+                raise AssertionError(f"split schedule at density {d}: {name} differs from the one-thread walk")
+        dense[d] = {"cycles": int(walk_d[2][0]), "split_ms": cuda_ms(lambda: S.schedule_streams(zd), iters=3, warmup=0),
+                    "walk_ms": cuda_ms(lambda: S._launch(zd, 16, 2, None), iters=1, warmup=0)}
+        del zd, got_d, walk_d
+    S.LAUNCHES.update(counted)
+    cycles = int(walk[2][0])
+    n_segs, seg_rows, overlap = split
+    chain_rows = overlap + 2 * seg_rows
+    chain = schedule_chain_ms(round(chain_rows * cycles / t), 2, clock_hz) + n_segs / clock_hz * 1e3
+    out = {"split": split, "cycles": cycles, "split_ms": split_ms, "walk_ms": walk_ms,
+           "clocks_a_cycle": walk_ms * 1e-3 * clock_hz / cycles, "bound_ms": schedule_bytes(1, t, 16) / bw * 1e3,
+           "split_chain_bound_ms": chain, "walk_chain_bound_ms": schedule_chain_ms(cycles, 2, clock_hz),
+           "denser": dense}
+    log(f"core (h): w_down's one stream of {t} rows split into {n_segs} segments of {seg_rows} rows (heads of "
+        f"{overlap}): sel, advance, n_cycles == the one-thread walk's over all {cycles} cycles; split "
+        f"{split_ms:.4f} ms, walk {walk_ms:.1f} ms ({out['clocks_a_cycle']:.0f} clocks a cycle at "
+        f"{clock_hz / 1e6:.0f} MHz); bounds: bytes {out['bound_ms']:.4f} ms, the split's chain "
+        f"{chain:.4f} ms, the walk's {out['walk_chain_bound_ms']:.4f} ms; denser streams of {t} rows, split == walk: "
+        + "; ".join(f"density {d}: {r['cycles']} cycles, split {r['split_ms']:.4f} ms, walk {r['walk_ms']:.1f} ms"
+                    for d, r in dense.items()))
+    return out
+
+
 def quickstart_check() -> dict:
     """(c): ``examples/quickstart.py``'s five steps through the port, on the card."""
     import numpy as np
@@ -5701,7 +5963,9 @@ def quickstart_check() -> dict:
 
     rng = np.random.default_rng(0)
     z = rng.random((128, 16)) >= 0.66
-    r = simulate_stream(z)
+    r = simulate_stream(z)  # on the card: one tile launch
+    if int(r.cycles) != int(simulate_stream(z, device="cpu").cycles):
+        raise AssertionError("quickstart simulate_stream: the card's cycles differ from the host's")
     a = (rng.standard_normal((64, 16)) * (rng.random((64, 16)) > 0.5)).astype(np.float32)
     b = (rng.standard_normal((64, 16)) * (rng.random((64, 16)) > 0.5)).astype(np.float32)
     acc, cycles = simulate_macs(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
@@ -5717,8 +5981,11 @@ def quickstart_check() -> dict:
                                          S.schedule_streams_ref(torch.from_numpy(x != 0)[None]), "quickstart compress")
     dec = decompress(enc, t=96)
     exact = bool(torch.equal(dec.cpu(), torch.from_numpy(x)))
-    res = simulate_conv(ConvLayer("resnet_conv", 256, 3, 3, 128, 28, 28), sparsity=0.66, sample_groups=1,
-                        max_t=96)
+    conv = dict(sparsity=0.66, sample_groups=1, max_t=96)
+    res = simulate_conv(ConvLayer("resnet_conv", 256, 3, 3, 128, 28, 28), **conv)
+    host = simulate_conv(ConvLayer("resnet_conv", 256, 3, 3, 128, 28, 28), device="cpu", **conv)
+    if (res.td_cycles, res.dense_cycles) != (host.td_cycles, host.dense_cycles):
+        raise AssertionError(f"quickstart simulate_conv: the card's {res} differs from the host's {host}")
     rt = rtm.Runtime(backend="cuda", bm=16, bk=32, bn=16)
     am = (rng.standard_normal((64, 128)).astype(np.float32)
           * (rng.random((4, 4)) < 0.5).repeat(16, 0).repeat(32, 1))
@@ -5738,9 +6005,10 @@ def quickstart_check() -> dict:
             and ambient == "cuda"):
         raise AssertionError(f"quickstart through the port: {out}")
     log(f"core (c): quickstart on the card: PE {out['pe_dense']} dense -> {out['pe_cycles']} TensorDash cycles "
-        f"({out['pe_dense'] / out['pe_cycles']:.2f}x at 66% sparsity); MAC |acc - ref| = {mac_err:.2e} in "
+        f"({out['pe_dense'] / out['pe_cycles']:.2f}x at 66% sparsity, == the host's); MAC |acc - ref| = {mac_err:.2e} in "
         f"{out['mac_cycles']}/64 cycles (the plain loop's); codec 96 rows -> {out['codec_rows']} scheduled rows "
-        f"(sel, advance, n_cycles == the plain loop's), exact {exact}; conv projection {res.speedup:.2f}x; "
+        f"(sel, advance, n_cycles == the plain loop's), exact {exact}; conv projection {res.speedup:.2f}x "
+        f"(== the host's); "
         f"runtime[cuda] plan skips {out['plan_skipped']:.0%}, "
         f"|err| {rt_err:.1e}; ambient runtime -> {ambient}, plan cache {out['plan_cache']}")
     return out
@@ -5921,16 +6189,19 @@ def core_phase(bw: float) -> dict:
     t0 = time.perf_counter()
     clock_hz = max_sm_clock_hz()
     rows, macs = schedule_check(bw, clock_hz)
+    tile_rows = tile_check(bw, clock_hz)
     S.reset_launch_counts()
     T.reset_launch_counts()
     quick = quickstart_check()
     codec_run = codec_check()
     ops_run = ops_check()
     validate = validate_check()  # its serve runs count from 0: their launches come back apart
+    cycle_model = cycle_model_check(bw, clock_hz)
     torch.cuda.synchronize()
     launches = {k: v + validate["serve_launches"][k] for k, v in validate.pop("before_serve").items()}
     launches.update(S.LAUNCHES)
     timing = codec_schedule_check(codec_run, bw, clock_hz)
+    split = split_check(codec_run, bw, clock_hz)
     cut = {k: v for k, v in codec_run.items() if k not in ("w", "sel", "advance")}
     for name, shape in (("simulate_macs", "[1,64,16]"), ("compress", "[1,96,16]")):
         rows.append({"case": f"quickstart {name}", "kernel": "td_schedule_kernel", "shape": shape,
@@ -5940,7 +6211,9 @@ def core_phase(bw: float) -> dict:
                  "shape": f"[1,{codec_run['rows']},16]", "max_abs_err": timing["max_abs_err"],
                  "cycles_checked": timing["cycles_checked"], "ms": timing["kernel_ms"], "plain_ms": None,
                  "plain_ms_per_row": timing["plain_ms_per_row"], "library_ms": None, "bound_ms": timing["bound_ms"],
-                 "bound_by": "bytes", "chain_bound_ms": timing["chain_bound_ms"], "main_path": False})
+                 "bound_by": "bytes", "chain_bound_ms": timing["chain_bound_ms"],
+                 "split_chain_bound_ms": split["split_chain_bound_ms"], "walk_ms": split["walk_ms"],
+                 "clocks_a_cycle": split["clocks_a_cycle"], "main_path": False})
     log(f"core (b): codec on deepseek-7b w_down [{W_DOWN_SHAPE[0]}, {W_DOWN_SHAPE[1]}] bf16, "
         f"{cut['zero_share']:.1%} zero: encode {cut['encode_s']:.3f} s, decode {cut['decode_s']:.3f} s, round trip "
         f"bit-exact; {cut['rows']} rows -> {cut['n_cycles']} scheduled rows; the encode's schedule launch "
@@ -5950,9 +6223,10 @@ def core_phase(bw: float) -> dict:
         f"there (~{timing['plain_ms_extrapolated'] / 60e3:.1f} min at full size, not run); "
         f"{cut['compressed_bytes']} compressed bytes vs {cut['dense_bytes']} dense "
         f"({cut['compressed_bytes'] / cut['dense_bytes']:.3f}x)")
-    log(f"core: main-path launches (c)+(b)+(d)+(e): {launches}; phase {time.perf_counter() - t0:.1f} s")
-    return {"rows": rows, "macs": macs, "quickstart": quick, "codec": {**cut, **timing}, "ops": ops_run,
-            "validate": validate, "launches": launches, "sm_clock_mhz": clock_hz / 1e6,
+    log(f"core: main-path launches (c)+(b)+(d)+(e)+(g): {launches}; phase {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "tile_rows": tile_rows + cycle_model["rows"], "macs": macs, "quickstart": quick,
+            "codec": {**cut, **timing, **split}, "ops": ops_run, "validate": validate,
+            "cycle_model": cycle_model, "launches": launches, "sm_clock_mhz": clock_hz / 1e6,
             "seconds": time.perf_counter() - t0}
 
 
@@ -6114,7 +6388,8 @@ def _phases(t_start, card, name, bw, dry) -> int:
     smodel_runs = grouped(smodel["launches"])
     sfamily_runs = grouped(sfamily["launches"])
     sdst_runs = grouped(sdst["launches"])
-    core_runs = grouped({k: v for k, v in core["launches"].items() if k != "td_schedule_kernel"})
+    core_runs = grouped({k: v for k, v in core["launches"].items()
+                         if k not in ("td_schedule_kernel", "td_tile_kernel")})
     kernels = []
     for kname in REPLACES:
         mine = [r for r in rows + grid_rows + train_rows + planner_rows + sharded["rows"] + smodel["kernel_rows"]
@@ -6152,8 +6427,25 @@ def _phases(t_start, card, name, bw, dry) -> int:
         "ms_64_streams": head["ms_64_streams_half_dense"], "w_down_ms": core["codec"]["kernel_ms"],
         "w_down_bound_ms": core["codec"]["bound_ms"], "chain_bound_ms": head["chain_bound_ms"],
         "w_down_chain_bound_ms": core["codec"]["chain_bound_ms"],
+        "w_down_split_chain_bound_ms": core["codec"]["split_chain_bound_ms"],
+        "w_down_walk_ms": core["codec"]["walk_ms"], "clocks_a_cycle": core["codec"]["clocks_a_cycle"],
         "plain_ms_per_row": core["codec"]["plain_ms_per_row"],
     })
+    head = next(r for r in core["tile_rows"] if r["main_path"])
+    kernels.append({
+        "name": "td_tile_kernel", "route": "cuda", "source": SCHEDULE_SOURCE, "replaces": TILE_REPLACES,
+        "launches": core["launches"]["td_tile_kernel"], "max_abs_err": max(r["max_abs_err"] for r in core["tile_rows"]),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "shape": head["shape"], "launches_core": core["launches"]["td_tile_kernel"],
+        "chain_bound_ms": head["chain_bound_ms"], "model_speedup_s": core["cycle_model"]["card_s"],
+        "model_speedup_host_s": core["cycle_model"]["host_s"],
+        "model_speedup_per_conv_host_s": core["cycle_model"]["per_conv_host_s"],
+        "whole_conv_ms": core["tile_rows"][-1]["ms"], "whole_conv_bound_ms": core["tile_rows"][-1]["bound_ms"],
+        "whole_conv_chain_bound_ms": core["tile_rows"][-1]["chain_bound_ms"],
+    })
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

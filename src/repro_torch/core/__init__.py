@@ -1,7 +1,8 @@
 """TensorDash core: the paper's contribution (port of ``repro.core``): the
-scheduler, PE and accelerator performance model in host numpy, the
-scheduled-form codec on the tensor's device, sparsity measurement in torch,
-and the energy and power-gating models in pure Python."""
+scheduler step in host numpy, the PE and accelerator performance model
+(cycles on the card unless asked for the CPU), the scheduled-form codec on
+the tensor's device, sparsity measurement in torch, and the energy and
+power-gating models in pure Python."""
 from repro_torch.core.compress import Scheduled, compress, decompress, simulate_macs
 from repro_torch.core.energy import BF16, FP32, EnergyBreakdown, EnergyModel
 from repro_torch.core.pe import dense_cycles, effectual_mask, simulate_stream, simulate_tile

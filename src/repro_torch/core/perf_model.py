@@ -1,8 +1,7 @@
 """TensorDash accelerator performance model (port of
 ``repro/core/perf_model.py``: the accelerator, layer and tile types, the clustered-mask
 generator, :func:`simulate_conv`, :func:`model_speedup` and the training
-taps' :func:`ffn_layers_from_config` / :func:`speedup_from_densities`, in
-numpy).
+taps' :func:`ffn_layers_from_config` / :func:`speedup_from_densities`).
 
 Maps DNN layer workloads onto the tile/PE simulators of :mod:`repro_torch.core.pe`
 to estimate cycles for the dense baseline accelerator and for TensorDash,
@@ -11,12 +10,13 @@ convolutions (Eq. 1-3) of every layer are simulated with the sparse operand's
 zero mask driving the per-row schedulers.
 
 The paper traces one random batch per epoch of real GPU training; here masks
-come from calibrated synthetic distributions drawn with numpy, so the same
-seed gives the JAX model's masks and cycle counts exactly.  The ``clustering`` parameter models
-the 2-D feature-map clustering of non-zeros the paper identifies as the cause
-of inter-row imbalance (section 4.4): per-stream densities are drawn from a
-Beta distribution whose variance grows with ``clustering`` while the mean
-stays at the target density.
+come from calibrated synthetic distributions drawn with numpy on the host, so
+the same seed gives the JAX model's masks and cycle counts exactly; the cycles
+are counted on the card (the tile kernel) unless the caller asks for the CPU.
+The ``clustering`` parameter models the 2-D feature-map clustering of
+non-zeros the paper identifies as the cause of inter-row imbalance (section
+4.4): per-stream densities are drawn from a Beta distribution whose variance
+grows with ``clustering`` while the mean stays at the target density.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch.core.pe import simulate_tile
+from repro_torch.core.pe import simulate_tiles
 
 __all__ = [
     "TileConfig",
@@ -132,6 +132,24 @@ class ConvResult:
         return self.dense_cycles / max(self.td_cycles, 1.0)
 
 
+def _conv_masks(layer: ConvLayer, sparsity: float, tile: TileConfig, clustering: float, sample_groups: int,
+                max_t: int, seed: int):
+    """The sampled groups' masks ``[g, rows, t, n_lanes]`` of one
+    convolution and the factors that scale their mean cycles (and the
+    dense cycles) to the full workload."""
+    rng = np.random.default_rng(seed)
+    t_full = math.ceil(layer.reduction / tile.n_lanes)
+    t = min(t_full, max_t)
+    groups = math.ceil(layer.outputs / (tile.rows * tile.cols))
+    g = min(sample_groups, groups)
+    masks = make_clustered_masks(rng, g * tile.rows, t, tile.n_lanes, 1.0 - sparsity, clustering)
+    return masks.reshape(g, tile.rows, t, tile.n_lanes), (t_full / t) * groups, float(t_full) * groups
+
+
+def _conv_result(td: np.ndarray, scale: float, dense: float) -> ConvResult:
+    return ConvResult(td_cycles=float(np.mean(td)) * scale, dense_cycles=dense)
+
+
 def simulate_conv(
     layer: ConvLayer,
     *,
@@ -141,6 +159,7 @@ def simulate_conv(
     sample_groups: int = 2,
     max_t: int = 512,
     seed: int = 0,
+    device=None,
 ) -> ConvResult:
     """Estimate cycles for one of the three convolutions of ``layer``.
 
@@ -148,19 +167,13 @@ def simulate_conv(
     (different output rows / filters) sharing the drain in lockstep; ``cols``
     PEs share each row's schedule (different windows), so the cycle count is
     set by the rows and the column count only changes how many groups exist.
-    ``sample_groups`` groups are simulated and scaled to the full workload.
+    ``sample_groups`` groups are simulated and scaled to the full workload:
+    the masks drawn on the host, their cycles counted on ``device`` (the
+    card unless the caller asks for the CPU), one transfer and one launch.
     """
-    rng = np.random.default_rng(seed)
-    t_full = math.ceil(layer.reduction / tile.n_lanes)
-    t = min(t_full, max_t)
-    groups = math.ceil(layer.outputs / (tile.rows * tile.cols))
-    g = min(sample_groups, groups)
-    masks = make_clustered_masks(rng, g * tile.rows, t, tile.n_lanes, 1.0 - sparsity, clustering)
-    masks = masks.reshape(g, tile.rows, t, tile.n_lanes)
-    td = simulate_tile(masks, n_lanes=tile.n_lanes, lookahead=tile.lookahead).cycles
-    td_mean = float(np.mean(td))
-    scale = (t_full / t) * groups
-    return ConvResult(td_cycles=td_mean * scale, dense_cycles=float(t_full) * groups)
+    masks, scale, dense = _conv_masks(layer, sparsity, tile, clustering, sample_groups, max_t, seed)
+    (td,) = simulate_tiles([masks], n_lanes=tile.n_lanes, lookahead=tile.lookahead, device=device)
+    return _conv_result(td, scale, dense)
 
 
 def model_speedup(
@@ -172,6 +185,7 @@ def model_speedup(
     sample_groups: int = 2,
     max_t: int = 256,
     seed: int = 0,
+    device=None,
 ) -> dict[str, float]:
     """Whole-model speedup, per training convolution and overall.
 
@@ -179,27 +193,28 @@ def model_speedup(
     operand's zero fraction — either one dict for the whole model or one per
     layer.  Cycles are aggregated across layers (the three convolutions
     perform the same number of MACs, so the overall number weights them
-    equally, as the paper does).
+    equally, as the paper does).  Every convolution's masks are drawn first
+    (layer ``i`` from ``seed + 7919 * i``), then all their tiles go to
+    ``device`` (the card unless the caller asks for the CPU) in one transfer
+    and one launch.
     """
     per_layer = (
         list(sparsity_per_conv)
         if not isinstance(sparsity_per_conv, dict)
         else [sparsity_per_conv] * len(layers)
     )
+    convs = [
+        (conv, *_conv_masks(layer, spars[conv], tile, clustering, sample_groups, max_t, seed + 7919 * i))
+        for i, (layer, spars) in enumerate(zip(layers, per_layer))
+        for conv in (FWD, BWD_INPUT, BWD_WEIGHT)
+    ]
+    tds = simulate_tiles([m for _, m, _, _ in convs], n_lanes=tile.n_lanes, lookahead=tile.lookahead,
+                         device=device) if convs else []
     totals: dict[str, list[float]] = {k: [0.0, 0.0] for k in (FWD, BWD_INPUT, BWD_WEIGHT)}
-    for i, (layer, spars) in enumerate(zip(layers, per_layer)):
-        for conv in (FWD, BWD_INPUT, BWD_WEIGHT):
-            r = simulate_conv(
-                layer,
-                sparsity=spars[conv],
-                tile=tile,
-                clustering=clustering,
-                sample_groups=sample_groups,
-                max_t=max_t,
-                seed=seed + 7919 * i,
-            )
-            totals[conv][0] += r.td_cycles
-            totals[conv][1] += r.dense_cycles
+    for (conv, _, scale, dense), td in zip(convs, tds):
+        r = _conv_result(td, scale, dense)
+        totals[conv][0] += r.td_cycles
+        totals[conv][1] += r.dense_cycles
     out = {conv: d / max(td, 1.0) for conv, (td, d) in totals.items()}
     td_all = sum(td for td, _ in totals.values())
     dense_all = sum(d for _, d in totals.values())
@@ -228,7 +243,7 @@ def speedup_from_densities(
     """Measured per-layer A and G densities -> modeled TensorDash speedup
     (the live Fig. 14 estimator): FWD is sparse in A, BWD_INPUT in G_O,
     BWD_WEIGHT in the sparser of the two (paper Eq. 1-3).  ``kw`` goes to
-    :func:`model_speedup`."""
+    :func:`model_speedup` (``device=`` among them: the card by default)."""
     if len(a_density) != len(layers) or len(g_density) != len(layers):
         raise ValueError(
             f"{len(layers)} layers but {len(a_density)} A / {len(g_density)} G densities"

@@ -64,8 +64,20 @@ class ScheduleArgs(ctypes.Structure):
     ``csrc/schedule.cu``; keep the two in step)."""
 
     _fields_ = [
-        ("z", _P), ("sel", _P), ("advance", _P), ("n_cycles", _P), ("T", _LL),
-        *((name, _I) for name in ("S", "N", "depth", "n_options", "n_levels", "vec")),
+        ("z", _P), ("sel", _P), ("advance", _P), ("n_cycles", _P), ("work", _P), ("T", _LL),
+        *((name, _I) for name in ("S", "N", "depth", "n_options", "n_levels", "vec", "n_segs", "seg_rows",
+                                  "overlap")),
+        ("opt_step", _I * 8), ("opt_rot", _I * 8), ("level_mask", ctypes.c_uint * 16),
+    ]
+
+
+class TileArgs(ctypes.Structure):
+    """The launch arguments of ``td_tile`` (``TdTileArgs`` in
+    ``csrc/schedule.cu``; keep the two in step)."""
+
+    _fields_ = [
+        ("z", _P), ("offset", _P), ("t", _P), ("cycles", _P),
+        *((name, _I) for name in ("G", "R", "N", "depth", "n_options", "n_levels")),
         ("opt_step", _I * 8), ("opt_rot", _I * 8), ("level_mask", ctypes.c_uint * 16),
     ]
 
@@ -77,6 +89,7 @@ SIGNATURES = {
     # args stream
     "td_plan": [ctypes.POINTER(PlanArgs), _P],
     "td_schedule": [ctypes.POINTER(ScheduleArgs), _P],
+    "td_tile": [ctypes.POINTER(TileArgs), _P],
 }
 
 _LIB: ctypes.CDLL | None = None

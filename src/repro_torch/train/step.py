@@ -202,12 +202,13 @@ def _accumulate(loss_fn, cfg, params, leaves, batch, microbatches: int, sparsity
 
 
 def modeled_speedup(metrics, cfg: ModelConfig, **kw) -> dict[str, float]:
-    """One step's tapped densities through ``core.perf_model`` on the host:
-    the per-layer A/G densities mapped onto the FFN contraction layers and
-    run through the tile simulator.  ``kw`` goes to
-    ``perf_model.speedup_from_densities``."""
+    """One step's tapped densities through ``core.perf_model``: the
+    per-layer A/G densities mapped onto the FFN contraction layers and run
+    through the tile simulator on the metrics' device (the card's metrics
+    on the card).  ``kw`` goes to ``perf_model.speedup_from_densities``."""
     from repro_torch.core import perf_model as pm
 
+    kw.setdefault("device", metrics["A_density"].device)
     a = metrics["A_density"].detach().cpu().numpy()
     g = metrics["G_density"].detach().cpu().numpy()
     layers = pm.ffn_layers_from_config(cfg, n_layers=len(a))

@@ -138,11 +138,12 @@ def candidate_policies(m: int, k: int, n: int) -> list[dict]:
 
 
 @functools.lru_cache(maxsize=256)
-def _modeled_speedup(k: int, n: int, density: float) -> float:
+def _modeled_speedup(k: int, n: int, density: float, device: str = "cuda") -> float:
     """The perf_model ceiling: TensorDash's simulated FWD speedup for an FC
     layer of this contraction at this operand density — how much sparse
     savings the paper's accelerator model says is *credible* here.  Used to
-    bound the prior's sparse-mode optimism, never to pick a winner."""
+    bound the prior's sparse-mode optimism, never to pick a winner.  The
+    tile simulator runs on ``device``, where the tune run measures."""
     from repro_torch.core.perf_model import (
         BWD_INPUT,
         BWD_WEIGHT,
@@ -154,12 +155,12 @@ def _modeled_speedup(k: int, n: int, density: float) -> float:
     layer = ConvLayer(name="tune", c_in=k, kx=1, ky=1, c_out=n, ox=1, oy=1)
     res = model_speedup([layer], {
         FWD: 1.0 - density, BWD_INPUT: 0.0, BWD_WEIGHT: 0.0,
-    })
+    }, device=device)
     return max(float(res[FWD]), 1.0)
 
 
 def prior_score(m: int, k: int, n: int, *, bm: int, bk: int, bn: int,
-                compact_grid: str, density: float | None) -> float:
+                compact_grid: str, density: float | None, device: str = "cuda") -> float:
     """Analytic expected cost of one candidate — a *ranking* prior for
     pruning, in arbitrary units.  Models: the expected effectual-block
     fraction at this blocking (a candidate block is skippable only when
@@ -167,7 +168,7 @@ def prior_score(m: int, k: int, n: int, *, bm: int, bk: int, bn: int,
     (ragged = effectual work, v2 = ``max(nnz)``-bounded with a skew term,
     v1 = the full gated grid), a per-step dispatch overhead that penalizes
     tiny blocks, and the :func:`_modeled_speedup` ceiling capping how much
-    sparse benefit is credible."""
+    sparse benefit is credible (its tile simulator on ``device``)."""
     d = 1.0 if density is None else float(density)
     mb, kb, nb = m // bm, k // bk, n // bn
     covered = max(1, (bm // STRUCT[0]) * (bk // STRUCT[1]))
@@ -193,7 +194,7 @@ def prior_score(m: int, k: int, n: int, *, bm: int, bk: int, bn: int,
         steps = nb * max(mb * kb * p_eff, mb)
         cost = steps * (block_cost + step_overhead)
     # the accelerator model bounds credible sparse savings from below
-    floor = dense_steps * (block_cost + step_overhead) / _modeled_speedup(k, n, d)
+    floor = dense_steps * (block_cost + step_overhead) / _modeled_speedup(k, n, d, device)
     return max(cost, floor) + steps * 1e-6  # tiebreak: fewer steps
 
 
@@ -340,7 +341,7 @@ def tune_matmul(db: TuningDB, m: int, k: int, n: int, *,
     # every stored cell is scored against) and the operand-spanning giant
     # tile (the platform-specific optimum the TPU-sized defaults cap away)
     is_anchor = lambda c: is_default(c) or (c["bm"], c["bk"], c["bn"]) == (m, k, n)
-    cands.sort(key=lambda c: prior_score(m, k, n, density=density, **c))
+    cands.sort(key=lambda c: prior_score(m, k, n, density=density, device=str(device), **c))
     kept = [c for c in cands[:keep]] + [c for c in cands[keep:] if is_anchor(c)]
     timed, default_us = [], None
     for c in kept:

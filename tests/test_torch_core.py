@@ -1,5 +1,6 @@
-"""repro_torch.core (the paper's scheduler, PE and performance model, in
-numpy) against repro.core, on the CPU.  Everything here is integer
+"""repro_torch.core (the paper's scheduler, PE and performance model)
+against repro.core, on the CPU (``device="cpu"``: the cycle model runs on
+the card by default).  Everything here is integer
 schedules and cycle counts, so every comparison is exact: the mux tables
 and levels, one scheduler step (selections, remaining bits, drain count)
 over random staging windows, stream and tile cycle counts, the clustered
@@ -47,10 +48,10 @@ def test_schedule_step_equals_jax(n_lanes, lookahead, density):
 def test_stream_and_tile_cycles_equal_jax(density):
     rng = np.random.default_rng(5)
     tiles = rng.random((3, 4, 37, 16)) < density
-    got = tpe.simulate_tile(tiles).cycles
+    got = tpe.simulate_tile(tiles, device="cpu").cycles
     for g in range(3):
         assert int(got[g]) == int(jpe.simulate_tile(jnp.asarray(tiles[g])).cycles)
-        s = tpe.simulate_stream(tiles[g, 0])
+        s = tpe.simulate_stream(tiles[g, 0], device="cpu")
         assert int(s.cycles) == int(jpe.simulate_stream(jnp.asarray(tiles[g, 0])).cycles)
         assert int(s.dense) == 37
 
@@ -65,9 +66,10 @@ def test_clustered_masks_and_model_speedup_equal_jax():
     tl = [tpm.ConvLayer(name=f"l{i}", c_in=c, kx=k, ky=k, c_out=o, ox=4, oy=4)
           for i, (c, k, o) in enumerate([(64, 3, 32), (128, 1, 64)])]
     spars = {jpm.FWD: 0.6, jpm.BWD_INPUT: 0.3, jpm.BWD_WEIGHT: 0.7}
-    assert tpm.model_speedup(tl, spars, max_t=64) == jpm.model_speedup(jl, spars, max_t=64)
+    assert tpm.model_speedup(tl, spars, max_t=64, device="cpu") == jpm.model_speedup(jl, spars, max_t=64)
     per_layer = [spars, {jpm.FWD: 0.1, jpm.BWD_INPUT: 0.9, jpm.BWD_WEIGHT: 0.9}]
-    assert tpm.model_speedup(tl, per_layer, max_t=64) == jpm.model_speedup(jl, per_layer, max_t=64)
+    assert (tpm.model_speedup(tl, per_layer, max_t=64, device="cpu")
+            == jpm.model_speedup(jl, per_layer, max_t=64))
 
 
 def test_tuner_prior_speedup_equals_jax():
@@ -75,4 +77,4 @@ def test_tuner_prior_speedup_equals_jax():
     from repro.tune import search as jsearch
     from repro_torch.tune import search as tsearch
 
-    assert tsearch._modeled_speedup(256, 128, 0.25) == jsearch._modeled_speedup(256, 128, 0.25)
+    assert tsearch._modeled_speedup(256, 128, 0.25, "cpu") == jsearch._modeled_speedup(256, 128, 0.25)

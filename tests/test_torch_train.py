@@ -169,7 +169,7 @@ def test_tap_metrics_and_modeled_speedup_equal_jax_bit_for_bit():
     assert [dataclasses.asdict(x) for x in tl] == [dataclasses.asdict(x) for x in jl]
     a, g = np.asarray(jm["A_density"]), np.asarray(jm["G_density"])
     kw = dict(max_t=32, sample_groups=1)
-    assert tpm.speedup_from_densities(a, g, tl, **kw) == jpm.speedup_from_densities(a, g, jl, **kw)
+    assert tpm.speedup_from_densities(a, g, tl, device="cpu", **kw) == jpm.speedup_from_densities(a, g, jl, **kw)
     assert tstep.modeled_speedup(tm, tcfg, **kw) == jstep.modeled_speedup(jm, jcfg, **kw)
 
 

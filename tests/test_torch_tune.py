@@ -54,7 +54,7 @@ def test_candidates_and_prior_equal_jax(m, k, n):
     assert tsearch.default_policy(m, k, n) == jsearch.default_policy(m, k, n)
     for density in (None, 0.25, 1.0):
         for c in cands[:: max(1, len(cands) // 12)]:
-            assert (tsearch.prior_score(m, k, n, density=density, **c)
+            assert (tsearch.prior_score(m, k, n, density=density, device="cpu", **c)
                     == jsearch.prior_score(m, k, n, density=density, **c))
 
 
