@@ -42,11 +42,11 @@ from the root of a checkout, on a machine with one H100.
    (``td_tile_kernel``, the paper's cycle model) equal to its plain loop at
    PE rows 1 to 100, 16 and 8 lanes, lookahead 1 and 2, and on a ragged
    batch of 1000 tiles in one launch; then, counted as this slice's
-   main path, ``examples/quickstart.py``'s five steps through the port (its
-   ``simulate_stream`` and ``simulate_conv`` on the card, equal to the
-   host's), the codec on full-width deepseek-7b ``w_down`` [11008, 4096] bf16
-   magnitude-pruned to half (``encode`` on the card, ``decode``, bit-exact;
-   encode and decode seconds, the kernel's ms on its one stream of 2 818 048
+   main path, the port's quickstart example
+   (``repro_torch.examples.quickstart``, its ``main`` on the card, equal to
+   its run on the host), the codec on full-width deepseek-7b ``w_down``
+   [11008, 4096] bf16 magnitude-pruned to half (``encode`` on the card,
+   ``decode``, bit-exact; encode and decode seconds, the kernel's ms on its one stream of 2 818 048
    rows, split into 2048 segments, the plain loop's ms a row at 4096 rows,
    the compressed bytes), the
    public ops and ``Runtime.sparse_ffn`` at deepseek-7b's FFN widths at 4
@@ -152,7 +152,9 @@ from the root of a checkout, on a machine with one H100.
    and ``db``) against its plain version (fp32, rtol = atol = 2e-4), its
    bf16 store equal to one rounding of its fp32 result, v2/v1 bit-equal on
    two rows, each timed against one fp32 ``torch.matmul`` and its bound,
-   and the mamba2 head's two backward products at its block 120;
+   the mamba2 head's two backward products at its block 120 and
+   qwen2-vl-ReLU's four (the head's ``da``/``db`` at vocab 152064 x d 8192,
+   ``w_down``'s at K = d_ff 29568 on the gate's mask at bk 128);
    ``block_zero_mask`` on the two fp32 cotangents; one device launch per
    wrapper call;
 10. runs the one-launch planner in every mode: 693 edge cases (one block
@@ -187,7 +189,20 @@ from the root of a checkout, on a machine with one H100.
    two SSD chunks a sequence) through ``make_train_step`` on ``cuda``: taps
    refused, step 1's loss and gradient norm against ``dense``, 3 steps with
    the LM head's launches and plan-cache counts held to the path's, and one
-   chunked 256-token prefill against ``reference``;
+   chunked 256-token prefill against ``reference``; then the frontends
+   (``frontend_train_phase``): qwen2-vl-72b-ReLU at full width cut to 1
+   layer and the head (``train_cut``) and musicgen-large whole, on 8 x 256
+   seeded embeddings (qwen2-vl's at Qwen2-VL's rope index of the image
+   prompt) in 2 microbatches: step 1's loss and every gradient against
+   ``dense`` (the worst leaf reported), 3 timed steps with the launches and
+   plan-cache counts of the path (qwen2-vl: the fused gate, its emitted
+   plan, the planned ``w_down`` and head and their backward products;
+   musicgen none), every loss finite, no plain version; ms a step, tokens/s,
+   peak memory; then the examples phase (``examples_phase``): each of the
+   port's five examples through its ``main`` at its documented command
+   (``serve_batched`` greedy and sampled, ``train_lm --preset 100m --steps
+   300 --relu-ffn`` and its resume), the kernels its path reaches launched,
+   no plain version, every loss finite, each run's wall seconds;
 12. drives the train launcher, ``repro_torch.launch.train.main``, in process
    on full-width qwen3-4b (grouped-query attention with qk-norm, vocab
    151936) cut to 8 layers, 8 x 256 tokens in 2 microbatches, taps on:
@@ -283,13 +298,14 @@ from the root of a checkout, on a machine with one H100.
 14. prints a ``kernels`` JSON line (the four SpMM entries; ``block_zero_mask``
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode;
-   ``td_schedule_kernel`` and ``td_tile_kernel``, their launches the core
-   phase's; each with its
+   ``td_schedule_kernel`` and ``td_tile_kernel``, their launches the core and
+   examples phases'; each with its
    launches over the serve runs (eager, graph, fault replays, the serve
    launcher, the MoE, MLA, SSM, hybrid, starcoder2, gemma2 and int8-cache
    runs and the qwen2-vl and musicgen runs; a captured launch counted once
    per replay; each of the last nine also alone), the timed training
-   steps (deepseek, SSM, hybrid) and launcher runs (a) and (c), the core
+   steps (deepseek, SSM, hybrid, qwen2-vl, musicgen; each per step also
+   alone), the examples phase (also alone), launcher runs (a) and (c), the core
    phase's main path, on the serving path alone, per training step and per
    launcher step, and the sharded phase's local steps, the core phase, the
    sharded model phase, the sharded family phase and the sharded dst
@@ -2822,6 +2838,29 @@ def train_kernel_phase(bw: float):
     bwd_case(f"ssm LM head db = lm_head @ g' (bk {sb})", lm_head.T.float().T, gt, 512, sb, 128,
              T.transpose_plan_csr(wnnz, widx))
     del lm_head, h, gt
+    # qwen2-vl-ReLU's (the frontend train phase, one layer): the head at
+    # vocab 152064 x d 8192 (1188 block rows; the weight gradient's rows of
+    # 1188 K blocks) and w_down at d_ff 29568 on the gate's mask at bk 128
+    c = get_config(VL_ARCH)
+    vv, vd, vf = c.vocab_size, c.d_model, c.d_ff
+    gt = rand(t, vv, scale=1e-4).T
+    h = rand(t, vd).to(bf16)
+    bwd_case("qwen2-vl LM head da = g'.T-view @ h", gt, h.float(), 128, 128, 512, T.plan_blocks_csr(gt, 128, 128))
+    lm_head = rand(vd, vv, scale=vd**-0.5).to(bf16)
+    wnnz, widx = T.plan_blocks(lm_head.T, 128, 512)
+    bwd_case("qwen2-vl LM head db = lm_head @ g'", lm_head.T.float().T, gt, 512, 128, 128,
+             T.transpose_plan_csr(wnnz, widx))
+    del lm_head, h, gt
+    vmask = planted(t, vf, 128, 128, 0.4)
+    g = masked(rand(t, vd), planted(t, vd, 128, 128, 0.4))
+    w_down = rand(vf, vd, scale=vf**-0.5).to(bf16)
+    bwd_case("qwen2-vl w_down da = g @ w_down.T", g, w_down.float().T, 128, 128, 128, T.plan_blocks_csr(g, 128, 128))
+    del w_down
+    h2 = masked(rand(t, vf), vmask).to(bf16)
+    hnnz, hidx = T.plan_from_mask(vmask)
+    bwd_case("qwen2-vl w_down db = h.T @ g (bk 128)", h2.float().T, g, 128, 128, 128,
+             T.transpose_plan_csr(hnnz, hidx))
+    del h2, g
     launch = count_launches(calls)
     torch.cuda.empty_cache()
     return rows + mask_rows, launch
@@ -3093,6 +3132,52 @@ def _rel_l2(got, want) -> float:
     return float(torch.linalg.vector_norm(got.float() - want.float())) / max(den, 1e-30)
 
 
+def train_path_launches(cfg, mb: int, first: bool = False) -> dict:
+    """The wrapper launches of one ``make_train_step`` step on ``cuda`` over
+    ``mb`` microbatches (``first``: the run's first step).  A dense model
+    with a ReLU gate and a planned LM head (deepseek-7b-ReLU, qwen2-vl-ReLU;
+    L layers, ``r`` = 2 forwards a layer under remat): per microbatch r x L
+    fused gates; planned, r x L ``w_down`` forwards, the head's forward and
+    the backward's two products of each gate, ``w_down`` and the head; plans,
+    one planner launch each: by value the cotangents of each ``w_down`` and
+    the head, from emitted masks each ``w_down``'s (r) and each gate
+    cotangent's, transposed each ``w_down``'s forward plan (fresh masks);
+    once a step the head's weight by value after its update and its
+    transpose; on the first step the gate's (dense, then cached) transposed
+    plan.  The audio frontend (musicgen: a non-gated GELU FFN, codebook
+    heads as a plain einsum) puts nothing on the runtime."""
+    from repro_torch.kernels import tensordash_spmm as T
+
+    want = dict.fromkeys(T.launch_counts(), 0)
+    if cfg.frontend == "audio" and not cfg.mlp_gated:
+        return want
+    if not (cfg.family == "dense" and cfg.mlp_gated and cfg.activation == "relu"):
+        raise ValueError(f"{cfg.name}: no train-path launch count for family {cfg.family!r}, "
+                         f"activation {cfg.activation!r}")
+    L, r = cfg.num_layers, 2 if cfg.remat else 1
+    want.update({"tensordash_matmul_fused": r * L * mb,
+                 "tensordash_matmul_planned": (r * L + 1 + 4 * L + 2) * mb,
+                 "planner[values]": (L + 1) * mb + 1,
+                 "planner[emitted]": (r + 1) * L * mb,
+                 "planner[transpose]": L * mb + 1 + int(first)})
+    return want
+
+
+def train_plan_cache(cfg, mb: int, first: bool = False) -> tuple[int, int]:
+    """``(hits, misses)`` of the plan cache over the step
+    :func:`train_path_launches` counts.  Hits: the head's weight plan and
+    its transpose on each microbatch but the first, the gate's transposed
+    plan on every gate but the run's first.  Misses: the head's weight plan
+    (replanned after the update) and its transpose once, the gate's
+    transposed plan on the first step, each microbatch's ``w_down``
+    transposed plans (fresh masks) and cotangent plans (each ``w_down``'s
+    and the head's)."""
+    if cfg.frontend == "audio" and not cfg.mlp_gated:
+        return 0, 0
+    L = cfg.num_layers
+    return (mb - 1) + (L * mb - int(first)) + (mb - 1), 1 + int(first) + L * mb + 1 + L * mb + mb
+
+
 def train_phase():
     """Train full-width deepseek-7b-ReLU, cut to TRAIN_LAYERS layers, on the
     ``cuda`` backend through ``make_train_step``: step 1's loss and
@@ -3151,17 +3236,7 @@ def train_phase():
 
     # TRAIN_STEPS timed steps: every planned product through the kernels
     r = 2 if cfg.remat else 1  # remat runs each layer's forward again in the backward
-    want = {c: 0 for c in T.launch_counts()}
-    want.update({"tensordash_matmul_fused": r * L * mb,  # gates
-                 # w_down forward (r), LM head forward, backward: 2 per gate, w_down and LM head
-                 "tensordash_matmul_planned": (r * L + 1 + 4 * L + 2) * mb,
-                 # plans, one planner launch each: cotangents by value (w_down, LM head) and
-                 # the LM-head weight after its update; each w_down plan from its gate's mask
-                 # (r) and each gate cotangent's; the transposed forward plans of w_down (fresh
-                 # masks) and the LM head, the gate's (dense, cached) on the first step only
-                 "planner[values]": (L + 1) * mb + 1,
-                 "planner[emitted]": (r + 1) * L * mb,
-                 "planner[transpose]": L * mb + 1})
+    want = train_path_launches(cfg, mb)
     steps, prev = [], rt.plan_cache.stats()
     torch.cuda.reset_peak_memory_stats()
     with no_plain_versions("train"):
@@ -3187,14 +3262,8 @@ def train_phase():
                 log(f"train: step {i + 1}: {st['ms']:.1f} ms, {st['tok_per_s']:.1f} tok/s, loss "
                     f"{st['loss']:.6f}, grad_norm {st['grad_norm']:.6f}, plan cache +{hits} hits / "
                     f"+{misses} misses, launches {launches}")
-                first = int(i == 0)  # the dense gate plan's transpose, built once per run
-                # LM-head plan 1 hit (2nd microbatch); gate lhs-T every gate but the
-                # run's first; LM-head lhs-T 1 (2nd microbatch)
-                want_hits = 1 + (L * mb - first) + 1
-                # LM-head plan 1 (replanned after the update), gate lhs-T (first step),
-                # w_down lhs-T (fresh emitted masks), LM-head lhs-T 1, cotangents
-                want_misses = 1 + first + L * mb + 1 + L * mb + mb
-                want_i = dict(want, **{"planner[transpose]": want["planner[transpose]"] + first})
+                want_i = train_path_launches(cfg, mb, first=i == 0)
+                want_hits, want_misses = train_plan_cache(cfg, mb, first=i == 0)
                 if launches != want_i:
                     raise AssertionError(f"train step {i + 1}: launches {launches} != path's {want_i}")
                 if (hits, misses) != (want_hits, want_misses):
@@ -3447,6 +3516,225 @@ def ssm_train_phase(arch: str, tag: str):
             "peak_mem_gb": peak, "launches_per_step": want, "loss_rel_vs_dense": loss_rel,
             "grad_norm_rel_vs_dense": norm_rel, "grad_rel_l2_vs_dense": rels, "prefill_ms": ms,
             "prefill_rel_l2": ref_l2}
+
+
+def frontend_train_batch(cfg, step: int, device="cuda", dtype=None) -> dict:
+    """Training batch ``step`` of a frontend config: TRAIN_BATCH x TRAIN_SEQ
+    embeddings (bf16; from a torch generator seeded with ``step`` on the
+    card, unseeded on ``meta``, where nothing is allocated), under M-RoPE
+    Qwen2-VL's rope index of the frontend prompt (:func:`vl_positions`: VL_TEXT
+    text, the 1 x VL_GRID image, VL_TEXT text, TRAIN_SEQ positions), and
+    labels from numpy seed ``step``: ``[B, S]``, ``[B, S, K]`` under the
+    audio frontend."""
+    import numpy as np
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    device = torch.device(device)
+    gen = None if device.type == "meta" else torch.Generator(device).manual_seed(step)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)
+    batch = {"inputs_embeds": torch.randn(shape, generator=gen, device=device).to(dtype)}
+    if cfg.mrope_sections is not None:
+        pos = vl_positions(TRAIN_BATCH)
+        if pos.shape[-1] != TRAIN_SEQ:
+            raise AssertionError(f"the frontend prompt has {pos.shape[-1]} positions, a train row {TRAIN_SEQ}")
+        batch["positions"] = torch.from_numpy(pos).to(device)
+    labels = (TRAIN_BATCH, TRAIN_SEQ) + ((cfg.num_codebooks,) if cfg.frontend == "audio" else ())
+    batch["labels"] = torch.from_numpy(
+        np.random.default_rng(step).integers(0, cfg.vocab_size, size=labels).astype(np.int32)).to(device)
+    return batch
+
+
+def frontend_train_phase(cfg, tag: str) -> dict:
+    """Train ``cfg`` (a frontend config) through ``make_train_step`` on the
+    ``cuda`` backend at the deepest cut :func:`train_cut` reckons to fit, on
+    :func:`frontend_train_batch`'s TRAIN_BATCH x TRAIN_SEQ embeddings in
+    TRAIN_MICRO microbatches (each microbatch its rows of ``positions``): step
+    1's loss and every gradient against the ``dense`` backend on the card
+    (LOSS_REL, GRAD_REL_L2; the worst leaf reported); TRAIN_STEPS timed steps
+    whose launches and plan-cache counts equal the path's
+    (:func:`train_path_launches`, :func:`train_plan_cache`: qwen2-vl-ReLU's
+    fused gate, emitted plan, planned ``w_down`` and head, their backward
+    products and plans; musicgen none), every loss finite, no plain version
+    run; ms a step, tokens/s and peak memory."""
+    import torch
+    from repro_torch import runtime as rtm
+    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.models import model as M
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as S
+
+    full = cfg
+    cfg, n = train_cut(full)
+    mb = TRAIN_MICRO
+    free()
+    t0 = time.perf_counter()
+    params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda")
+    opt_cfg = OptConfig(lr=1e-4, warmup_steps=1)
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+    with rt.use():
+        opt = S.init_train_state(cfg, params)
+        step = S.make_train_step(cfg, opt_cfg, microbatches=mb)
+    batches = [frontend_train_batch(cfg, i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    heads = f" x {cfg.num_codebooks} codebooks" if cfg.frontend == "audio" else ""
+    log(f"{tag}: {full.name}, activation {cfg.activation}, at {cfg.num_layers} of {full.num_layers} layers "
+        f"(d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}{heads}; "
+        f"{n / 1e9:.3f} B parameters in the tensors x {TRAIN_BYTES_PER_PARAM} B = "
+        f"{n * TRAIN_BYTES_PER_PARAM / 1e9:.1f} GB reckoned against {TRAIN_BUDGET_GB} GB), remat {cfg.remat}, "
+        f"bf16 params and fp32 AdamW moments on the card in {time.perf_counter() - t0:.1f} s; batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} {'M-RoPE image-prompt' if cfg.mrope_sections else 'frame'} embeddings in "
+        f"{mb} microbatches")
+
+    loss_fn = S.make_loss_fn(cfg)
+    got = {}
+    for backend in ("cuda", "dense"):
+        with rtm.Runtime(backend=backend, device="cuda").use():
+            loss, grads, _ = S.accumulate_grads(loss_fn, cfg, params, batches[0], microbatches=mb)
+        got[backend] = (float(loss), grads)
+    (lc, gc_), (ld, gd) = got["cuda"], got["dense"]
+    loss_rel = abs(lc - ld) / abs(ld)
+    names = [f"leaf{i}:{tuple(p.shape)}" for i, p in enumerate(tree_leaves(params))]
+    rels = {k: _rel_l2(a, b) for k, a, b in zip(names, gc_, gd)}
+    worst = max(rels, key=rels.get)
+    del got, gc_, gd, grads
+    free()
+    log(f"{tag}: step 1 on cuda vs dense: loss {lc:.6f} vs {ld:.6f} (relative {loss_rel:.3e}, bound "
+        f"{LOSS_REL:.3e}); gradients worst relative L2 {rels[worst]:.3e} at {worst} (bound {GRAD_REL_L2:.3e}), "
+        f"over {len(rels)} leaves")
+    if not (loss_rel <= LOSS_REL and rels[worst] <= GRAD_REL_L2):
+        raise AssertionError(f"{tag}: cuda disagrees with dense (loss {loss_rel}, grads {rels[worst]})")
+
+    steps, prev = [], rt.plan_cache.stats()
+    torch.cuda.reset_peak_memory_stats()
+    with no_plain_versions(tag), rt.use():
+        for i, batch in enumerate(batches):
+            T.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, pc = T.launch_counts(), rt.plan_cache.stats()
+            hits, misses = pc["hits"] - prev["hits"], pc["misses"] - prev["misses"]
+            prev = pc
+            steps.append({"step": i + 1, "ms": wall * 1e3, "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+                          "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "launches": launches,
+                          "plan_cache_hits": hits, "plan_cache_misses": misses})
+            log(f"{tag}: step {i + 1}: {wall * 1e3:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / wall:.1f} tok/s, loss "
+                f"{float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}, plan cache +{hits} hits / "
+                f"+{misses} misses, launches {by_wrapper(launches)}")
+            want = train_path_launches(cfg, mb, first=i == 0)
+            if launches != want:
+                raise AssertionError(f"{tag} step {i + 1}: launches {launches} != path's {want}")
+            if (hits, misses) != train_plan_cache(cfg, mb, first=i == 0):
+                raise AssertionError(f"{tag} step {i + 1}: plan cache +{hits}/+{misses}, path implies "
+                                     f"{train_plan_cache(cfg, mb, first=i == 0)}")
+            if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+                raise AssertionError(f"{tag} step {i + 1}: non-finite loss or gradient norm")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = by_wrapper(train_path_launches(cfg, mb))
+    log(f"{tag}: {TRAIN_STEPS} steps, launches per step {per_step or 'none'} == path's (+1 transpose on step 1 "
+        f"where planned); no plain version ran; every loss finite; peak memory {peak:.2f} GB "
+        f"({peak / (n * 1e-9):.1f} B a parameter)")
+    del params, opt, step, m, batches
+    free()
+    return {"layers": cfg.num_layers, "of_layers": full.num_layers, "params_b": n / 1e9, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "microbatches": mb, "remat": cfg.remat, "steps": steps, "peak_mem_gb": peak,
+            "launches_per_step": steps[-1]["launches"], "loss_rel_vs_dense": loss_rel,
+            "grad_rel_l2_vs_dense": rels, "worst_leaf": worst}
+
+
+# ---------------------------------------------------------------------------
+# the examples: the port's entry points for users
+# ---------------------------------------------------------------------------
+
+#: planned products, plans, cycle-model tiles, codec schedules
+_SPMM, _PLAN, _TILE, _SCHED = "tensordash_matmul_planned", "planner[values]", "td_tile_kernel", "td_schedule_kernel"
+
+
+def example_runs(ckpt_dir: str) -> list:
+    """``(tag, example, argv, kernels its path must launch)``: each of the
+    port's examples at its documented command on the card, ``train_lm``
+    twice into ``ckpt_dir`` (the second run resumes at the last step)."""
+    lm = ["--preset", "100m", "--steps", "300", "--relu-ffn", "--ckpt-dir", ckpt_dir]
+    serve = ["--arch", "qwen3-4b", "--backend", "cuda"]
+    return [("quickstart", "quickstart", [], (_TILE, _SCHED, _SPMM, _PLAN)),
+            ("serve_batched greedy", "serve_batched", [*serve, "--temperature", "0"], (_SPMM, _PLAN)),
+            ("serve_batched sampled", "serve_batched", serve, (_SPMM, _PLAN)),
+            ("train_lm", "train_lm", lm, ("tensordash_matmul_fused", _SPMM, _PLAN, "planner[emitted]",
+                                          "planner[transpose]", _TILE)),
+            ("train_lm resume", "train_lm", lm, (_TILE,)),
+            ("train_pruned", "train_pruned", [], (_SPMM, _PLAN, _TILE, _SCHED)),
+            ("train_cnn_sparsity", "train_cnn_sparsity", [], (_TILE,))]
+
+
+def example_losses(name: str, res: dict) -> list:
+    """The training losses an example's ``main`` returned."""
+    if name == "train_lm":
+        return [h["loss"] for h in res["history"]]
+    if name == "train_pruned":
+        return [r["loss"] for r in res["rows"]]
+    if name == "train_cnn_sparsity":
+        return [e["loss"] for e in res["epochs"]]
+    return []
+
+
+def examples_phase() -> dict:
+    """Each of the port's examples (``repro_torch.examples``) through its
+    ``main`` in this process on the card, at its documented command
+    (:func:`example_runs`), its wrapper launches counted from 0: each run
+    returns, launches every kernel its path reaches (the SpMM and planner
+    kernels for the serve runs and the train steps, the tile kernel for the
+    cycle-model projections, the schedule kernel for the codec) and runs no
+    plain version; every training loss is finite; the greedy serve captures
+    its decode chunk once, every request emits its budget; the second
+    ``train_lm`` run resumes at step 300.  Prints each run's table and wall
+    seconds."""
+    import math
+
+    import torch
+    from repro_torch.examples import quickstart, serve_batched, train_cnn_sparsity, train_lm, train_pruned
+    from repro_torch.kernels import schedule as S, tensordash_spmm as T
+
+    mods = {m.__name__.rsplit(".", 1)[-1]: m
+            for m in (quickstart, serve_batched, train_lm, train_pruned, train_cnn_sparsity)}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, name, argv, needs in example_runs(str(Path(tmp) / "train_lm")):
+            free()
+            T.reset_launch_counts()
+            S.reset_launch_counts()
+            log(f"examples: {tag}: python -m repro_torch.examples.{name} {' '.join(argv)}")
+            with no_plain_versions(f"examples {tag}"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = mods[name].main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = {k: v for k, v in {**T.launch_counts(), **S.LAUNCHES}.items() if v}
+            idle = [k for k in needs if not launches.get(k)]
+            if idle:
+                raise AssertionError(f"examples {tag}: its path never launched {idle} (launches {launches})")
+            losses = example_losses(name, res)
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"examples {tag}: non-finite losses {losses}")
+            if name == "serve_batched":
+                st = res["stats"]
+                if {rid: len(t) for rid, t in res["tokens"].items()} != res["budgets"]:
+                    raise AssertionError(f"examples {tag}: a request did not emit its budget")
+                if st["decode_graph_captures"] != int(tag.endswith("greedy")):  # sampled runs eagerly
+                    raise AssertionError(f"examples {tag}: {st['decode_graph_captures']} decode graph captures")
+            if tag == "train_lm resume" and (res["resumed_from"] != 300 or res["history"]):
+                raise AssertionError(f"examples {tag}: resumed from {res['resumed_from']}, "
+                                     f"{len(res['history'])} steps run")
+            out[tag] = {"seconds": wall, "launches": launches, "losses": losses[-3:]}
+            log(f"examples: {tag}: {wall:.1f} s; kernel launches {launches}; no plain version ran"
+                + (f"; {len(losses)} finite losses, last {losses[-1]:.4f}" if losses else ""))
+    free()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5954,64 +6242,53 @@ def split_check(codec_run: dict, bw: float, clock_hz: float) -> dict:
 
 
 def quickstart_check() -> dict:
-    """(c): ``examples/quickstart.py``'s five steps through the port, on the card."""
+    """(c): the port's quickstart example, ``repro_torch.examples.quickstart``,
+    its ``main`` on the card, held to its run on the host (``--device cpu``,
+    the plain versions: the same cycles, codec rows and projection) and its
+    schedules to the plain loop."""
+    import io
+
     import numpy as np
     import torch
-    from repro_torch import runtime as rtm
-    from repro_torch.core import ConvLayer, compress, decompress, simulate_conv, simulate_macs, simulate_stream
+    from repro_torch.examples import quickstart as Q
     from repro_torch.kernels import schedule as S
 
-    rng = np.random.default_rng(0)
-    z = rng.random((128, 16)) >= 0.66
-    r = simulate_stream(z)  # on the card: one tile launch
-    if int(r.cycles) != int(simulate_stream(z, device="cpu").cycles):
+    out = Q.main([])  # on the card: the tile, schedule, SpMM and planner kernels
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = Q.main(["--device", "cpu"])
+    r, a, b, x, enc, res = out["stream"], out["a"], out["b"], out["x"], out["enc"], out["conv"]
+    if int(r.cycles) != int(host["stream"].cycles):
         raise AssertionError("quickstart simulate_stream: the card's cycles differ from the host's")
-    a = (rng.standard_normal((64, 16)) * (rng.random((64, 16)) > 0.5)).astype(np.float32)
-    b = (rng.standard_normal((64, 16)) * (rng.random((64, 16)) > 0.5)).astype(np.float32)
-    acc, cycles = simulate_macs(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
-    mac_err = abs(float(acc) - float(np.sum(a.astype(np.float64) * b)))
+    mac_err = abs(float(out["acc"]) - float(np.sum(a.astype(np.float64) * b)))
     # both schedules against the plain loop on the same bits (host: no launch)
     none = torch.zeros(0)
     want = S.schedule_streams_ref(torch.from_numpy((a != 0) & (b != 0))[None])
-    sched_err = {"simulate_macs": schedule_err((none, none, cycles.reshape(1)), (none, none, want[2]),
+    sched_err = {"simulate_macs": schedule_err((none, none, out["mac_cycles"].reshape(1)), (none, none, want[2]),
                                                "quickstart simulate_macs")}
-    x = (rng.standard_normal((96, 16)) * (rng.random((96, 16)) > 0.7)).astype(np.float32)
-    enc = compress(torch.from_numpy(x).cuda())
     sched_err["compress"] = schedule_err((enc.sel[None], enc.advance[None], enc.n_cycles.reshape(1)),
                                          S.schedule_streams_ref(torch.from_numpy(x != 0)[None]), "quickstart compress")
-    dec = decompress(enc, t=96)
-    exact = bool(torch.equal(dec.cpu(), torch.from_numpy(x)))
-    conv = dict(sparsity=0.66, sample_groups=1, max_t=96)
-    res = simulate_conv(ConvLayer("resnet_conv", 256, 3, 3, 128, 28, 28), **conv)
-    host = simulate_conv(ConvLayer("resnet_conv", 256, 3, 3, 128, 28, 28), device="cpu", **conv)
-    if (res.td_cycles, res.dense_cycles) != (host.td_cycles, host.dense_cycles):
-        raise AssertionError(f"quickstart simulate_conv: the card's {res} differs from the host's {host}")
-    rt = rtm.Runtime(backend="cuda", bm=16, bk=32, bn=16)
-    am = (rng.standard_normal((64, 128)).astype(np.float32)
-          * (rng.random((4, 4)) < 0.5).repeat(16, 0).repeat(32, 1))
-    bm_ = rng.standard_normal((128, 64)).astype(np.float32)
-    at, bt = torch.from_numpy(am).cuda(), torch.from_numpy(bm_).cuda()
-    plan = rt.plan(at, key="demo")
-    y = rt.matmul(at, bt, plan=plan)
-    rt_err = float((y.cpu().double() - torch.from_numpy(am).double() @ torch.from_numpy(bm_).double()).abs().max())
-    with rt.use():
-        ambient = rtm.resolve().backend
-    out = {"pe_dense": int(r.dense), "pe_cycles": int(r.cycles), "mac_err": mac_err, "mac_cycles": int(cycles),
-           "codec_rows": int(enc.n_cycles), "codec_exact": exact, "conv_speedup": res.speedup,
-           "plan_skipped": plan.skipped_fraction(), "runtime_err": rt_err, "ambient": ambient,
-           "plan_cache": rt.plan_cache.stats(), "schedule_err": sched_err}
-    if not (out["pe_cycles"] < out["pe_dense"] and mac_err <= 1e-5 * float(np.abs(a * b).sum())
-            and out["mac_cycles"] <= 64 and exact and res.speedup > 1 and rt_err <= 2e-4 * (1 + float(np.abs(am).max()))
-            and ambient == "cuda"):
-        raise AssertionError(f"quickstart through the port: {out}")
-    log(f"core (c): quickstart on the card: PE {out['pe_dense']} dense -> {out['pe_cycles']} TensorDash cycles "
-        f"({out['pe_dense'] / out['pe_cycles']:.2f}x at 66% sparsity, == the host's); MAC |acc - ref| = {mac_err:.2e} in "
-        f"{out['mac_cycles']}/64 cycles (the plain loop's); codec 96 rows -> {out['codec_rows']} scheduled rows "
-        f"(sel, advance, n_cycles == the plain loop's), exact {exact}; conv projection {res.speedup:.2f}x "
-        f"(== the host's); "
-        f"runtime[cuda] plan skips {out['plan_skipped']:.0%}, "
-        f"|err| {rt_err:.1e}; ambient runtime -> {ambient}, plan cache {out['plan_cache']}")
-    return out
+    host_conv = host["conv"]
+    if (res.td_cycles, res.dense_cycles) != (host_conv.td_cycles, host_conv.dense_cycles):
+        raise AssertionError(f"quickstart simulate_conv: the card's {res} differs from the host's {host_conv}")
+    am = out["operands"][0]
+    plan = out["plan"]
+    got = {"pe_dense": int(r.dense), "pe_cycles": int(r.cycles), "mac_err": mac_err,
+           "mac_cycles": int(out["mac_cycles"]), "codec_rows": int(enc.n_cycles), "codec_exact": out["exact"],
+           "conv_speedup": res.speedup, "plan_skipped": plan.skipped_fraction(), "runtime_err": out["runtime_err"],
+           "ambient": out["ambient"], "plan_cache": out["plan_cache"], "schedule_err": sched_err}
+    if not (got["pe_cycles"] < got["pe_dense"] and mac_err <= 1e-5 * float(np.abs(a * b).sum())
+            and got["mac_cycles"] <= 64 and got["codec_exact"] and res.speedup > 1
+            and got["runtime_err"] <= 2e-4 * (1 + float(np.abs(am).max())) and got["ambient"] == "cuda"
+            and (got["codec_rows"], got["plan_skipped"]) == (int(host["enc"].n_cycles),
+                                                             host["plan"].skipped_fraction())):
+        raise AssertionError(f"quickstart through the port: {got}")
+    log(f"core (c): the quickstart example on the card: PE {got['pe_dense']} dense -> {got['pe_cycles']} TensorDash "
+        f"cycles ({got['pe_dense'] / got['pe_cycles']:.2f}x at 66% sparsity, == the host's); MAC |acc - ref| = "
+        f"{mac_err:.2e} in {got['mac_cycles']}/64 cycles (the plain loop's); codec 96 rows -> {got['codec_rows']} "
+        f"scheduled rows (sel, advance, n_cycles == the plain loop's), exact {got['codec_exact']}; conv projection "
+        f"{res.speedup:.2f}x (== the host's); runtime[cuda] plan skips {got['plan_skipped']:.0%}, "
+        f"|err| {got['runtime_err']:.1e}; ambient runtime -> {got['ambient']}, plan cache {got['plan_cache']}")
+    return got
 
 
 def ops_check() -> dict:
@@ -6325,6 +6602,14 @@ def _phases(t_start, card, name, bw, dry) -> int:
     ssm_train = ssm_train_phase(SSM_ARCH, "ssm train")
     log(f"hybrid train: {HYBRID_ARCH} through make_train_step on cuda, {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
     hybrid_train = ssm_train_phase(HYBRID_ARCH, "hybrid train")
+    log(f"qwen2-vl train: {VL_ARCH} relu at full width through make_train_step on cuda, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} M-RoPE embedding positions")
+    vl_train = frontend_train_phase(dataclasses.replace(get_config(VL_ARCH), activation="relu"), "qwen2-vl train")
+    log(f"musicgen train: {MG_ARCH} as registered through make_train_step on cuda, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        "frame embeddings")
+    mg_train = frontend_train_phase(get_config(MG_ARCH), "musicgen train")
+    log("examples: the port's five examples through their main on the card")
+    examples = examples_phase()
     log(f"launch: repro_torch.launch.train.main on qwen3-4b cut to {LAUNCH_LAYERS} layers: checkpoint, "
         "resume, dynamic sparse training")
     launch = launch_train_phase()
@@ -6378,8 +6663,11 @@ def _phases(t_start, card, name, bw, dry) -> int:
     pinned = grouped(auto["pinned_v2"]["launches"])
     for fam in ("tensordash_matmul_planned[v2/v1]", "tensordash_matmul_fused[v2/v1]"):
         serve_runs[fam] = pinned[fam]  # the v2/v1 kernels serve under the v2-pinned DB
-    train_runs = grouped({k: sum(st["launches"][k] for run in (train, ssm_train, hybrid_train) for st in run["steps"])
-                          for k in train["launches_per_step"]})
+    train_runs = grouped({k: sum(st["launches"][k] for run in (train, ssm_train, hybrid_train, vl_train, mg_train)
+                                 for st in run["steps"]) for k in train["launches_per_step"]})
+    example_counts = {k: sum(r["launches"].get(k, 0) for r in examples.values())
+                      for k in (*train["launches_per_step"], "td_schedule_kernel", "td_tile_kernel")}
+    example_runs_ = grouped(example_counts)
     per_train_step = grouped(train["launches_per_step"])
     launch_runs = grouped({k: launch["a"]["launches"][k] + launch["c"]["launches"][k]
                            for k in launch["a"]["launches"]})
@@ -6399,7 +6687,8 @@ def _phases(t_start, card, name, bw, dry) -> int:
             "name": kname, "route": "cuda", "source": SOURCE if kname in SPMM else PLANNER_SOURCE,
             "replaces": REPLACES[kname],
             "launches": (serve_runs[kname] + train_runs[kname] + launch_runs[kname] + sharded_runs[kname]
-                         + core_runs[kname] + smodel_runs[kname] + sfamily_runs[kname] + sdst_runs[kname]),
+                         + core_runs[kname] + smodel_runs[kname] + sfamily_runs[kname] + sdst_runs[kname]
+                         + example_runs_[kname]),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shape": head["shape"],
@@ -6410,6 +6699,9 @@ def _phases(t_start, card, name, bw, dry) -> int:
             "launches_per_train_step": per_train_step[kname],
             "launches_per_ssm_train_step": grouped(ssm_train["launches_per_step"])[kname],
             "launches_per_hybrid_train_step": grouped(hybrid_train["launches_per_step"])[kname],
+            "launches_per_qwen2vl_train_step": grouped(vl_train["launches_per_step"])[kname],
+            "launches_per_musicgen_train_step": grouped(mg_train["launches_per_step"])[kname],
+            "launches_examples": example_runs_[kname],
             "launches_launch_train": launch_runs[kname],
             "launches_per_launch_step": {tag: w[kname] for tag, w in per_launch_step.items()},
             "launches_sharded_local_steps": sharded_runs[kname],
@@ -6421,7 +6713,9 @@ def _phases(t_start, card, name, bw, dry) -> int:
     head = next(r for r in core["rows"] if r["main_path"])
     kernels.append({
         "name": "td_schedule_kernel", "route": "cuda", "source": SCHEDULE_SOURCE, "replaces": SCHEDULE_REPLACES,
-        "launches": core["launches"]["td_schedule_kernel"], "max_abs_err": max(r["max_abs_err"] for r in core["rows"]),
+        "launches": core["launches"]["td_schedule_kernel"] + example_counts["td_schedule_kernel"],
+        "launches_examples": example_counts["td_schedule_kernel"],
+        "max_abs_err": max(r["max_abs_err"] for r in core["rows"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "shape": head["shape"], "launches_core": core["launches"]["td_schedule_kernel"],
         "ms_64_streams": head["ms_64_streams_half_dense"], "w_down_ms": core["codec"]["kernel_ms"],
@@ -6434,7 +6728,9 @@ def _phases(t_start, card, name, bw, dry) -> int:
     head = next(r for r in core["tile_rows"] if r["main_path"])
     kernels.append({
         "name": "td_tile_kernel", "route": "cuda", "source": SCHEDULE_SOURCE, "replaces": TILE_REPLACES,
-        "launches": core["launches"]["td_tile_kernel"], "max_abs_err": max(r["max_abs_err"] for r in core["tile_rows"]),
+        "launches": core["launches"]["td_tile_kernel"] + example_counts["td_tile_kernel"],
+        "launches_examples": example_counts["td_tile_kernel"],
+        "max_abs_err": max(r["max_abs_err"] for r in core["tile_rows"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "shape": head["shape"], "launches_core": core["launches"]["td_tile_kernel"],
         "chain_bound_ms": head["chain_bound_ms"], "model_speedup_s": core["cycle_model"]["card_s"],
@@ -6457,7 +6753,8 @@ def _phases(t_start, card, name, bw, dry) -> int:
          "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2, "ssm_serve": ssm,
          "hybrid_serve": hybrid, "starcoder2_serve": starcoder, "gemma2_serve": gemma, "kv_int8_serve": kv8,
          "qwen2vl_run": vl, "musicgen_run": mg,
-         "ssm_train": ssm_train, "hybrid_train": hybrid_train, "sharded": sharded, "sharded_model": smodel,
+         "ssm_train": ssm_train, "hybrid_train": hybrid_train, "qwen2vl_train": vl_train, "musicgen_train": mg_train,
+         "examples": examples, "sharded": sharded, "sharded_model": smodel,
          "sharded_family": sfamily, "sharded_dst": sdst,
          "core": core, "dry_run": dry_run,
          "seconds": time.perf_counter() - t_start}, indent=1, default=str))

@@ -178,10 +178,13 @@ def dense_plan(mb: int, kb: int, device="cpu"):
     """The trivial all-effectual plan ``nnz = Kb``, ``idx = arange``, as
     int32 tensors on ``device``.  Memoized per ``(mb, kb, device)`` so a
     known-dense operand (the FFN gate's input) costs no host-to-device copy
-    per call; the tensors are shared, so callers never edit them."""
+    per call; the tensors are shared, so callers never edit them.  They are
+    made outside inference mode whoever asks first: a serve call's plan is
+    then saved for a later training step's backward."""
     dev = torch.device(device)
-    nnz = torch.full((mb,), kb, dtype=_I32, device=dev)
-    idx = torch.arange(kb, dtype=_I32, device=dev).expand(mb, kb).contiguous()
+    with torch.inference_mode(False):
+        nnz = torch.full((mb,), kb, dtype=_I32, device=dev)
+        idx = torch.arange(kb, dtype=_I32, device=dev).expand(mb, kb).contiguous()
     return nnz, idx
 
 
@@ -189,12 +192,13 @@ def dense_plan(mb: int, kb: int, device="cpu"):
 def dense_plan_csr(mb: int, kb: int, device="cpu"):
     """:func:`dense_plan` plus its closed-form work queue (``row_starts =
     m * Kb``, every ``(m, k)`` pair in row-major order), memoized per
-    ``(mb, kb, device)``."""
+    ``(mb, kb, device)``, made outside inference mode as it is."""
     dev = torch.device(device)
     nnz, idx = dense_plan(mb, kb, dev)
-    row_starts = torch.arange(mb + 1, dtype=_I32, device=dev) * kb
-    work_row = torch.arange(mb, dtype=_I32, device=dev).repeat_interleave(kb)
-    work_kblk = idx.reshape(-1).clone()
+    with torch.inference_mode(False):
+        row_starts = torch.arange(mb + 1, dtype=_I32, device=dev) * kb
+        work_row = torch.arange(mb, dtype=_I32, device=dev).repeat_interleave(kb)
+        work_kblk = idx.reshape(-1).clone()
     return nnz, idx, row_starts, work_row, work_kblk
 
 

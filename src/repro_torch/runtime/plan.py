@@ -447,11 +447,16 @@ class PlanCache:
         return plan
 
     def get_or_build(self, key, a, bm: int, bk: int, *, side: str = "A") -> SparsityPlan:
+        """The cached plan of ``a`` under ``key``, built and stored on a
+        miss.  A plan is built outside inference mode, so a plan a serve
+        call cached can be saved for a later training step's backward."""
         plan = self.lookup(key, a, bm, bk, side)
         if plan is not None:
             return plan
         operand = a.T if side == "B" else a
-        return self.store(key, a, plan_operand(operand, bm, bk, side=side))
+        with torch.inference_mode(False):
+            plan = plan_operand(operand, bm, bk, side=side)
+        return self.store(key, a, plan)
 
     def stats(self) -> dict:
         return {"entries": len(self._entries), "hits": self.hits, "misses": self.misses}
