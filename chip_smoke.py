@@ -33,6 +33,14 @@ from the root of a checkout, on a machine with one H100.
    multiple of 128);
    then counts, with the profiler, the CUDA launches of a few calls of each
    wrapper: exactly one per call;
+   then the sampler (``sampler_phase``): ``td_sample_kernel``, JAX's
+   per-slot key split and Gumbel-max draw, bit-equal (tokens and keys) to
+   its plain version on the card at 4 slots x vocab 102400, 151936, 152064
+   and 256000, temperatures 0.8 and 1.0, the decode step's and the
+   admission's scaling, plain rows and rows with two NaNs, a tie and a
+   skipped slot; each vocabulary timed against the plain version and
+   ``torch.multinomial`` on the rows' softmax (another stream), with its
+   bound; one device launch a call;
    then the core phase: the schedule kernel (``td_schedule_kernel``)
    bit-equal to its plain loop (``sel``, ``advance``, ``n_cycles``) on 64
    seeded streams of 4096 rows at each of six densities, one- and
@@ -81,7 +89,14 @@ from the root of a checkout, on a machine with one H100.
    request's tokens equal the clean graph run's, one ``retire-slot`` event,
    no recapture; prints ms per decode step and tokens/s of both runs;
 4. compares the same prompts' prefill logits with the ``reference``
-   backend on the card;
+   backend on the card; then serves the same requests at temperature 0.8
+   (``sampled_serve_phase``, JAX's per-request key streams): eagerly, one
+   sampler launch a model call beside the path's launches and no host sync
+   in a chunk; again with the plain sampler in the kernel's place (the same
+   tokens); through the decode graph (the eager run's tokens, one capture,
+   the sampler replayed once a decode step, no host sync in a replay); with
+   ``nan_logits@1:slot=0`` through the graph (healthy requests' tokens
+   equal the clean run's); ms per decode step against the greedy runs';
 5. holds the v2/v1 grid kernels, planned and fused, bit-equal to the
    ragged kernels at the same geometry and within tolerance of the plain
    versions at the decode shapes and small block-sparse shapes, and
@@ -299,7 +314,8 @@ from the root of a checkout, on a machine with one H100.
    for the planner kernel in every mode and ``planner[values]``,
    ``planner[emitted]``, ``planner[transpose]`` for each mode;
    ``td_schedule_kernel`` and ``td_tile_kernel``, their launches the core and
-   examples phases'; each with its
+   examples phases'; ``td_sample_kernel``, its launches the sampled serve
+   runs' and the sampled example's, per decode step too; each with its
    launches over the serve runs (eager, graph, fault replays, the serve
    launcher, the MoE, MLA, SSM, hybrid, starcoder2, gemma2 and int8-cache
    runs and the qwen2-vl and musicgen runs; a captured launch counted once
@@ -534,18 +550,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 #: the plain versions no main-path run may call on the card: the SpMM
-#: executors and the planner's torch chains
+#: executors and the planner's torch chains (in ``kernels/ref.py``) and the
+#: sampler's (in ``kernels/sample.py``)
 PLAIN = ("tensordash_matmul_ref", "tensordash_matmul_fused_ref", "plan_blocks_csr_ref",
          "plan_from_mask_csr_ref", "transpose_plan_csr_ref", "workqueue_ref", "block_any_nonzero")
+PLAIN_SAMPLER = "sample_tokens_ref"
 
 
 @contextlib.contextmanager
 def no_plain_versions(what: str, allow: tuple = ()):
     """Fail ``what`` if it calls any of :data:`PLAIN` not named in
     ``allow``."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, sample
 
-    calls, orig = [], {name: getattr(ref, name) for name in PLAIN if name not in allow}
+    mods = {**dict.fromkeys(PLAIN, ref), PLAIN_SAMPLER: sample}
+    calls, orig = [], {name: getattr(mods[name], name) for name in mods if name not in allow}
 
     def guard(name, fn):
         def wrapped(*args, **kw):
@@ -554,12 +573,12 @@ def no_plain_versions(what: str, allow: tuple = ()):
         return wrapped
 
     for name, fn in orig.items():
-        setattr(ref, name, guard(name, fn))
+        setattr(mods[name], name, guard(name, fn))
     try:
         yield
     finally:
         for name, fn in orig.items():
-            setattr(ref, name, fn)
+            setattr(mods[name], name, fn)
     if calls:
         raise AssertionError(f"{what} ran plain versions: {sorted(set(calls))}")
 
@@ -1021,15 +1040,14 @@ def graph_launch_log():
     """Record, for every decode-graph capture in this extent, the graph and
     the wrapper launches its capture made.  The wrappers count a captured
     launch once, at capture; the card runs it at every replay."""
-    from repro_torch.kernels import tensordash_spmm as T
     from repro_torch.serve import engine as E
 
     orig, seen = E._DecodeGraph.capture, []
 
     def capture(self, chunk, head):
-        before = T.launch_counts()
+        before = serve_launch_counts()
         orig(self, chunk, head)
-        after = T.launch_counts()
+        after = serve_launch_counts()
         seen.append((self, {k: after[k] - before[k] for k in after}))
 
     E._DecodeGraph.capture = capture
@@ -1039,12 +1057,22 @@ def graph_launch_log():
         E._DecodeGraph.capture = orig
 
 
+def serve_launch_counts() -> dict:
+    """The wrapper launch counts of a serve run: the SpMM and planner
+    wrappers' and the sampler's."""
+    from repro_torch.kernels import sample, tensordash_spmm as T
+
+    return {**T.launch_counts(), **sample.LAUNCHES}
+
+
 def wrapper_of(kernel: str) -> str | None:
     """The wrapper a profiled kernel name belongs to (``planner`` for every
-    planner mode; the v2 and v1 grids together), or None for a kernel of
-    PyTorch or cuBLAS."""
+    planner mode; the v2 and v1 grids together; the sampler by its kernel's
+    name), or None for a kernel of PyTorch or cuBLAS."""
     if "td_plan_kernel" in kernel:
         return "planner"
+    if "td_sample_kernel" in kernel:
+        return "td_sample_kernel"
     if "td_spmm_kernel<" not in kernel:
         return None
     _, fused, grid = (a.strip() for a in kernel.split("<", 1)[1].split(",")[:3])
@@ -1072,11 +1100,12 @@ def device_launches_of(counted: dict, seen: list) -> dict:
 
 
 def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, profile_replay=False,
-                max_len=MAX_LEN):
+                max_len=MAX_LEN, temperature=0.0, allow=()):
     """Serve ``prompts`` through a fresh ``ServeEngine`` of ``max_len`` cache
-    rows a slot on ``rt`` (with a fresh plan cache), the decode chunk eagerly
-    or (``cuda_graph=True``) as one CUDA graph, under ``fault_plan``.
-    Returns the greedy tokens, the decode caches' bytes and leaf dtypes, the
+    rows a slot on ``rt`` (with a fresh plan cache) at ``temperature`` (seed
+    0), the decode chunk eagerly or (``cuda_graph=True``) as one CUDA graph,
+    under ``fault_plan``.
+    Returns the tokens, the decode caches' bytes and leaf dtypes, the
     wrapper launch counts of
     the run (set to 0 just before it; a capture counted once), the device
     launches (a capture's times its replays), the launches of the capture,
@@ -1086,9 +1115,9 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
     and the resilience log.  With ``profile_replay`` the profiler then
     counts the device launches of one more replay of the engine's graph
     (``replay_kernels``; the engine is still alive, so are the buffers the
-    graph reads).  Fails if a plain executor ran."""
+    graph reads).  Fails if a plain version not in ``allow`` ran."""
     import torch
-    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.kernels import sample, tensordash_spmm as T
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.resilience import ResilienceLog
     from repro_torch.runtime import PlanCache
@@ -1096,7 +1125,7 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
 
     rlog = ResilienceLog()
     rt = rt.replace(plan_cache=PlanCache())  # each run builds its LM-head plan once
-    eng = ServeEngine(params, cfg, slots=SLOTS, chunk=CHUNK, max_len=max_len, rt=rt,
+    eng = ServeEngine(params, cfg, slots=SLOTS, chunk=CHUNK, max_len=max_len, rt=rt, temperature=temperature,
                       cuda_graph=cuda_graph, fault_plan=fault_plan, log=rlog)
     cache_leaves = tree_leaves(eng.caches)
     kinds = ("eager", "warm-up", "capture", "replay")
@@ -1129,10 +1158,11 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
 
     eng._admit_group, eng._decode = counted_admit, timed_decode
     torch.cuda.reset_peak_memory_stats()
-    with no_plain_versions("serve"), graph_launch_log() as captures:
+    with no_plain_versions("serve", allow), graph_launch_log() as captures:
         for p in prompts:
             eng.submit(p, max_new=NEW_TOKENS)
         T.reset_launch_counts()
+        sample.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as seen:
@@ -1144,7 +1174,7 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = T.launch_counts()
+        launches = serve_launch_counts()
     if len(captures) > 1:
         raise AssertionError(f"serve: {len(captures)} decode-graph captures in one engine")
     replay = dict(device_launches(eng._graph.graph.replay, reps=1)) if profile_replay else None
@@ -1158,9 +1188,10 @@ def drive_serve(params, cfg, prompts, rt, *, cuda_graph=False, fault_plan=None, 
             "requests": eng._requests, "log": rlog, "plans": eng.rt.plan_cache.plan_stats()}
 
 
-def path_launches(cfg, calls: int, head_plans: int = 0) -> dict:
+def path_launches(cfg, calls: int, head_plans: int = 0, sampled: bool = False) -> dict:
     """The serving path's wrapper launches over ``calls`` model calls and
-    ``head_plans`` LM-head plans.  Each call: per dense block with a ReLU
+    ``head_plans`` LM-head plans (``sampled``: one sampler launch a call,
+    each prefill group's first tokens and each decode step's).  Each call: per dense block with a ReLU
     gate a fused gate, a planned ``w_down`` and its emitted-mask plan
     (deepseek-7b: 30 each); per MoE block one planned ``w_down`` and one
     plan by value per expert (qwen3-moe: 128 each); the planned LM head (its
@@ -1173,13 +1204,16 @@ def path_launches(cfg, calls: int, head_plans: int = 0) -> dict:
     dense = cfg.num_layers - n_moe if fused else 0
     experts = n_moe * cfg.num_experts
     head = int(cfg.frontend != "audio")
-    return {"tensordash_matmul_fused": dense * calls,
-            "tensordash_matmul_planned": (dense + experts + head) * calls,
-            "planner[emitted]": dense * calls,
-            "planner[values]": experts * calls + head_plans * head}
+    out = {"tensordash_matmul_fused": dense * calls,
+           "tensordash_matmul_planned": (dense + experts + head) * calls,
+           "planner[emitted]": dense * calls,
+           "planner[values]": experts * calls + head_plans * head}
+    if sampled:
+        out["td_sample_kernel"] = calls
+    return out
 
 
-def check_eager_run(tag: str, cfg, run) -> int:
+def check_eager_run(tag: str, cfg, run, sampled: bool = False) -> int:
     """The checks every eager serve run passes: the wrapper launches equal
     the path's over the run's model calls (prefill groups and decode steps;
     the LM head's plan built once), every request got its tokens, each in
@@ -1188,7 +1222,7 @@ def check_eager_run(tag: str, cfg, run) -> int:
     out, launches, st = run["out"], run["launches"], run["stats"]
     calls = len(run["groups"]) + st["steps_run"]
     want = dict.fromkeys(launches, 0)
-    want.update(path_launches(cfg, calls, head_plans=1))
+    want.update(path_launches(cfg, calls, head_plans=1, sampled=sampled))
     if launches != want:
         raise AssertionError(f"{tag}: kernel launches {launches} != path's {want}")
     if sorted(len(v) for v in out.values()) != [NEW_TOKENS] * REQUESTS:
@@ -1260,22 +1294,27 @@ def first_difference(got: dict, want: dict):
     return None
 
 
-def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph", max_len: int = MAX_LEN):
+def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph", max_len: int = MAX_LEN,
+                      temperature: float = 0.0):
     """The serve phase's requests with the decode chunk as one CUDA graph:
-    the eager run's greedy tokens exactly; one capture over a run with
-    backfill; the capture's launches are one chunk's; a replay per chunk
-    after the warm-up; no host sync inside a replayed chunk."""
+    the eager run's tokens exactly (greedy, or sampled at ``temperature``);
+    one capture over a run with backfill; the capture's launches are one
+    chunk's; a replay per chunk after the warm-up; no host sync inside a
+    replayed chunk."""
     import torch
 
-    run = drive_serve(params, cfg, prompts, rt, cuda_graph=True, profile_replay=True, max_len=max_len)
+    sampled = temperature > 0.0
+    key = "sampled_tokens" if sampled else "greedy_tokens"
+    run = drive_serve(params, cfg, prompts, rt, cuda_graph=True, profile_replay=True, max_len=max_len,
+                      temperature=temperature)
     out, st, groups = run["out"], run["stats"], run["groups"]
-    diff = first_difference(out, eager["greedy_tokens"])
+    diff = first_difference(out, eager[key])
     if diff is not None:
         rid, i = diff
-        raise AssertionError(f"{tag}: greedy tokens differ from the eager run's, first at request "
+        raise AssertionError(f"{tag}: tokens differ from the eager run's, first at request "
                              f"{rid} token {i} ({'prefill' if i == 0 else f'decode step {i - 1}'})")
     zero = dict.fromkeys(run["launches"], 0)
-    want_capture = dict(zero, **path_launches(cfg, CHUNK))
+    want_capture = dict(zero, **path_launches(cfg, CHUNK, sampled=sampled))
     if st["decode_graph_captures"] != 1 or run["capture_launches"] != want_capture:
         raise AssertionError(f"{tag}: {st['decode_graph_captures']} captures, capture launches "
                              f"{run['capture_launches']} != one chunk's {want_capture}")
@@ -1294,7 +1333,7 @@ def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph",
                              f"chunks, {run['chunks']['warm-up']} warm-up chunks")
     # the wrappers count the prefills, the warm-up chunk and the capture once
     counted = len(groups) + 2 * CHUNK
-    want = dict(zero, **path_launches(cfg, counted, head_plans=1))
+    want = dict(zero, **path_launches(cfg, counted, head_plans=1, sampled=sampled))
     if run["launches"] != want:
         raise AssertionError(f"{tag}: launches {run['launches']} != path's {want}")
     pc = st["plan_cache"]
@@ -1320,7 +1359,8 @@ def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph",
     log(f"{tag}: {summary['tokens']} tokens in {run['wall']:.3f} s = {summary['tok_per_s']:.2f} tok/s "
         f"(eager {eager['tok_per_s']:.2f}); {replay_ms:.3f} ms per decode step over {n_rep} replayed chunks "
         f"(eager {eager['ms_per_decode_step']:.3f}); warm-up chunk {summary['ms_warmup_chunk']:.1f} ms, "
-        f"capture chunk {summary['ms_capture_chunk']:.1f} ms ({n_warm} chunks); greedy tokens == eager run's")
+        f"capture chunk {summary['ms_capture_chunk']:.1f} ms ({n_warm} chunks); {key.replace('_', ' ')} == "
+        "eager run's")
     log(f"{tag}: the profiler saw {replay_total} device launches in one replay "
         f"({replay_total / CHUNK:.0f} per decode step), {replayed} of them the port's kernels == the "
         "capture's wrapper launches")
@@ -1329,7 +1369,7 @@ def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph",
         f"{run['launches']} == path's over {len(groups)} prefills + warm-up + capture; device launches "
         f"{run['device_launches']}; host syncs by chunk kind {run['decode_syncs']}; plan cache "
         f"{pc['hits']} hits / {pc['misses']} miss")
-    summary["greedy_tokens"] = out
+    summary[key] = out
     return summary
 
 
@@ -1337,16 +1377,17 @@ def serve_graph_phase(params, cfg, prompts, rt, eager, tag: str = "serve graph",
 SERVE_FAULTS = (("nan_logits@1:slot=0", 0), ("inf_logits@1:slot=2", 2))
 
 
-def serve_fault_phase(params, cfg, prompts, rt, graph):
-    """Each of :data:`SERVE_FAULTS` through the graph: the poisoned slot's
-    request finishes ``"error"`` by the watchdog, its tokens before the
-    fault are the clean graph run's; every other request's tokens equal the
-    clean graph run's; one ``retire-slot`` event; no recapture."""
+def serve_fault_phase(params, cfg, prompts, rt, graph, faults=SERVE_FAULTS, temperature: float = 0.0):
+    """Each of ``faults`` through the graph at ``temperature``: the poisoned
+    slot's request finishes ``"error"`` by the watchdog, its tokens before
+    the fault are the clean graph run's; every other request's tokens equal
+    the clean graph run's; one ``retire-slot`` event; no recapture."""
     from repro_torch.resilience import FaultPlan
 
-    clean, runs = graph["greedy_tokens"], []
-    for spec, slot in SERVE_FAULTS:
-        run = drive_serve(params, cfg, prompts, rt, cuda_graph=True, fault_plan=FaultPlan.parse(spec))
+    clean, runs = graph["sampled_tokens" if temperature > 0.0 else "greedy_tokens"], []
+    for spec, slot in faults:
+        run = drive_serve(params, cfg, prompts, rt, cuda_graph=True, fault_plan=FaultPlan.parse(spec),
+                          temperature=temperature)
         st, reqs = run["stats"], run["requests"]
         errs = [r for r in reqs.values() if r.finish_reason == "error"]
         events = [(e.kind, e.site, e.action, e.detail.get("slot")) for e in run["log"].events]
@@ -1364,13 +1405,186 @@ def serve_fault_phase(params, cfg, prompts, rt, graph):
         if st["decode_graph_captures"] != 1 or run["decode_syncs"]["replay"]:
             raise AssertionError(f"serve fault {spec}: {st['decode_graph_captures']} captures, "
                                  f"{run['decode_syncs']['replay']} host syncs in replayed chunks")
-        log(f"serve fault {spec}: request {victim.rid} (slot {slot}) retired by the watchdog after "
+        log(f"serve fault {spec}{f' at temperature {temperature}' if temperature else ''}: request "
+            f"{victim.rid} (slot {slot}) retired by the watchdog after "
             f"{len(victim.tokens)} clean tokens; {len(others)} others equal the clean graph run's; 1 retire-slot "
             f"event; captured once, replayed {st['decode_graph_replays']}x; device launches "
             f"{run['device_launches']}")
         runs.append({"spec": spec, "victim": victim.rid, "victim_tokens": len(victim.tokens),
                      "replays": st["decode_graph_replays"], "device_launches": run["device_launches"]})
     return runs
+
+
+# ---------------------------------------------------------------------------
+# the sampler: JAX's per-slot key step and Gumbel-max draw
+# ---------------------------------------------------------------------------
+
+#: the sampler phase: SLOTS rows at the vocabularies of the served models
+#: (deepseek-7b 102400, qwen3 151936, qwen2-vl 152064, gemma2 256000), at two
+#: temperatures, each in both scalings (the decode step's reciprocal, the
+#: admission's division), on plain rows and on rows with a NaN, a tie and a
+#: slot the step skips
+SAMPLE_VOCABS = (102400, 151936, 152064, 256000)
+SAMPLE_TEMPERATURES = (0.8, 1.0)
+SAMPLE_SOURCE = "src/repro_torch/kernels/csrc/sample.cu"
+#: the JAX engine's key split and categorical draw in its jitted decode step
+SAMPLE_REPLACES = "src/repro/serve/engine.py:180"
+#: the sampled serve runs' temperature (the serve_batched example's default)
+SERVE_TEMPERATURE = 0.8
+#: one draw's int32 operations: 20 Threefry rounds of add, funnel-shift
+#: rotate and xor, 5 key injections of two adds, the output xor, the
+#: mantissa's shift and or, the pack's 4; and its fp32 operations: two
+#: logf (about 12 each as libdevice computes them), subtract, add, max,
+#: the scaling and the score's add
+SAMPLE_INT_OPS, SAMPLE_FP_OPS = 77, 29
+#: int32 lanes of an SM (H100: 16 in each of its four partitions; NVIDIA's
+#: Hopper architecture white paper); fp32 instructions a second (the data
+#: sheet's 67 TFLOP/s counts a fused multiply-add as two)
+INT32_LANES_PER_SM, FP32_OPS = 64, PEAK_FLOPS["torch.float32"] / 2
+
+
+def sample_bound(good_rows: int, b: int, v: int, bw: float, clock_hz: float) -> tuple[float, str]:
+    """``(ms, "bytes" | "operations")``: the least time of one sampler
+    launch over ``b`` rows of ``v`` logits, ``good_rows`` of them drawn:
+    each drawn row read once, the keys read and written, the flags read,
+    the tokens written; each draw's operations at the card's int32 and
+    fp32 rates."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    draws = good_rows * v
+    bytes_ms = (4 * draws + 16 * b + b + 8 * b) / bw * 1e3
+    ops_ms = max(draws * SAMPLE_INT_OPS / (sms * INT32_LANES_PER_SM * clock_hz),
+                 draws * SAMPLE_FP_OPS / FP32_OPS) * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sampler_batch(v: int, gen, tricky: bool):
+    """SLOTS seeded fp32 logits rows of ``v``, seeded keys and the good
+    flags.  ``tricky``: row 1 holds two NaNs (the first, at 7, wins), row 2
+    two equal maxima of 1e30 at 5 and ``v - 3`` (``-inf`` elsewhere): no
+    Gumbel draw moves a score that large, so the first index wins the tie;
+    slot 3 is skipped (pad, its key kept)."""
+    import torch
+
+    rows = torch.randn((SLOTS, v), generator=gen, device="cuda") * 3
+    good = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
+    if tricky:
+        rows[1, [7, v // 2]] = float("nan")
+        rows[2] = float("-inf")
+        rows[2, [5, v - 3]] = 1e30
+        good[3] = False
+    keys = torch.randint(0, 2**32, (SLOTS, 2), generator=gen, device="cuda", dtype=torch.int64)
+    return rows, keys.to(torch.uint32), good
+
+
+def sampler_phase(bw: float) -> tuple[list, dict]:
+    """The sampler kernel against its plain version on the card (bit-equal
+    tokens and keys) at each of :data:`SAMPLE_VOCABS` x
+    :data:`SAMPLE_TEMPERATURES` x both scalings, plain and tricky rows;
+    each vocabulary timed (kernel, plain version, ``torch.multinomial`` on
+    the rows' softmax: another stream, the nearest library call) with its
+    bound; one device launch a call.  None of it is the main path's: the
+    counts are set back to 0."""
+    import torch
+    from repro_torch.kernels import sample as SMP
+
+    clock_hz = max_sm_clock_hz()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows_out, cases, pad = [], 0, -1
+    for v in SAMPLE_VOCABS:
+        for t in SAMPLE_TEMPERATURES:
+            for reciprocal in (True, False):
+                for tricky in (False, True):
+                    rows, keys, good = sampler_batch(v, gen, tricky)
+                    k_kernel, k_plain = keys.clone(), keys.clone()
+                    got = SMP.sample_tokens(rows, k_kernel, t, good, pad, reciprocal=reciprocal)
+                    want = SMP.sample_tokens_ref(rows, k_plain, t, good, pad, reciprocal=reciprocal)
+                    torch.cuda.synchronize()
+                    kk, kp, k0 = (k.to(torch.int64) for k in (k_kernel, k_plain, keys))
+                    if not torch.equal(got, want) or not torch.equal(kk, kp):
+                        raise AssertionError(f"sampler [{SLOTS},{v}] t={t} reciprocal={reciprocal} "
+                                             f"tricky={tricky}: tokens {got.tolist()} vs plain {want.tolist()}, "
+                                             f"keys equal {torch.equal(kk, kp)}")
+                    if tricky and (got[1:].tolist() != [7, 5, pad] or not torch.equal(kk[3], k0[3])):
+                        raise AssertionError(f"sampler [{SLOTS},{v}]: NaN/tie/skip rows gave {got.tolist()}")
+                    if torch.equal(kk[:3], k0[:3]) or not bool(((got[:3] >= 0) & (got[:3] < v)).all()):
+                        raise AssertionError(f"sampler [{SLOTS},{v}]: keys not advanced or token outside the row")
+                    cases += 1
+        rows, keys, good = sampler_batch(v, gen, False)
+        t = SERVE_TEMPERATURE
+        ms = cuda_ms(lambda: SMP.sample_tokens(rows, keys, t, good, pad, reciprocal=True))
+        plain_ms = cuda_ms(lambda: SMP.sample_tokens_ref(rows, keys, t, good, pad, reciprocal=True), iters=5)
+        probs = torch.softmax(rows / t, dim=-1)
+        library_ms = cuda_ms(lambda: torch.multinomial(probs, 1))
+        bound_ms, bound_by = sample_bound(SLOTS, SLOTS, v, bw, clock_hz)
+        row = {"case": f"sampler {SLOTS} slots x {v}, t={t}, the decode step's scaling", "kernel": "td_sample_kernel",
+               "shape": f"[{SLOTS},{v}]", "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, "main_path": v == 102400}
+        rows_out.append(row)
+        log(f"sampler [{SLOTS},{v}]: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.multinomial on the "
+            f"softmax {library_ms:.4f} ms (another stream), bound {bound_ms:.4f} ms by {bound_by} "
+            f"({bound_ms / ms:.0%} of it)")
+    rows, keys, good = sampler_batch(SAMPLE_VOCABS[0], gen, False)
+    launch = count_launches({"sampler": lambda: SMP.sample_tokens(rows, keys, SERVE_TEMPERATURE, good, pad,
+                                                                  reciprocal=True)}, kernel="td_sample_kernel")
+    SMP.reset_launch_counts()
+    log(f"sampler: {cases} cases bit-equal to the plain version on the card (tokens and keys; a NaN row's "
+        "first NaN, a tie's first index, a skipped slot's pad and kept key)")
+    return rows_out, {"cases": cases, "launch_check": launch, "sm_clock_mhz": clock_hz / 1e6}
+
+
+def sampled_serve_phase(params, cfg, prompts, greedy) -> dict:
+    """The serve phase's requests at temperature :data:`SERVE_TEMPERATURE`:
+    eagerly (the path's launches, a sampler launch a model call, no host
+    sync in a chunk; tokens other than the greedy run's), again with the
+    plain sampler in the kernel's place (the same tokens), then through the
+    decode graph (the eager run's tokens, one capture, the sampler replayed
+    once a step, no host sync in a replay) and with a poisoned slot through
+    the graph.  Prints ms a decode step against the greedy runs'."""
+    from repro_torch import runtime as rtm
+    from repro_torch.kernels import sample as SMP
+    from repro_torch.serve import engine as E
+
+    tag, t = "sampled serve", SERVE_TEMPERATURE
+    rt = rtm.Runtime(backend="cuda", device="cuda")
+    run = drive_serve(params, cfg, prompts, rt, temperature=t)
+    calls = check_eager_run(tag, cfg, run, sampled=True)
+    out, st = run["out"], run["stats"]
+    if out == greedy["greedy_tokens"]:
+        raise AssertionError(f"{tag}: the sampled tokens are the greedy run's")
+    eager = {"tokens": st["tokens_out"], "wall_s": run["wall"], "tok_per_s": st["tokens_out"] / run["wall"],
+             "decode_steps": st["steps_run"], "ms_per_decode_step": run["decode_s"]["eager"] / st["steps_run"] * 1e3,
+             "launches": run["launches"], "model_calls": calls, "sampled_tokens": out}
+    orig = E.sample_tokens
+    E.sample_tokens = SMP.sample_tokens_ref
+    try:
+        plain = drive_serve(params, cfg, prompts, rt, temperature=t, allow=(PLAIN_SAMPLER,))
+    finally:
+        E.sample_tokens = orig
+    diff = first_difference(plain["out"], out)
+    if diff is not None or plain["launches"]["td_sample_kernel"]:
+        raise AssertionError(f"{tag}: the plain sampler's run differs from the kernel's at {diff}")
+    log(f"{tag}: {eager['tokens']} tokens at temperature {t}, eager decode chunk: {eager['ms_per_decode_step']:.3f} "
+        f"ms per decode step (greedy {greedy['ms_per_decode_step']:.3f}); launches {run['launches']} == path's "
+        f"({calls} model calls, a sampler launch each); 0 host syncs inside decode chunks; the plain sampler in "
+        "its place gives the same tokens")
+    graph = serve_graph_phase(params, cfg, prompts, rt, eager, tag=f"{tag} graph", temperature=t)
+    faults = serve_fault_phase(params, cfg, prompts, rt, graph, faults=SERVE_FAULTS[:1], temperature=t)
+    g_ms, gg_ms = graph["ms_per_decode_step_replayed"], greedy["graph"]["ms_per_decode_step_replayed"]
+    per_step = graph["replay_device_launches_all"] / CHUNK
+    greedy_step = greedy["graph"]["replay_device_launches_all"] / CHUNK
+    e_ms = eager["ms_per_decode_step"]
+    log(f"{tag}: decode step through the graph {g_ms:.3f} ms sampled vs {gg_ms:.3f} ms greedy "
+        f"({g_ms / gg_ms - 1:+.2%}); eager sampled {e_ms:.3f} ms ({e_ms / g_ms:.2f}x "
+        f"the sampled graph); device launches a replayed step {per_step:.0f} sampled vs {greedy_step:.0f} greedy "
+        f"(the sampler {graph['replay_launches'].get('td_sample_kernel', 0) / CHUNK:.0f} a step)")
+    return {"eager": eager, "graph": graph, "faults": faults, "plain_tokens_equal": True,
+            "ms_per_decode_step_graph": g_ms, "greedy_ms_per_decode_step_graph": gg_ms,
+            "device_launches_per_step": per_step, "greedy_device_launches_per_step": greedy_step,
+            "launches": {k: run["launches"][k] + graph["device_launches"][k] + sum(f["device_launches"][k]
+                                                                                for f in faults)
+                         for k in run["launches"]}}
 
 
 #: the serve launcher's full-width replay on the card
@@ -1388,11 +1602,12 @@ def _serve_launch(tag: str, argv: list) -> dict:
     import re
 
     import torch
-    from repro_torch.kernels import tensordash_spmm as T
+    from repro_torch.kernels import sample, tensordash_spmm as T
     from repro_torch.launch import serve as LS
 
     buf = io.StringIO()
     T.reset_launch_counts()
+    sample.reset_launch_counts()
     t0 = time.perf_counter()
     with no_plain_versions("launch serve"), graph_launch_log() as captures, contextlib.redirect_stdout(buf):
         try:
@@ -1400,7 +1615,7 @@ def _serve_launch(tag: str, argv: list) -> dict:
         except SystemExit as e:
             raise AssertionError(f"launch serve ({tag}) exited with {e.code}:\n{buf.getvalue()}") from e
     seconds = time.perf_counter() - t0
-    launches = device_launches_of(T.launch_counts(), captures)
+    launches = device_launches_of(serve_launch_counts(), captures)
     gc.collect()
     torch.cuda.empty_cache()
     out = buf.getvalue()
@@ -3653,6 +3868,7 @@ def frontend_train_phase(cfg, tag: str) -> dict:
 
 #: planned products, plans, cycle-model tiles, codec schedules
 _SPMM, _PLAN, _TILE, _SCHED = "tensordash_matmul_planned", "planner[values]", "td_tile_kernel", "td_schedule_kernel"
+_SAMPLE = "td_sample_kernel"
 
 
 def example_runs(ckpt_dir: str) -> list:
@@ -3663,7 +3879,7 @@ def example_runs(ckpt_dir: str) -> list:
     serve = ["--arch", "qwen3-4b", "--backend", "cuda"]
     return [("quickstart", "quickstart", [], (_TILE, _SCHED, _SPMM, _PLAN)),
             ("serve_batched greedy", "serve_batched", [*serve, "--temperature", "0"], (_SPMM, _PLAN)),
-            ("serve_batched sampled", "serve_batched", serve, (_SPMM, _PLAN)),
+            ("serve_batched sampled", "serve_batched", serve, (_SPMM, _PLAN, _SAMPLE)),
             ("train_lm", "train_lm", lm, ("tensordash_matmul_fused", _SPMM, _PLAN, "planner[emitted]",
                                           "planner[transpose]", _TILE)),
             ("train_lm resume", "train_lm", lm, (_TILE,)),
@@ -3688,16 +3904,17 @@ def examples_phase() -> dict:
     (:func:`example_runs`), its wrapper launches counted from 0: each run
     returns, launches every kernel its path reaches (the SpMM and planner
     kernels for the serve runs and the train steps, the tile kernel for the
-    cycle-model projections, the schedule kernel for the codec) and runs no
-    plain version; every training loss is finite; the greedy serve captures
-    its decode chunk once, every request emits its budget; the second
+    cycle-model projections, the schedule kernel for the codec, the sampler
+    for the sampled serve) and runs no plain version; every training loss
+    is finite; each serve run, greedy and sampled, captures its decode
+    chunk once, every request emits its budget; the second
     ``train_lm`` run resumes at step 300.  Prints each run's table and wall
     seconds."""
     import math
 
     import torch
     from repro_torch.examples import quickstart, serve_batched, train_cnn_sparsity, train_lm, train_pruned
-    from repro_torch.kernels import schedule as S, tensordash_spmm as T
+    from repro_torch.kernels import sample as SMP, schedule as S, tensordash_spmm as T
 
     mods = {m.__name__.rsplit(".", 1)[-1]: m
             for m in (quickstart, serve_batched, train_lm, train_pruned, train_cnn_sparsity)}
@@ -3707,6 +3924,7 @@ def examples_phase() -> dict:
             free()
             T.reset_launch_counts()
             S.reset_launch_counts()
+            SMP.reset_launch_counts()
             log(f"examples: {tag}: python -m repro_torch.examples.{name} {' '.join(argv)}")
             with no_plain_versions(f"examples {tag}"):
                 torch.cuda.synchronize()
@@ -3714,7 +3932,7 @@ def examples_phase() -> dict:
                 res = mods[name].main(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            launches = {k: v for k, v in {**T.launch_counts(), **S.LAUNCHES}.items() if v}
+            launches = {k: v for k, v in {**T.launch_counts(), **S.LAUNCHES, **SMP.LAUNCHES}.items() if v}
             idle = [k for k in needs if not launches.get(k)]
             if idle:
                 raise AssertionError(f"examples {tag}: its path never launched {idle} (launches {launches})")
@@ -3725,7 +3943,7 @@ def examples_phase() -> dict:
                 st = res["stats"]
                 if {rid: len(t) for rid, t in res["tokens"].items()} != res["budgets"]:
                     raise AssertionError(f"examples {tag}: a request did not emit its budget")
-                if st["decode_graph_captures"] != int(tag.endswith("greedy")):  # sampled runs eagerly
+                if st["decode_graph_captures"] != 1:
                     raise AssertionError(f"examples {tag}: {st['decode_graph_captures']} decode graph captures")
             if tag == "train_lm resume" and (res["resumed_from"] != 300 or res["history"]):
                 raise AssertionError(f"examples {tag}: resumed from {res['resumed_from']}, "
@@ -6556,11 +6774,16 @@ def _phases(t_start, card, name, bw, dry) -> int:
 
     log("kernels: each against its plain PyTorch version on the card")
     rows, launch_check = kernel_phase(bw)
+    log("sampler: JAX's key step and Gumbel-max draw against its plain version on the card")
+    sampler_rows, sampler_check = sampler_phase(bw)
     log("core: the schedule kernel against its plain loop; the codec, the quickstart, the public ops and plan "
         "validation on the card")
     core = core_phase(bw)
     params, cfg, prompts, serve = serve_phase()
     ref_l2, top1 = reference_phase(params, cfg, prompts)
+    log(f"sampled serve: the same requests at temperature {SERVE_TEMPERATURE}, JAX's per-request key streams, "
+        "eager and through the decode graph")
+    sampled = sampled_serve_phase(params, cfg, prompts, serve)
     log("grid kernels: v2/v1 against the ragged kernel and the plain version; block_zero_mask")
     grid_rows = grid_kernel_phase(bw)
     tuned_db, tune = tune_phase()
@@ -6666,7 +6889,7 @@ def _phases(t_start, card, name, bw, dry) -> int:
     train_runs = grouped({k: sum(st["launches"][k] for run in (train, ssm_train, hybrid_train, vl_train, mg_train)
                                  for st in run["steps"]) for k in train["launches_per_step"]})
     example_counts = {k: sum(r["launches"].get(k, 0) for r in examples.values())
-                      for k in (*train["launches_per_step"], "td_schedule_kernel", "td_tile_kernel")}
+                      for k in (*train["launches_per_step"], "td_schedule_kernel", "td_tile_kernel", _SAMPLE)}
     example_runs_ = grouped(example_counts)
     per_train_step = grouped(train["launches_per_step"])
     launch_runs = grouped({k: launch["a"]["launches"][k] + launch["c"]["launches"][k]
@@ -6739,6 +6962,18 @@ def _phases(t_start, card, name, bw, dry) -> int:
         "whole_conv_ms": core["tile_rows"][-1]["ms"], "whole_conv_bound_ms": core["tile_rows"][-1]["bound_ms"],
         "whole_conv_chain_bound_ms": core["tile_rows"][-1]["chain_bound_ms"],
     })
+    head = next(r for r in sampler_rows if r["main_path"])
+    kernels.append({
+        "name": _SAMPLE, "route": "cuda", "source": SAMPLE_SOURCE, "replaces": SAMPLE_REPLACES,
+        "launches": sampled["launches"][_SAMPLE] + example_counts[_SAMPLE],
+        "launches_sampled_serve": sampled["launches"][_SAMPLE], "launches_examples": example_counts[_SAMPLE],
+        "launches_per_decode_step": sampled["graph"]["replay_launches"][_SAMPLE] / CHUNK,
+        "max_abs_err": max(r["max_abs_err"] for r in sampler_rows), "cases_bit_equal": sampler_check["cases"],
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "library": "torch.multinomial (another stream)", "shape": head["shape"],
+        "by_vocab": {r["shape"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                     for r in sampler_rows},
+    })
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels the main path never launched: {idle}")
@@ -6747,7 +6982,8 @@ def _phases(t_start, card, name, bw, dry) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "cases": rows + grid_rows, "launch_check": launch_check, "serve": serve,
          "ptxas": ptxas_lines(_build.ptxas_report), "reference_rel_l2": ref_l2,
-         "reference_top1": top1, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
+         "reference_top1": top1, "sampler_cases": sampler_rows, "sampler_check": sampler_check,
+         "sampled_serve": sampled, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
          "train_launch_check": train_launch, "planner_cases": planner_rows,
          "planner_launch_check": planner_launch, "train": train, "launch_train": launch,
          "launch_serve": launch_serve, "moe_serve": moe, "dsv2_serve": dsv2, "ssm_serve": ssm,

@@ -82,6 +82,17 @@ class TileArgs(ctypes.Structure):
     ]
 
 
+class SampleArgs(ctypes.Structure):
+    """The launch arguments of ``td_sample`` (``TdSampleArgs`` in
+    ``csrc/sample.cu``; keep the two in step)."""
+
+    _fields_ = [
+        ("rows", _P), ("row_stride", _LL), ("col_stride", _LL), ("keys", _P), ("good", _P), ("tokens", _P),
+        ("best", _P), ("arrived", _P), ("temperature", ctypes.c_float), ("inv", ctypes.c_float),
+        *((name, _I) for name in ("reciprocal", "B", "V", "pad_id")),
+    ]
+
+
 #: argtypes of the C entry points
 SIGNATURES = {
     # dtype fused grid args stream
@@ -90,6 +101,7 @@ SIGNATURES = {
     "td_plan": [ctypes.POINTER(PlanArgs), _P],
     "td_schedule": [ctypes.POINTER(ScheduleArgs), _P],
     "td_tile": [ctypes.POINTER(TileArgs), _P],
+    "td_sample": [ctypes.POINTER(SampleArgs), _P],
 }
 
 _LIB: ctypes.CDLL | None = None

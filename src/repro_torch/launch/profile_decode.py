@@ -8,11 +8,14 @@ CUDA graph.
     python -m repro_torch.launch.profile_decode --arch zamba2-2.7b
     python -m repro_torch.launch.profile_decode --arch starcoder2-3b
     python -m repro_torch.launch.profile_decode --arch gemma2-2b --activation relu
+    python -m repro_torch.launch.profile_decode --arch deepseek-7b --activation relu --temperatures 0,0.8
 
 Builds bf16 weights from seed 0 once, then, one after the other, two
 :class:`~repro_torch.serve.engine.ServeEngine`\\ s on the ``cuda`` backend
 over the same ``--slots`` prompts: one running the decode chunk eagerly
-(``cuda_graph=False``), one replaying it as one CUDA graph.  ``--layers``
+(``cuda_graph=False``), one replaying it as one CUDA graph;
+``--temperatures`` runs the pair at each temperature given (0, the
+default, is greedy; above it the engine samples).  ``--layers``
 cuts the config's depth, for a model whose weights do not fit the card
 (qwen3-moe-235b-a22b's 94 layers need ~467 GB, deepseek-v2-236b's 60
 ~471 GB); a dense first block stays (deepseek-v2 at 6 layers: 1 dense, 5
@@ -60,11 +63,11 @@ def _device_us(evt) -> float:
 
 
 def profile_engine(params, cfg, rt, prompts, *, slots: int, chunk: int, steps: int,
-                   cuda_graph: bool) -> dict:
+                   cuda_graph: bool, temperature: float = 0.0) -> dict:
     """Warm up, time and trace ``steps`` engine steps of a fresh engine."""
     new = chunk * (WARMUP_STEPS + 2 * steps) + 1
     eng = ServeEngine(params, cfg, slots=slots, chunk=chunk, max_len=PROMPT_LEN + new, rt=rt,
-                      cuda_graph=cuda_graph)
+                      temperature=temperature, cuda_graph=cuda_graph)
     for p in prompts:
         eng.submit(p, max_new=new)
     warm = []  # seconds of each warm-up step
@@ -115,7 +118,9 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=2, help="engine steps timed, then as many traced")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--layers", type=int, default=None, help="cut the config to this many layers")
+    ap.add_argument("--temperatures", default="0", help="comma-separated; 0 is greedy")
     args = ap.parse_args(argv)
+    temps = [float(t) for t in args.temperatures.split(",")]
 
     cfg = get_config(args.arch)
     if args.activation:
@@ -133,10 +138,19 @@ def main(argv=None) -> None:
     name = torch.cuda.get_device_name(rt.device)
     print(f"device={name} arch={cfg.name} layers={cfg.num_layers} activation={cfg.activation} slots={args.slots} "
           f"chunk={args.chunk} decode steps timed={args.steps * args.chunk}, then as many traced")
+    for t in temps:
+        _profile_pair(params, cfg, rt, prompts, args, t)
+
+
+def _profile_pair(params, cfg, rt, prompts, args, temperature: float) -> None:
+    """Profile an eager and a graph engine at ``temperature`` and print each
+    one's lines (labelled with the temperature when it samples), then what
+    the capture costs and when the graph is ahead."""
     res = {}
-    for label, graph in (("eager", False), ("graph", True)):
-        r = res[label] = profile_engine(params, cfg, rt, prompts, slots=args.slots, chunk=args.chunk,
-                                        steps=args.steps, cuda_graph=graph)
+    for mode in ("eager", "graph"):
+        label = mode if temperature == 0.0 else f"{mode} t={temperature}"
+        r = res[mode] = profile_engine(params, cfg, rt, prompts, slots=args.slots, chunk=args.chunk,
+                                       steps=args.steps, cuda_graph=mode == "graph", temperature=temperature)
         print(f"[{label}] wall (untraced) {r['untraced_ms']:.3f} ms per decode step; wall (traced) "
               f"{r['traced_ms']:.3f} ms per decode step; device busy {r['busy_ms']:.3f} ms per decode "
               f"step; idle share {r['idle_share']:.3f}; {r['launches']:.0f} device launches and "
@@ -157,7 +171,8 @@ def main(argv=None) -> None:
     extra = res["graph"]["warm_s"][1] - res["eager"]["warm_s"][1]
     saving = (res["eager"]["untraced_ms"] - res["graph"]["untraced_ms"]) * args.chunk / 1e3
     ahead = f"from its chunk {WARMUP_STEPS + 1 + int(max(extra, 0.0) // saving)} on" if saving > 0 else "never"
-    print(f"[graph/eager] capture step {res['graph']['warm_s'][1]:.3f} s, the eager engine's second step "
+    tag = "graph/eager" if temperature == 0.0 else f"graph/eager t={temperature}"
+    print(f"[{tag}] capture step {res['graph']['warm_s'][1]:.3f} s, the eager engine's second step "
           f"{res['eager']['warm_s'][1]:.3f} s ({extra:+.3f} s); a replayed chunk saves {saving:.3f} s "
           f"untraced; the graph engine is ahead {ahead}")
     if res["graph"]["launches"] < res["eager"]["launches"] / 2:

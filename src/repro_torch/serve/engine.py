@@ -3,7 +3,7 @@
 * :class:`Scheduler` — host-side bookkeeping only: a bounded pending queue
   with priority-with-aging admission, and a slot table.
 * :class:`ServeEngine` — per-slot device state (last token, position,
-  active flag, remaining budget, poison code) in static buffers plus ONE
+  active flag, remaining budget, RNG key, poison code) in static buffers plus ONE
   packed decode-cache allocation (``Runtime.slot_caches``).  A request's
   prefill caches are written into its batch slot (``Runtime.write_slot``),
   so admission is a slot write; admission, expiry and retirement update the
@@ -15,7 +15,7 @@
   position is overwritten by the next occupant before it is read and masked
   out of attention until then.  The host reads the chunk's tokens, emission
   flags and watchdog flags once, at its end.
-* On a CUDA device under greedy decoding the chunk runs as one CUDA graph
+* On a CUDA device, greedy or sampled, the chunk runs as one CUDA graph
   (:class:`_DecodeGraph`), the port's counterpart of the JAX engine's jitted
   ``lax.scan`` program: the first chunk runs eagerly on a side stream (the
   warm-up), the second is captured there, and every later chunk replays it.
@@ -27,12 +27,18 @@ plan-cache miss) and replayed on every later prefill and eager decode step
 (hits); the graph replays the plan it looked up at capture, as the JAX
 program hoists the weight plan out of its scan.
 
-Sampling: greedy (``temperature == 0``) or temperature sampling with one
-``torch.Generator`` per request, seeded from ``(seed, rid)``, advanced only
-when that request samples.  These streams do not reproduce the JAX engine's
-``jax.random`` streams: token parity with the JAX package holds for greedy
-decoding only.  Sampled decoding runs the chunk eagerly: its per-request
-generators are read on the host each step.
+Sampling: greedy (``temperature == 0``) or temperature sampling from the
+JAX engine's own streams (:mod:`repro_torch.prng`, JAX's Threefry replayed
+bit for bit): request ``rid`` draws from ``fold_in(PRNGKey(seed), rid)``,
+split before its first token; each step splits a slot's key into ``(next,
+sub)``, draws ``categorical(sub, row / temperature)`` and keeps ``next``,
+and a slot that emits nothing (inactive, or retired by the watchdog) keeps
+its key.  The keys live in a device buffer ``keys [slots, 2]``, and the
+split and draw are one launch of the sampler kernel a step
+(:func:`repro_torch.kernels.sample.sample_tokens`; its plain version on
+the CPU), so a sampled chunk reads nothing on the host and is captured as a
+greedy one is.  Sampled tokens equal the JAX engine's for the same seed,
+rids and weights.
 
 On a mesh (the runtime's ``sharding`` policy, or ``generate(mesh=...)``, as
 JAX's ``generate(mesh=)`` installs a ``ShardingPolicy``) the model is
@@ -50,7 +56,8 @@ data rank prefills only the admitted prompts of the slots it holds (a rank
 with none of a round's runs one stand-in prompt, so that every rank joins
 the weights' gathers); a decode step runs the tensor-parallel bodies on
 the rank's slots.  The last-position logits rows of both are gathered over
-the data axes, so every rank samples the same tokens.  The
+the data axes and every rank holds every slot's key, so every rank samples
+the same tokens.  The
 engine clock is rank 0's (broadcast at every reading) and the shedding cost
 is summed over the mesh, so every rank takes the same decisions.  The
 decode chunk of a mesh of several ranks runs eagerly: ``cuda_graph=True``
@@ -78,8 +85,10 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch import prng
 from repro_torch import runtime as rtm
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.sample import sample_tokens
 from repro_torch.kernels.tensordash_spmm import holding
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
@@ -306,7 +315,7 @@ class ServeEngine:
     One engine owns one packed cache allocation on ``rt.device`` and one
     plan cache (the runtime's).  ``chunk`` decode steps run per
     :meth:`step` between admissions.  ``cuda_graph`` (``None``: on a CUDA
-    device under greedy decoding) runs the chunk as one CUDA graph;
+    device, except on a mesh of several ranks) runs the chunk as one CUDA graph;
     ``True`` where that cannot hold raises ``ValueError``.  A frontend
     config (``inputs_embeds`` in place of tokens) is refused at
     construction: the engine, as JAX's, serves token prompts only.
@@ -345,19 +354,17 @@ class ServeEngine:
         self._sh = tfm.shards_of(cfg, self.rt)  # None without a mesh
         self._multi = self._sh is not None and self._sh.world > 1
         self._cache_cfg = M.local_cache_config(cfg, self._sh.tp) if self._sh is not None else cfg
-        graphable = self.device.type == "cuda" and self.temperature == 0.0 and not self._multi
+        graphable = self.device.type == "cuda" and not self._multi
         if cuda_graph and not graphable:
             if self._multi:
                 raise ValueError(
                     f"cuda_graph=True on a mesh of {self._sh.world} ranks: capturing the sharded decode's "
                     "collectives is not ported; ServeEngine(cuda_graph=False) runs the chunk eagerly")
-            raise ValueError(
-                f"cuda_graph=True needs a CUDA device and temperature 0 (device {self.device}, "
-                f"temperature {self.temperature}): sampled decoding reads its generators on the host")
+            raise ValueError(f"cuda_graph=True needs a CUDA device (device {self.device})")
         self.sched = Scheduler(slots, max_pending=max_pending, age_boost=age_boost)
         self._rids = itertools.count()
         self._requests: dict[int, Request] = {}
-        self._gens: dict[int, torch.Generator] = {}
+        self._base_key = prng.prng_key(self.seed)  # on the host: admission folds the rids in there
         self._t0 = time.monotonic()
         with torch.inference_mode():
             # a failed cache allocation degrades to half the slot count
@@ -370,6 +377,8 @@ class ServeEngine:
             self.active = zeros(torch.bool)
             self.remaining = zeros(torch.int64)
             self.poison = zeros(torch.int32)  # 0 clean, 1 NaN, 2 Inf logits
+            # each slot's JAX key; every rank holds every slot's
+            self.keys = torch.zeros((slots, 2), dtype=torch.uint32, device=self.device)
         self.sched.num_slots = slots
         self.sched.table = self.sched.table[:slots]
         if self.rt._db is not None:
@@ -537,25 +546,18 @@ class ServeEngine:
         return out
 
     # -- sampling ----------------------------------------------------------
-    def _generator(self, rid: int) -> torch.Generator:
-        gen = self._gens.get(rid)
-        if gen is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.seed * 1_000_003 + rid)
-            self._gens[rid] = gen
-        return gen
-
-    def _sample(self, rows: torch.Tensor, rids: list[int | None]) -> torch.Tensor:
-        """Next token per row of fp32 logits ``[B, V]``: argmax when greedy,
-        else one draw per row with a live rid from that request's generator."""
+    def _sample(self, rows: torch.Tensor, keys: torch.Tensor | None, good: torch.Tensor, *,
+                jitted: bool) -> torch.Tensor:
+        """Next token per row of fp32 logits ``[B, V]`` (``pad_id`` where
+        ``good`` is clear): the argmax when greedy (the keys untouched, and
+        ``None`` at admission),
+        else JAX's draw from each row's key, which advances in place where
+        ``good``.  ``jitted``: the row is scaled as JAX's jitted decode step
+        scales it (by the float32 reciprocal of the temperature), else as its
+        eager admission does (divided)."""
         if self.temperature == 0.0:
-            return torch.argmax(rows, dim=-1)
-        out = torch.full((rows.shape[0],), self.pad_id, dtype=torch.int64, device=rows.device)
-        probs = torch.softmax(rows / self.temperature, dim=-1)
-        for i, rid in enumerate(rids):
-            if rid is not None:
-                out[i] = torch.multinomial(probs[i], 1, generator=self._generator(rid))[0]
-        return out
+            return torch.where(good, torch.argmax(rows, dim=-1), self.pad_id)
+        return sample_tokens(rows, keys, self.temperature, good, self.pad_id, reciprocal=jitted)
 
     # -- admission: prefill into slots -------------------------------------
     def _by_owner(self, placements: list) -> list[list]:
@@ -607,7 +609,13 @@ class ServeEngine:
             every = S.all_gather_cat(rows, self._sh.data_group, 0)
             rows = torch.cat([every[r * m:r * m + len(g)] for r, g in enumerate(rnd)])
         placements = [p for g in rnd for p in g]  # the order of the gathered rows
-        firsts = self._sample(rows, [r.rid for _, r in placements]).tolist()
+        keys = None  # greedy decoding draws nothing: no stream is made
+        if self.temperature > 0.0:
+            # each request's stream: its rid folded into the seed's key, split
+            # before the first token; the draw leaves the carried half in keys
+            keys = prng.fold_in(self._base_key, torch.tensor([r.rid for _, r in placements])).to(self.device)
+        firsts = self._sample(rows, keys, torch.ones(len(placements), dtype=torch.bool, device=self.device),
+                              jitted=False).tolist()
         now = self._now()
         for j, (slot, req) in enumerate(placements):
             first = int(firsts[j])
@@ -619,6 +627,8 @@ class ServeEngine:
             self.tok[slot] = first
             self.pos[slot] = req.prompt.shape[0]
             self.remaining[slot] = req.max_new - 1
+            if keys is not None:
+                self.keys[slot] = keys[j]
             self.active[slot] = not done
             if done:
                 req.finish_reason = "eos" if is_eos else "length"
@@ -677,10 +687,9 @@ class ServeEngine:
 
         ``poison`` codes overwrite a slot's last-position fp32 logits row
         (1 NaN, 2 Inf).  With the watchdog a slot whose row is not finite is
-        retired: it emits ``pad_id``, its position and budget freeze, it
+        retired: it emits ``pad_id``, its position, budget and key freeze, it
         leaves ``active`` and ``faulted`` marks it; its row is zeroed before
-        sampling.  No host read, except the live rows of sampled decoding."""
-        rids = [r.rid if r is not None else None for r in self.sched.table]
+        sampling.  The keys advance in their buffer in place.  No host read."""
         tok, pos, active, remaining, poison = self.tok, self.pos, self.active, self.remaining, self.poison
         faulted = torch.zeros_like(active)
         toks, emitted = [], []
@@ -701,11 +710,7 @@ class ServeEngine:
                 row = row.masked_fill(~good[:, None], 0.0)
             else:
                 good = active
-            live_rids = rids if self.temperature == 0.0 else [
-                # lint: allow-traced-stats: sampled decoding only, whose chunk runs eagerly
-                rid if g else None for rid, g in zip(rids, good.tolist())
-            ]
-            nxt = torch.where(good, self._sample(row, live_rids), self.pad_id)
+            nxt = self._sample(row, self.keys, good, jitted=True)
             live = good.long()
             pos = pos + live
             remaining = remaining - live

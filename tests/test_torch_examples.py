@@ -24,9 +24,9 @@ Tolerances, and why:
   and chunk counts equal, the plan-cache misses equal and the hits equal
   once the port's decode steps are taken out (JAX's decode chunk is jitted:
   its one head plan is ``traced`` there; the port's eager chunk replays the
-  cached plan, a hit a step).  Sampled (the default temperature 0.8): JAX's
-  per-request key streams cannot be replayed by torch's generators, so
-  each request must emit exactly its budget, as JAX's greedy run does.
+  cached plan, a hit a step).  Sampled (the default temperature 0.8): the
+  port replays JAX's per-request key streams, so every request's tokens
+  equal JAX's sampled run's, and each emits exactly its budget.
 * train_cnn_sparsity: the forward logits and the gradients within 1e-5
   relative (fp32: the convolutions sum in another order); each epoch's A
   and G_O zero fractions within 2 elements of each tensor (a conv output
@@ -143,19 +143,25 @@ def jax_serve_params():
     return jax.tree.map(np.asarray, fp32_init(JM.param_specs(cfg), jax.random.PRNGKey(0)))
 
 
-def test_serve_batched_greedy_tokens_equal_jax(monkeypatch, jax_serve_params):
+def run_jax_serve(argv: list, monkeypatch) -> tuple[dict, dict]:
+    """The JAX serve_batched example on fp32 parameters: its table and every
+    request's tokens (not only the two it prints)."""
     jserve = load_jax_example("serve_batched")
     monkeypatch.setattr(jserve, "init_params", fp32_init)
     jax_tokens = {}
 
-    class Recording(jserve.ServeEngine):  # every request's tokens, not only the two printed
+    class Recording(jserve.ServeEngine):
         def run(self):
             out = super().run()
             jax_tokens.update({rid: [int(t) for t in toks] for rid, toks in out.items()})
             return out
 
     monkeypatch.setattr(jserve, "ServeEngine", Recording)
-    want = _serve_table(run_jax_example(jserve, [*SERVE, "--temperature", "0"], monkeypatch))
+    return _serve_table(run_jax_example(jserve, argv, monkeypatch)), jax_tokens
+
+
+def test_serve_batched_greedy_tokens_equal_jax(monkeypatch, jax_serve_params):
+    want, jax_tokens = run_jax_serve([*SERVE, "--temperature", "0"], monkeypatch)
     monkeypatch.setattr(tserve, "init_model", lambda cfg, device: params_from_jax(jax_serve_params, cfg,
                                                                                  device=device))
     lines, res = run_port_example(tserve, [*SERVE, "--temperature", "0"])
@@ -173,6 +179,10 @@ def test_serve_batched_greedy_tokens_equal_jax(monkeypatch, jax_serve_params):
 
 
 def test_serve_batched_sampled_keeps_budgets(jax_serve_params, monkeypatch):
+    """The documented default, temperature 0.8: every request emits its
+    budget, and every request's tokens and the table equal JAX's sampled
+    run's (the port replays JAX's per-request key streams)."""
+    want, jax_tokens = run_jax_serve(SERVE, monkeypatch)
     monkeypatch.setattr(tserve, "init_model", lambda cfg, device: params_from_jax(jax_serve_params, cfg,
                                                                                  device=device))
     lines, res = run_port_example(tserve, SERVE)
@@ -180,9 +190,11 @@ def test_serve_batched_sampled_keeps_budgets(jax_serve_params, monkeypatch):
     budgets = res["budgets"]
     assert len(budgets) == 8 and {rid: len(t) for rid, t in res["tokens"].items()} == budgets
     # the greedy run's count (JAX's table: every request runs to its budget)
-    assert got["tokens_out"] == sum(budgets.values()) == 92
+    assert got["tokens_out"] == want["tokens_out"] == sum(budgets.values()) == 92
     vocab = reduce_config(get_config("qwen3-4b")).vocab_size
     assert all(0 <= tok < vocab for toks in res["tokens"].values() for tok in toks)
+    assert res["tokens"] == jax_tokens and got["requests"] == want["requests"]
+    assert (got["head"], got["chunks"]) == (want["head"], want["chunks"])
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ Five requests with mixed prompt lengths run through two slots (so slots
 backfill) on the JAX suite's ReLU language model with fp32 parameters under
 the ``reference`` backend; the greedy tokens equal the JAX ServeEngine's
 token for token, and ``generate()`` on two of the prompts gives the same
-tokens.  The LM-head plan is built once (one miss) and every later prefill
+tokens; sampled ``generate()`` gives JAX's sampled tokens for the same
+seed.  The LM-head plan is built once (one miss) and every later prefill
 and decode step replays it (hits).  These counts are not compared with JAX's: the JAX
 decode chunk is jitted, so its decode-time plans are ``traced``, not hits.
 
@@ -37,6 +38,7 @@ from repro.configs import reduce_config as jreduce_config
 from repro.models import model as JM
 from repro.models.common import init_params as jinit_params
 from repro.serve.engine import ServeEngine as JServeEngine
+from repro.serve.engine import generate as jgenerate
 from repro_torch import runtime as trt
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import params_from_jax
@@ -102,13 +104,18 @@ def test_engine_and_generate_greedy_tokens_match_jax_and_lm_head_plan_replays(mo
 
 
 def test_temperature_sampling_is_seeded_per_request(model):
-    _, tcfg, _, tp = model
+    """Sampled ``generate()`` replays JAX's per-request key streams: the
+    same seed gives JAX's ``generate`` tokens, and the same tokens again."""
+    jcfg, tcfg, jp, tp = model
     prompt = torch.arange(12).reshape(2, 6)
     rt = trt.Runtime(backend="dense", device="cpu")
     a = generate(tp, tcfg, prompt, max_new=5, temperature=1.0, seed=11, rt=rt)
     b = generate(tp, tcfg, prompt, max_new=5, temperature=1.0, seed=11, rt=rt)
     assert torch.equal(a, b)
     assert int(a.min()) >= 0 and int(a.max()) < tcfg.vocab_size
+    want = jgenerate(jp, jcfg, prompt.numpy().astype(np.int32), max_new=5, temperature=1.0, seed=11,
+                     rt=jrt.Runtime(backend="dense"))
+    assert a.tolist() == np.asarray(want).tolist()
 
 
 def test_scheduler_priority_aging_and_bounded_queue():

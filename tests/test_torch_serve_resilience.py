@@ -6,9 +6,10 @@ The JAX suite's reduced deepseek-7b with a ReLU FFN, fp32 weights carried by
 ``tests/test_resilience.py``'s serve chaos suite and of the serve replays of
 ``tests/test_launch_resilience.py`` runs through the port: a NaN/Inf-poisoned
 slot is retired by the watchdog while its batch-mates stay bit-identical to
-the clean run (greedy and at temperature 0.8), and under greedy decoding
-tokens, finish reasons and the ``ResilienceLog``'s kinds, sites and actions
-equal the JAX engine's on the same fault plan; TTL expiry, ``QueueFull``,
+the clean run, and tokens, finish reasons and the ``ResilienceLog``'s kinds,
+sites and actions equal the JAX engine's on the same fault plan, greedy and
+at temperature 0.8 (the port replays JAX's per-request key streams); TTL
+expiry, ``QueueFull``,
 work-budget shedding (the shed rids equal JAX's), slot halving and admission
 retries.  The CUDA-graph bookkeeping (warm-up, one capture, replays, a
 recapture for a changed LM head) runs here with stand-ins for the
@@ -128,8 +129,8 @@ def test_prefill_step_and_decode_one_match_jax(model):
 @pytest.mark.parametrize("kind", ["nan_logits", "inf_logits"])
 def test_watchdog_retires_poisoned_slot_healthy_bitident(model, kind, temperature):
     """Poison slot 1's logits in the first chunk: that request errors, its
-    batch-mates' tokens are bit-identical to the clean run; under greedy
-    decoding the whole replay equals the JAX engine's on the same plan."""
+    batch-mates' tokens are bit-identical to the clean run, and the whole
+    replay equals the JAX engine's on the same plan, sampled too."""
     jcfg, tcfg, jp, tp = model
     prompts, budgets = _prompts(tcfg.vocab_size, (5, 8, 5), 0), (6, 7, 5)
     clean = _run(_port(tp, tcfg, temperature=temperature, seed=0), prompts, budgets)
@@ -145,12 +146,12 @@ def test_watchdog_retires_poisoned_slot_healthy_bitident(model, kind, temperatur
     ev = log.by_kind("nonfinite")
     assert len(ev) == 1 and ev[0].action == "retire-slot" and ev[0].detail["rid"] == 1
     assert eng.stats()["resilience_events"] == len(log)
-    if temperature == 0.0:
-        jlog = JResilienceLog()
-        jeng = _jax(jp, jcfg, seed=0, log=jlog, fault_plan=JFaultPlan.parse(f"{kind}@0:slot=1"))
-        assert out == _run(jeng, prompts, budgets)
-        assert _reasons(eng) == _reasons(jeng)
-        assert _events(log) == _events(jlog)
+    jlog = JResilienceLog()
+    jeng = _jax(jp, jcfg, temperature=temperature, seed=0, log=jlog,
+                fault_plan=JFaultPlan.parse(f"{kind}@0:slot=1"))
+    assert out == _run(jeng, prompts, budgets)
+    assert _reasons(eng) == _reasons(jeng)
+    assert _events(log) == _events(jlog)
 
 
 def test_watchdog_off_propagates_poison(model):
@@ -374,7 +375,7 @@ def _fake_cuda(monkeypatch, graph_cls, graph_ctx):
 def _state(eng):
     """An engine's static buffers and caches: what a decode chunk writes
     (a bf16 KV cache's scale fields are ``None``)."""
-    return [eng.tok, eng.pos, eng.active, eng.remaining, eng.poison,
+    return [eng.tok, eng.pos, eng.active, eng.remaining, eng.poison, eng.keys,
             *(t for c in eng.caches["layers"] for t in c if t is not None)]
 
 
@@ -439,6 +440,43 @@ def test_graph_chunk_over_static_buffers_equals_the_eager_loop(model, monkeypatc
     assert got == want and _events(eng.log) == _events(log)
     assert [r.finish_reason for r in eng._requests.values()].count("error") == 1
     assert [t.data_ptr() for t in _state(eng)] == ptrs
+    st = eng.stats()
+    assert st["decode_graph_captures"] == 1 and st["decode_graph_replays"] == st["chunks_run"] - 1 >= 3
+
+
+def test_sampled_graph_chunk_equals_jax(model, monkeypatch):
+    """Sampled decoding through the decode graph (the same stand-ins: the
+    capture leaves the buffers, the keys among them, as it found them; a
+    replay runs the chunk into the captured outputs): with backfill and a
+    poisoned slot, tokens, finish reasons and the log equal the JAX
+    engine's at temperature 0.8 on the same seed and plan, with one
+    capture."""
+    jcfg, tcfg, jp, tp = model
+    # the watchdog cases' prompt lengths: JAX's prefills are compiled already
+    prompts, budgets = _prompts(tcfg.vocab_size, (5, 8, 5, 8, 5), 8), (6, 4, 7, 5, 3)
+    spec = "nan_logits@2:slot=0"
+    jlog = JResilienceLog()
+    jeng = _jax(jp, jcfg, temperature=0.8, seed=3, log=jlog, fault_plan=JFaultPlan.parse(spec))
+    want = _run(jeng, prompts, budgets)
+    eng = _port(tp, tcfg, temperature=0.8, seed=3, log=ResilienceLog(), fault_plan=FaultPlan.parse(spec))
+
+    class Graph:
+        def replay(self):
+            for o, n in zip(eng._graph.out, eng._chunk()):
+                o.copy_(n)
+
+    @contextlib.contextmanager
+    def capture(graph, stream=None):
+        saved = [t.clone() for t in _state(eng)]
+        yield
+        for t, s in zip(_state(eng), saved):
+            t.copy_(s)
+
+    _fake_cuda(monkeypatch, Graph, capture)
+    eng._graph = engine_mod._DecodeGraph(eng.device)
+    assert _run(eng, prompts, budgets) == want
+    assert _reasons(eng) == _reasons(jeng) and _events(eng.log) == _events(jlog)
+    assert list(_reasons(eng).values()).count("error") == 1
     st = eng.stats()
     assert st["decode_graph_captures"] == 1 and st["decode_graph_replays"] == st["chunks_run"] - 1 >= 3
 
@@ -532,10 +570,11 @@ def test_holding_collects_only_inside_its_block(monkeypatch):
     assert [id(h) for h in held] == [id(plan), id(ws)]
 
 
-@pytest.mark.parametrize("device,temperature", [("cpu", 0.0), ("cuda", 0.8)])
+@pytest.mark.parametrize("device,temperature", [("cpu", 0.0), ("cpu", 0.8)])
 def test_cuda_graph_true_where_it_cannot_hold_raises(model, device, temperature):
-    """On a CPU runtime, or with sampled decoding, ``cuda_graph=True`` is
-    refused before anything is allocated; never a quiet eager run."""
+    """On a CPU runtime, greedy or sampled, ``cuda_graph=True`` is refused
+    before anything is allocated; never a quiet eager run.  (A mesh of
+    several ranks is refused too: ``test_torch_sharded_serve.py``.)"""
     _, tcfg, _, tp = model
     rt = trt.Runtime(backend="dense", device=device)
     with pytest.raises(ValueError, match="cuda_graph=True"):

@@ -11,7 +11,8 @@ its KV heads split over ``model``), and every rank emits the same tokens:
   engine's continuous batching, backfill included): greedy tokens equal to
   JAX's ``ServeEngine`` on the ``reference`` backend, request for request,
   on both port backends; ``generate(mesh=...)`` equal to JAX's
-  ``generate``;
+  ``generate``; sampled at temperature 0.8, JAX's sampled tokens on every
+  rank (each rank samples the gathered rows from its replicated keys);
 * each data rank prefills only the prompts of the slot it holds;
 * ``prefill`` and three ``decode_step`` logits of the sharded model within
   rtol = atol = 1e-5 of JAX's unsharded ``prefill``/``decode_step``, each
@@ -96,6 +97,16 @@ def task_engine(params, prompts, backend):
     gen = generate(local, cfg, torch.from_numpy(np.stack([prompts[1], prompts[4]])), max_new=4,
                    rt=Runtime(backend=backend, device="cpu", **GEOM), mesh=policy.mesh)
     return out, caches, gen.tolist(), rows, S.ModelShards(policy, None).data_rank
+
+
+def task_engine_sampled(params, prompts, temperature, seed):
+    """The engine's tokens at ``temperature`` on the ``reference`` backend."""
+    cfg, policy, local = _local(params)
+    rt = Runtime(backend="reference", device="cpu", sharding=policy, **GEOM)
+    eng = ServeEngine(local, cfg, slots=2, max_len=16, chunk=3, rt=rt, temperature=temperature, seed=seed)
+    for p, n in zip(prompts, BUDGETS):
+        eng.submit(torch.from_numpy(p), max_new=n)
+    return eng.run()
 
 
 def task_logits(params, prompts, steps):
@@ -196,6 +207,21 @@ def test_sharded_engine_greedy_tokens_match_jax(pool, model, backend):
     rows = {data_rank: r for _, _, _, r, data_rank in outs}
     assert rows[0] == rows[1] and set(rows[0]) == {1}
     assert 3 <= len(rows[0]) < len(PLENS)
+
+
+def test_sharded_engine_sampled_tokens_match_jax(pool, model):
+    from repro import runtime as jrt
+    from repro.serve.engine import ServeEngine as JServeEngine
+
+    jp, tp = model
+    prompts = _prompts()
+    jeng = JServeEngine(jp, _jax_cfg(), slots=2, max_len=16, chunk=3, temperature=0.8, seed=5,
+                        rt=jrt.Runtime(backend="reference", **GEOM))
+    for p, n in zip(prompts, BUDGETS):
+        jeng.submit(p, max_new=n)
+    want = jeng.run()
+    for out in pool.run(task_engine_sampled, tp, prompts, 0.8, 5, deadline=DEADLINE):
+        assert out == want
 
 
 def test_sharded_prefill_and_decode_logits_match_jax(pool, model):
