@@ -40,7 +40,9 @@ from the root of a checkout, on a machine with one H100.
    admission's scaling, plain rows and rows with two NaNs, a tie and a
    skipped slot; each vocabulary timed against the plain version and
    ``torch.multinomial`` on the rows' softmax (another stream), with its
-   bound; one device launch a call;
+   bound; one device launch a call; its fixed cost: a launch that does
+   nothing (the spin kernel asked for no cycles), every slot skipped, and 4
+   rows at the six served vocabularies with the line through them;
    then the core phase: the schedule kernel (``td_schedule_kernel``)
    bit-equal to its plain loop (``sel``, ``advance``, ``n_cycles``) on 64
    seeded streams of 4096 rows at each of six densities, one- and
@@ -48,8 +50,10 @@ from the root of a checkout, on a machine with one H100.
    loop's cycles, the accumulator within 1e-5 of a float64 ``sum(a*b)``
    relative to ``sum |a*b|``), both timed; the tile kernel
    (``td_tile_kernel``, the paper's cycle model) equal to its plain loop at
-   PE rows 1 to 100, 16 and 8 lanes, lookahead 1 and 2, and on a ragged
-   batch of 1000 tiles in one launch; then, counted as this slice's
+   PE rows 1 to 100, 16 and 8 lanes, lookahead 1 and 2, a tile a warp and
+   as many as a warp holds, rows staged and loaded as needed, and on a
+   ragged batch of 1000 tiles in one launch, each batch timed with its
+   clocks a cycle beside other packings; then, counted as this slice's
    main path, the port's quickstart example
    (``repro_torch.examples.quickstart``, its ``main`` on the card, equal to
    its run on the host), the codec on full-width deepseek-7b ``w_down``
@@ -1425,6 +1429,9 @@ def serve_fault_phase(params, cfg, prompts, rt, graph, faults=SERVE_FAULTS, temp
 #: admission's division), on plain rows and on rows with a NaN, a tie and a
 #: slot the step skips
 SAMPLE_VOCABS = (102400, 151936, 152064, 256000)
+#: the fixed-cost sweep: every vocabulary the port serves at SLOTS rows (the
+#: hybrid's 32000, the SSM's 50280 besides the above)
+SAMPLE_SWEEP = (32000, 50280, 102400, 151936, 152064, 256000)
 SAMPLE_TEMPERATURES = (0.8, 1.0)
 SAMPLE_SOURCE = "src/repro_torch/kernels/csrc/sample.cu"
 #: the JAX engine's key split and categorical draw in its jitted decode step
@@ -1478,6 +1485,42 @@ def sampler_batch(v: int, gen, tricky: bool):
     return rows, keys.to(torch.uint32), good
 
 
+def sampler_fixed_cost(gen, clock_hz: float, bw: float) -> dict:
+    """What a sampler launch costs besides its draws, under :func:`cuda_ms`:
+    the spin kernel ``cuda_ms`` queues its calls behind, asked to spin for
+    no cycles (``torch.cuda._sleep(0)``: a launch that does nothing, the
+    floor the measurement puts under every kernel), the sampler with every good flag
+    clear (its prologue and completion, no draw) and its time over
+    :data:`SAMPLE_SWEEP` at SLOTS rows, with the line through them (ms =
+    intercept + slope x draws) and each point's operations bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import sample as SMP
+
+    floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), iters=50)
+    rows, keys, good = sampler_batch(SAMPLE_VOCABS[0], gen, False)
+    good.zero_()
+    skipped_ms = cuda_ms(lambda: SMP.sample_tokens(rows, keys, SERVE_TEMPERATURE, good, -1, reciprocal=True),
+                         iters=50)
+    sweep = []
+    for v in SAMPLE_SWEEP:
+        rows, keys, good = sampler_batch(v, gen, False)
+        ms = cuda_ms(lambda: SMP.sample_tokens(rows, keys, SERVE_TEMPERATURE, good, -1, reciprocal=True), iters=50)
+        sweep.append({"v": v, "ms": ms, "bound_ms": sample_bound(SLOTS, SLOTS, v, bw, clock_hz)[0]})
+    draws = np.array([SLOTS * r["v"] for r in sweep], float)
+    slope, intercept = np.polyfit(draws, [r["ms"] for r in sweep], 1)
+    bound_slope = np.polyfit(draws, [r["bound_ms"] for r in sweep], 1)[0]
+    SMP.reset_launch_counts()
+    out = {"floor_ms": floor_ms, "skipped_ms": skipped_ms, "sweep": sweep, "ps_a_draw": slope * 1e9,
+           "intercept_ms": intercept, "bound_ps_a_draw": bound_slope * 1e9}
+    log(f"sampler fixed cost: empty launch {floor_ms:.4f} ms, every slot skipped {skipped_ms:.4f} ms; "
+        f"[{SLOTS}, V] over V = {SAMPLE_SWEEP}: "
+        + ", ".join(f"{r['ms']:.4f}" for r in sweep)
+        + f" ms; line: {out['intercept_ms'] * 1e3:.2f} us + {out['ps_a_draw']:.2f} ps a draw (bound "
+        f"{out['bound_ps_a_draw']:.2f} ps a draw)")
+    return out
+
+
 def sampler_phase(bw: float) -> tuple[list, dict]:
     """The sampler kernel against its plain version on the card (bit-equal
     tokens and keys) at each of :data:`SAMPLE_VOCABS` x
@@ -1528,10 +1571,11 @@ def sampler_phase(bw: float) -> tuple[list, dict]:
     rows, keys, good = sampler_batch(SAMPLE_VOCABS[0], gen, False)
     launch = count_launches({"sampler": lambda: SMP.sample_tokens(rows, keys, SERVE_TEMPERATURE, good, pad,
                                                                   reciprocal=True)}, kernel="td_sample_kernel")
+    fixed = sampler_fixed_cost(gen, clock_hz, bw)
     SMP.reset_launch_counts()
     log(f"sampler: {cases} cases bit-equal to the plain version on the card (tokens and keys; a NaN row's "
         "first NaN, a tie's first index, a skipped slot's pad and kept key)")
-    return rows_out, {"cases": cases, "launch_check": launch, "sm_clock_mhz": clock_hz / 1e6}
+    return rows_out, {"cases": cases, "launch_check": launch, "sm_clock_mhz": clock_hz / 1e6, "fixed": fixed}
 
 
 def sampled_serve_phase(params, cfg, prompts, greedy) -> dict:
@@ -6228,6 +6272,8 @@ TILE_ROWS_SWEEP = (1, 2, 3, 4, 8, 16, 33, 100)
 TILE_LANES = (16, 8)
 TILE_T = (1, 2, 37, 256)
 TILE_RAGGED, TILE_RAGGED_T = 1000, (1, 2, 3, 17, 64, 256, 688)
+#: the packings (tiles a warp) each timed batch is also timed at, beside the path's
+TILE_PACKS = (1, 2, 8)
 #: the JAX scans the tile kernel replaces (no Pallas kernel: lax.scans)
 TILE_REPLACES = "src/repro/core/pe.py:92"
 #: the Fig. 17/18 rows sweep (benchmarks/fig17_18_tile_geometry.py's layer and settings)
@@ -6251,13 +6297,56 @@ def _tiles_on(parts, dev):
     return S.tile_views(packed, sum(z.shape[0] for z in parts))
 
 
+def tile_run(parts, clock_hz: float, label: str) -> dict:
+    """One batch of 4-row tiles through the tile kernel as ``tile_cycles``
+    launches it (the path: its packing from the batch's size, rows staged)
+    and at each of :data:`TILE_PACKS` tiles a warp, each held to the plain
+    loop and timed; the path's clocks a cycle are its ms over the longest
+    tile's cycles, as :func:`split_check` takes the stream's.  Not counted:
+    the caller restores the launch counts."""
+    import numpy as np
+    from repro_torch.kernels import block_mask, schedule as S
+
+    t0 = time.perf_counter()
+    want = S.tile_cycles(*_tiles_on(parts, "cpu"), rows=4).numpy()  # the plain loop, a batch a length
+    plain_s = time.perf_counter() - t0
+    z, t, off = _tiles_on(parts, "cuda")
+    max_t = max(p.shape[2] for p in parts)
+    pack, words = S.tile_launch_shape(t.shape[0], max_t, 4, block_mask.sm_count(z.device))
+    runs = {"path": lambda: S.tile_cycles(z, t, off, rows=4, max_t=max_t)}
+    runs.update({k: (lambda k=k: S._tile_launch(z, t, off, 4, 16, 2, (k, words))) for k in TILE_PACKS if k != pack})
+    for name, run in runs.items():
+        got = run().cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"tile kernel, {label} ({name} a warp): cycles differ from the plain loop in "
+                                 f"{int((got != want).sum())} tiles")
+    times = {name: cuda_ms(run, iters=10, warmup=1) for name, run in runs.items()}
+    ms, cycles = times.pop("path"), int(want.max())
+    return {"want": want, "plain_s": plain_s, "ms": ms, "pack": pack, "pack_ms": {pack: ms, **times},
+            "cycles_max": cycles, "clocks_a_cycle": ms * 1e-3 * clock_hz / max(cycles, 1)}
+
+
+#: the tile run's numbers kept in its row
+TILE_RUN_KEYS = ("pack", "pack_ms", "cycles_max", "clocks_a_cycle")
+
+
+def tile_log(run: dict) -> str:
+    """A :func:`tile_run`'s numbers for the log."""
+    return (f"the path ({run['pack']} a warp) {run['ms']:.4f} ms, {run['cycles_max']} cycles "
+            f"({run['clocks_a_cycle']:.0f} clocks a cycle); at "
+            + ", ".join(f"{k} a warp {v:.4f}" for k, v in sorted(run["pack_ms"].items())) + " ms")
+
+
 def tile_check(bw: float, clock_hz: float) -> list:
     """(f): the tile kernel (``td_tile_kernel``) bit-equal to its plain
     loop (``tile_cycles_ref``): PE rows ``TILE_ROWS_SWEEP`` x lanes
     ``TILE_LANES`` x lookahead 1, 2, each a batch of tiles of lengths
-    ``TILE_T`` (all-zero, all-one and seeded densities), then a ragged batch
-    of ``TILE_RAGGED`` tiles of 4 rows, lengths from ``TILE_RAGGED_T``, in
-    one launch, timed against its plain loop and its bounds."""
+    ``TILE_T`` (all-zero, all-one and seeded densities), launched as
+    ``tile_cycles`` launches it (``max_t`` given: rows staged), with its
+    rows loaded as needed (``max_t`` unknown) and with as many tiles a warp
+    as a warp holds; then a ragged batch of ``TILE_RAGGED`` tiles of 4
+    rows, lengths from ``TILE_RAGGED_T``, in one launch, timed against its
+    plain loop and its bounds (:func:`tile_run`)."""
     import numpy as np
     import torch
     from repro_torch.kernels import schedule as S
@@ -6274,34 +6363,126 @@ def tile_check(bw: float, clock_hz: float) -> list:
             for la in (1, 2):
                 want = np.concatenate([S.tile_cycles_ref(z.numpy(), n, la) for z in parts])
                 z, t, off = _tiles_on(parts, "cuda")
-                got = S.tile_cycles(z, t, off, rows=rows, n_lanes=n, lookahead=la)
-                if not np.array_equal(got.cpu().numpy(), want):
-                    raise AssertionError(f"tile kernel, {rows} rows, {n} lanes, lookahead {la}: cycles "
-                                         f"{got.cpu().tolist()} != the plain loop's {want.tolist()}")
+                runs = {"path": lambda: S.tile_cycles(z, t, off, rows=rows, n_lanes=n, lookahead=la,
+                                                      max_t=max(TILE_T)),
+                        "rows loaded as needed": lambda: S.tile_cycles(z, t, off, rows=rows, n_lanes=n,
+                                                                       lookahead=la)}
+                if rows <= 32:
+                    full = (32 // rows, rows * (max(TILE_T) | 1))
+                    runs["a full warp of tiles"] = lambda: S._tile_launch(z, t, off, rows, n, la, full)
+                for name, run in runs.items():
+                    got = run()
+                    if not np.array_equal(got.cpu().numpy(), want):
+                        raise AssertionError(f"tile kernel, {rows} rows, {n} lanes, lookahead {la} ({name}): "
+                                             f"cycles {got.cpu().tolist()} != the plain loop's {want.tolist()}")
                 n_cases += len(want)
     log(f"core (f): tile kernel at rows {TILE_ROWS_SWEEP} x lanes {TILE_LANES} x lookahead 1, 2, T = {TILE_T} "
-        f"(all-zero, all-one, seeded): {n_cases} tiles, cycles == the plain loop's")
+        f"(all-zero, all-one, seeded), the path (staged), rows loaded as needed and a full warp of tiles "
+        f"(rows <= 32): {n_cases} tiles, cycles == the plain loop's")
     order = rng.permutation(TILE_RAGGED)
     ts = np.array(TILE_RAGGED_T)[np.arange(TILE_RAGGED) % len(TILE_RAGGED_T)][order]
     parts = [torch.from_numpy(rng.random((1, 4, int(t), 16)) < rng.uniform(0.2, 0.8)) for t in ts]
-    t0 = time.perf_counter()
-    want = S.tile_cycles(*_tiles_on(parts, "cpu"), rows=4).numpy()  # the plain loop, a batch a length
-    plain_s = time.perf_counter() - t0
-    z, t, off = _tiles_on(parts, "cuda")
-    got = S.tile_cycles(z, t, off, rows=4)
-    if not np.array_equal(got.cpu().numpy(), want):
-        raise AssertionError(f"tile kernel, {TILE_RAGGED} ragged tiles: cycles differ from the plain loop in "
-                             f"{int((got.cpu().numpy() != want).sum())} tiles")
-    ms = cuda_ms(lambda: S.tile_cycles(z, t, off, rows=4), iters=10, warmup=1)
-    row = {"case": f"{TILE_RAGGED} ragged tiles of 4 rows, T in {TILE_RAGGED_T}, lookahead 2",
-           "kernel": "td_tile_kernel", "shape": f"[{TILE_RAGGED},4,T,16]", "max_abs_err": 0.0, "ms": ms,
-           "plain_ms": plain_s * 1e3, "library_ms": None, "bound_ms": tile_bytes(parts) / bw * 1e3,
-           "bound_by": "bytes", "chain_bound_ms": schedule_chain_ms(int(want.max()), 2, clock_hz),
-           "main_path": False}
-    log(f"core (f): tile kernel, {row['case']}, one launch: cycles == the plain loop's; kernel {ms:.4f} ms, "
-        f"plain loop {row['plain_ms']:.1f} ms, bounds: bytes {row['bound_ms']:.6f} ms, chain "
-        f"{row['chain_bound_ms']:.4f} ms ({int(want.max())} cycles)")
+    case = f"{TILE_RAGGED} ragged tiles of 4 rows, T in {TILE_RAGGED_T}, lookahead 2"
+    run = tile_run(parts, clock_hz, case)
+    row = {"case": case, "kernel": "td_tile_kernel", "shape": f"[{TILE_RAGGED},4,T,16]", "max_abs_err": 0.0,
+           "ms": run["ms"], "plain_ms": run["plain_s"] * 1e3, "library_ms": None,
+           "bound_ms": tile_bytes(parts) / bw * 1e3, "bound_by": "bytes",
+           "chain_bound_ms": schedule_chain_ms(run["cycles_max"], 2, clock_hz), "main_path": False,
+           **{k: run[k] for k in TILE_RUN_KEYS}}
+    log(f"core (f): tile kernel, {case}, one launch: cycles == the plain loop's; {tile_log(run)}; plain loop "
+        f"{row['plain_ms']:.1f} ms, bounds: bytes {row['bound_ms']:.6f} ms, chain {row['chain_bound_ms']:.4f} ms")
     return [row]
+
+
+#: the cycle model's timed configurations: the train step's deepseek-7b and the deepest the port serves
+CYCLE_MODEL_ARCHS = ("deepseek-7b", "qwen3-moe-235b-a22b")
+CYCLE_MODEL_REPEAT = 9
+
+
+def cycle_model_timing(clock_hz: float, repeat: int = CYCLE_MODEL_REPEAT) -> dict:
+    """``speedup_from_densities`` (into ``model_speedup`` at its defaults)
+    on the card over each of :data:`CYCLE_MODEL_ARCHS`' FFN layers, the
+    densities drawn from ``CYCLE_MODEL_SEED``, equal to the host's: the
+    seconds of ``repeat`` calls after a first one (median and least), one
+    tile launch a call, and that launch's device ms on the call's batch
+    (``tile_cycles`` as ``simulate_tiles`` calls it) with its clocks a
+    cycle; then ``TILE_RAGGED`` ragged tiles in one launch.  It uses only
+    names the package has had since the tile kernel came, so it times an
+    older checkout's package with that checkout's ``src`` first on
+    ``sys.path`` (:func:`cycle_model_timing_main`)."""
+    import inspect
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import perf_model as pm
+    from repro_torch.kernels import schedule as S
+
+    def launch_ms(parts):
+        z, t, off = _tiles_on(parts, "cuda")
+        kw = {"max_t": max(p.shape[2] for p in parts)} if "max_t" in inspect.signature(S.tile_cycles).parameters \
+            else {}
+        want = S.tile_cycles(*_tiles_on(parts, "cpu"), rows=4).numpy()
+        if not np.array_equal(S.tile_cycles(z, t, off, rows=4, **kw).cpu().numpy(), want):
+            raise AssertionError("tile kernel: cycles differ from the plain loop")
+        return cuda_ms(lambda: S.tile_cycles(z, t, off, rows=4, **kw), iters=10, warmup=1), int(want.max())
+
+    counted = dict(S.LAUNCHES)
+    out = {}
+    for arch in CYCLE_MODEL_ARCHS:
+        cfg = get_config(arch)
+        layers = pm.ffn_layers_from_config(cfg)
+        rng = np.random.default_rng(CYCLE_MODEL_SEED)
+        a, g = rng.uniform(0.2, 0.6, cfg.num_layers), rng.uniform(0.3, 0.9, cfg.num_layers)
+        card = pm.speedup_from_densities(a, g, layers)
+        if card != pm.speedup_from_densities(a, g, layers, device="cpu"):
+            raise AssertionError(f"model_speedup over {arch}'s FFN layers: the card's != the host's")
+        seconds = []
+        for _ in range(repeat):
+            before = S.LAUNCHES["td_tile_kernel"]
+            t0 = time.perf_counter()
+            pm.speedup_from_densities(a, g, layers)
+            seconds.append(time.perf_counter() - t0)
+            if S.LAUNCHES["td_tile_kernel"] != before + 1:
+                raise AssertionError(f"model_speedup over {arch}'s FFN layers: not one tile launch")
+        spars = [{pm.FWD: 1 - x, pm.BWD_INPUT: 1 - y, pm.BWD_WEIGHT: max(1 - x, 1 - y)} for x, y in zip(a, g)]
+        parts = [torch.from_numpy(pm._conv_masks(layer, s[c], pm.TileConfig(), 0.4, 2, 256, 7919 * i)[0])
+                 for i, (layer, s) in enumerate(zip(layers, spars)) for c in (pm.FWD, pm.BWD_INPUT, pm.BWD_WEIGHT)]
+        ms, cycles = launch_ms(parts)
+        out[arch] = {"layers": len(layers), "tiles": sum(p.shape[0] for p in parts), "call_s": seconds,
+                     "median_s": statistics.median(seconds), "least_s": min(seconds), "launch_ms": ms,
+                     "cycles_max": cycles, "clocks_a_cycle": ms * 1e-3 * clock_hz / max(cycles, 1)}
+        log(f"cycle model timing: {arch}'s {len(layers)} FFN layers, {out[arch]['tiles']} tiles, card == host: "
+            f"a call median {out[arch]['median_s']:.4f} s, least {out[arch]['least_s']:.4f} s over {repeat}; "
+            f"its launch {ms:.4f} ms, {cycles} cycles ({out[arch]['clocks_a_cycle']:.0f} clocks a cycle)")
+    rng = np.random.default_rng(CYCLE_MODEL_SEED)
+    ts = rng.permutation(np.array(TILE_RAGGED_T)[np.arange(TILE_RAGGED) % len(TILE_RAGGED_T)])
+    ms, cycles = launch_ms([torch.from_numpy(rng.random((1, 4, int(t), 16)) < rng.uniform(0.2, 0.8)) for t in ts])
+    out["ragged"] = {"tiles": TILE_RAGGED, "launch_ms": ms, "cycles_max": cycles,
+                     "clocks_a_cycle": ms * 1e-3 * clock_hz / max(cycles, 1)}
+    log(f"cycle model timing: {TILE_RAGGED} ragged tiles, one launch {ms:.4f} ms, {cycles} cycles "
+        f"({out['ragged']['clocks_a_cycle']:.0f} clocks a cycle)")
+    S.LAUNCHES.update(counted)  # not the path's
+    return out
+
+
+def cycle_model_timing_main() -> int:
+    """:func:`cycle_model_timing` alone, for the package first on
+    ``sys.path``, its result a JSON line: ``python3 -c 'import sys;
+    sys.path[:0] = ["<checkout>/src", "."]; import chip_smoke as C;
+    sys.exit(C.cycle_model_timing_main())'`` from this file's directory."""
+    import torch
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA card visible", file=sys.stderr)
+        return 2
+    _build.library()
+    log(f"cycle model timing: {_build.__file__}")
+    print(json.dumps(cycle_model_timing(max_sm_clock_hz())))
+    print(card_line())
+    return 0
 
 
 def cycle_model_check(bw: float, clock_hz: float) -> dict:
@@ -6368,34 +6549,40 @@ def cycle_model_check(bw: float, clock_hz: float) -> dict:
     est = [torch.from_numpy(pm._conv_masks(layer, s[c], pm.TileConfig(), 0.4, 2, 256, 7919 * i)[0])
            for i, (layer, s) in enumerate(zip(layers, spars)) for c in (pm.FWD, pm.BWD_INPUT, pm.BWD_WEIGHT)]
     full = [torch.from_numpy(pm._conv_masks(layers[0], 0.5, pm.TileConfig(), 0.4, 256, 688, 0)[0])]
+    deep_cfg = get_config(CYCLE_MODEL_ARCHS[-1])
+    deep_layers = pm.ffn_layers_from_config(deep_cfg)
+    drng = np.random.default_rng(CYCLE_MODEL_SEED)  # cycle_model_timing's densities
+    da, dg = drng.uniform(0.2, 0.6, deep_cfg.num_layers), drng.uniform(0.3, 0.9, deep_cfg.num_layers)
+    deep = [torch.from_numpy(pm._conv_masks(layer, s, pm.TileConfig(), 0.4, 2, 256, 7919 * i)[0])
+            for i, (layer, x, y) in enumerate(zip(deep_layers, da, dg)) for s in (1 - x, 1 - y, max(1 - x, 1 - y))]
+    runs = []
     for label, parts, main in (("model_speedup, deepseek-7b's 30 FFN layers x 3 convolutions, 2 groups of "
                                 "4 x 256 rows each", est, True),
+                               (f"model_speedup's batch over {CYCLE_MODEL_ARCHS[-1]}'s {len(deep_layers)} FFN "
+                                "layers, 2 groups of 4 x 256 rows a convolution", deep, False),
                                ("deepseek-7b FFN conv, whole workload: 256 groups of 4 x 688 rows", full, False)):
-        t0 = time.perf_counter()
-        want = S.tile_cycles(*_tiles_on(parts, "cpu"), rows=4).numpy()
-        plain_s = time.perf_counter() - t0
-        z, t, off = _tiles_on(parts, "cuda")
-        ms = cuda_ms(lambda: S.tile_cycles(z, t, off, rows=4), iters=10, warmup=1)
-        if not np.array_equal(S.tile_cycles(z, t, off, rows=4).cpu().numpy(), want):
-            raise AssertionError(f"tile kernel, {label}: cycles differ from the plain loop")
+        run = tile_run(parts, clock_hz, label)
         n_tiles = sum(p.shape[0] for p in parts)
         rows.append({"case": label, "kernel": "td_tile_kernel", "shape": f"[{n_tiles},4,T,16]",
-                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_s * 1e3, "library_ms": None,
+                     "max_abs_err": 0.0, "ms": run["ms"], "plain_ms": run["plain_s"] * 1e3, "library_ms": None,
                      "bound_ms": tile_bytes(parts) / bw * 1e3, "bound_by": "bytes",
-                     "chain_bound_ms": schedule_chain_ms(int(want.max()), 2, clock_hz), "main_path": main,
-                     "cycles_max": int(want.max())})
+                     "chain_bound_ms": schedule_chain_ms(run["cycles_max"], 2, clock_hz), "main_path": main,
+                     **{k: run[k] for k in TILE_RUN_KEYS}})
+        runs.append(run)
     S.LAUNCHES.update(counted)  # the timing launches above are not the path's
-    est_row, full_row = rows
+    est_row, deep_row, full_row = rows
     log(f"core (g): model_speedup over deepseek-7b's {len(layers)} FFN layers (speedup_from_densities, seed "
         f"{CYCLE_MODEL_SEED}) on the card == on the host: {card}; card {card_s:.3f} s a call (one tile launch), "
         f"host loop {host_s:.2f} s (a convolution at a time, as before the tile kernel, {per_conv_s:.2f} s); "
-        f"the launch alone {est_row['ms']:.4f} ms (plain loop {est_row['plain_ms']:.0f} "
+        f"the launch alone: {tile_log(runs[0])} (plain loop {est_row['plain_ms']:.0f} "
         f"ms; bounds: bytes {est_row['bound_ms']:.6f} ms, chain {est_row['chain_bound_ms']:.4f} ms)")
+    log(f"core (g): {deep_row['case']}: {tile_log(runs[1])} (plain loop {deep_row['plain_ms']:.0f} ms; bounds: "
+        f"bytes {deep_row['bound_ms']:.6f} ms, chain {deep_row['chain_bound_ms']:.4f} ms)")
     log(f"core (g): Fig. 17/18 rows sweep {FIG17_LAYER[0]} at 66% sparsity, card == host: "
         + ", ".join(f"{r} rows {s:.3f}x" for r, s in fig))
     log(f"core (g): deepseek-7b FFN conv over its whole workload (256 groups x 688 rows) card == host, "
-        f"{got.speedup:.4f}x: simulate_conv card {whole_card_s:.3f} s, host {whole_host_s:.2f} s; the launch alone "
-        f"{full_row['ms']:.4f} ms (plain loop {full_row['plain_ms']:.0f} ms; bounds: bytes "
+        f"{got.speedup:.4f}x: simulate_conv card {whole_card_s:.3f} s, host {whole_host_s:.2f} s; the launch alone: "
+        f"{tile_log(runs[2])} (plain loop {full_row['plain_ms']:.0f} ms; bounds: bytes "
         f"{full_row['bound_ms']:.6f} ms, chain {full_row['chain_bound_ms']:.4f} ms)")
     return {"rows": rows, "model_speedup": card, "card_s": card_s, "host_s": host_s, "per_conv_host_s": per_conv_s,
             "fig17_rows": fig,
@@ -6697,6 +6884,7 @@ def core_phase(bw: float) -> dict:
     launches.update(S.LAUNCHES)
     timing = codec_schedule_check(codec_run, bw, clock_hz)
     split = split_check(codec_run, bw, clock_hz)
+    cm_timing = cycle_model_timing(clock_hz)
     cut = {k: v for k, v in codec_run.items() if k not in ("w", "sel", "advance")}
     for name, shape in (("simulate_macs", "[1,64,16]"), ("compress", "[1,96,16]")):
         rows.append({"case": f"quickstart {name}", "kernel": "td_schedule_kernel", "shape": shape,
@@ -6721,8 +6909,8 @@ def core_phase(bw: float) -> dict:
     log(f"core: main-path launches (c)+(b)+(d)+(e)+(g): {launches}; phase {time.perf_counter() - t0:.1f} s")
     return {"rows": rows, "tile_rows": tile_rows + cycle_model["rows"], "macs": macs, "quickstart": quick,
             "codec": {**cut, **timing, **split}, "ops": ops_run, "validate": validate,
-            "cycle_model": cycle_model, "launches": launches, "sm_clock_mhz": clock_hz / 1e6,
-            "seconds": time.perf_counter() - t0}
+            "cycle_model": cycle_model, "cycle_model_timing": cm_timing, "launches": launches,
+            "sm_clock_mhz": clock_hz / 1e6, "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -6961,6 +7149,11 @@ def _phases(t_start, card, name, bw, dry) -> int:
         "model_speedup_per_conv_host_s": core["cycle_model"]["per_conv_host_s"],
         "whole_conv_ms": core["tile_rows"][-1]["ms"], "whole_conv_bound_ms": core["tile_rows"][-1]["bound_ms"],
         "whole_conv_chain_bound_ms": core["tile_rows"][-1]["chain_bound_ms"],
+        **{k: head[k] for k in TILE_RUN_KEYS},
+        "whole_conv_clocks_a_cycle": core["tile_rows"][-1]["clocks_a_cycle"],
+        **{tag: {k: core["tile_rows"][i][k] for k in ("shape", "ms", "pack", "pack_ms", "clocks_a_cycle", "bound_ms")}
+           for tag, i in (("ragged", 0), ("deep", 2))},
+        "model_speedup_timing": {k: v for k, v in core["cycle_model_timing"].items() if k != "ragged"},
     })
     head = next(r for r in sampler_rows if r["main_path"])
     kernels.append({
@@ -6973,6 +7166,7 @@ def _phases(t_start, card, name, bw, dry) -> int:
         "library_ms": head["library_ms"], "library": "torch.multinomial (another stream)", "shape": head["shape"],
         "by_vocab": {r["shape"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                      for r in sampler_rows},
+        **{k: sampler_check["fixed"][k] for k in ("floor_ms", "skipped_ms", "intercept_ms", "ps_a_draw")},
     })
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

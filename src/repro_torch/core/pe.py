@@ -73,7 +73,8 @@ def simulate_tiles(parts, *, n_lanes: int = 16, lookahead: int = 2, device=None)
     packed = _schedule.pack_tiles(tensors).to(dev)
     counts = [z.shape[0] for z in tensors]
     z, t, offset = _schedule.tile_views(packed, sum(counts))
-    cycles = _schedule.tile_cycles(z, t, offset, rows=rows, n_lanes=n_lanes, lookahead=lookahead)
+    cycles = _schedule.tile_cycles(z, t, offset, rows=rows, n_lanes=n_lanes, lookahead=lookahead,
+                                   max_t=max(z.shape[2] for z in tensors))
     if host:
         cycles = cycles.cpu().numpy()
         return np.split(cycles, np.cumsum(counts)[:-1])

@@ -77,7 +77,7 @@ class TileArgs(ctypes.Structure):
 
     _fields_ = [
         ("z", _P), ("offset", _P), ("t", _P), ("cycles", _P),
-        *((name, _I) for name in ("G", "R", "N", "depth", "n_options", "n_levels")),
+        *((name, _I) for name in ("G", "R", "N", "depth", "n_options", "n_levels", "pack", "stage_words")),
         ("opt_step", _I * 8), ("opt_rot", _I * 8), ("level_mask", ctypes.c_uint * 16),
     ]
 
@@ -89,7 +89,7 @@ class SampleArgs(ctypes.Structure):
     _fields_ = [
         ("rows", _P), ("row_stride", _LL), ("col_stride", _LL), ("keys", _P), ("good", _P), ("tokens", _P),
         ("best", _P), ("arrived", _P), ("temperature", ctypes.c_float), ("inv", ctypes.c_float),
-        *((name, _I) for name in ("reciprocal", "B", "V", "pad_id")),
+        *((name, _I) for name in ("reciprocal", "B", "V", "pad_id", "chunk")),
     ]
 
 

@@ -21,6 +21,7 @@ this launch on a CUDA tensor; a failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,6 +57,12 @@ def _card_stream(dev: torch.device):
     """``dev``'s current stream as a raw ``cudaStream_t`` and a context that
     makes ``dev`` the current device."""
     return torch.cuda.current_stream(dev).cuda_stream, torch.cuda.device(dev)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """The SMs of the card ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def check_operand(x: torch.Tensor, bm: int, bk: int) -> None:

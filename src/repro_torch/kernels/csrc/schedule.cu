@@ -29,7 +29,11 @@
 // shifts its window by that minimum (rows that could drain further keep
 // their cleared bits); cycles count until the pointer passes t[g].  One
 // launch takes a ragged batch (each tile its own t and offset), so the
-// perf model's convolutions go in one launch.
+// perf model's convolutions go in one launch.  At R <= 32 a warp walks one
+// tile or a few on rows staged in shared memory; at R > 32 a CTA walks a
+// tile over its warps.  A tile is one chain: the cycle model's tiles are
+// short (at most 688 rows), and splitting them as a stream is split (below)
+// lost on the card, because their dense tiles' heads are seldom met.
 //
 // Bound.  The bytes are z read once and sel written once, but each cycle
 // needs the window the last one left: a stream (or a tile) is a chain of
@@ -57,7 +61,7 @@
 //   any other table (lane counts up to 32) runs the same arithmetic on
 //   tables read from the launch, the level loop kept rolled, and stores
 //   bytes.
-// * Rows come from a ring in shared memory (16-lane rows): each thread's
+// * Stream rows come from a ring in shared memory (16-lane rows): each thread's
 //   next rows are copied in by cp.async at least eight cycles before it
 //   reads them, so a cycle never waits on device memory (a 16-byte load of
 //   a row when the cycle needs it waits a round trip at most cycles: the L1
@@ -112,6 +116,8 @@ struct TdTileArgs {
   const int* t;              // [G] rows a PE row's stream
   int* cycles;               // [G]
   int G, R, N, depth, n_options, n_levels;
+  int pack;         // R <= 32: tiles a warp (a CTA), 1 to 32 / R
+  int stage_words;  // R <= 32: shared words a tile's rows may take (R * (t[g] | 1) of them), 0: none staged
   int opt_step[8];
   int opt_rot[8];
   unsigned level_mask[16];
@@ -131,7 +137,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxOptions = 8;
 constexpr int kMaxLevels = 16;
 constexpr int kStreamBlock = 32;   // threads a CTA of the stream launches
-constexpr int kTileBlock = 64;     // threads a CTA of the tile launch at R <= 32
+constexpr int kTileSmem = 227 * 1024;  // shared bytes a CTA of the tile launch may ask for
 constexpr int kStitchBlock = 256;
 constexpr int kMaxSegs = 2048;     // segments a stream (the stitch holds their ends in shared memory)
 constexpr int kMaxRows = 1024;     // rows a tile (a CTA)
@@ -328,8 +334,10 @@ __device__ __forceinline__ Tab make_tab(const Args& a, int vec, uint32_t* levels
   return tb;
 }
 
-// one level of the hierarchical scheduler on the window (w0, w1, w2)
-template <class Tab>
+// one level of the hierarchical scheduler on the window (w0, w1, w2);
+// kPlanes: also each lane's option as bit planes (the tile mode needs only
+// the cleared window)
+template <class Tab, bool kPlanes>
 __device__ __forceinline__ void sched_level(const Tab& tb, int L, uint32_t& w0, uint32_t& w1, uint32_t& w2,
                                             uint32_t& q0, uint32_t& q1, uint32_t& q2, uint32_t& picked) {
   uint32_t avail = tb.level(L);
@@ -344,10 +352,12 @@ __device__ __forceinline__ void sched_level(const Tab& tb, int L, uint32_t& w0, 
     uint32_t take = rot_down<Tab::kRep>(src, r, tb.n(), tb.full()) & avail;
     if constexpr (!Tab::kFixed) take &= o < tb.n_options() ? kFull : 0u;
     avail &= ~take;
-    picked |= take;
-    if (o & 1) q0 |= take;
-    if (o & 2) q1 |= take;
-    if (o & 4) q2 |= take;
+    if constexpr (kPlanes) {
+      picked |= take;
+      if (o & 1) q0 |= take;
+      if (o & 2) q1 |= take;
+      if (o & 4) q2 |= take;
+    }
     const uint32_t gone = rot_up<Tab::kRep>(take, r, tb.n(), tb.full());
     c0 |= st == 0 ? gone : 0u;
     c1 |= st == 1 ? gone : 0u;
@@ -365,7 +375,7 @@ __device__ __forceinline__ void sched_level(const Tab& tb, int L, uint32_t& w0, 
 // and the cleared sources afterwards.  Row 0's bits are read by option 0
 // alone (each lane's own dense option, always open at its level), so every
 // one drains and row 0 needs no clearing: the shift drops it.
-template <class Tab>
+template <class Tab, bool kPlanes>
 __device__ __forceinline__ void sched_level_fixed(const Tab& tb, int L, uint32_t w0, uint32_t& w1, uint32_t& w2,
                                                   uint32_t& q0, uint32_t& q1, uint32_t& q2, uint32_t& picked) {
   const uint32_t lvl = tb.level(L);
@@ -378,13 +388,15 @@ __device__ __forceinline__ void sched_level_fixed(const Tab& tb, int L, uint32_t
     take[o] = src & avail;
     avail &= ~src;
   }
-  picked |= lvl & ~avail;
+  if constexpr (kPlanes) picked |= lvl & ~avail;
   uint32_t c1 = 0, c2 = 0;
 #pragma unroll
   for (int o = 1; o < Tab::kOptions; ++o) {
-    if (o & 1) q0 |= take[o];
-    if (o & 2) q1 |= take[o];
-    if (o & 4) q2 |= take[o];
+    if constexpr (kPlanes) {
+      if (o & 1) q0 |= take[o];
+      if (o & 2) q1 |= take[o];
+      if (o & 4) q2 |= take[o];
+    }
     const uint32_t gone = rot_up<true>(take[o], tb.rot(o), 16, kFull);
     if (tb.step(o) == 1) c1 |= gone;
     else c2 |= gone;
@@ -394,27 +406,30 @@ __device__ __forceinline__ void sched_level_fixed(const Tab& tb, int L, uint32_t
 }
 
 // One scheduler cycle on the window: clears the taken bits, returns the
-// lanes' options as bit planes and the advance (AS, the leading drained rows).
-template <class Tab>
+// advance (AS, the leading drained rows) and, with kPlanes, the lanes'
+// options as bit planes.
+template <class Tab, bool kPlanes = true>
 __device__ __forceinline__ int sched_cycle(const Tab& tb, uint32_t& w0, uint32_t& w1, uint32_t& w2,
                                            uint32_t& q0, uint32_t& q1, uint32_t& q2, uint32_t& q3) {
   uint32_t picked = 0;
   q0 = q1 = q2 = q3 = 0;
   if constexpr (Tab::kFixed) {
 #pragma unroll
-    for (int L = 0; L < Tab::kLevels; ++L) sched_level_fixed(tb, L, w0, w1, w2, q0, q1, q2, picked);
+    for (int L = 0; L < Tab::kLevels; ++L) sched_level_fixed<Tab, kPlanes>(tb, L, w0, w1, w2, q0, q1, q2, picked);
   } else {
     // looped, not unrolled: the step's code stays small enough for the
     // instruction cache at any table
 #pragma unroll 1
-    for (int L = 0; L < tb.n_levels_; ++L) sched_level(tb, L, w0, w1, w2, q0, q1, q2, picked);
+    for (int L = 0; L < tb.n_levels_; ++L) sched_level<Tab, kPlanes>(tb, L, w0, w1, w2, q0, q1, q2, picked);
   }
-  const uint32_t idle = tb.full() & ~picked;  // sel = n_options
-  const int no = tb.n_options();
-  if (no & 1) q0 |= idle;
-  if (no & 2) q1 |= idle;
-  if (no & 4) q2 |= idle;
-  if (no & 8) q3 |= idle;
+  if constexpr (kPlanes) {
+    const uint32_t idle = tb.full() & ~picked;  // sel = n_options
+    const int no = tb.n_options();
+    if (no & 1) q0 |= idle;
+    if (no & 2) q1 |= idle;
+    if (no & 4) q2 |= idle;
+    if (no & 8) q3 |= idle;
+  }
   if ((Tab::kFixed || w0 == 0) && w1 == 0) return (tb.depth() > 2 && w2 == 0) ? 3 : 2;
   return 1;
 }
@@ -669,64 +684,95 @@ __global__ void __launch_bounds__(kStitchBlock) td_stitch_kernel(const TdSchedul
 // ---------------------------------------------------------------------------
 // tile mode
 
-// R <= 32: a warp holds 32 / R tiles, a tile's rows on neighbouring lanes,
-// and the tile's advance is one __reduce_min_sync over its lanes.  R > 32:
-// a CTA a tile, ceil(R / 32) warps, the rows past R all-zero windows (they
-// drain depth rows, which never lowers the minimum), the minimum taken
-// over the warps through shared memory.
-template <class Tab, bool kWide>
-__global__ void __launch_bounds__(kWide ? kMaxRows : kTileBlock) td_tile_kernel(const TdTileArgs a) {
-  constexpr bool kRingRows = Tab::kFixed && !kWide;
+// The narrow mode (R <= 32), td_tile_kernel: a CTA of one warp walks
+// `pack` tiles (the host picks the fewest that keep a scheduler to one warp:
+// tile_launch_shape), tile kk's PE row r on lane kk R + r, the tile's
+// advance one __reduce_min_sync over its R lanes.  The warp first stages
+// its tiles' rows as words in shared memory (a slot of stage_words a tile;
+// a tile that does not fit loads each row when a cycle needs it), so a
+// cycle never waits on device memory.  A cycle's cost is its instruction
+// stream: the cycle keeps none of the stream's bit planes, and a warp's
+// tiles walk together (its lanes leave the loop as their tile ends).
+template <class Tab>
+__global__ void __launch_bounds__(32) td_tile_kernel(const TdTileArgs a) {
+  extern __shared__ uint32_t words[];  // [pack][stage_words]
+  __shared__ uint32_t levels[kMaxLevels];
+  const Tab tb = make_tab<Tab>(a, a.N % 4 == 0, levels);
+  const int R = a.R, n = tb.n(), depth = tb.depth(), lane = threadIdx.x;
+  const long long g0 = (long long)blockIdx.x * a.pack;
+  for (int s = 0; s < a.pack && g0 + s < a.G; ++s) {
+    const int T = a.t[g0 + s], ts = T | 1;  // odd: a tile's PE rows in different banks
+    if ((long long)R * ts > a.stage_words) continue;
+    const uint8_t* zt = a.z + a.offset[g0 + s];
+    uint32_t* slot = words + (size_t)s * a.stage_words;
+    for (int i = lane; i < R * T; i += 32) {
+      const int r = i / T, row = i - r * T;
+      slot[r * ts + row] = tb.row(zt + (long long)r * T * n, row);
+    }
+  }
+  __syncthreads();
+  const int kk = lane / R, r = lane - kk * R;
+  const long long g = g0 + kk;
+  if (kk >= a.pack || g >= a.G) return;
+  const unsigned mask = R == 32 ? kFull : ((1u << R) - 1u) << (kk * R);
+  const int T = a.t[g], ts = T | 1;
+  const bool staged = (long long)R * ts <= a.stage_words;
+  const uint32_t* mine = words + (size_t)kk * a.stage_words + r * ts;
+  const uint8_t* zs = a.z + a.offset[g] + (long long)r * T * n;
+  // this lane's PE row, row `row` (zero past the tile's end)
+  auto at = [&](int row) -> uint32_t {
+    if (row >= T) return 0u;
+    return staged ? mine[row] : tb.row(zs, row);
+  };
+  uint32_t w0 = at(0), w1 = at(1), w2 = depth > 2 ? at(2) : 0u;
+  int p = 0, c = 0;
+  while (p < T) {  // the same trip count on every lane of the tile
+    // one lockstep cycle: the rows after the window read first, the tile's advance the minimum over its rows
+    const uint32_t r0 = at(p + depth), r1 = at(p + depth + 1), r2 = depth > 2 ? at(p + depth + 2) : 0u;
+    uint32_t q0, q1, q2, q3;
+    const int own = sched_cycle<Tab, false>(tb, w0, w1, w2, q0, q1, q2, q3);
+    const int adv = (int)__reduce_min_sync(mask, (unsigned)own);
+    shift(depth, adv, w0, w1, w2, r0, r1, r2);
+    p += adv;
+    ++c;
+  }
+  if (r == 0) a.cycles[g] = c;
+}
+
+// R > 32, td_tile_wide_kernel: a CTA a tile, one chain: ceil(R / 32) warps,
+// the rows past R all-zero windows, the minimum taken over the warps
+// through shared memory every cycle, each row loaded when a cycle needs it.
+template <class Tab>
+__global__ void __launch_bounds__(kMaxRows) td_tile_wide_kernel(const TdTileArgs a) {
   __shared__ uint32_t levels[kMaxLevels];
   __shared__ unsigned warp_min[2][kMaxRows / 32];
-  __shared__ uint4 rings[kRingRows ? kTileBlock * kRingStride : 1];
   const Tab tb = make_tab<Tab>(a, a.N % 4 == 0, levels);
   __syncthreads();
-  const int R = a.R, n = tb.n(), depth = tb.depth();
-  constexpr bool wide = kWide;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  long long g;
-  int r;
-  bool valid;
-  unsigned mask;
-  if (!wide) {
-    const int per_warp = 32 / R, kk = lane / R;
-    g = ((long long)blockIdx.x * (blockDim.x >> 5) + warp) * per_warp + kk;
-    r = lane - kk * R;
-    valid = kk < per_warp && g < a.G;
-    mask = R == 32 ? kFull : ((1u << R) - 1u) << (kk * R);
-  } else {
-    g = blockIdx.x;
-    r = threadIdx.x;
-    valid = true;
-    mask = kFull;
-  }
-  const int T = valid ? a.t[g] : 0;
-  const bool real = valid && r < R;
-  const int rows = real ? T : 0;  // a padding row reads nothing: all zero
-  const uint8_t* zs = real ? a.z + a.offset[g] + (long long)r * T * n : a.z;
+  const int n = tb.n(), depth = tb.depth();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, r = threadIdx.x;
+  const long long g = blockIdx.x;
+  const int T = a.t[g];
+  const int rows = r < a.R ? T : 0;  // a padding row reads nothing: all zero
+  const uint8_t* zs = rows ? a.z + a.offset[g] + (long long)r * T * n : a.z;
   uint32_t w0 = rows > 0 ? tb.row(zs, 0) : 0u;
   uint32_t w1 = rows > 1 ? tb.row(zs, 1) : 0u;
   uint32_t w2 = depth > 2 && rows > 2 ? tb.row(zs, 2) : 0u;
   int p = 0, nxt = depth, c = 0;
-  Rows<Tab, kRingRows> next_rows{zs, rows, rings + (kRingRows ? threadIdx.x * kRingStride : 0)};
-  next_rows.start(nxt);
-  while (p < T) {  // the same trip count on every lane of the tile
+  const Rows<Tab, false> next_rows{zs, rows, nullptr};
+  while (p < T) {
     uint32_t r0, r1, r2;
     next_rows.next(tb, nxt, depth, r0, r1, r2);
     uint32_t q0, q1, q2, q3;
-    unsigned adv = __reduce_min_sync(mask, (unsigned)sched_cycle(tb, w0, w1, w2, q0, q1, q2, q3));
-    if (wide) {
-      if (lane == 0) warp_min[c & 1][warp] = adv;
-      __syncthreads();
-      for (int i = 0; i < (int)(blockDim.x >> 5); ++i) adv = min(adv, warp_min[c & 1][i]);
-    }
+    unsigned adv = __reduce_min_sync(kFull, (unsigned)sched_cycle<Tab, false>(tb, w0, w1, w2, q0, q1, q2, q3));
+    if (lane == 0) warp_min[c & 1][warp] = adv;
+    __syncthreads();
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) adv = min(adv, warp_min[c & 1][i]);
     shift(depth, (int)adv, w0, w1, w2, r0, r1, r2);
     p += adv;
     nxt += adv;
     ++c;
   }
-  if (valid && r == 0) a.cycles[g] = c;
+  if (r == 0) a.cycles[g] = c;
 }
 
 // ---------------------------------------------------------------------------
@@ -759,6 +805,15 @@ int compiled_tables(const Args& a) {
   return a.depth;
 }
 
+// the narrow tile launch's dynamic shared memory: its tiles' staged words
+size_t tile_smem_bytes(const TdTileArgs& a) { return 4 * (size_t)a.pack * a.stage_words; }
+
+// the packing and staging td_tile takes (tile_launch_shape in kernels/schedule.py makes them)
+bool tile_shape_ok(const TdTileArgs& a) {
+  if (a.R > 32) return a.pack == 1 && a.stage_words == 0;  // a CTA a tile, rows loaded as needed
+  return a.pack >= 1 && a.pack <= 32 / a.R && a.stage_words >= 0 && tile_smem_bytes(a) <= (size_t)kTileSmem - 64;
+}
+
 unsigned blocks(long long threads, int per) { return (unsigned)((threads + per - 1) / per); }
 
 template <class Tab>
@@ -782,12 +837,21 @@ int launch_schedule(const TdScheduleArgs& a, cudaStream_t st) {
 
 template <class Tab>
 int launch_tile(const TdTileArgs& a, cudaStream_t st) {
-  if (a.R <= 32) {
-    const long long per_block = (long long)(kTileBlock / 32) * (32 / a.R);
-    td_tile_kernel<Tab, false><<<blocks(a.G, (int)per_block), kTileBlock, 0, st>>>(a);
-  } else {
-    td_tile_kernel<Tab, true><<<(unsigned)a.G, (unsigned)((a.R + 31) / 32 * 32), 0, st>>>(a);
+  if (a.R > 32) {
+    td_tile_wide_kernel<Tab><<<(unsigned)a.G, (unsigned)((a.R + 31) / 32 * 32), 0, st>>>(a);
+    return (int)cudaGetLastError();
   }
+  const size_t bytes = tile_smem_bytes(a);
+  if (bytes > 48 * 1024) {  // past the default: ask for it (once a size is granted it stays)
+    static size_t granted = 48 * 1024;
+    if (bytes > granted) {
+      if (cudaError_t e = cudaFuncSetAttribute(td_tile_kernel<Tab>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)bytes))
+        return (int)e;
+      granted = bytes;
+    }
+  }
+  td_tile_kernel<Tab><<<blocks(a.G, a.pack), 32u, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -817,7 +881,7 @@ int td_schedule(const TdScheduleArgs* args, void* stream) {
 // The cycles of every tile of a ragged batch on `stream`: one launch.
 int td_tile(const TdTileArgs* args, void* stream) {
   const TdTileArgs& a = *args;
-  if (a.G < 0 || a.R < 1 || a.R > kMaxRows || !tables_ok(a) || (uintptr_t)a.z % 16 != 0)
+  if (a.G < 0 || a.R < 1 || a.R > kMaxRows || !tables_ok(a) || !tile_shape_ok(a) || (uintptr_t)a.z % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (a.G == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

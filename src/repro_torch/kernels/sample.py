@@ -14,8 +14,9 @@ jitted decode step.
 
 On a CPU tensor it runs the plain version, :func:`sample_tokens_ref`, built
 from :mod:`repro_torch.prng`; on a CUDA tensor it makes one launch of
-``td_sample_kernel`` (``csrc/sample.cu``) on the current stream, with no
-host read and no allocation but the tokens, so a CUDA graph can capture it.
+``td_sample_kernel`` (``csrc/sample.cu``) on the current stream, its grid
+sized to the card's SMs (:func:`sample_geometry`), with no host read and no
+allocation but the tokens, so a CUDA graph can capture it.
 A failed build or launch raises.  :data:`LAUNCHES` counts the wrapper calls
 that launched.
 """
@@ -29,10 +30,27 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels import block_mask
 
-__all__ = ["sample_tokens", "sample_tokens_ref", "reciprocal_of", "LAUNCHES", "reset_launch_counts"]
+__all__ = ["sample_tokens", "sample_tokens_ref", "sample_geometry", "reciprocal_of", "LAUNCHES",
+           "reset_launch_counts"]
 
 #: calls of ``td_sample_kernel`` since :func:`reset_launch_counts`
 LAUNCHES = {"td_sample_kernel": 0}
+#: threads a CTA (``kThreads`` in csrc/sample.cu) and CTAs a SM the grid aims at
+SAMPLE_THREADS, SAMPLE_CTAS_PER_SM = 256, 2
+#: positions a row on the card (``kMaxV``: an index three CTA-widths past the end fits an int32)
+MAX_V = 0x7FFFFC00
+
+
+def sample_geometry(b: int, v: int, sms: int) -> tuple[int, int]:
+    """``(ctas a row, positions a CTA)`` of the sampler's grid over ``b``
+    rows of ``v`` logits on a card of ``sms`` SMs: about
+    ``SAMPLE_CTAS_PER_SM`` CTAs a SM in all (at least one a row), each a
+    contiguous chunk of a row, a multiple of 32 positions, so every SM gets
+    the same draws in one wave.  CTA ``x`` of a row draws positions ``[x *
+    chunk, min(v, (x + 1) * chunk))``."""
+    want = max(1, -(-SAMPLE_CTAS_PER_SM * sms // b))
+    chunk = -(-(-(-v // want)) // 32) * 32
+    return -(-v // chunk), chunk
 
 
 def reset_launch_counts() -> None:
@@ -85,8 +103,8 @@ def sample_tokens(rows: torch.Tensor, keys: torch.Tensor, temperature: float, go
 
     _check(rows, keys, temperature, good)
     b, v = rows.shape
-    if b > 65535 or v >= 2**31:
-        raise ValueError(f"rows [{b}, {v}]: the sampler takes at most 65535 rows of fewer than 2**31")
+    if b > 65535 or v > MAX_V:
+        raise ValueError(f"rows [{b}, {v}]: the sampler takes at most 65535 rows of at most {MAX_V}")
     dev = rows.device
     tokens = torch.empty(b, dtype=torch.int64, device=dev)  # every entry written
     stream, current = block_mask._card_stream(dev)
@@ -95,7 +113,7 @@ def sample_tokens(rows: torch.Tensor, keys: torch.Tensor, temperature: float, go
         rows=rows.data_ptr(), row_stride=rows.stride(0), col_stride=rows.stride(1), keys=keys.data_ptr(),
         good=good.data_ptr(), tokens=tokens.data_ptr(), best=ws.data_ptr(), arrived=ws.data_ptr() + 8 * b,
         temperature=float(temperature), inv=reciprocal_of(temperature), reciprocal=int(reciprocal),
-        B=b, V=v, pad_id=int(pad_id))
+        B=b, V=v, pad_id=int(pad_id), chunk=sample_geometry(b, v, block_mask.sm_count(dev))[1])
     lib = _build.library()
     with current:
         rc = lib.td_sample(ctypes.byref(args), stream)

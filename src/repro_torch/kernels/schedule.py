@@ -24,7 +24,9 @@ CUDA tensor :func:`schedule_streams` launches ``td_schedule_kernel``
 (``csrc/schedule.cu``): one thread a stream, or, for a few long streams
 (:func:`split_geometry`), one thread a segment in four launches whose
 algorithm :func:`schedule_streams_split_ref` re-enacts on the host; and
-:func:`tile_cycles` makes one launch of ``td_tile_kernel``.  A failed build
+:func:`tile_cycles` makes one launch of ``td_tile_kernel``, a warp walking
+one tile or a few (:func:`tile_launch_shape`) on rows staged in shared
+memory.  A failed build
 or launch raises.  :data:`LAUNCHES` counts the wrapper calls that launched.
 """
 from __future__ import annotations
@@ -39,7 +41,8 @@ from repro_torch.core.scheduler import connectivity, levels, make_schedule_step
 from repro_torch.kernels import block_mask
 
 __all__ = ["schedule_streams", "schedule_streams_ref", "schedule_streams_split_ref", "schedule_tables",
-           "split_geometry", "tile_cycles", "tile_cycles_ref", "pack_tiles", "tile_views", "LAUNCHES"]
+           "split_geometry", "tile_cycles", "tile_cycles_ref", "tile_launch_shape", "pack_tiles", "tile_views",
+           "LAUNCHES"]
 
 #: calls of ``td_schedule_kernel`` (a split schedule's four launches count
 #: once) and of ``td_tile_kernel`` since :func:`reset_launch_counts`
@@ -51,9 +54,12 @@ _MAX_LEVELS = 16
 _MAX_SEGS = 2048  # segments a stream
 _MAX_TILE_ROWS = 1024  # rows a tile on the card (a CTA)
 _MAX_T = 0x7FFFFFF0  # rows a stream on the card
+_TILE_SMEM = 227 * 1024 - 64  # shared bytes of a tile launch's CTA
 #: the split: segments of about SEG_ROWS rows, at most SPLIT_BUDGET segments a
 #: launch, OVERLAP head rows; a launch splits when that makes at least MIN_SEGS a stream
 SEG_ROWS, SPLIT_BUDGET, OVERLAP, MIN_SEGS = 1024, 4096, 512, 8
+#: the tile launch packs tiles into a warp until it has at most this many warps a SM (one a scheduler)
+TILE_WARPS_PER_SM = 4
 
 
 def reset_launch_counts() -> None:
@@ -373,8 +379,28 @@ def tile_views(packed: torch.Tensor, n_tiles: int):
             packed[:8 * n_tiles].view(torch.int64))
 
 
-def _tile_launch(z, t, offset, rows: int, n_lanes: int, lookahead: int) -> torch.Tensor:
-    """One ``td_tile`` launch on ``z``'s card."""
+def tile_launch_shape(g: int, t: int | None, rows: int, sms: int) -> tuple[int, int]:
+    """``(pack, stage_words)`` of a ``td_tile`` launch of ``g`` tiles of
+    ``rows`` PE rows, at most ``t`` rows each (``None``: not known), on a
+    card of ``sms`` SMs.  At ``rows <= 32`` a one-warp CTA walks ``pack``
+    tiles (at most ``32 // rows``), the fewest that keep the launch within
+    ``TILE_WARPS_PER_SM`` warps a SM: a cycle's cost is its warp's
+    instructions, and warps that share a scheduler slow each other, while a
+    warp stages all its tiles' rows before its first cycle.  A tile's rows
+    are staged as ``rows * (t | 1)`` shared words where ``pack`` of them fit
+    in a CTA (else 0: each row is loaded when a cycle needs it; so is any
+    tile longer than ``t``).  Wide tiles (``rows > 32``, a CTA a tile):
+    ``(1, 0)``."""
+    if rows > 32:
+        return 1, 0
+    pack = min(32 // rows, max(1, -(-g // (TILE_WARPS_PER_SM * sms))))
+    words = rows * (t | 1) if t else 0
+    return pack, words if 4 * pack * words <= _TILE_SMEM else 0
+
+
+def _tile_launch(z, t, offset, rows: int, n_lanes: int, lookahead: int, shape) -> torch.Tensor:
+    """One ``td_tile`` launch on ``z``'s card at the launch shape ``shape``
+    (:func:`tile_launch_shape`)."""
     from repro_torch.kernels import _build
 
     if rows > _MAX_TILE_ROWS:
@@ -383,8 +409,9 @@ def _tile_launch(z, t, offset, rows: int, n_lanes: int, lookahead: int) -> torch
     cycles = torch.empty((g,), dtype=torch.int32, device=z.device)  # every entry written
     if z.data_ptr() % 16:
         raise ValueError("tile_cycles: the tiles' bytes must start 16-byte aligned (pack_tiles)")
+    pack, words = shape
     args = _build.TileArgs(z=z.data_ptr(), offset=offset.data_ptr(), t=t.data_ptr(), cycles=cycles.data_ptr(),
-                           G=g, R=rows)
+                           G=g, R=rows, pack=pack, stage_words=words)
     _fill_tables(args, n_lanes, lookahead)
     stream, current = block_mask._card_stream(z.device)
     lib = _build.library()
@@ -397,17 +424,21 @@ def _tile_launch(z, t, offset, rows: int, n_lanes: int, lookahead: int) -> torch
 
 
 def tile_cycles(z: torch.Tensor, t: torch.Tensor, offset: torch.Tensor, *, rows: int, n_lanes: int = 16,
-                lookahead: int = 2) -> torch.Tensor:
+                lookahead: int = 2, max_t: int | None = None) -> torch.Tensor:
     """Lockstep cycles (int32 ``[G]``, on ``z``'s device) of a ragged batch
     of tiles of ``rows`` PE rows: tile ``g``'s 0/1 bytes ``[rows, t[g],
     n_lanes]`` at ``z[offset[g]:]`` (:func:`pack_tiles`, :func:`tile_views`).
-    ``n_lanes`` up to 32, ``lookahead`` 1 or 2, on the card at most 1024
-    rows; anything else raises ``ValueError``."""
+    ``max_t``, the longest ``t[g]`` as the caller knows it, sizes the card's
+    staging (:func:`tile_launch_shape`; ``None``: rows loaded as needed);
+    the cycles do not depend on it.  ``n_lanes`` up
+    to 32, ``lookahead`` 1 or 2, on the card at most 1024 rows; anything
+    else raises ``ValueError``."""
     _check_tables(n_lanes, lookahead)
     if rows < 1 or t.shape != offset.shape or t.ndim != 1:
         raise ValueError(f"tile_cycles: rows={rows}, t {tuple(t.shape)}, offset {tuple(offset.shape)}")
     if block_mask.on_card(z):
-        return _tile_launch(z, t, offset, rows, n_lanes, lookahead)
+        shape = tile_launch_shape(t.shape[0], max_t, rows, block_mask.sm_count(z.device))
+        return _tile_launch(z, t, offset, rows, n_lanes, lookahead, shape)
     zb, tn, on = z.numpy(), t.numpy(), offset.numpy()
     cycles = np.zeros(tn.shape[0], np.int32)
     for tt in np.unique(tn):

@@ -169,6 +169,7 @@ def test_sampler_card_path_is_one_launch_with_the_kernels_arguments(monkeypatch)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(block_mask, "_card_stream", lambda dev: (0, contextlib.nullcontext()))
     monkeypatch.setattr(block_mask, "on_card", lambda t: True)
+    monkeypatch.setattr(block_mask, "sm_count", lambda dev: 132)
     S.reset_launch_counts()
     got = S.sample_tokens(rows, tkeys, 0.7, tgood, 3, reciprocal=True)
     assert torch.equal(got, want) and torch.equal(tkeys, want_keys)
@@ -180,6 +181,7 @@ def test_sampler_card_path_is_one_launch_with_the_kernels_arguments(monkeypatch)
         (tkeys.data_ptr(), tgood.data_ptr(), b, v, 3, 1)
     assert c["temperature"] == float(np.float32(0.7)) and c["inv"] == S.reciprocal_of(0.7)
     assert c["arrived"] - c["best"] == 8 * b and c["best"] % 8 == 0
+    assert c["chunk"] == S.sample_geometry(b, v, 132)[1]
     lib.rc = 700
     with pytest.raises(RuntimeError, match="td_sample_kernel"):
         S.sample_tokens(rows, tkeys, 0.7, tgood, 3)
@@ -196,3 +198,27 @@ def test_sample_arguments_match_the_cuda_struct():
         first, *rest = decl.split(",")
         names += [first.split()[-1].lstrip("*")] + [r.strip().lstrip("*") for r in rest]
     assert names == [f for f, _ in _build.SampleArgs._fields_]
+
+
+@pytest.mark.parametrize("b", [1, 4, 65535])
+@pytest.mark.parametrize("v", [32000, 50280, 102400, 151936, 152064, 256000])
+def test_sample_geometry_covers_every_position_once(b, v):
+    """The grid ``sample_geometry`` gives, walked as ``td_sample_kernel``
+    walks it (CTA ``x`` of a row from ``x * chunk``, each thread from its
+    index in steps of the CTA's width, two positions a step), draws every
+    position of every row exactly once; about ``SAMPLE_CTAS_PER_SM`` CTAs a
+    SM, no CTA without a position."""
+    sms, threads = 132, S.SAMPLE_THREADS
+    ctas, chunk = S.sample_geometry(b, v, sms)
+    assert chunk % 32 == 0 and (ctas - 1) * chunk < v <= ctas * chunk
+    assert b * ctas >= min(S.SAMPLE_CTAS_PER_SM * sms, b) and (ctas == 1 or b * (ctas - 1) < S.SAMPLE_CTAS_PER_SM * sms)
+    seen = np.zeros(v, np.int64)
+    start = np.arange(ctas)[:, None] * chunk  # every row walks the same grid
+    end = np.minimum(v, start + chunk)
+    i = start + np.arange(threads)[None, :]
+    while (live := i < end).any():  # the loop's step: positions i and i + threads
+        np.add.at(seen, i[live], 1)
+        second = live & (i + threads < end)
+        np.add.at(seen, i[second] + threads, 1)
+        i = i + 2 * threads
+    assert (seen == 1).all()

@@ -10,12 +10,14 @@ default device is the card: with none visible the calls raise and nothing
 runs on the host.  ``td_tile_kernel`` runs only on the card; here a spy
 library stands in for the build (one launch per ``model_speedup``, each
 tile's ``T`` and offset as ``pack_tiles`` packs them, the cycles the spy
-writes giving JAX's dict), and the kernel's lockstep arithmetic is re-enacted
-in Python against the plain loop.  The split schedule's host version
-(``schedule_streams_split_ref``) equals the one-walk plain loop bit for bit
-over segment lengths and overlaps, also where segments find no hand-over and
-the walk falls back to the sequential one.  Cycle counts and schedules are
-integers: every comparison is exact.
+writes giving JAX's dict), and the kernel's lockstep arithmetic, its tiles
+packed into a warp and their rows staged, is re-enacted in Python against
+the plain loop; ``tile_launch_shape`` makes only launch shapes ``td_tile``
+takes (its refusals mirrored from the source).  The split
+schedule's host version (``schedule_streams_split_ref``) equals the one-walk
+plain loop bit for bit over segment lengths and overlaps, also where segments
+find no hand-over and the walk falls back to the sequential one.  Cycle
+counts and schedules are integers: every comparison is exact.
 """
 import contextlib
 import ctypes
@@ -123,7 +125,7 @@ class _SpyLibrary:
     read, and writes the plain loop's cycles where the kernel would."""
 
     def __init__(self):
-        self.calls, self.rc = [], 0
+        self.calls, self.rc, self.sms = [], 0, 132
 
     def td_tile(self, args_ref, stream):
         a = args_ref._obj
@@ -152,6 +154,7 @@ def spy(monkeypatch):
     monkeypatch.setattr(block_mask, "_card_stream", lambda dev: (0, contextlib.nullcontext()))
     monkeypatch.setattr(block_mask, "on_card", lambda t: True)
     monkeypatch.setattr(tpe, "card_device", lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(block_mask, "sm_count", lambda dev: lib.sms)
     schedule.reset_launch_counts()
     return lib
 
@@ -166,6 +169,8 @@ def test_model_speedup_on_the_card_is_one_tile_launch(spy):
     call = spy.calls[0]
     steps, rot, masks = schedule.schedule_tables(16, 2)
     assert (call["G"], call["R"], call["N"], call["depth"]) == (2 * 3 * 2, 4, 16, 3)
+    # 12 tiles on 132 SMs: a tile a warp, the longest tile's 36 rows staged
+    assert (call["pack"], call["stage_words"]) == (1, 4 * 37)
     assert call["opt_step"][:len(steps)] == steps and call["opt_rot"][:len(steps)] == rot
     assert call["level_mask"][:len(masks)] == masks
     # three convolutions a layer, two sampled groups each, in the draw's order
@@ -178,6 +183,14 @@ def test_model_speedup_on_the_card_is_one_tile_launch(spy):
     a, g = [0.3, 0.8], [0.5, 0.2]
     assert tpm.speedup_from_densities(a, g, tl, max_t=32) == jpm.speedup_from_densities(a, g, jl, max_t=32)
     assert len(spy.calls) == 2 and schedule.LAUNCHES["td_tile_kernel"] == 2
+    # the defaults' 256-row tiles, staged; on a card of 2 SMs (8 warps) 12 tiles go 2 a warp
+    tpm.model_speedup([tpm.ConvLayer("ffn", 4096, 1, 1, 16, 1, 1)], spars, sample_groups=1)
+    assert (spy.calls[-1]["pack"], spy.calls[-1]["stage_words"]) == (1, 4 * 257)
+    spy.sms = 2
+    assert tpm.model_speedup(tl, spars, max_t=64) == got
+    assert (spy.calls[-1]["pack"], spy.calls[-1]["stage_words"]) == (2, 4 * 37)
+    src = (Path(_build.CSRC) / "schedule.cu").read_text()
+    assert all(_tile_launch_ok(c, src) for c in spy.calls)
 
 
 def test_a_failed_tile_launch_raises(spy):
@@ -253,51 +266,143 @@ def test_the_compiled_in_tables_are_the_schedulers(lookahead):
 # re-enacted on Python ints
 
 
-def _tile_kernel_model(z: np.ndarray, n: int, lookahead: int) -> int:
+def _tile_kernel_model(tiles, n: int, lookahead: int, pack: int = 1, stage_words: int | None = None) -> list:
+    """``td_tile_kernel``'s launch on a ragged batch ``tiles`` of ``[R, T_g,
+    n]`` tiles: each CTA's warp stages its ``pack`` tiles' rows into shared
+    words (a slot of ``stage_words`` a tile, default the longest tile's;
+    a tile that does not fit reads its rows from the bytes), then lane ``kk
+    R + r`` walks tile ``kk``'s PE row ``r``, the tile's advance the minimum
+    over its lanes.  Returns each tile's cycles."""
     steps, rot, masks = schedule.schedule_tables(n, lookahead)
-    depth, (r, t, _) = lookahead + 1, z.shape
+    depth, r = lookahead + 1, tiles[0].shape[0]
+    if stage_words is None:
+        stage_words = r * (max(x.shape[1] for x in tiles) | 1)
     full = (1 << n) - 1
+    assert 1 <= pack <= 32 // r
 
     def rot_down(x, k):
-        return ((x | (x << n)) >> k) & full
+        return ((x >> k) | (x << (n - k))) & full if k else x
 
     def rot_up(x, k):
         return rot_down(x, (n - k) % n)
 
-    rows = [[sum(int(b) << i for i, b in enumerate(row)) for row in z[j]] + [0] * 6 for j in range(r)]
-    w = [[rows[j][0], rows[j][1], rows[j][2] if depth > 2 else 0] for j in range(r)]
-    p, nxt, c = 0, depth, 0
-    while p < t:
-        advs = []
-        for j in range(r):
-            win = w[j]
-            for m in masks:
-                avail, gone = m, [0, 0, 0]
-                for o in range(len(steps)):
-                    take = rot_down(win[steps[o]], rot[o]) & avail
-                    avail &= ~take
-                    gone[steps[o]] |= rot_up(take, rot[o])
-                win = [win[k] & ~gone[k] for k in range(3)]
-            w[j] = win
-            advs.append(1 if win[0] or win[1] else 3 if depth > 2 and not win[2] else 2)
-        a = min(advs)  # __reduce_min_sync over the tile's lanes
-        for j in range(r):
-            r0, r1, r2 = rows[j][nxt:nxt + 3]
-            win = w[j]
-            if depth > 2:
-                w[j] = [win[1], win[2], r0] if a == 1 else [win[2], r0, r1] if a == 2 else [r0, r1, r2]
-            else:
-                w[j] = [win[1], r0, 0] if a == 1 else [r0, r1, 0]
-        p, nxt, c = p + a, nxt + a, c + 1
-    return c
+    def word(tile, row, j):  # tb.row: PE row j's row `row` as an n-bit word
+        return sum(int(b) << i for i, b in enumerate(tile[j, row]))
+
+    out = [None] * len(tiles)
+    for g0 in range(0, len(tiles), pack):  # a CTA
+        words = [None] * (pack * stage_words)
+        for s in range(min(pack, len(tiles) - g0)):
+            tile = tiles[g0 + s]
+            t = tile.shape[1]
+            ts = t | 1
+            if r * ts > stage_words:
+                continue
+            for i in range(r * t):  # every lane's share; the order does not matter
+                j, row = divmod(i, t)
+                words[s * stage_words + j * ts + row] = word(tile, row, j)
+        for kk in range(min(pack, len(tiles) - g0)):
+            tile = tiles[g0 + kk]
+            t = tile.shape[1]
+            ts = t | 1
+            staged = r * ts <= stage_words
+
+            def at(j, row):
+                if row >= t:
+                    return 0
+                return words[kk * stage_words + j * ts + row] if staged else word(tile, row, j)
+
+            w = [[at(j, 0), at(j, 1), at(j, 2) if depth > 2 else 0] for j in range(r)]
+            p = c = 0
+            while p < t:
+                advs = []
+                for j in range(r):
+                    win = w[j]
+                    for m in masks:
+                        avail, gone = m, [0, 0, 0]
+                        for st, rt in zip(steps, rot):
+                            take = rot_down(win[st], rt) & avail
+                            avail &= ~take
+                            gone[st] |= rot_up(take, rt)
+                        win = [win[k] & ~gone[k] for k in range(3)]
+                    w[j] = win
+                    advs.append(1 if win[0] or win[1] else 3 if depth > 2 and not win[2] else 2)
+                a = min(advs)  # __reduce_min_sync over the tile's lanes
+                for j in range(r):
+                    r0, r1, r2 = (at(j, p + depth + i) for i in range(3))
+                    win = w[j]
+                    if depth > 2:
+                        w[j] = [win[1], win[2], r0] if a == 1 else [win[2], r0, r1] if a == 2 else [r0, r1, r2]
+                    else:
+                        w[j] = [win[1], r0, 0] if a == 1 else [r0, r1, 0]
+                p, c = p + a, c + 1
+            out[g0 + kk] = c
+    return out
 
 
 @pytest.mark.parametrize("lookahead", [1, 2])
 @pytest.mark.parametrize("n_lanes,rows", [(16, 4), (8, 3), (5, 2), (16, 1)])
 def test_the_tile_kernels_arithmetic_equals_the_plain_loop(n_lanes, rows, lookahead):
-    z = _tiles(n_lanes + rows, 6, rows, 29, n_lanes)
+    z = _tiles(n_lanes + rows + lookahead, 6, rows, 23, n_lanes)
     want = schedule.tile_cycles_ref(z, n_lanes, lookahead)
-    assert [_tile_kernel_model(z[g], n_lanes, lookahead) for g in range(6)] == want.tolist()
+    assert _tile_kernel_model(list(z), n_lanes, lookahead) == want.tolist()
+
+
+@pytest.mark.parametrize("lookahead", [1, 2])
+@pytest.mark.parametrize("rows,pack,stage", [(4, 8, None), (4, 3, None), (3, 10, None), (8, 4, 8 * 9),
+                                             (16, 2, 0), (32, 1, None)])
+def test_the_tile_kernels_packing_equals_the_plain_loop(rows, pack, stage, lookahead):
+    """Ragged tiles (all-zero, all-one, 1 to 30 rows) packed into warps,
+    the last CTA not full, and tiles whose rows are not staged (a slot too
+    small for some, ``0`` for all): each tile's cycles are the plain loop's."""
+    rng = np.random.default_rng(rows * 10 + pack + lookahead)
+    ts = [9, 30, 1, 2, 17, 8, 25, 3, 12, 30, 5][:2 * pack + 1]
+    tiles = [np.zeros((rows, ts[0], 16), bool), np.ones((rows, ts[1], 16), bool)]
+    tiles += [rng.random((rows, t, 16)) < rng.uniform(0.1, 0.9) for t in ts[2:]]
+    want = [schedule.tile_cycles_ref(x[None], 16, lookahead)[0] for x in tiles]
+    assert _tile_kernel_model(tiles, 16, lookahead, pack, stage) == want
+
+
+def _tile_launch_ok(args: dict, src: str) -> bool:
+    """``tile_shape_ok`` of ``csrc/schedule.cu`` (its constant read from
+    the source): the packing and staging ``td_tile`` takes."""
+    smem = eval(re.search(r"constexpr int kTileSmem = ([^;]+);", src).group(1))  # an integer product
+    a = args
+    if a["R"] > 32:
+        return a["pack"] == 1 and a["stage_words"] == 0
+    return 1 <= a["pack"] <= 32 // a["R"] and a["stage_words"] >= 0 and 4 * a["pack"] * a["stage_words"] <= smem - 64
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+def test_tile_launch_shape(sms):
+    """A tile a warp until the launch would put more than
+    ``TILE_WARPS_PER_SM`` warps on a SM, then the fewest tiles a warp that
+    keep it there (at most 32 / R); rows staged where a CTA's slots fit;
+    every shape one ``td_tile`` takes, and it refuses the shapes the host
+    never makes."""
+    src = (Path(_build.CSRC) / "schedule.cu").read_text()
+    cap = schedule.TILE_WARPS_PER_SM * sms
+    assert schedule.tile_launch_shape(180, 256, 4, sms) == ((1 if sms == 132 else 8), 4 * 257)
+    assert schedule.tile_launch_shape(cap, 688, 4, sms)[0] == 1
+    assert schedule.tile_launch_shape(cap + 1, 688, 4, sms)[0] == 2
+    assert schedule.tile_launch_shape(10**6, 688, 4, sms) == (8, 4 * 689)
+    assert schedule.tile_launch_shape(1, None, 4, sms) == (1, 0)
+    assert schedule.tile_launch_shape(5, 9, 40, sms) == (1, 0)
+    assert schedule.tile_launch_shape(10**6, 5000, 32, sms) == (1, 0)  # 32 x 5001 words do not fit
+    for g in (1, 2, 100, 528, 529, 1000, 5000, 10**5):
+        for t in (None, 1, 2, 64, 256, 688, 1024, 2048, 10**5):
+            for rows in (1, 2, 3, 4, 8, 16, 32, 33, 100):
+                pack, words = schedule.tile_launch_shape(g, t, rows, sms)
+                assert _tile_launch_ok(dict(R=rows, pack=pack, stage_words=words), src)
+                if rows <= 32:
+                    assert pack == 32 // rows or -(-g // pack) <= cap  # within the cap where it can be
+                    assert pack == 1 or -(-g // (pack - 1)) > cap  # and no more tiles a warp than that needs
+                    fits = t is not None and 4 * pack * rows * (t | 1) <= 227 * 1024 - 64
+                    assert words == (rows * (t | 1) if fits else 0)
+    good = dict(R=4, pack=4, stage_words=4 * 257)
+    assert _tile_launch_ok(good, src)
+    for bad in (dict(pack=0), dict(pack=9), dict(stage_words=-1), dict(stage_words=15000), dict(R=33)):
+        assert not _tile_launch_ok({**good, **bad}, src), bad
 
 
 # ---------------------------------------------------------------------------
