@@ -43,6 +43,14 @@ from the root of a checkout, on a machine with one H100.
    bound; one device launch a call; its fixed cost: a launch that does
    nothing (the spin kernel asked for no cycles), every slot skipped, and 4
    rows at the six served vocabularies with the line through them;
+   then the init phase (``init_phase``): ``td_normal_kernel``, JAX's
+   ``jax.random.normal`` draws behind ``init_params``, against its plain
+   version on the card (an odd leaf, a layer of deepseek-7b's stacked
+   ``w_gate``, a TP-4 rank's columns and rows, a slice of qwen3-moe's
+   stacked ``w_gate`` at layer 7 whose counters pass 2**32; bf16 equal,
+   fp32 within 4 ulps), JAX's literal draws reproduced, and full-width
+   deepseek-7b's ``init_params`` (212 launches, the main path) timed
+   against its bound beside the old ``torch.randn`` initializer;
    then the core phase: the schedule kernel (``td_schedule_kernel``)
    bit-equal to its plain loop (``sel``, ``advance``, ``n_cycles``) on 64
    seeded streams of 4096 rows at each of six densities, one- and
@@ -75,9 +83,9 @@ from the root of a checkout, on a machine with one H100.
    and deepseek-7b's FFN convolution over its whole workload, each equal to
    the host's; then the whole ``w_down`` stream's split schedule bit-equal
    to one thread walking it, both timed (the walk gives the clocks a cycle);
-3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, seeded random
-   weights) through ``ServeEngine`` on the ``cuda`` backend, the decode
-   chunk eager, and checks that every FFN gate, ``w_down`` and LM-head
+3. serves full-width deepseek-7b (30 layers, ReLU FFN, bf16, JAX's
+   ``PRNGKey(0)`` weights) through ``ServeEngine`` on the ``cuda``
+   backend, the decode chunk eager, and checks that every FFN gate, ``w_down`` and LM-head
    product and every plan went through the kernels, as many times as the
    path implies (one planner launch per ``w_down`` plan, one for the LM
    head's), that no plain executor and no planner chain ran and no decode
@@ -515,6 +523,8 @@ def ptxas_lines(report: str) -> list[str]:
                 tab = re.search(r"(Tab16|TabRt)", t.group(2))
                 args = ",".join(re.findall(r"L[bi](\d+)E", t.group(2)))
                 name = f"{t.group(1)}<{tab.group(1) if tab else '?'},{args}>"
+            elif (t := re.search(r"\d+(td_[a-z_]+_kernel)I((?:L[bi]\d+E)+)E", name)):  # <bool, ...>
+                name = f"{t.group(1)}<{','.join(re.findall(r'L[bi](\d+)E', t.group(2)))}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if name and m:
@@ -554,20 +564,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 #: the plain versions no main-path run may call on the card: the SpMM
-#: executors and the planner's torch chains (in ``kernels/ref.py``) and the
-#: sampler's (in ``kernels/sample.py``)
+#: executors and the planner's torch chains (in ``kernels/ref.py``), the
+#: sampler's (in ``kernels/sample.py``) and the normal fill's (in
+#: ``kernels/normal.py``)
 PLAIN = ("tensordash_matmul_ref", "tensordash_matmul_fused_ref", "plan_blocks_csr_ref",
          "plan_from_mask_csr_ref", "transpose_plan_csr_ref", "workqueue_ref", "block_any_nonzero")
 PLAIN_SAMPLER = "sample_tokens_ref"
+PLAIN_NORMAL = "normal_ref"
 
 
 @contextlib.contextmanager
 def no_plain_versions(what: str, allow: tuple = ()):
     """Fail ``what`` if it calls any of :data:`PLAIN` not named in
     ``allow``."""
-    from repro_torch.kernels import ref, sample
+    from repro_torch.kernels import normal, ref, sample
 
-    mods = {**dict.fromkeys(PLAIN, ref), PLAIN_SAMPLER: sample}
+    mods = {**dict.fromkeys(PLAIN, ref), PLAIN_SAMPLER: sample, PLAIN_NORMAL: normal}
     calls, orig = [], {name: getattr(mods[name], name) for name in mods if name not in allow}
 
     def guard(name, fn):
@@ -1578,6 +1590,234 @@ def sampler_phase(bw: float) -> tuple[list, dict]:
     return rows_out, {"cases": cases, "launch_check": launch, "sm_clock_mhz": clock_hz / 1e6, "fixed": fixed}
 
 
+# ---------------------------------------------------------------------------
+# init phase: the normal fill behind init_params
+# ---------------------------------------------------------------------------
+
+INIT_SOURCE = "src/repro_torch/kernels/csrc/normal.cu"
+#: the JAX function whose draws the fill kernel replays (it replaces no
+#: Pallas kernel: XLA computes these draws)
+INIT_REPLACES = "src/repro/models/common.py:51"
+INIT_ARCH = "deepseek-7b"
+#: the bits of jax.random.normal(PRNGKey(0), (8,), float32), as JAX 0.9.0
+#: draws them on the CPU (tests/test_torch_init.py holds them to JAX)
+JAX_NORMAL_8 = (0x3FCFB2BD, 0x40019DF0, 0xBEDE0017, 0xBDA10222, 0x3E34512C, 0xBF78DAD7, 0xBEFD97CC, 0x3EFD1F31)
+#: bf16 bits of entries of JAX's init_params(param_specs(reduce_config(arch)),
+#: PRNGKey(0)): the port's path (the layer after "layers"), the index in
+#: that layer's tensor, the bits; qwen3-moe's w_gate is an expert leaf
+JAX_INIT_ANCHORS = {
+    "deepseek-7b": (("embed", (17, 5), 0x3E01), ("layers/1/attn/wq", (3, 40), 0x3DA1),
+                    ("layers/0/mlp/w_down", (100, 7), 0xBE55), ("lm_head", (63, 255), 0xBE4A)),
+    "qwen3-moe-235b-a22b": (("layers/1/mlp/w_gate", (5, 33, 17), 0x3CA2), ("layers/0/mlp/w_down", (7, 31, 63), 0xBDCA),
+                            ("layers/1/attn/wk", (60, 2), 0xBDB4), ("embed", (255, 63), 0x3EBE)),
+}
+#: (case, stacked leaf shape, block shape, block start) of the fill against
+#: its plain version on the card, each at the leaf's std: an odd-sized leaf
+#: (``scaled``, 0.02), one layer of deepseek-7b's stacked w_gate, a TP-4
+#: rank's columns of it and rows of w_down, and a slice of qwen3-moe's
+#: stacked w_gate at layer 7, whose counters pass 2**32
+INIT_CASES = (
+    ("odd leaf [1000003]", (1000003,), (1000003,), (0,)),
+    ("deepseek-7b w_gate layer 3", (30, 4096, 11008), (1, 4096, 11008), (3, 0, 0)),
+    ("deepseek-7b w_gate layer 3, TP-4 rank 2's columns", (30, 4096, 11008), (1, 4096, 2752), (3, 0, 5504)),
+    ("deepseek-7b w_down layer 3, TP-4 rank 1's rows", (30, 11008, 4096), (1, 2752, 4096), (3, 2752, 0)),
+    ("qwen3-moe w_gate layer 7, experts 5:7, rows 100:356", (94, 128, 4096, 1536), (1, 2, 256, 1536), (7, 5, 100, 0)),
+)
+#: the fill against its plain version: bf16 equal, fp32 within this many ulps
+INIT_FP32_ULPS = 4
+#: one draw's int32 operations in the hash: 20 Threefry rounds of add,
+#: funnel-shift rotate and xor, 5 key injections of two adds, the two adds
+#: that start it and the output xor
+NORMAL_INT_OPS = 20 * 3 + 5 * 2 + 2 + 1
+
+
+def normal_bound(n: int, esz: int, bw: float, int_ops_per_s: float) -> tuple[float, str]:
+    """``(ms, "bytes" | "operations")``: the least time to fill ``n``
+    elements of ``esz`` bytes: the bytes stored at ``bw`` against the
+    hash's integer work at the card's int32 rate (the float work, ~60
+    operations a draw, issues on the fp32 pipes beside it)."""
+    bytes_ms, ops_ms = n * esz / bw * 1e3, n * NORMAL_INT_OPS / int_ops_per_s * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _leaf(tree, path: str):
+    for part in path.split("/"):
+        tree = tree[int(part)] if part.isdigit() else tree[part]
+    return tree
+
+
+def randn_init(specs, dtype):
+    """The port's initializer before it replayed JAX's draws, kept as a
+    yardstick: one ``torch.Generator`` on the card, ``torch.randn`` in fp32
+    a tensor, scaled by the per-layer fan-in and cast.  Not the same
+    function as the fill (other numbers, another std for stacked experts)."""
+    import math
+
+    import torch
+    from repro_torch.models.common import Spec, _fan_in
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def make(spec: Spec):
+        dt = spec.dtype or dtype
+        if spec.init in ("ones", "zeros"):
+            return (torch.ones if spec.init == "ones" else torch.zeros)(spec.shape, dtype=dt, device="cuda")
+        if spec.init == "embed":
+            std = 1.0
+        elif spec.scale is not None:
+            std = spec.scale
+        else:
+            std = 0.02 if spec.init == "scaled" else 1.0 / math.sqrt(_fan_in(spec.shape))
+        return torch.randn(spec.shape, generator=gen, dtype=torch.float32, device="cuda").mul_(std).to(dt)
+
+    walk = lambda t: make(t) if isinstance(t, Spec) else (
+        {k: walk(v) for k, v in t.items()} if isinstance(t, dict) else [walk(v) for v in t])
+    return walk(specs)
+
+
+def events_ms(fn):
+    """``(device ms, host s)`` of one call of ``fn``: CUDA events around it
+    on the current stream, then a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), time.perf_counter() - t0, out
+
+
+def init_phase(bw: float) -> tuple[list, dict]:
+    """The normal fill (``td_normal_kernel``) on the card: (a) against its
+    plain version on :data:`INIT_CASES` in bf16 and fp32 (bf16 equal, fp32
+    within :data:`INIT_FP32_ULPS` ulps), each timed beside the plain version
+    with its bound, one device launch a call; (b) JAX's draws reproduced:
+    :data:`JAX_NORMAL_8` and :data:`JAX_INIT_ANCHORS` from reduced
+    deepseek-7b's and qwen3-moe's ``init_params`` on the card; (c)
+    full-width deepseek-7b's ``init_params`` (the main path: its launches,
+    the fill kernels' device time from the profiler, the whole init's
+    device and host time, the bound over its draws), with the old
+    ``torch.randn`` initializer timed the same way as context."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import normal as NRM
+    from repro_torch.models import model as M
+    from repro_torch.models.common import Spec, init_params, leaf_std, stacked_leaves
+
+    clock_hz = max_sm_clock_hz()
+    int_rate = torch.cuda.get_device_properties(0).multi_processor_count * INT32_LANES_PER_SM * clock_hz
+    rows, calls = [], {}
+    for i, (case, full, block, starts) in enumerate(INIT_CASES):
+        key = prng.fold_in(prng.prng_key(0), i)
+        std = leaf_std(Spec(full, init="scaled" if len(full) == 1 else "normal"), full)
+        first = prng.block_layout(block, 0, full, starts)[2]
+        for dtype in (torch.bfloat16, torch.float32):
+            out = torch.empty(block, dtype=dtype, device="cuda")
+            fill = lambda out=out, key=key, std=std, full=full, starts=starts: NRM.fill_normal_(
+                out, key, std, full=full, starts=starts)
+            fill()
+            want = NRM.normal_ref(key, block, std, dtype, full=full, starts=starts, device="cuda")
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"init {case} {dtype}: non-finite draws")
+            if dtype == torch.bfloat16:
+                ulps = int((out.view(torch.int16) != want.view(torch.int16)).sum())
+                if ulps:
+                    raise AssertionError(f"init {case} bf16: {ulps} elements differ from the plain version")
+            else:
+                ulps = int((out.view(torch.int32).to(torch.int64) - want.view(torch.int32)).abs().max())
+                if ulps > INIT_FP32_ULPS:
+                    raise AssertionError(f"init {case} fp32: {ulps} ulps from the plain version")
+            err = float((out.float() - want.float()).abs().max())
+            ms = cuda_ms(fill)
+            plain_ms = cuda_ms(lambda: NRM.normal_ref(key, block, std, dtype, full=full, starts=starts,
+                                                      device="cuda"), iters=2, warmup=1)
+            n = out.numel()
+            bound_ms, bound_by = normal_bound(n, out.element_size(), bw, int_rate)
+            row = {"case": f"init {case} {str(dtype)[6:]}", "kernel": "td_normal_kernel",
+                   "shape": f"{list(block)} of {list(full)} at {list(starts)}", "dtype": str(dtype),
+                   "first_index": first, "max_abs_err": err, "max_ulps": ulps, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "main_path": i == 1 and dtype == torch.bfloat16}
+            rows.append(row)
+            log(f"init {case} {str(dtype)[6:]}: {n} draws from flat index {first}, {ulps} "
+                f"{'ulps' if dtype == torch.float32 else 'elements'} from the plain version; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.2f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+                f"({row['bound_ms'] / ms:.0%} of it)")
+            calls[f"{case} {dtype}"] = fill
+            del want
+    if rows[-1]["first_index"] < 2**32:
+        raise AssertionError("init: the layer-7 case's counters should pass 2**32")
+    launch = count_launches(calls, kernel="td_normal_kernel")
+    # (b) JAX's draws
+    eight = NRM.fill_normal_(torch.empty(8, device="cuda"), prng.prng_key(0))
+    got8 = tuple(int(b) & 0xFFFFFFFF for b in eight.view(torch.int32).tolist())
+    if got8 != JAX_NORMAL_8:
+        raise AssertionError(f"init: normal(PRNGKey(0), (8,)) bits {[hex(b) for b in got8]}, JAX's "
+                             f"{[hex(b) for b in JAX_NORMAL_8]}")
+    anchors = 0
+    for arch, items in JAX_INIT_ANCHORS.items():
+        p = init_params(M.param_specs(reduce_config(get_config(arch))), seed=0, dtype=torch.bfloat16, device="cuda")
+        for path, idx, bits in items:
+            got = int(_leaf(p, path)[idx].view(torch.int16)) & 0xFFFF
+            if got != bits:
+                raise AssertionError(f"init: {arch} {path}{list(idx)} bits {got:#06x}, JAX's {bits:#06x}")
+            anchors += 1
+    log(f"init: the card's fill reproduces JAX's normal(PRNGKey(0), (8,)) bit for bit and {anchors} bf16 entries "
+        f"of JAX's init_params(PRNGKey(0)) on reduced {' and '.join(JAX_INIT_ANCHORS)}")
+    # (c) full-width deepseek-7b, the main path
+    cfg = dataclasses.replace(get_config(INIT_ARCH), activation="relu")
+    specs = M.param_specs(cfg)
+    leaves = stacked_leaves(specs)
+    draws = sum(math.prod(lead + tuple(sp.shape)) for sp, lead in leaves.values() if sp.init not in ("ones", "zeros"))
+    want_launches = sum(math.prod(lead) for sp, lead in leaves.values() if sp.init not in ("ones", "zeros"))
+    params, _ = init_whole(cfg, "init")  # cold: the allocator's first blocks
+    del params
+    init = lambda: init_params(specs, seed=0, dtype=torch.bfloat16, device="cuda")
+    NRM.reset_launch_counts()
+    with no_plain_versions("init"):
+        init_ms, init_s, params = events_ms(init)
+    launches = NRM.LAUNCHES["td_normal_kernel"]
+    if launches != want_launches:
+        raise AssertionError(f"init: {launches} fill launches, the path's {want_launches} (one a layer a leaf)")
+    del params
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        params = init()
+        torch.cuda.synchronize()
+    from repro_torch.launch.profile_decode import _device_us
+
+    kernel_ms = sum(_device_us(e) for e in prof.key_averages() if "td_normal_kernel" in e.key) / 1e3
+    del params, prof
+    randn_init(specs, torch.bfloat16)  # warm
+    randn_ms, randn_s, params = events_ms(lambda: randn_init(specs, torch.bfloat16))
+    del params
+    init_bound, init_bound_by = normal_bound(draws, 2, bw, int_rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    NRM.reset_launch_counts()
+    summary = {"arch": INIT_ARCH, "draws": draws, "launches": launches, "init_ms": init_ms, "init_host_s": init_s,
+               "kernel_ms": kernel_ms or None, "bound_ms": init_bound, "bound_by": init_bound_by,
+               "randn_init_ms": randn_ms, "randn_init_host_s": randn_s, "launch_check": launch,
+               "anchors": anchors, "sm_clock_mhz": clock_hz / 1e6}
+    kernel_text = (f"the fill kernels {kernel_ms:.2f} ms on the card (profiler), {init_bound / kernel_ms:.0%} of "
+                   "the bound" if kernel_ms else "the fill kernels' time not measured (the profiler saw none)")
+    log(f"init: full-width {INIT_ARCH} bf16, {draws} draws in {launches} fill launches (one a layer a leaf): "
+        f"{kernel_text}; the whole init {init_ms:.2f} ms device / {init_s:.3f} s host; bound {init_bound:.2f} ms "
+        f"by {summary['bound_by']}")
+    log(f"init: the torch.randn initializer (another function: context only) {randn_ms:.2f} ms device / "
+        f"{randn_s:.3f} s host")
+    return rows, summary
+
+
 def sampled_serve_phase(params, cfg, prompts, greedy) -> dict:
     """The serve phase's requests at temperature :data:`SERVE_TEMPERATURE`:
     eagerly (the path's launches, a sampler launch a model call, no host
@@ -1955,10 +2195,12 @@ def decode_bytes(params, caches, cfg) -> dict:
 
 
 def init_whole(cfg, tag: str):
-    """``cfg``'s bf16 weights from seed 0 on the card, with what they hold."""
+    """``cfg``'s bf16 weights from seed 0 on the card (JAX's
+    ``PRNGKey(0)`` weights, through the fill kernel), with what they hold."""
     import gc
 
     import torch
+    from repro_torch.kernels import normal as NRM
     from repro_torch.models import model as M
     from repro_torch.models.common import init_params
     from repro_torch.optim.adamw import tree_leaves
@@ -1966,9 +2208,12 @@ def init_whole(cfg, tag: str):
     gc.collect()
     torch.cuda.empty_cache()
     before_gb = torch.cuda.memory_allocated() / 1e9
+    NRM.reset_launch_counts()
     t0 = time.perf_counter()
     params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
+    fills = NRM.LAUNCHES["td_normal_kernel"]
+    NRM.reset_launch_counts()
     leaves = tree_leaves(params)
     param_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
     layout = f", {cfg.num_layers // cfg.attn_every} groups of {cfg.attn_every} after the shared block" \
@@ -1977,7 +2222,7 @@ def init_whole(cfg, tag: str):
         f"{cfg.num_layers} layers{layout}, d_model {cfg.d_model}, "
         f"vocab {cfg.vocab_size}; {sum(t.numel() for t in leaves) / 1e9:.3f} B parameters in the tensors "
         f"({param_gb:.3f} GB bf16; param_count() says {cfg.param_count() / 1e9:.3f} B) initialised on the card "
-        f"in {time.perf_counter() - t0:.1f} s ({before_gb:.2f} GB held before)")
+        f"in {time.perf_counter() - t0:.1f} s by {fills} fill launches ({before_gb:.2f} GB held before)")
     return params, param_gb
 
 
@@ -6964,6 +7209,8 @@ def _phases(t_start, card, name, bw, dry) -> int:
     rows, launch_check = kernel_phase(bw)
     log("sampler: JAX's key step and Gumbel-max draw against its plain version on the card")
     sampler_rows, sampler_check = sampler_phase(bw)
+    log(f"init: the normal fill against its plain version on the card, JAX's draws, full-width {INIT_ARCH}")
+    init_rows, init = init_phase(bw)
     log("core: the schedule kernel against its plain loop; the codec, the quickstart, the public ops and plan "
         "validation on the card")
     core = core_phase(bw)
@@ -7168,6 +7415,17 @@ def _phases(t_start, card, name, bw, dry) -> int:
                      for r in sampler_rows},
         **{k: sampler_check["fixed"][k] for k in ("floor_ms", "skipped_ms", "intercept_ms", "ps_a_draw")},
     })
+    head = next(r for r in init_rows if r["main_path"])
+    kernels.append({
+        "name": "td_normal_kernel", "route": "cuda", "source": INIT_SOURCE, "replaces": INIT_REPLACES,
+        "launches": init["launches"], "max_abs_err": max(r["max_abs_err"] for r in init_rows),
+        "max_fp32_ulps": max(r["max_ulps"] for r in init_rows if r["dtype"] == "torch.float32"),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "shape": head["shape"],
+        "init_draws": init["draws"], "init_kernel_ms": init["kernel_ms"], "init_bound_ms": init["bound_ms"],
+        "init_bound_by": init["bound_by"], "init_device_ms": init["init_ms"], "init_host_s": init["init_host_s"],
+        "randn_init_ms": init["randn_init_ms"], "jax_anchors": init["anchors"],
+    })
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels the main path never launched: {idle}")
@@ -7177,6 +7435,7 @@ def _phases(t_start, card, name, bw, dry) -> int:
         {"card": card, "cases": rows + grid_rows, "launch_check": launch_check, "serve": serve,
          "ptxas": ptxas_lines(_build.ptxas_report), "reference_rel_l2": ref_l2,
          "reference_top1": top1, "sampler_cases": sampler_rows, "sampler_check": sampler_check,
+         "init_cases": init_rows, "init": init,
          "sampled_serve": sampled, "tune": tune, "serve_auto": auto, "train_cases": train_rows,
          "train_launch_check": train_launch, "planner_cases": planner_rows,
          "planner_launch_check": planner_launch, "train": train, "launch_train": launch,

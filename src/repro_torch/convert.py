@@ -6,7 +6,10 @@ stacked along a leading ``[n_layers, ...]`` axis (a hybrid config's along
 ``[n_groups, attn_every, ...]``), and returns the port's parameter dict
 with one dict per layer.  bfloat16 leaves arrive as numpy's
 ``bfloat16`` extension dtype, which ``torch.from_numpy`` cannot read; they go
-through float32, which holds every bfloat16 value exactly.
+through float32, which holds every bfloat16 value exactly.  The port's own
+``init_params(specs, seed=s)`` already equals ``params_from_jax`` of JAX's
+``init_params(specs, PRNGKey(s))``; converting is for weights JAX trained or
+loaded.
 """
 from __future__ import annotations
 

@@ -26,9 +26,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.core.perf_model import BWD_INPUT, BWD_WEIGHT, FWD, ConvLayer, model_speedup
 from repro_torch.core.sparsity import apply_probes
 from repro_torch.examples import add_device_flag
+from repro_torch.kernels.normal import fill_normal_
 
 
 def make_data(rng, n, size=12, classes=4):
@@ -43,14 +45,18 @@ def make_data(rng, n, size=12, classes=4):
 
 
 def init_cnn(device, seed=0, channels=(3, 16, 32), classes=4) -> dict:
-    """OIHW conv weights at fan-in scale and a small head, fp32 from ``seed``."""
-    gen = torch.Generator().manual_seed(seed)
+    """The JAX example's ``init_cnn(PRNGKey(seed))``, fp32: a key a layer
+    from ``split(PRNGKey(seed), 3)``, each HWIO convolution's normals
+    divided by fp32 ``sqrt(fan)`` (a division, as JAX's), the head's times
+    0.05; the convolutions then in the port's layout (OIHW)."""
+    ks = prng.split(prng.prng_key(seed), len(channels))
     params = {}
     for i in range(len(channels) - 1):
         fan = channels[i] * 9
-        w = torch.randn((channels[i + 1], channels[i], 3, 3), generator=gen) / np.sqrt(fan)
-        params[f"conv{i}"] = w.to(device)
-    params["head"] = (torch.randn((channels[-1], classes), generator=gen) * 0.05).to(device)
+        w = fill_normal_(torch.empty((3, 3, channels[i], channels[i + 1]), device=device), ks[i])
+        w = w / torch.tensor(np.sqrt(fan), dtype=torch.float32, device=device)
+        params[f"conv{i}"] = w.permute(3, 2, 0, 1).contiguous()
+    params["head"] = fill_normal_(torch.empty((channels[-1], classes), device=device), ks[-1], 0.05)
     return params
 
 

@@ -1,10 +1,11 @@
 """Build the CUDA kernels at first use and load them with ``ctypes``.
 
-``nvcc`` compiles each ``csrc/*.cu`` for Hopper (``sm_90a``) into an object,
-all sources at once in parallel, and links them into one shared library
-with a plain C interface.  The library lands in ``build/repro_torch/``
-at the root of the checkout, named by a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as is.  Nothing here
+``nvcc`` compiles each ``csrc/*.cu`` (with the ``*.cuh`` headers they
+include) for Hopper (``sm_90a``) into an object, all sources at once in
+parallel, and links them into one shared library with a plain C interface.
+The library lands in ``build/repro_torch/`` at the root of the checkout,
+named by a hash of the sources, headers and flags, so an edited source is
+rebuilt and an unchanged one is loaded as is.  Nothing here
 runs at import: :func:`library` builds on its first call, which is the first
 kernel launch.  A failed build raises.
 """
@@ -93,6 +94,17 @@ class SampleArgs(ctypes.Structure):
     ]
 
 
+class NormalArgs(ctypes.Structure):
+    """The launch arguments of ``td_normal`` (``TdNormalArgs`` in
+    ``csrc/normal.cu``; keep the two in step)."""
+
+    _fields_ = [
+        ("out", _P), ("n", _LL), ("offset", _LL), ("shape", _LL * 6), ("stride", _LL * 6),
+        ("k0", ctypes.c_uint), ("k1", ctypes.c_uint), ("scale", ctypes.c_float),
+        *((name, _I) for name in ("ndim", "out_bf16", "grid")),
+    ]
+
+
 #: argtypes of the C entry points
 SIGNATURES = {
     # dtype fused grid args stream
@@ -102,6 +114,7 @@ SIGNATURES = {
     "td_schedule": [ctypes.POINTER(ScheduleArgs), _P],
     "td_tile": [ctypes.POINTER(TileArgs), _P],
     "td_sample": [ctypes.POINTER(SampleArgs), _P],
+    "td_normal": [ctypes.POINTER(NormalArgs), _P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -125,7 +138,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

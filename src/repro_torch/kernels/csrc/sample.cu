@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 // The launch arguments (SampleArgs in repro_torch/kernels/_build.py; keep
 // the two in step).
 struct TdSampleArgs {
@@ -83,27 +85,7 @@ constexpr int kThreads = 256;  // mirrored by SAMPLE_THREADS in kernels/sample.p
 constexpr int kMaxV = 0x7FFFFC00;  // a row's positions: an index three steps past the end fits an int
 constexpr float kTiny = 1.17549435e-38f;  // the smallest normal float
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
-
-// Threefry-2x32, 20 rounds: JAX's threefry2x32 (jax/_src/prng.py).
-__device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  const uint32_t ks[3] = {k0, k1, k2};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += k0;
-  x1 += k1;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[i & 1][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
-  }
-  return make_uint2(x0, x1);
-}
+using td_threefry::threefry2x32;
 
 // (score, index) as one word whose unsigned order is jnp.argmax's choice.
 __device__ __forceinline__ unsigned long long pack(float s, uint32_t i) {

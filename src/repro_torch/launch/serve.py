@@ -14,7 +14,9 @@ from the port's TuningDB (``TUNING_db_torch.json``, written by ``python -m
 repro_torch.tune``; ``$REPRO_TORCH_TUNING_DB`` names another file), keyed
 to the card.
 ``--smoke --device cpu --backend reference`` runs the reduced config on the
-CPU.  Weights are drawn from ``--seed``.  ``--rate`` requests/second shapes
+CPU.  The weights are JAX's launcher's, ``init_params(..., PRNGKey(0))``
+whatever ``--seed`` (seed 0); ``--seed`` seeds the prompts, the arrivals
+and sampling.  ``--rate`` requests/second shapes
 the arrival stream (0 = all at t=0); prompt lengths and decode budgets are
 jittered per request so slots finish at different times and backfill.
 
@@ -109,7 +111,7 @@ def main(argv=None) -> None:
     rt = rtm.Runtime(backend=args.backend, device=args.device, geometry=args.geometry, **geom)
     rt.kernel.check_platform()  # fail fast (e.g. cuda without a card)
 
-    params = init_params(M.param_specs(cfg), seed=args.seed, dtype=torch.bfloat16, device=rt.device)
+    params = init_params(M.param_specs(cfg), seed=0, dtype=torch.bfloat16, device=rt.device)
     rng = np.random.default_rng(args.seed)
     plens = rng.integers(max(args.prompt_len // 2, 1), args.prompt_len + 1, size=args.requests)
     budgets = rng.integers(max(args.new // 2, 1), args.new + 1, size=args.requests)

@@ -4,9 +4,9 @@
 Parameters are plain nested dicts of tensors.  The port keeps one dict per
 layer (``params["layers"]`` is a list) where the JAX package stacks layers
 along a leading axis for ``lax.scan``; :func:`repro_torch.convert.params_from_jax`
-unstacks.  :func:`init_params` draws its own weights from a
-``torch.Generator``: the same seed gives other numbers than the JAX
-initializer, so cross-package tests convert the JAX weights instead.
+unstacks.  :func:`init_params` draws what the JAX initializer draws: seed
+``s`` gives the weights of ``init_params(specs, jax.random.PRNGKey(s))``,
+leaf for leaf, each layer cut from its stacked leaf.
 """
 from __future__ import annotations
 
@@ -15,6 +15,9 @@ import math
 from typing import Any
 
 import torch
+
+from repro_torch import prng
+from repro_torch.kernels.normal import fill_normal_
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -41,63 +44,106 @@ class Spec:
 
 def _fan_in(shape: tuple) -> int:
     # convention: last dim is the output features; everything else is fan-in,
-    # except a leading dim of a rank > 2 weight (the experts of an [E, d, f] stack)
+    # except a leading dim of a rank > 2 weight (the layers of a stacked leaf)
     if len(shape) == 1:
         return shape[0]
     return max(1, math.prod(shape[:-1]) // (shape[0] if len(shape) > 2 else 1))
 
 
-def init_params(specs, *, seed: int = 0, dtype=DEFAULT_DTYPE, device="cuda", policy=None):
-    """Materialize a spec tree on ``device`` from one seeded generator.
+def leaf_std(spec: Spec, stacked: tuple) -> float:
+    """The std JAX's ``init_params`` draws a ``normal``, ``scaled`` or
+    ``embed`` leaf at, ``stacked`` the shape it draws (the per-layer shape
+    behind the layer axes, ``(L,)`` or ``(G, A)``): the spec's ``scale``
+    where it has one, else ``1/sqrt(_fan_in(stacked))``, 0.02 and 1.  A
+    stacked ``[L, E, d, f]`` expert leaf divides by ``L`` alone, so each
+    expert draws at ``1/sqrt(E * d)``."""
+    if spec.init == "embed":
+        return 1.0
+    if spec.scale is not None:
+        return spec.scale
+    if spec.init == "normal":
+        return 1.0 / math.sqrt(_fan_in(tuple(stacked)))
+    if spec.init == "scaled":
+        return 0.02
+    raise ValueError(spec.init)
 
-    ``normal`` draws N(0, 1/fan_in) (the JAX package's ``_fan_in`` rule),
-    ``scaled`` N(0, 0.02^2), both with the spec's ``scale`` as std when it
-    has one, and ``embed`` N(0, 1); values are drawn in fp32 and cast to
-    the spec's dtype or ``dtype``, one tensor at a time, so the fp32 scratch
-    never exceeds one parameter.  With a mesh-backed sharding ``policy``
-    each tensor is drawn whole, as without one, and only this rank's
-    ``local_shard`` of it under ``policy.param_pspecs`` is kept: the device
-    never holds more than the rank's shards and one whole parameter."""
+
+def stacked_leaves(specs) -> dict[tuple, tuple[Spec, tuple]]:
+    """The leaves of the tree JAX stacks from ``specs``, in JAX's flatten
+    order (dict keys sorted): ``{dict-key path: (spec, layer axes)}``.  A
+    list is a layer stack (``layers``, ``dense_layers``; a hybrid's
+    ``groups``, a list of lists, stacks as ``(G, A)``): its elements must
+    hold the same specs, and one stacked leaf holds them all."""
+    found: dict[tuple, list] = {}
+
+    def walk(tree, path, lead):
+        if isinstance(tree, Spec):
+            seen = found.setdefault(path, [tree, lead, 0])
+            if seen[:2] != [tree, lead]:
+                raise ValueError(f"{'/'.join(path)}: the layers of a stack must hold the same specs")
+            seen[2] += 1
+        elif isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,), lead)
+        elif isinstance(tree, list):
+            for v in tree:
+                walk(v, path, lead + (len(tree),))
+        else:
+            raise TypeError(type(tree))
+
+    walk(specs, (), ())
+    for path, (_, lead, count) in found.items():
+        if count != math.prod(lead):
+            raise ValueError(f"{'/'.join(path)}: {count} specs in a stack of {lead}")
+    return {path: tuple(found[path][:2]) for path in sorted(found)}
+
+
+def init_params(specs, *, seed: int = 0, dtype=DEFAULT_DTYPE, device="cuda", policy=None):
+    """Materialize a spec tree on ``device`` as JAX's ``init_params(specs,
+    PRNGKey(seed), dtype)`` does, on the tree JAX stacks.
+
+    Each stacked leaf (:func:`stacked_leaves`) gets its key from
+    ``split(PRNGKey(seed), n_leaves)`` in JAX's flatten order; ``normal``
+    draws at :func:`leaf_std` (the stacked shape's fan-in), ``scaled`` at
+    0.02 and ``embed`` at 1, each ``fp32(std) * jax.random.normal`` rounded
+    once to the spec's dtype or ``dtype``.  Layer ``l`` of a stack (``(g,
+    a)`` of a hybrid's groups) is the stacked leaf's flat range ``[l * n,
+    (l + 1) * n)``, drawn by itself.  With a mesh-backed sharding
+    ``policy`` only this rank's ``local_shard`` of each tensor under
+    ``policy.param_pspecs`` is drawn, so the device never holds a whole
+    parameter.  The draws go through :func:`repro_torch.kernels.normal.fill_normal_`:
+    the fill kernel on a card, its plain version on the CPU."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
     sharded = policy is not None and policy.mesh is not None
     pspecs = policy.param_pspecs(specs) if sharded else None
+    leaves = stacked_leaves(specs)
+    keys = dict(zip(leaves, prng.split(prng.prng_key(seed), len(leaves))))
 
-    def make(spec: Spec):
+    def make(spec: Spec, ps, path, idx):
         dt = spec.dtype or dtype
+        shape, starts = spec.shape, (0,) * len(spec.shape)
+        if ps is not None:
+            from repro_torch.parallel.sharding import rank_index, shard_bounds  # local: sharding is above the models
+
+            shape, starts = shard_bounds(tuple(spec.shape), ps, rank_index(policy))
         if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dt, device=device)
+            return torch.ones(shape, dtype=dt, device=device)
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dt, device=device)
-        if spec.init == "embed":
-            std = 1.0
-        elif spec.init == "normal":
-            std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
-        elif spec.init == "scaled":
-            std = spec.scale if spec.scale is not None else 0.02
-        else:
-            raise ValueError(spec.init)
-        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
-        return x.mul_(std).to(dt)
+            return torch.zeros(shape, dtype=dt, device=device)
+        lead = leaves[path][1]
+        layer = sum(i * math.prod(lead[d + 1:]) for d, i in enumerate(idx))
+        out = torch.empty(shape, dtype=dt, device=device)
+        return fill_normal_(out, keys[path], leaf_std(spec, lead + tuple(spec.shape)),
+                            offset=layer * math.prod(spec.shape), full=spec.shape, starts=starts)
 
-    def keep(x, pspec):
-        if pspec is None:
-            return x
-        from repro_torch.parallel.sharding import local_shard  # local: sharding is above the models
-
-        part = local_shard(x, pspec, policy)
-        return x if part is x else part.clone(memory_format=torch.contiguous_format)
-
-    def walk(tree, ps):
+    def walk(tree, ps, path, idx):
         if isinstance(tree, Spec):
-            return keep(make(tree), ps)
+            return make(tree, ps, path, idx)
         if isinstance(tree, dict):
-            return {k: walk(v, None if ps is None else ps[k]) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [walk(v, None if ps is None else ps[i]) for i, v in enumerate(tree)]
-        raise TypeError(type(tree))
+            return {k: walk(v, None if ps is None else ps[k], path + (k,), idx) for k, v in tree.items()}
+        return [walk(v, None if ps is None else ps[i], path, idx + (i,)) for i, v in enumerate(tree)]
 
-    return walk(specs, pspecs)
+    return walk(specs, pspecs, (), ())
 
 
 def abstract_params(specs, *, dtype=DEFAULT_DTYPE, policy=None):

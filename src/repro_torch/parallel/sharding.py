@@ -78,6 +78,7 @@ __all__ = [
     "axis_sizes",
     "all_gather_cat",
     "shard_slice",
+    "shard_bounds",
     "shard_extent",
     "rank_index",
     "BatchShape",
@@ -356,22 +357,33 @@ def _entry_axes(entry) -> tuple:
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
+def shard_bounds(shape: tuple, spec: tuple, index_of) -> tuple[tuple, tuple]:
+    """``(shape, offsets)`` of the slice of a tensor of ``shape`` that
+    :func:`shard_slice` cuts under ``spec``: its shape and the element
+    offset on each dim (the inverse of :func:`shard_extent`).  Needs no
+    process group; a dim that does not divide raises."""
+    sizes, offsets = list(shape), [0] * len(shape)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n, i = index_of(entry)
+        if shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide into {n} shards ({entry})")
+        sizes[dim] = shape[dim] // n
+        offsets[dim] = i * sizes[dim]
+    return tuple(sizes), tuple(offsets)
+
+
 def shard_slice(x: torch.Tensor, spec: tuple, index_of) -> torch.Tensor:
     """The slice of ``x`` (a view) that ``spec`` gives the shard whose
     ``(count, index)`` for each spec entry is ``index_of(entry)``: each dim
     named by mesh axes is cut into ``count`` equal slices.  Needs no process
     group, so one card can cut every rank's slice in turn; a dim that does
     not divide raises, as ``shard_map`` does."""
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        n, i = index_of(entry)
-        if n == 1:
-            continue
-        if x.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide into {n} shards ({entry})")
-        step = x.shape[dim] // n
-        x = x.narrow(dim, i * step, step)
+    sizes, offsets = shard_bounds(tuple(x.shape), spec, index_of)
+    for dim, (n, start) in enumerate(zip(sizes, offsets)):
+        if n != x.shape[dim]:
+            x = x.narrow(dim, start, n)
     return x
 
 

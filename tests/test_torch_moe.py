@@ -18,7 +18,7 @@ packages; the JAX side runs under ``reference`` or ``dense``, never
   all-zero pad row, so its plan has no effectual block and its output rows
   are zero.
 * ``init_params``: JAX's fan-in rule (``[E, d, f]`` draws std
-  ``1/sqrt(d)``), the fp32 router at std 0.02, and 1-D / 2-D draws unchanged.
+  ``1/sqrt(d)``), the fp32 router at std 0.02, and 1-D / 2-D draws as JAX draws them.
 * Reduced qwen3-moe-235b-a22b (ReLU, SiLU, and a variant with
   ``first_dense_layers=1`` of 3 layers, a shared expert and ``d_ff=128``): ``forward``,
   ``prefill`` and per-row-``pos`` ``decode_step`` logits within ``TOL``,
@@ -228,15 +228,17 @@ def test_init_params_expert_fan_in_and_fp32_router():
 
 
 def test_init_params_dense_draws_unchanged():
-    """1-D and 2-D specs draw as before the MoE family: one generator, in
-    tree order, N(0, 1/shape[0]) for ``normal``."""
+    """1-D and 2-D specs draw as JAX's ``init_params`` draws them: one key a
+    leaf from ``split(PRNGKey(4), 4)`` in sorted key order, N(0,
+    1/shape[0]) for ``normal``, N(0, 1) for ``embed``."""
     specs = {"ln": Spec((8,), init="ones"), "w": Spec((16, 8)), "e": Spec((32, 16), init="embed"),
              "v": Spec((5,))}
     p = init_params(specs, seed=4, dtype=torch.float32, device="cpu")
-    gen = torch.Generator().manual_seed(4)
-    w = torch.randn((16, 8), generator=gen) / 4.0
-    e = torch.randn((32, 16), generator=gen)
-    v = torch.randn((5,), generator=gen) / math.sqrt(5)
+    k_e, _, k_v, k_w = (jax.random.split(jax.random.PRNGKey(4), 4))  # sorted: e, ln, v, w
+    draw = lambda k, shape: torch.from_numpy(np.asarray(jax.random.normal(k, shape, jnp.float32)))
+    w = draw(k_w, (16, 8)) * np.float32(1 / 4.0)
+    e = draw(k_e, (32, 16))
+    v = draw(k_v, (5,)) * np.float32(1 / math.sqrt(5))
     assert torch.equal(p["ln"], torch.ones(8))
     assert torch.equal(p["w"], w) and torch.equal(p["e"], e) and torch.equal(p["v"], v)
 
